@@ -165,17 +165,17 @@ def attention_inputs(torch, gen, *, B, S, T, H, KV, D, fp8, q_starts):
 
 
 def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
-                    q_starts, timed=True) -> dict:
+                    q_starts, timed=True, window=1 << 30,
+                    causal=True) -> dict:
     from repro_torch.kernels.flash_attention_quant import (
         flash_attention_quant, flash_attention_quant_plain)
 
     B, H, KV, D = 4, 28, 4, 128
     args = attention_inputs(torch, gen, B=B, S=S, T=T, H=H, KV=KV, D=D,
                             fp8=fp8, q_starts=q_starts)
-    kw = dict(scale=D ** -0.5, causal=True, block_k=block_k)
+    kw = dict(scale=D ** -0.5, causal=causal, block_k=block_k)
     if probs:
         kw.update(probs_n=64, probs_qmax=127.0, probs_qmin=-127.0)
-    window = 1 << 30
     got = flash_attention_quant(*args, window, **kw)
     torch.cuda.synchronize()
     want = flash_attention_quant_plain(*args, window, **kw)
@@ -257,6 +257,14 @@ def phase_kernels(torch, seed: int) -> dict:
     check_attention(torch, timer, gen, S=1, T=512, probs=False, fp8=False,
                     block_k=0, q_starts=[100, 510, 37, -1],
                     label="decode S=1 T=512 int8 exact no-qdq", timed=False)
+    check_attention(torch, timer, gen, S=1, T=512, probs=True, fp8=False,
+                    block_k=0, q_starts=[100, 510, 37, -1], window=100,
+                    label="decode S=1 T=512 int8 exact window=100",
+                    timed=False)
+    check_attention(torch, timer, gen, S=5, T=512, probs=False, fp8=False,
+                    block_k=0, q_starts=[100, 400, 37, -1], causal=False,
+                    label="chunk S=5 T=512 int8 exact non-causal",
+                    timed=False)
     check_attention(torch, timer, gen, S=1, T=4096, probs=False, fp8=False,
                     block_k=512, q_starts=[4000, 700, 37, -1],
                     label="decode S=1 T=4096 int8 online", timed=False)
