@@ -16,8 +16,12 @@ Phases (each fatal on failure):
             card's bound for the same work
   serve     full width, full depth: 6 greedy requests through the engine;
             launch counts per step asserted (197 matmul + 28 attention)
-  identity  full width, 2 layers: the kernel path and the non-kernel path
-            (fused=False, attn_backend="ref") must emit the same tokens
+  reduced   reduced width: the kernel path on the card must emit the tokens
+            of the plain path on the CPU (the path the CPU tests hold
+            token-identical to the JAX reference)
+  identity  full width, 2 layers: the kernel path against the non-kernel
+            path (fused=False, attn_backend="ref"), with a last-bit-noise
+            control run as the yardstick
 
 The last lines of standard output are: one JSON object {"kernels": [...]},
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -41,7 +45,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 
-PHASES = ("kernels", "serve", "identity")
+PHASES = ("kernels", "serve", "reduced", "identity")
 
 
 def log(msg: str) -> None:
@@ -490,6 +494,70 @@ def profile_decode(torch, cfg, eng, seed: int, step_ms: float) -> dict:
     return out
 
 
+def phase_reduced(torch, seed: int) -> dict:
+    """Kernel path on the card vs plain path on the CPU, reduced config.
+
+    The CPU side is the arithmetic the CPU tests hold token-identical to
+    the JAX reference, so this ties the kernels in situ (other head_dim,
+    group and GQA shapes than the full model's) to that reference.  At
+    this size the quantizer chains are short and the vocabulary small, so
+    tokens are expected to be identical; the card and the CPU still sum in
+    other orders, so ONE request of six may turn at a near-tie before the
+    phase fails."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import (map_policies, preset,
+                                         with_attn_backend)
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+    from repro_torch.serve.engine import PagedServeEngine, Request
+
+    log("== reduced: kernel path on the card vs plain path on the CPU")
+
+    def to_device(tree, dev):
+        if isinstance(tree, torch.Tensor):
+            return tree.to(dev)
+        if isinstance(tree, dict):
+            return {k: to_device(v, dev) for k, v in tree.items()}
+        return [to_device(v, dev) for v in tree]
+
+    cfg = get_config("qwen2-7b").reduced()
+    models = {"cpu": build_model(cfg, device="cpu"), "cuda": build_model(cfg)}
+    params = models["cpu"].init(make_generator(seed, "cpu"))
+    rows = []
+    for n, kv in ((64, "int8"), (64, "fp8"), (32, "int8")):
+        pol = map_policies(preset("w4a8_abfp", n=n),
+                           lambda p: p.replace(fused=True))
+        pol = with_attn_backend(pol, "compressed")
+        tokens = {}
+        reset_counts()
+        for dev, model in models.items():
+            eng = PagedServeEngine(
+                model, to_device(params, dev), n_slots=3, max_len=96,
+                policy=pol, page_size=8, kv=kv, compress=True, device=dev)
+            rng = np.random.RandomState(seed + 3)
+            for uid, size in enumerate((5, 11, 3, 70, 8, 2)):
+                eng.submit(Request(
+                    uid=uid, max_new_tokens=6,
+                    prompt=rng.randint(0, cfg.vocab, size).astype(np.int32)))
+            tokens[dev] = {c.uid: c.tokens for c in eng.run_until_done()}
+        counts = read_counts()
+        turned = [u for u in tokens["cpu"]
+                  if tokens["cpu"][u] != tokens["cuda"][u]]
+        row = {"group": n, "kv": kv, "requests_equal": 6 - len(turned),
+               "requests": 6, "launches": counts}
+        rows.append(row)
+        log("  " + json.dumps(row))
+        if min(counts.values()) == 0:
+            raise SystemExit(f"reduced: a kernel was not launched: {counts}")
+        if len(turned) > 1:
+            raise SystemExit(
+                f"reduced (group {n}, {kv} pages): requests {turned} differ "
+                f"between the card and the CPU: {tokens}")
+    return {"configs": rows}
+
+
 def clone_state(state):
     """A deep copy of a paged DecodeState (the pools are updated in place)."""
     caches = [type(c)(*(None if t is None else t.clone() for t in c))
@@ -697,6 +765,8 @@ def main() -> int:
         kernel_rows = phase_kernels(torch, args.seed)
     if "serve" in phases:
         serve = phase_serve(torch, args.seed)
+    if "reduced" in phases:
+        phase_reduced(torch, args.seed)
     if "identity" in phases:
         phase_identity(torch, args.seed)
 
