@@ -57,3 +57,15 @@ def test_expected_layout():
                 "launch"):
         assert (PKG / sub / "__init__.py").is_file(), sub
     assert (PKG / "bridge.py").is_file()
+
+
+def test_chip_smoke_fails_without_a_card_and_prints_no_result():
+    import torch
+
+    if torch.cuda.is_available():
+        return  # on a machine with a card the script is its own test
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert out.stdout.strip() == ""
+    assert "needs an NVIDIA card" in out.stderr
