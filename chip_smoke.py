@@ -3,25 +3,33 @@
 
 Needs one NVIDIA Hopper card, ``nvcc`` and nothing else: it builds the CUDA
 kernels from the sources in this checkout, holds each against its plain
-PyTorch version on the card at the shapes the serving path gives it, then
-serves requests through ``PagedServeEngine`` with qwen2-7b at its published
-width and depth (random weights from ``--seed``) and shows that the run went
-through the kernels.  Without a card it exits non-zero and prints no result.
+PyTorch version on the card at the shapes the serving paths give it, then
+serves requests with qwen2-7b at its published width and depth (random
+weights from ``--seed``) through ``PagedServeEngine`` (compressed weights,
+int8 pages) and through the fixed-slot ``ServeEngine`` (dense f32 weights),
+and shows that each run went through its kernels.  Without a card it exits
+non-zero and prints no result.
 
 Phases (each fatal on failure):
   device    card name / power limit, torch / CUDA / nvcc versions
   build     one nvcc per kernel source, all started together
   kernels   kernel vs plain version, then timed (CUDA events, L2 flushed
-            between launches, median) beside the plain version and the
-            card's bound for the same work
-  serve     full width, full depth: 6 greedy requests through the engine;
-            launch counts per step asserted (197 matmul + 28 attention)
+            between launches, median) beside the plain version, the card's
+            bound for the same work and, where one PyTorch call computes
+            the same function, that call
+  serve     paged, full width, full depth: 6 greedy requests; launch counts
+            per step asserted (197 quant_matmul + 28 flash_attention_quant)
+  fixed     fixed-slot, full width, full depth, dense f32 weights: the same
+            6 requests under P-int8 (abfp_matmul_int8 + flash_attention)
+            and P-fp (abfp_matmul + flash_attention); 197 matmul launches
+            per forward pass and 28 flash_attention launches per prefill
+            asserted
   reduced   reduced width: the kernel path on the card must emit the tokens
             of the plain path on the CPU (the path the CPU tests hold
-            token-identical to the JAX reference)
-  identity  full width, 2 layers: the kernel path against the non-kernel
-            path (fused=False, attn_backend="ref"), with a last-bit-noise
-            control run as the yardstick
+            token-identical to the JAX reference), paged and fixed-slot
+  identity  full width, 2 layers: the paged kernel path against the
+            non-kernel path (fused=False, attn_backend="ref"), with a
+            last-bit-noise control run as the yardstick
 
 The last lines of standard output are: one JSON object {"kernels": [...]},
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -45,7 +53,21 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS = 1979e12
 PEAK_F32_FLOPS = 67e12
 
-PHASES = ("kernels", "serve", "reduced", "identity")
+PHASES = ("kernels", "serve", "fixed", "reduced", "identity")
+
+# every kernel: (wrapper module, TPU kernel it replaces)
+KERNELS = {
+    "quant_matmul": ("quant_matmul",
+                     "src/repro/kernels/quant_matmul.py:226"),
+    "flash_attention_quant": ("flash_attention_quant",
+                              "src/repro/kernels/flash_attention_quant.py:223"),
+    "abfp_matmul": ("quant_matmul", "src/repro/kernels/quant_matmul.py:156"),
+    "abfp_matmul_int8": ("quant_matmul",
+                         "src/repro/kernels/quant_matmul.py:171"),
+    "abfp_qdq": ("abfp_qdq", "src/repro/kernels/abfp_qdq.py:52"),
+    "flash_attention": ("flash_attention",
+                        "src/repro/kernels/flash_attention.py:87"),
+}
 
 
 def log(msg: str) -> None:
@@ -97,6 +119,17 @@ def nbytes(*tensors) -> int:
 # --------------------------------------------------------------------------
 # phase: kernels
 # --------------------------------------------------------------------------
+def bound_fields(moved_bytes: float, ops: float, peak_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    once over the memory rate and the operations over their peak rate."""
+    row = {"bytes_ms": moved_bytes / PEAK_BYTES_PER_S * 1e3,
+           "ops_ms": ops / peak_ops * 1e3}
+    row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+    row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["ops_ms"]
+                       else "operations")
+    return row
+
+
 def check_quant_matmul(torch, timer, gen, *, M, K, N, packed, label,
                        timed=True) -> dict:
     from repro_torch.core.formats import INT8
@@ -128,12 +161,8 @@ def check_quant_matmul(torch, timer, gen, *, M, K, N, packed, label,
     row = {"shape": label, "M": M, "K": K, "N": N, "packed": packed,
            "max_abs_err": err, "tol": tol, "ok": ok}
     if timed:
-        moved = nbytes(x, codes, scales, got)
-        row["bytes_ms"] = moved / PEAK_BYTES_PER_S * 1e3
-        row["ops_ms"] = 2.0 * M * N * K / PEAK_INT8_OPS * 1e3
-        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-        row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["ops_ms"]
-                           else "operations")
+        row.update(bound_fields(nbytes(x, codes, scales, got),
+                                2.0 * M * N * K, PEAK_INT8_OPS))
         row["ms"] = timer(lambda: quant_matmul(x, codes, scales, INT8, n=n,
                                                packed=packed), iters=10)
         row["plain_ms"] = timer(
@@ -201,12 +230,8 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
     row = {"shape": label, "S": S, "T": T, "probs_qdq": probs, "fp8": fp8,
            "max_abs_err": err, "tol": tol, "ok": ok}
     if timed:
-        moved = nbytes(*args) + nbytes(got)
-        row["bytes_ms"] = moved / PEAK_BYTES_PER_S * 1e3
-        row["ops_ms"] = 4.0 * B * H * S * T * D / PEAK_F32_FLOPS * 1e3
-        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-        row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["ops_ms"]
-                           else "operations")
+        row.update(bound_fields(nbytes(*args) + nbytes(got),
+                                4.0 * B * H * S * T * D, PEAK_F32_FLOPS))
         row["ms"] = timer(
             lambda: flash_attention_quant(*args, window, **kw), iters=10)
         row["plain_ms"] = timer(
@@ -217,6 +242,201 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
         raise SystemExit(f"flash_attention_quant disagrees with its plain "
                          f"version at {label}: max_abs_err={err} > {tol}")
     return row
+
+
+def activations(torch, gen, shape):
+    """Activation-like f32 values: a normal with a few outlier channels and
+    an all-zero row (its groups take the 1e-12 scale floor)."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    x[..., ::97] *= 8.0
+    if x.ndim == 2 and x.shape[0] > 2:
+        x[1] = 0.0
+    return x
+
+
+def check_abfp_qdq(torch, timer, gen, *, M, K, n, fmt_name, label,
+                   timed=True) -> dict:
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels.abfp_qdq import abfp_qdq, abfp_qdq_plain
+
+    fmt = get_format(fmt_name)
+    x = activations(torch, gen, (M, K))
+    got = abfp_qdq(x, fmt, n=n)
+    torch.cuda.synchronize()
+    want = abfp_qdq_plain(x, fmt, n=n)
+    torch.cuda.synchronize()
+    # every operation is correctly rounded on both sides: bit-exact
+    err = (got - want).abs().max().item()
+    ok = bool(torch.equal(got, want))
+    row = {"shape": label, "M": M, "K": K, "n": n, "fmt": fmt_name,
+           "max_abs_err": err, "tol": 0.0, "ok": ok}
+    if timed:
+        # per element: |x|, max, divide, round, clamp (2), multiply
+        row.update(bound_fields(nbytes(x, got), 7.0 * M * K,
+                                PEAK_F32_FLOPS))
+        row["ms"] = timer(lambda: abfp_qdq(x, fmt, n=n), iters=10)
+        row["plain_ms"] = timer(lambda: abfp_qdq_plain(x, fmt, n=n),
+                                iters=3, warmup=1)
+        row["library_ms"] = None  # no single PyTorch call computes it
+    log(f"  abfp_qdq {label}: " + json.dumps(row))
+    if not ok:
+        raise SystemExit(f"abfp_qdq is not bit-exact against its plain "
+                         f"version at {label}: max_abs_err={err}")
+    return row
+
+
+def check_dense_matmul(torch, timer, gen, *, kind, M, K, N, n=64, label,
+                       timed=True, exact=False) -> dict:
+    """``kind`` 'fp' (abfp_matmul, w4a8_abfp formats) or 'int8'
+    (abfp_matmul_int8, w4a8_int8_native formats)."""
+    from repro_torch.core.formats import INT4, INT8
+    from repro_torch.kernels import quant_matmul as qm
+
+    fn, plain = ((qm.abfp_matmul, qm.abfp_matmul_plain) if kind == "fp"
+                 else (qm.abfp_matmul_int8, qm.abfp_matmul_int8_plain))
+    x = activations(torch, gen, (M, K))
+    w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+    got = fn(x, w, INT8, INT4, n=n)
+    torch.cuda.synchronize()
+    want = plain(x, w, INT8, INT4, n=n)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    ref = want.abs().max().item()
+    # same QDQ'd operands (same codes); the f32 sum over K (fp) or over the
+    # groups (int8, whose group sums are exact integers) runs in another
+    # order: 1e-5 of the largest output magnitude.  With K = n there is one
+    # group: the int8 result is then (sum * sx) * sw on both sides, and
+    # must be bit-exact, which pins the kernel's int32 group sums.
+    tol = 0.0 if exact else 1e-5 * ref
+    ok = bool(torch.isfinite(got).all().item()) and err <= tol
+    row = {"shape": label, "M": M, "K": K, "N": N, "n": n,
+           "max_abs_err": err, "tol": tol, "ok": ok}
+    if timed:
+        row.update(bound_fields(nbytes(x, w, got), 2.0 * M * N * K,
+                                PEAK_F32_FLOPS if kind == "fp"
+                                else PEAK_INT8_OPS))
+        row["ms"] = timer(lambda: fn(x, w, INT8, INT4, n=n), iters=10)
+        row["plain_ms"] = timer(lambda: plain(x, w, INT8, INT4, n=n),
+                                iters=3, warmup=1)
+        row["library_ms"] = None  # no single PyTorch call computes it
+    name = "abfp_matmul" if kind == "fp" else "abfp_matmul_int8"
+    log(f"  {name} {label}: " + json.dumps(row))
+    if not ok:
+        raise SystemExit(f"{name} disagrees with its plain version at "
+                         f"{label}: max_abs_err={err} > {tol}")
+    return row
+
+
+def check_flash(torch, timer, gen, *, B=1, S, T, H=28, KV=4, D=128,
+                causal=True, q_offset=None, label, timed=True) -> dict:
+    from repro_torch.kernels.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    qh = torch.randn((B, S, H, D), generator=gen, device="cuda")
+    kh = torch.randn((B, T, KV, D), generator=gen, device="cuda")
+    vh = torch.randn((B, T, KV, D), generator=gen, device="cuda")
+    q = qh.transpose(1, 2).reshape(B * H, S, D).contiguous()
+    k = kh.transpose(1, 2).reshape(B * KV, T, D).contiguous()
+    v = vh.transpose(1, 2).reshape(B * KV, T, D).contiguous()
+    kw = dict(scale=D ** -0.5, causal=causal, q_offset=q_offset)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = 2e-5 * want.abs().max().item()  # f32, sums in another order
+    ok = bool(torch.isfinite(got).all().item()) and err <= tol
+    # the GQA front-end (what the model calls) is the same function
+    front = flash_attention_gqa(qh, kh, vh, **kw)
+    ok = ok and torch.equal(front.transpose(1, 2).reshape(B * H, S, D), got)
+    row = {"shape": label, "B": B, "S": S, "T": T, "H": H, "KV": KV,
+           "D": D, "causal": causal, "max_abs_err": err, "tol": tol,
+           "ok": ok}
+    if timed:
+        off = 0 if q_offset is None else q_offset
+        # key/query pairs this call's mask keeps; 2 operations each for
+        # q.k and for p.v per head_dim element
+        pairs = sum(min(T, max(0, i + 1 + off)) for i in range(S)) \
+            if causal else S * T
+        row.update(bound_fields(nbytes(q, k, v, got),
+                                4.0 * B * H * D * pairs, PEAK_F32_FLOPS))
+        row["ms"] = timer(lambda: flash_attention(q, k, v, **kw), iters=10)
+        row["plain_ms"] = timer(lambda: flash_attention_plain(q, k, v, **kw),
+                                iters=3, warmup=1)
+        # yardstick only: PyTorch's own fused attention on the same inputs
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        qs, ks, vs = (t.transpose(1, 2) for t in (qh, kh, vh))
+        row["library_ms"] = timer(
+            lambda: sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True),
+            iters=10)
+    log(f"  flash_attention {label}: " + json.dumps(row))
+    if not ok:
+        raise SystemExit(f"flash_attention disagrees with its plain version "
+                         f"at {label}: max_abs_err={err} > {tol}")
+    return row
+
+
+# (label, K, N) of the dense qwen2-7b layers, and lm_head
+DENSE_SHAPES = (("q,o", 3584, 3584), ("k,v", 3584, 512),
+                ("wi,wg", 3584, 18944), ("wo", 18944, 3584))
+
+
+def phase_dense_kernels(torch, timer, gen) -> dict:
+    """The fixed-slot path's kernels (abfp_matmul, abfp_matmul_int8,
+    flash_attention) and abfp_qdq, at that path's shapes and ragged ones."""
+    qdq = []
+    for M, K in ((256, 3584), (4, 18944)):
+        for fmt in ("int4", "int8", "e2m1", "e4m3"):
+            qdq.append(check_abfp_qdq(torch, timer, gen, M=M, K=K, n=64,
+                                      fmt_name=fmt,
+                                      label=f"M={M} K={K} {fmt}"))
+    for fmt in ("int2", "int3", "int4", "int6", "int8", "e2m1", "e1m2",
+                "e4m3", "e5m2"):
+        for n in (64, 32):
+            check_abfp_qdq(torch, timer, gen, M=13, K=640, n=n, fmt_name=fmt,
+                           label=f"ragged M=13 K=640 n={n} {fmt}",
+                           timed=False)
+    torch.cuda.empty_cache()
+
+    dense = {"fp": [], "int8": []}
+    for kind in ("fp", "int8"):
+        # decode (4 slots) and the longest prefill bucket (192 rows)
+        for M in (4, 192):
+            for name, K, N in DENSE_SHAPES:
+                dense[kind].append(check_dense_matmul(
+                    torch, timer, gen, kind=kind, M=M, K=K, N=N,
+                    label=f"{name} M={M} K={K} N={N}"))
+        for M in (1, 4):  # lm_head: prefill's last row, decode's 4 slots
+            dense[kind].append(check_dense_matmul(
+                torch, timer, gen, kind=kind, M=M, K=3584, N=152064,
+                label=f"lm_head M={M} K=3584 N=152064"))
+        for M in (64, 128):  # the other prefill buckets
+            check_dense_matmul(torch, timer, gen, kind=kind, M=M, K=3584,
+                               N=3584, label=f"q,o M={M}", timed=False)
+        # ragged M and N; K = n (one group: int8 must be bit-exact)
+        for M, K, N in ((13, 640, 77), (7, 64, 77), (33, 64, 130)):
+            check_dense_matmul(torch, timer, gen, kind=kind, M=M, K=K, N=N,
+                               label=f"ragged M={M} K={K} N={N}",
+                               timed=False, exact=(kind == "int8"
+                                                   and K == 64))
+        torch.cuda.empty_cache()
+
+    flash = []
+    for S in (64, 128, 192):  # the prefill buckets: S = T, q_offset 0
+        flash.append(check_flash(torch, timer, gen, S=S, T=S,
+                                 label=f"prefill B=1 S=T={S} causal"))
+    check_flash(torch, timer, gen, S=37, T=37, label="ragged S=T=37",
+                timed=False)
+    check_flash(torch, timer, gen, S=20, T=100, q_offset=80,
+                label="suffix S=20 T=100 q_offset=80", timed=False)
+    check_flash(torch, timer, gen, B=2, S=50, T=70, causal=False,
+                label="non-causal B=2 S=50 T=70", timed=False)
+    check_flash(torch, timer, gen, S=16, T=16, H=4, KV=2, D=16,
+                label="reduced S=T=16 H=4 KV=2 D=16", timed=False)
+    torch.cuda.empty_cache()
+    return {"abfp_qdq": qdq, "abfp_matmul": dense["fp"],
+            "abfp_matmul_int8": dense["int8"], "flash_attention": flash}
 
 
 def phase_kernels(torch, seed: int) -> dict:
@@ -279,7 +499,8 @@ def phase_kernels(torch, seed: int) -> dict:
                     block_k=512, q_starts=[4000, 700, 37, -1],
                     label="chunk S=5 T=4096 fp8 phased", timed=False)
     torch.cuda.empty_cache()
-    return {"quant_matmul": mm, "flash_attention_quant": at}
+    return {"quant_matmul": mm, "flash_attention_quant": at,
+            **phase_dense_kernels(torch, timer, gen)}
 
 
 # --------------------------------------------------------------------------
@@ -311,22 +532,21 @@ def make_requests(cfg, seed: int):
             for uid, n in enumerate(lengths)]
 
 
-def reset_counts() -> None:
-    from repro_torch.kernels.flash_attention_quant import \
-        flash_attention_quant
-    from repro_torch.kernels.quant_matmul import quant_matmul
+def _wrappers() -> dict:
+    import importlib
 
-    quant_matmul.launches = 0
-    flash_attention_quant.launches = 0
+    return {name: getattr(importlib.import_module(
+        f"repro_torch.kernels.{mod}"), name)
+        for name, (mod, _) in KERNELS.items()}
+
+
+def reset_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels.flash_attention_quant import \
-        flash_attention_quant
-    from repro_torch.kernels.quant_matmul import quant_matmul
-
-    return {"quant_matmul": quant_matmul.launches,
-            "flash_attention_quant": flash_attention_quant.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def build_engine(torch, cfg, seed: int, kernel_path: bool, trace=None,
@@ -384,9 +604,10 @@ def check_completions(cfg, eng, done, reqs) -> None:
                              f"reason {c.finished_reason}")
         if not all(0 <= t < cfg.vocab for t in c.tokens):
             raise SystemExit(f"request {c.uid}: token outside the vocab")
-    st = eng.page_stats()
-    if st["page_allocs"] != st["page_frees"] or st["pages_in_use"]:
-        raise SystemExit(f"page accounting does not balance: {st}")
+    if hasattr(eng, "page_stats"):
+        st = eng.page_stats()
+        if st["page_allocs"] != st["page_frees"] or st["pages_in_use"]:
+            raise SystemExit(f"page accounting does not balance: {st}")
 
 
 def phase_serve(torch, seed: int) -> dict:
@@ -427,6 +648,9 @@ def phase_serve(torch, seed: int) -> dict:
             raise SystemExit(
                 f"{name}: {counts[name]} launches in {eng.steps} steps, "
                 f"expected {n} per step")
+    stray = {k: v for k, v in counts.items() if k not in per_step and v}
+    if stray:
+        raise SystemExit(f"serve: kernels off this path launched: {stray}")
     n_tok = sum(len(c.tokens) for c in done)
     by_kind = {"decode": [ms for s, ms in eng.step_ms if s == 1],
                "prefill": [ms for s, ms in eng.step_ms if s > 1]}
@@ -451,21 +675,33 @@ def profile_decode(torch, cfg, eng, seed: int, step_ms: float) -> dict:
     """Where a decode step's time goes: a few steady decode steps of the
     engine under ``torch.profiler`` (after the counted run; its launches
     are not part of the reported counts)."""
+    for r in make_requests(cfg, seed + 1)[:4]:
+        eng.submit(r)
+    busy = (lambda: eng.prefilling.any()) if hasattr(eng, "prefilling") \
+        else (lambda: False)
+    while busy() or eng.queue or not eng.active.any():
+        eng.tick()  # prompts in, every slot decoding
+    step = getattr(eng, "_decode_tick", eng.tick)
+    out = profile_steps(torch, step, 4, step_ms)
+    eng.run_until_done(max_ticks=2000)
+    log("  profile: " + json.dumps(out))
+    return out
+
+
+def profile_steps(torch, step, n_steps: int, step_ms: float) -> dict:
+    """``n_steps`` calls of ``step`` under ``torch.profiler``: operator
+    calls, device busy time and kernel launches per step, the device's idle
+    share against ``step_ms`` (a step's wall time measured WITHOUT the
+    profiler, whose own cost stretches the host side), top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for r in make_requests(cfg, seed + 1)[:4]:
-        eng.submit(r)
-    while eng.prefilling.any() or eng.queue or not eng.active.any():
-        eng.tick()  # prompts in, every slot decoding
-    n_steps = 4
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):
-            eng._decode_tick()
+            step()
         torch.cuda.synchronize()
-    eng.run_until_done(max_ticks=2000)
     events = prof.key_averages()
     # kernel rows only: an operator row repeats its kernels' device time
     dev = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -484,14 +720,182 @@ def profile_decode(torch, cfg, eng, seed: int, step_ms: float) -> dict:
         out["device_busy_ms_per_step"] = busy_ms
         out["device_kernel_launches_per_step"] = sum(
             d[2] for d in dev) / n_steps
-        # against the step time measured WITHOUT the profiler, whose own
-        # cost stretches the host side of the profiled window
         out["device_idle_share"] = max(0.0, 1.0 - busy_ms / step_ms)
         out["top_device_kernels_ms_per_step"] = [
             {"name": k[:60], "ms": ms / n_steps, "launches": c / n_steps}
             for k, ms, c in dev[:8]]
-    log("  profile: " + json.dumps(out))
     return out
+
+
+# --------------------------------------------------------------------------
+# phase: fixed
+# --------------------------------------------------------------------------
+# policy of each fixed-slot path -> the matmul kernel it runs
+FIXED_PATHS = {"p_int8": "abfp_matmul_int8", "p_fp": "abfp_matmul"}
+
+
+def fixed_policy(kind: str, n: int = 64):
+    """P-int8: w4a8_int8_native; P-fp: w4a8_abfp without attention-BMM
+    QDQ; both with ``fused`` on every entry and the ``fused`` attention
+    backend.  'compress': w4a8_abfp with an int8 ring cache, ``fused`` and
+    the ``compressed`` attention backend (served with compressed weights)."""
+    from repro_torch.core.policy import (map_policies, preset,
+                                         with_attn_backend, with_kv_cache)
+
+    fused = lambda p: map_policies(p, lambda q: q.replace(fused=True))
+    if kind == "compress":
+        pol = with_kv_cache(preset("w4a8_abfp", n=n), "int8")
+        return with_attn_backend(fused(pol), "compressed")
+    if kind == "p_int8":
+        pol = preset("w4a8_int8_native", n=n)
+    else:
+        pol = map_policies(preset("w4a8_abfp", n=n),
+                           lambda q: q.replace(attn_bmm=False))
+    return with_attn_backend(fused(pol), "fused")
+
+
+class TimedModel:
+    """A model facade that keeps the wall time of every prefill (between
+    two synchronizations), for the fixed-slot engine's report."""
+
+    def __init__(self, model, torch):
+        self._model = model
+        self._torch = torch
+        self.prefill_ms = []
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def prefill(self, *args, **kw):
+        self._torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self._model.prefill(*args, **kw)
+        self._torch.cuda.synchronize()
+        self.prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def fixed_engine(model, params, policy, trace=None, **kw):
+    """A ``ServeEngine`` that keeps the wall time of every decode step and,
+    with a ``trace`` dict, the logits row behind every emitted token under
+    its request's uid, in emission order."""
+    from repro_torch.serve.engine import ServeEngine
+
+    vocab = model.cfg.vocab
+
+    class Engine(ServeEngine):
+        def _first_token(self, slot, req, logits):
+            if trace is not None:
+                trace.setdefault(req.uid, []).append(
+                    logits[0, :vocab].clone())
+            return super()._first_token(slot, req, logits)
+
+        def _sample(self, logits):
+            if trace is not None:
+                for s in range(self.n_slots):
+                    if self.active[s]:
+                        trace.setdefault(self.req[s].uid, []).append(
+                            logits[s, :vocab].clone())
+            return super()._sample(logits)
+
+        def _decode(self):
+            t0 = time.perf_counter()
+            out = super()._decode()  # ends in a host copy: synchronized
+            self.decode_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+    eng = Engine(model, params, policy=policy, **kw)
+    eng.decode_ms = []
+    return eng
+
+
+def phase_fixed(torch, seed: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+
+    log("== fixed: qwen2-7b, full width and depth, dense f32 weights, "
+        "fixed-slot engine")
+    cfg = get_config("qwen2-7b")
+    L = cfg.n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(make_generator(seed, "cuda"))
+    torch.cuda.synchronize()
+    dense = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"  dense model built in {time.perf_counter() - t0:.1f} s: "
+        f"{dense} bytes of f32 parameters")
+    reports = {}
+    for kind, mm in FIXED_PATHS.items():
+        timed = TimedModel(model, torch)
+        eng = fixed_engine(timed, params, fixed_policy(kind), n_slots=4,
+                           max_len=512, prefill_bucket=64)
+        reqs = make_requests(cfg, seed)
+        for r in reqs:
+            eng.submit(r)
+        reset_counts()
+        t0 = time.perf_counter()
+        while eng._has_work():
+            eng.tick()
+            if eng.ticks > 2000:
+                raise SystemExit("fixed phase did not drain in 2000 ticks")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        done = eng.done
+        check_completions(cfg, eng, done, reqs)
+        # a forward pass (prefill or decode tick) runs 7 matmuls per layer
+        # and lm_head through the matmul kernel; a prefill runs one flash
+        # attention call per layer; decode attention is the plain
+        # reference path, as in the reference package
+        passes = eng.prefills + eng.ticks
+        want = {mm: (7 * L + 1) * passes, "flash_attention": L * eng.prefills}
+        for name, n in want.items():
+            if counts[name] != n or n == 0:
+                raise SystemExit(
+                    f"fixed {kind}: {name} launched {counts[name]} times in "
+                    f"{eng.prefills} prefills + {eng.ticks} decode ticks, "
+                    f"expected {n}")
+        stray = {k: v for k, v in counts.items() if k not in want and v}
+        if stray:
+            raise SystemExit(f"fixed {kind}: kernels off this path launched: "
+                             f"{stray}")
+        n_tok = sum(len(c.tokens) for c in done)
+        report = {
+            "policy": kind, "requests": len(done),
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "padded_lens": sorted(eng._padded_lengths),
+            "generated_tokens": n_tok, "prefills": eng.prefills,
+            "decode_ticks": eng.ticks, "wall_s": wall,
+            "tokens_per_s": n_tok / wall,
+            "prefill_ms_median": statistics.median(timed.prefill_ms),
+            "prefill_ms": timed.prefill_ms,
+            "decode_ms_median": statistics.median(eng.decode_ms),
+            "launches": counts, "expected_launches": want,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        }
+        log("  " + json.dumps(report))
+        report["profile"] = profile_decode(torch, cfg, eng, seed,
+                                           report["decode_ms_median"])
+        reports[kind] = report
+        del eng, timed
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return reports
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def phase_reduced(torch, seed: int) -> dict:
@@ -502,8 +906,10 @@ def phase_reduced(torch, seed: int) -> dict:
     group and GQA shapes than the full model's) to that reference.  At
     this size the quantizer chains are short and the vocabulary small, so
     tokens are expected to be identical; the card and the CPU still sum in
-    other orders, so ONE request of six may turn at a near-tie before the
-    phase fails."""
+    other orders.  Paged: ONE request of six may turn at a near-tie before
+    the phase fails.  Fixed-slot: every turned token is judged by the
+    identity phase's margin rule (its top-2 margin within twice the logit
+    gap of the two runs at that token) and reported."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -522,6 +928,18 @@ def phase_reduced(torch, seed: int) -> dict:
             return {k: to_device(v, dev) for k, v in tree.items()}
         return [to_device(v, dev) for v in tree]
 
+    def submit(eng):
+        rng = np.random.RandomState(seed + 3)
+        for uid, size in enumerate((5, 11, 3, 70, 8, 2)):
+            eng.submit(Request(
+                uid=uid, max_new_tokens=6,
+                prompt=rng.randint(0, cfg.vocab, size).astype(np.int32)))
+
+    def check_launched(label, counts, names):
+        if min(counts[k] for k in names) == 0:
+            raise SystemExit(f"reduced {label}: a kernel of the path was not "
+                             f"launched: {counts}")
+
     cfg = get_config("qwen2-7b").reduced()
     models = {"cpu": build_model(cfg, device="cpu"), "cuda": build_model(cfg)}
     params = models["cpu"].init(make_generator(seed, "cpu"))
@@ -536,25 +954,56 @@ def phase_reduced(torch, seed: int) -> dict:
             eng = PagedServeEngine(
                 model, to_device(params, dev), n_slots=3, max_len=96,
                 policy=pol, page_size=8, kv=kv, compress=True, device=dev)
-            rng = np.random.RandomState(seed + 3)
-            for uid, size in enumerate((5, 11, 3, 70, 8, 2)):
-                eng.submit(Request(
-                    uid=uid, max_new_tokens=6,
-                    prompt=rng.randint(0, cfg.vocab, size).astype(np.int32)))
+            submit(eng)
             tokens[dev] = {c.uid: c.tokens for c in eng.run_until_done()}
         counts = read_counts()
         turned = [u for u in tokens["cpu"]
                   if tokens["cpu"][u] != tokens["cuda"][u]]
-        row = {"group": n, "kv": kv, "requests_equal": 6 - len(turned),
-               "requests": 6, "launches": counts}
+        row = {"engine": "paged", "group": n, "kv": kv,
+               "requests_equal": 6 - len(turned), "requests": 6,
+               "launches": counts}
         rows.append(row)
         log("  " + json.dumps(row))
-        if min(counts.values()) == 0:
-            raise SystemExit(f"reduced: a kernel was not launched: {counts}")
+        check_launched(f"paged group {n} {kv}", counts,
+                       ("quant_matmul", "flash_attention_quant"))
         if len(turned) > 1:
             raise SystemExit(
                 f"reduced (group {n}, {kv} pages): requests {turned} differ "
                 f"between the card and the CPU: {tokens}")
+    # fixed-slot engine: P-int8, P-fp, and compressed weights with an int8
+    # ring cache read by the quantized-KV kernel
+    fixed_kernels = {"p_int8": ("abfp_matmul_int8", "flash_attention"),
+                     "p_fp": ("abfp_matmul", "flash_attention"),
+                     "compress": ("quant_matmul", "flash_attention_quant")}
+    for kind, n in (("p_int8", 64), ("p_fp", 32), ("compress", 64)):
+        runs = {}
+        reset_counts()
+        for dev, model in models.items():
+            trace = {}
+            eng = fixed_engine(model, to_device(params, dev),
+                               fixed_policy(kind, n), trace=trace,
+                               n_slots=3, max_len=96, prefill_bucket=32,
+                               compress=(kind == "compress"), device=dev)
+            submit(eng)
+            toks = {c.uid: c.tokens for c in eng.run_until_done()}
+            runs[dev] = (toks, {u: [t.cpu() for t in rows_]
+                                for u, rows_ in trace.items()})
+        counts = read_counts()
+        cmp = compare_runs(torch, *runs["cuda"], *runs["cpu"])
+        row = {"engine": "fixed", "policy": kind, "group": n,
+               "requests_equal": 6 - len(cmp["divergences"]), "requests": 6,
+               "tokens_equal": cmp["tokens_equal"],
+               "tokens_total": cmp["tokens_total"],
+               "max_logit_gap_over_std": cmp["max_logit_gap_over_std"],
+               "divergences": cmp["divergences"], "launches": counts}
+        rows.append(row)
+        log("  " + json.dumps(row))
+        check_launched(f"fixed {kind}", counts, fixed_kernels[kind])
+        for d in cmp["divergences"]:
+            # a token can only turn where the margin is inside the drift
+            if not d["top2_margin_over_std"] <= 2 * d["logit_gap_over_std"]:
+                raise SystemExit(f"reduced fixed {kind}: a token turned away "
+                                 f"from a near-tie: {d}")
     return {"configs": rows}
 
 
@@ -760,38 +1209,50 @@ def main() -> int:
             + (" | ".join(used) if used else "already built"))
     log(f"  built in {time.perf_counter() - t0:.1f} s")
 
-    kernel_rows = serve = None
+    kernel_rows = serve = fixed = None
     if "kernels" in phases:
         kernel_rows = phase_kernels(torch, args.seed)
     if "serve" in phases:
         serve = phase_serve(torch, args.seed)
+    if "fixed" in phases:
+        fixed = phase_fixed(torch, args.seed)
     if "reduced" in phases:
         phase_reduced(torch, args.seed)
     if "identity" in phases:
         phase_identity(torch, args.seed)
 
-    replaces = {
-        "quant_matmul": "src/repro/kernels/quant_matmul.py:226",
-        "flash_attention_quant":
-            "src/repro/kernels/flash_attention_quant.py:223",
-    }
+    # launches of each kernel on the main paths, each counted from 0 just
+    # before its run: the paged serve run, and the two fixed-slot runs
+    paths = {"serve": (serve or {}).get("launches", {}),
+             **{f"fixed_{k}": r["launches"] for k, r in (fixed or {}).items()}}
+    # the shape whose numbers head a kernel's entry: the decode shape
+    # launched most (matmuls), the longest prefill bucket (flash attention)
+    head_shape = {"quant_matmul": "wi,wg M=4", "abfp_matmul": "wi,wg M=4",
+                  "abfp_matmul_int8": "wi,wg M=4",
+                  "flash_attention": "prefill B=1 S=T=192",
+                  "abfp_qdq": "M=256 K=3584 int8"}
     kernels = []
-    for name in ("quant_matmul", "flash_attention_quant"):
+    for name, (mod, replaces) in KERNELS.items():
         rows = (kernel_rows or {}).get(name, [])
-        head = rows[0] if rows else {}  # the decode shape launched most
-        if name == "quant_matmul" and rows:
-            head = next(r for r in rows if r["shape"].startswith("wi,wg M=4"))
+        head = next((r for r in rows
+                     if r["shape"].startswith(head_shape.get(name, ""))), {})
+        by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{build.SOURCES[name]}",
-            "replaces": replaces[name],
-            "launches": serve["launches"][name] if serve else 0,
+            "source": f"src/repro_torch/kernels/csrc/{build.SOURCES[mod]}",
+            "replaces": replaces,
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            # abfp_qdq is on no model path, in the reference as here
+            "on_main_path": name != "abfp_qdq",
             "max_abs_err": max((r["max_abs_err"] for r in rows),
                                default=None),
             "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
             "bound_ms": head.get("bound_ms"),
             "bound_by": head.get("bound_by"),
-            "library_ms": None,  # no single PyTorch call computes either
+            # only flash_attention has one PyTorch call computing the same
+            # function (scaled_dot_product_attention); a yardstick only
+            "library_ms": head.get("library_ms"),
             "timed_shape": head.get("shape"),
             "shapes": rows,
         })

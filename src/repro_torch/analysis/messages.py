@@ -56,6 +56,25 @@ def compressed_attn_storage_message(mode: str, where: str) -> str:
     )
 
 
+def fp8_fixed_slot_message() -> str:
+    """fp8 KV pages on the fixed-slot engine (the ``ServeEngine``
+    constructor raises this)."""
+    return (
+        "kv_cache='fp8' is paged-only (the ring-buffer cache has no fp8 "
+        "storage); serve this policy with PagedServeEngine"
+    )
+
+
+def flash_q_offset_message(S: int, T: int) -> str:
+    """Causal flash attention with S != T needs an explicit q_offset
+    (kernels.flash_attention raises this; the ref path defaults T - S)."""
+    return (
+        f"causal flash attention with S={S} != T={T} needs an explicit "
+        "q_offset (absolute position of the first query row); without it "
+        "the block mask would assume the queries start at position 0"
+    )
+
+
 def scan_compat_message(policy_name: str, patterns: list,
                         model_name: str = "") -> str:
     """Layer-indexed rules can never match scan-over-layers sites."""

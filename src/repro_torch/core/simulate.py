@@ -15,7 +15,8 @@ declaring the weight representation it consumes:
                          (paper-faithful)
   int8       dense       quantize on the fly, contract int8 codes with exact
                          integer group sums and per-group rescale
-  fused      dense       fused QDQ+matmul kernel — not ported yet: raises
+  fused      dense       fused QDQ+matmul CUDA kernels: ``abfp_matmul``, or
+                         ``abfp_matmul_int8`` when ``compute == 'int8'``
   compressed codes       contract PRE-QUANTIZED weight codes + per-group unit
                          scales directly (integer group sums, per-group
                          rescale) — device memory never sees a dequantized
@@ -245,13 +246,10 @@ def _int8_backend(x, w, policy, *, site, in_alpha, compute_dtype):
 
 @register_backend("fused")
 def _fused_backend(x, w, policy, *, site, in_alpha, compute_dtype):
-    """Dense fused QDQ+matmul kernels (``abfp_matmul`` /
-    ``abfp_matmul_int8``): still to be ported — no quiet ``ref`` here."""
-    raise NotImplementedError(
-        f"site {site!r}: the dense 'fused' matmul backend (kernels "
-        "abfp_matmul / abfp_matmul_int8) is not ported yet — ROADMAP.md "
-        "Queue B, 'abfp_matmul and abfp_matmul_int8'; use fused=False, or "
-        "compressed weights, whose fused path (quant_matmul) is ported")
+    """Fused QDQ+matmul kernels (``abfp_matmul`` / ``abfp_matmul_int8``)."""
+    from repro_torch.kernels import ops as kops
+
+    return kops.abfp_matmul_fused(x, w, policy)
 
 
 @register_backend("compressed", weight_repr="compressed")
@@ -393,11 +391,10 @@ _ATTN_BACKENDS["ref"] = AttnBackend("ref", "dense", None)
 
 @register_attn_backend("fused")
 def _fused_attn_backend(*args, **kw):
-    """Dense flash-attention kernel: still to be ported — no quiet ``ref``."""
-    raise NotImplementedError(
-        "the dense 'fused' attention backend (kernel flash_attention) is "
-        "not ported yet — ROADMAP.md Queue B, 'flash_attention'; use the "
-        "'ref' or 'compressed' backend")
+    """Dense flash-attention kernel."""
+    from repro_torch.kernels import ops as kops
+
+    return kops.flash_attention_gqa(*args, **kw)
 
 
 @register_attn_backend("compressed", kv_repr="codes")

@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes`` — a source that
 includes no PyTorch header builds in seconds.  Libraries go to
 ``build/repro_torch_kernels/`` under the repository root (or the directory
-named by ``REPRO_TORCH_BUILD_DIR``), keyed by a hash of source and flags,
-so a source edit rebuilds and an unchanged source is reused.
+named by ``REPRO_TORCH_BUILD_DIR``), keyed by a hash of the source, of
+every header it includes from ``csrc/`` (``#include "..."``, followed
+recursively) and of the flags, so an edit to a source or to a shared header
+rebuilds every library that uses it and an unchanged one is reused.
 
 Nothing here runs at import time: the first launch of a kernel (or an
 explicit ``build_all()``, which starts one ``nvcc`` per source in parallel)
@@ -17,17 +19,24 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 
-# kernel name -> source file under csrc/
+# library name -> source file under csrc/ (one wrapper module of the same
+# name binds its entry points: quant_matmul.cu also holds abfp_matmul and
+# abfp_matmul_int8)
 SOURCES: dict[str, str] = {
     "quant_matmul": "quant_matmul.cu",
     "flash_attention_quant": "flash_attention_quant.cu",
+    "abfp_qdq": "abfp_qdq.cu",
+    "flash_attention": "flash_attention.cu",
 }
+
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 # No fast-math: the kernels divide and round where the reference pins bits.
 NVCC_FLAGS: tuple[str, ...] = (
@@ -58,10 +67,29 @@ def find_nvcc() -> str:
         "/usr/local/cuda): the CUDA kernels cannot be built on this machine")
 
 
+def local_headers(path: Path) -> list[Path]:
+    """The headers ``path`` includes with ``#include "..."``, and theirs,
+    in first-seen order (each once)."""
+    seen: list[Path] = []
+    todo = [path]
+    while todo:
+        cur = todo.pop(0)
+        for inc in _LOCAL_INCLUDE.findall(cur.read_text()):
+            hdr = (cur.parent / inc).resolve()
+            if hdr not in seen:
+                seen.append(hdr)
+                todo.append(hdr)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where the library of kernel ``name`` lives for the current source."""
+    """Where the library of kernel ``name`` lives for the current source
+    and the headers it includes."""
     src = CSRC_DIR / SOURCES[name]
     h = hashlib.sha1(src.read_bytes())
+    for hdr in local_headers(src):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 

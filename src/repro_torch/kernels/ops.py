@@ -3,12 +3,18 @@
 ``fit_block()`` — the block-size back-off the front-ends use: a tiled
 dimension must divide its block, so the preferred block is halved until it
 does.
+
+Unlike the reference's wrappers, these take any M and N: the CUDA kernels
+mask ragged edges themselves, so there is no tiling contract to meet.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.policy import QuantPolicy
+from repro_torch.kernels import abfp_qdq as _qdq_mod
+from repro_torch.kernels import flash_attention as _fa_mod
 from repro_torch.kernels import flash_attention_quant as _faq_mod
 from repro_torch.kernels import quant_matmul as _mm_mod
 
@@ -31,6 +37,34 @@ def fit_block(dim: int, start: int = 256, multiple: int = 1) -> int:
     while dim % b and b > 1:
         b //= 2
     return b
+
+
+def abfp_qdq(x, fmt, n: int = 64):
+    """Fused QDQ over the last dim; leading dims are flattened to rows."""
+    shape = x.shape
+    y = _qdq_mod.abfp_qdq(x.reshape(-1, shape[-1]).contiguous(), fmt, n=n)
+    return y.reshape(shape)
+
+
+def flash_attention_gqa(qh, kh, vh, scale: float | None = None,
+                        causal: bool = True, q_offset: int | None = None,
+                        block_q: int = 128, block_k: int = 128):
+    """(B, S, H, D) GQA front-end for the dense flash kernel.
+
+    Heads fold into the batch dim; KV heads are not repeated to the query
+    head count — the kernel reads KV head ``h // (H // KV)`` for query head
+    ``h``, the values the reference's repeat would give it.  No softcap or
+    window support (callers keep the plain paths for those variants).
+    """
+    B, S, H, D = qh.shape
+    T, KV = kh.shape[1], kh.shape[2]
+    q = qh.transpose(1, 2).reshape(B * H, S, D).contiguous()
+    k = kh.transpose(1, 2).reshape(B * KV, T, D).contiguous()
+    v = vh.transpose(1, 2).reshape(B * KV, T, D).contiguous()
+    o = _fa_mod.flash_attention(q, k, v, scale=scale, causal=causal,
+                                q_offset=q_offset, block_q=block_q,
+                                block_k=block_k)
+    return o.reshape(B, H, S, D).transpose(1, 2)
 
 
 def flash_attention_quant_gqa(qh, k_codes, v_codes, k_scale, v_scale,
@@ -119,3 +153,24 @@ def quant_matmul_fused(x, wk, tq_x):
         packed=wk.packed,
     )
     return y.reshape(*shape[:-1], wk.codes.shape[0])
+
+
+def abfp_matmul_fused(x, w, policy: QuantPolicy):
+    """Dispatch the fused kernel for a (…, K) x (K, N) quantized matmul:
+    ``abfp_matmul_int8`` when ``policy.compute == 'int8'``, else
+    ``abfp_matmul``; groups of the input quantizer's length along K."""
+    tq_x, tq_w = policy.input, policy.weight
+    if tq_x is None or tq_w is None:
+        raise ValueError(
+            f"fused path needs both x and w quantizers; policy "
+            f"{policy.name!r} has input={tq_x} weight={tq_w}"
+        )
+    n = tq_x.group
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1]).to(torch.float32).contiguous()
+    w = w.to(torch.float32).contiguous()
+    if policy.compute == "int8":
+        y = _mm_mod.abfp_matmul_int8(x2, w, tq_x.fmt, tq_w.fmt, n=n)
+    else:
+        y = _mm_mod.abfp_matmul(x2, w, tq_x.fmt, tq_w.fmt, n=n)
+    return y.reshape(*shape[:-1], w.shape[1])

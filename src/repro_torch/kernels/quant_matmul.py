@@ -30,10 +30,12 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis.messages import abfp_group_message
 from repro_torch.core import abfp as abfp_mod
 from repro_torch.core.formats import Format, IntFormat
 from repro_torch.core.quantize import unpack_int4_codes
 from repro_torch.kernels import build
+from repro_torch.kernels.abfp_qdq import format_args, qdq_groups
 
 
 def group_contract(xc: torch.Tensor, xs: torch.Tensor, wc: torch.Tensor,
@@ -164,3 +166,169 @@ def quant_matmul(x: torch.Tensor, w_codes: torch.Tensor,
 
 
 quant_matmul.launches = 0  # kernel launches made through this wrapper
+
+
+# ---------------------------------------------------------------------------
+# Dense weights: both operands QDQ'd per call
+# ---------------------------------------------------------------------------
+# ``abfp_matmul`` replaces ``repro/kernels/quant_matmul.py::abfp_matmul``
+# (body ``_fp_kernel``): ``DQ(Q(x)) @ DQ(Q(w))`` with x ``(M, K)`` and w
+# ``(K, N)`` f32 QDQ'd per group of n along K (any int or minifloat format,
+# bf16 group scales) and an f32 contraction.  ``abfp_matmul_int8`` replaces
+# ``::abfp_matmul_int8`` (body ``_int8_kernel``): integer codes of both
+# operands, exact integer group sums, rescaled by ``sx * sw`` in f32 and
+# summed over groups.  The kernels (in ``csrc/quant_matmul.cu``) QDQ the
+# weight at every call, as the TPU kernels do; on an H100 a decode call is
+# bound by reading the f32 weight, a prefill call by the f32 (or dp4a)
+# multiply-adds.
+
+
+def _check_dense(x, w, n: int):
+    if x.ndim != 2 or w.ndim != 2:
+        raise ValueError(f"x must be (M, K) and w (K, N); got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    M, K = x.shape
+    K2, N = w.shape
+    if K != K2:
+        raise ValueError(
+            f"contraction mismatch: x has K={K} but w has K={K2} "
+            f"(x.shape={tuple(x.shape)}, w.shape={tuple(w.shape)})")
+    if K % n:
+        raise ValueError(abfp_group_message(K, n))
+    return M, K, N
+
+
+def abfp_matmul_plain(x: torch.Tensor, w: torch.Tensor, fmt_x: Format,
+                      fmt_w: Format, n: int = 64) -> torch.Tensor:
+    """Plain PyTorch version of ``abfp_matmul`` (same arguments)."""
+    M, K, N = _check_dense(x, w, n)
+    G = K // n
+    xq = qdq_groups(x.to(torch.float32).reshape(M, G, n), fmt_x)
+    wq = qdq_groups(w.to(torch.float32).t().reshape(N, G, n), fmt_w)
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
+    return torch.matmul(xq.reshape(M, K), wq.reshape(N, K).t())
+
+
+def abfp_matmul_int8_plain(x: torch.Tensor, w: torch.Tensor,
+                           fmt_x: IntFormat, fmt_w: IntFormat,
+                           n: int = 64) -> torch.Tensor:
+    """Plain PyTorch version of ``abfp_matmul_int8`` (same arguments)."""
+    _check_dense(x, w, n)
+    xc, xs, _ = abfp_mod.abfp_quantize(x.to(torch.float32), fmt_x, axis=-1,
+                                       n=n, dtype=torch.float32)
+    wc, ws, _ = abfp_mod.abfp_quantize(w.to(torch.float32), fmt_w, axis=0,
+                                       n=n, dtype=torch.float32)
+    return group_contract(xc, xs, wc, ws,
+                          max_abs_product=fmt_x.qmax_pos * fmt_w.qmax_pos)
+
+
+def _check_cuda_operands(name: str, x, w):
+    for arg, t in (("x", x), ("w", w)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name}: {arg} on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _bind_fp(lib: ctypes.CDLL):
+    fn = lib.repro_abfp_matmul
+    if not fn.argtypes:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fmt = [i, f, f, i, i, i]  # format_args
+        fn.argtypes = [p] * 4 + [i] * 4 + fmt + fmt + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bind_int8(lib: ctypes.CDLL):
+    fn = lib.repro_abfp_matmul_int8
+    if not fn.argtypes:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p] * 7 + [i] * 4 + [f] * 4 + [p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_FP_SMEM_MAX = 232448  # dynamic shared memory a block may use on sm_90
+
+
+def abfp_matmul(x: torch.Tensor, w: torch.Tensor, fmt_x: Format,
+                fmt_w: Format, n: int = 64) -> torch.Tensor:
+    """Fused fp-path ABFP matmul: ``x (M, K)`` f32 @ ``w (K, N)`` f32, both
+    QDQ'd per group of n along K; returns (M, N) f32.  Any M and N; K must
+    be a multiple of n."""
+    if x.device.type == "cpu":
+        return abfp_matmul_plain(x, w, fmt_x, fmt_w, n)
+    if x.device.type != "cuda":
+        raise ValueError(f"abfp_matmul: unsupported device {x.device}")
+    M, K, N = _check_dense(x, w, n)
+    _check_cuda_operands("abfp_matmul", x, w)
+    if 4 * (64 * n + 64 * n + 256) > _FP_SMEM_MAX:
+        raise ValueError(f"abfp_matmul kernel: group length n={n} needs "
+                         "more shared memory than a block has")
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y
+    xq = torch.empty_like(x)
+    fn = _bind_fp(build.load("quant_matmul"))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), xq.data_ptr(), y.data_ptr(),
+                 M, N, K, n, *format_args(fmt_x), *format_args(fmt_w),
+                 stream)
+    abfp_matmul.launches += 1
+    if err != 0:
+        raise RuntimeError(f"abfp_matmul kernel launch failed: CUDA error "
+                           f"{err}")
+    return y
+
+
+abfp_matmul.launches = 0  # kernel launches made through this wrapper
+
+
+def abfp_matmul_int8(x: torch.Tensor, w: torch.Tensor, fmt_x: IntFormat,
+                     fmt_w: IntFormat, n: int = 64) -> torch.Tensor:
+    """Native-int ABFP matmul: int codes of x per (row, group) and of w per
+    (group, column), exact integer group sums, f32 rescale and sum over
+    groups; returns (M, N) f32.  Any M and N; K must be a multiple of n."""
+    if x.device.type == "cpu":
+        return abfp_matmul_int8_plain(x, w, fmt_x, fmt_w, n)
+    if x.device.type != "cuda":
+        raise ValueError(f"abfp_matmul_int8: unsupported device {x.device}")
+    M, K, N = _check_dense(x, w, n)
+    _check_cuda_operands("abfp_matmul_int8", x, w)
+    for fmt in (fmt_x, fmt_w):
+        if not isinstance(fmt, IntFormat) or fmt.bits > 8:
+            raise ValueError(f"abfp_matmul_int8 takes int formats of at most "
+                             f"8 bits; got {fmt}")
+    lpg = n // 16
+    if n % 16 or lpg & (lpg - 1) or lpg > 32:
+        raise ValueError(
+            "abfp_matmul_int8 kernel needs a group length that is 16 times "
+            f"a power of two <= 32; got n={n}")
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y
+    G = K // n
+    dev = x.device
+    xc = torch.empty((M, K), dtype=torch.int8, device=dev)
+    sx = torch.empty((M, G), dtype=torch.float32, device=dev)
+    wc = torch.empty((N, K), dtype=torch.int8, device=dev)
+    sw = torch.empty((N, G), dtype=torch.float32, device=dev)
+    fn = _bind_int8(build.load("quant_matmul"))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), xc.data_ptr(), sx.data_ptr(),
+                 wc.data_ptr(), sw.data_ptr(), y.data_ptr(), M, N, K, n,
+                 float(fmt_x.qmax_pos), float(fmt_x.qmin),
+                 float(fmt_w.qmax_pos), float(fmt_w.qmin), stream)
+    abfp_matmul_int8.launches += 1
+    if err != 0:
+        raise RuntimeError(f"abfp_matmul_int8 kernel launch failed: CUDA "
+                           f"error {err}")
+    return y
+
+
+abfp_matmul_int8.launches = 0  # kernel launches made through this wrapper

@@ -1,20 +1,23 @@
-"""Serving launcher: the paged continuous-batching engine over a reduced
-or full arch.
+"""Serving launcher: a continuous-batching engine over a reduced or full
+arch.
 
-``python -m repro_torch.launch.serve --paged --arch qwen2-7b --reduced
---policy w4a8_abfp --compress --kv int8 --attn-backend compressed`` drives
-synthetic requests through ``PagedServeEngine`` and reports throughput and
-page accounting with the JSON keys of the reference launcher.  It runs on
-the card unless ``--device cpu`` is given.
+``python -m repro_torch.launch.serve --arch qwen2-7b --reduced --policy
+w4a8_int8_native --attn-backend fused`` drives synthetic requests through
+the fixed-slot ``ServeEngine`` (ring-buffer KV, bucketed prefill; prefill
+attention through the dense flash-attention kernel); with ``--paged
+--compress --kv int8 --attn-backend compressed`` through
+``PagedServeEngine``.  It reports throughput (and page accounting when
+paged) with the JSON keys of the reference launcher, and runs on the card
+unless ``--device cpu`` is given.
 
 Flags of the reference launcher whose features are not ported yet
 (``--recipe``, ``--speculate``, ``--expert-cache``, ``--expert-precision
-auto``, the fixed-slot engine without ``--paged``) exit with a message
-naming the ROADMAP item that will bring them.  There is no lint gate yet:
-the static analyzer is a late slice of the port, and the launcher says so.
-Like the reference launcher it has no flag that sets ``fused`` on the
-policy, so it serves through the non-kernel compressed matmul path; the
-kernel path is reached through the engine API (see ``chip_smoke.py``).
+auto``) exit with a message naming the ROADMAP item that will bring them.
+There is no lint gate yet: the static analyzer is a late slice of the
+port, and the launcher says so.  Like the reference launcher it has no flag
+that sets ``fused`` on the policy, so its matmuls take the non-kernel
+paths; the matmul kernels are reached through the engine API (see
+``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -56,23 +59,26 @@ def main(argv=None) -> int:
     ap.add_argument("--max-new-tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paged", action="store_true",
-                    help="serve with the paged-KV engine (required: the "
-                    "fixed-slot engine is not ported yet)")
+                    help="serve with the paged-KV engine (block pool + "
+                    "chunked prefill) instead of fixed ring-buffer slots; "
+                    "reports page-pool and resident-KV-byte accounting")
     ap.add_argument("--page-size", type=int, default=16,
-                    help="tokens per KV page")
+                    help="tokens per KV page (--paged)")
     ap.add_argument("--n-pages", type=int, default=None,
-                    help="physical pages in the shared pool (default sizes "
-                    "for full occupancy of every slot)")
+                    help="physical pages in the shared pool (--paged; "
+                    "default sizes for full occupancy of every slot)")
     ap.add_argument("--kv", default="auto",
                     choices=("auto", "fp", "int8", "fp8"),
-                    help="page storage format; 'auto' follows the policy's "
-                    "kv_cache mode")
+                    help="page storage format (--paged); 'auto' follows the "
+                    "policy's kv_cache mode")
     ap.add_argument("--attn-backend", default="auto",
                     choices=("auto", "ref", "fused", "compressed"),
                     help="attention backend at the attention block sites: "
                     "'compressed' contracts stored int8/fp8 KV codes inside "
                     "the quantized-KV kernel (needs quantized storage), "
-                    "'ref' pins the plain path, 'fused' is not ported yet")
+                    "'fused' runs the dense flash-attention kernel at "
+                    "prefill where eligible, 'ref' pins the plain path, "
+                    "'auto' keeps the module defaults")
     ap.add_argument("--speculate", action="store_true", help="not ported yet")
     ap.add_argument("--draft-preset", default="w4a8_abfp",
                     help="not ported yet (--speculate)")
@@ -91,9 +97,6 @@ def main(argv=None) -> int:
                     "card; 'cpu' must be asked for)")
     args = ap.parse_args(argv)
 
-    if not args.paged:
-        raise _not_ported("serving without --paged",
-                          "Fixed-slot engine + ring cache")
     if args.recipe:
         raise _not_ported("--recipe", "PTQ methods")
     if args.speculate:
@@ -101,17 +104,14 @@ def main(argv=None) -> int:
     if args.expert_cache is not None or args.expert_precision != "flat":
         raise _not_ported("--expert-cache / --expert-precision auto",
                           "Speculative + MoE serving")
-    if args.attn_backend == "fused":
-        raise SystemExit(
-            "--attn-backend fused is not supported by the PyTorch port yet "
-            "— ROADMAP.md Queue B, 'flash_attention'")
 
     from repro_torch.configs import get_config
     from repro_torch.core.policy import preset, with_attn_backend
     from repro_torch.models import build_model
     from repro_torch.models.serving_transforms import weight_bytes_summary
     from repro_torch.nn.module import make_generator
-    from repro_torch.serve.engine import PagedServeEngine, Request
+    from repro_torch.serve.engine import (PagedServeEngine, Request,
+                                          ServeEngine)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -125,11 +125,17 @@ def main(argv=None) -> int:
 
     model = build_model(cfg, device=args.device)
     params = model.init(make_generator(args.seed, args.device))
-    engine = PagedServeEngine(
-        model, params, n_slots=args.n_slots, max_len=args.max_len,
-        policy=policy, compress=args.compress, page_size=args.page_size,
-        n_pages=args.n_pages, kv=args.kv, device=args.device,
-    )
+    if args.paged:
+        engine = PagedServeEngine(
+            model, params, n_slots=args.n_slots, max_len=args.max_len,
+            policy=policy, compress=args.compress, page_size=args.page_size,
+            n_pages=args.n_pages, kv=args.kv, device=args.device,
+        )
+    else:
+        engine = ServeEngine(
+            model, params, n_slots=args.n_slots, max_len=args.max_len,
+            policy=policy, compress=args.compress, device=args.device,
+        )
     del params  # with --compress the engine holds the served tree only
     compress_info = {}
     if args.compress:
@@ -164,16 +170,18 @@ def main(argv=None) -> int:
          "finished_reason": c.finished_reason}
         for c in done
     ]
-    stats = engine.page_stats()
-    paged_info = {
-        "paged": True,
-        "kv": engine.kv,
-        "page_size": engine.geometry.page_size,
-        "prefill_chunk": engine.geometry.prefill_chunk,
-        **stats,
-    }
-    if stats["pages_in_use"]:
-        paged_info.update(engine.kv_bytes())
+    paged_info = {}
+    if args.paged:
+        stats = engine.page_stats()
+        paged_info = {
+            "paged": True,
+            "kv": engine.kv,
+            "page_size": engine.geometry.page_size,
+            "prefill_chunk": engine.geometry.prefill_chunk,
+            **stats,
+        }
+        if stats["pages_in_use"]:
+            paged_info.update(engine.kv_bytes())
     print(
         json.dumps(
             {
@@ -187,7 +195,7 @@ def main(argv=None) -> int:
                 "completions": completions,
                 **compress_info,
                 "attention": {"backend": engine.attn_backend,
-                              "engine": "paged"},
+                              "engine": "paged" if args.paged else "fixed"},
                 "device": str(engine.device),
                 **paged_info,
             }

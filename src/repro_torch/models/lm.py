@@ -1,12 +1,13 @@
-"""Decoder-only transformer LM for paged serving, with the INT-FP-QSim
-policy threaded through every matmul.
+"""Decoder-only transformer LM for serving, with the INT-FP-QSim policy
+threaded through every matmul.
 
-Ported so far: parameter init, the embedding front, the LM head and the
-paged serving step (``init_paged_state`` / ``paged_step``) for the dense
-attention family.  Layers are always a Python list of per-layer dicts with
-sites ``blocks.{i}/...`` — there is no scan — so layer-indexed PolicyMap
-rules always resolve.  Full-sequence ``apply``, prefill, the ring-buffer
-decode and the MoE/SSM blocks wait for their slices.
+Ported so far, for the dense attention family: parameter init, the
+embedding front, the LM head, full-sequence ``apply``, ``prefill`` into
+ring-buffer caches, the fixed-slot ``decode_step``, and the paged serving
+step (``init_paged_state`` / ``paged_step``).  Layers are always a Python
+list of per-layer dicts with sites ``blocks.{i}/...`` — there is no scan —
+so layer-indexed PolicyMap rules always resolve.  ``chunk_step`` (the
+speculative verify pass) and the MoE/SSM blocks wait for their slices.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.policy import QuantPolicy
+from repro_torch.core.policy import QuantPolicy, kv_cache_mode
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.ffn import MLP
 from repro_torch.nn.linear import Dense, Embed
@@ -47,14 +48,14 @@ class PagedState(NamedTuple):
 class DecodeState(NamedTuple):
     """Per-layer caches + absolute position.
 
-    Only ``pages`` (the paged KV pool) is populated by the ported paths;
-    ``kv`` / ``ssm`` keep the reference's field layout for the ring-buffer
-    and SSM slices.
+    Exactly one of kv / pages is populated: the fixed-slot ring buffer (a
+    list with one ``KVCache`` per layer) or the paged KV pool.  ``ssm``
+    keeps the reference's field layout for the SSM slice.
     """
 
-    kv: Any
+    kv: Any  # list[KVCache], or None
     ssm: Any
-    position: torch.Tensor  # (B,) int32 per-slot
+    position: torch.Tensor  # int32 scalar (aligned) or (B,) per-slot
     pages: Any = None  # PagedState, or None
 
 
@@ -85,7 +86,7 @@ class TransformerLM:
             head_dim=c.head_dim_, qkv_bias=c.qkv_bias,
             rope_theta=c.rope_theta, use_rope=(c.pos == "rope"),
             softcap=c.attn_softcap, param_dtype=c.param_dtype, dtype=c.dtype,
-            name=name,
+            q_block=c.q_block, kv_block=c.kv_block, name=name,
         )
 
     def _mlp(self, name: str = "ffn") -> MLP:
@@ -181,6 +182,143 @@ class TransformerLM:
             logits[..., c.vocab:] = NEG_INF
         return logits
 
+    # --------------------------------------------------------------- blocks
+    def _block_apply(self, bparams, x, policy, name: str, attend):
+        """One decoder block.  ``attend(attn, attn_params, h)`` runs the
+        attention half — full sequence, ring-buffer decode or paged — and
+        returns its output; the rest of the block is the same for all."""
+        c = self.cfg
+        h = _norm(c).apply(bparams["ln1"], x)
+        h = attend(self._attention(f"{name}/attn"), bparams["attn"], h)
+        if c.post_norms:
+            h = _norm(c).apply(bparams["ln1_post"], h)
+        x = x + h
+        h = _norm(c).apply(bparams["ln2"], x)
+        h = self._mlp(f"{name}/ffn").apply(bparams["ffn"], h, policy)
+        if c.post_norms:
+            h = _norm(c).apply(bparams["ln2_post"], h)
+        return x + h
+
+    def _run_blocks(self, params, x, policy, attend):
+        """Every block in order; ``attend(i, window, attn, attn_params, h)``
+        as in ``_block_apply`` with the layer index and window."""
+        wl = self.layer_windows_py()
+        for i, bp in enumerate(params["blocks"]):
+            x = self._block_apply(
+                bp, x, policy, f"blocks.{i}",
+                lambda attn, ap, h, i=i: attend(i, int(wl[i]), attn, ap, h))
+        return x
+
+    def _last_valid(self, x, n_valid):
+        """Each row's hidden state at its last valid position (B, 1, d)."""
+        B = x.shape[0]
+        sel = torch.clamp_min(n_valid - 1, 0).long()[:, None, None]
+        return torch.gather(x, 1, sel.expand(B, 1, x.shape[-1]))
+
+    # ---------------------------------------------------------------- apply
+    def apply(self, params, tokens, *, policy=QuantPolicy(),
+              return_hidden: bool = False):
+        """Full-sequence forward: (logits (B, S, vocab_padded), aux loss)."""
+        x, positions = self._embed_in(params, tokens)
+        x = self._run_blocks(
+            params, x, policy,
+            lambda i, w, attn, ap, h: attn.apply(
+                ap, h, positions=positions, policy=policy, window=w))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x = _norm(self.cfg).apply(params["final_norm"], x)
+        if return_hidden:
+            return x, aux
+        return self.head_logits(params, x, policy), aux
+
+    # -------------------------------------------------------------- prefill
+    @torch.no_grad()
+    def prefill(self, params, tokens, *, policy=QuantPolicy(),
+                max_len: int | None = None, n_valid=None):
+        """Forward pass that also builds the ring-buffer decode caches.
+
+        Returns (last-position logits (B, vocab_padded), DecodeState).
+
+        ``n_valid`` ((B,) int32) supports bucketed prefill: ``tokens`` is
+        right-padded to a bucket length, K/V cache rows past each row's
+        valid length are zeroed (see ``Attention.apply``) and the logits
+        are taken at position ``n_valid - 1`` — token-identical to an
+        exact-length prefill.
+        """
+        c = self.cfg
+        kv_cache_mode(policy)  # cache storage is engine-global: reject
+        # maps whose rules disagree on it here, with a clear error
+        x, positions = self._embed_in(params, tokens)
+        B, S = x.shape[0], x.shape[1]
+        if n_valid is not None:
+            n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
+                                      device=x.device)
+        max_len = max_len or S
+        eff_window = c.window if (c.window and not c.alt_local_global) \
+            else None
+        cache_size = max_len if eff_window is None \
+            else min(max_len, eff_window)
+        caches = []
+
+        def attend(i, w, attn, ap, h):
+            h, (kf, vf) = attn.apply(ap, h, positions=positions,
+                                     policy=policy, window=w,
+                                     return_kv=True, n_valid=n_valid)
+            caches.append(attn.fill_cache(kf, vf, cache_size,
+                                          policy=policy))
+            return h
+
+        x = self._run_blocks(params, x, policy, attend)
+        if n_valid is None:
+            pos = torch.tensor(S, dtype=torch.int32, device=x.device)
+            x = x[:, -1:, :]
+        else:  # last VALID position per row, not the padded column
+            pos = n_valid
+            x = self._last_valid(x, n_valid)
+        state = DecodeState(kv=caches, ssm=None, position=pos)
+        x = _norm(c).apply(params["final_norm"], x)
+        logits = self.head_logits(params, x, policy)
+        return logits[:, 0], state
+
+    # --------------------------------------------------------------- decode
+    def init_decode_state(self, batch: int, max_len: int,
+                          kv_quant: bool = False,
+                          device="cuda") -> DecodeState:
+        """Ring-buffer caches (one per layer, all sized by the config's
+        window policy: SWA truncates) and an aligned position 0."""
+        c = self.cfg
+        device = require_device(device)
+        eff_window = c.window if (c.window and not c.alt_local_global) \
+            else None
+        attn = self._attention()
+        kv = [attn.init_cache(batch, max_len, dtype=getattr(torch, c.dtype),
+                              window=eff_window, quantized=kv_quant,
+                              device=device)
+              for _ in range(c.n_layers)]
+        return DecodeState(
+            kv=kv, ssm=None,
+            position=torch.zeros((), dtype=torch.int32, device=device))
+
+    @torch.no_grad()
+    def decode_step(self, params, token, state: DecodeState, *,
+                    policy=QuantPolicy()):
+        """token: (B, 1) -> (logits (B, vocab_padded), new state).  The ring
+        caches are updated in place; ``position`` advances by one."""
+        pos = state.position
+        x, _ = self._embed_in(params, token, pos_offset=pos)
+        caches = []
+
+        def attend(i, w, attn, ap, h):
+            h, cache = attn.decode_step(ap, h, state.kv[i], position=pos,
+                                        policy=policy, window=w)
+            caches.append(cache)
+            return h
+
+        x = self._run_blocks(params, x, policy, attend)
+        new_state = DecodeState(kv=caches, ssm=None, position=pos + 1)
+        x = _norm(self.cfg).apply(params["final_norm"], x)
+        logits = self.head_logits(params, x, policy)
+        return logits[:, 0], new_state
+
     # ---------------------------------------------------------- paged decode
     def init_paged_state(self, batch: int, *, page_size: int, n_pages: int,
                          max_pages_per_seq: int, kv: str = "fp",
@@ -230,27 +368,16 @@ class TransformerLM:
         pos = state.position.to(torch.int32)
         table = state.pages.table
         x, _ = self._embed_in(params, tokens, pos_offset=pos)
-        B = tokens.shape[0]
-        wl = self.layer_windows_py()
         caches = []
-        for i, bp in enumerate(params["blocks"]):
-            name = f"blocks.{i}"
-            h = _norm(c).apply(bp["ln1"], x)
-            h, cnew = self._attention(f"{name}/attn").paged_step(
-                bp["attn"], h, state.pages.cache[i], page_table=table,
-                position=pos, n_valid=n_valid, policy=policy,
-                window=int(wl[i]),
-            )
-            caches.append(cnew)
-            if c.post_norms:
-                h = _norm(c).apply(bp["ln1_post"], h)
-            x = x + h
-            h = _norm(c).apply(bp["ln2"], x)
-            h = self._mlp(f"{name}/ffn").apply(bp["ffn"], h, policy)
-            if c.post_norms:
-                h = _norm(c).apply(bp["ln2_post"], h)
-            x = x + h
 
+        def attend(i, w, attn, ap, h):
+            h, cache = attn.paged_step(
+                ap, h, state.pages.cache[i], page_table=table, position=pos,
+                n_valid=n_valid, policy=policy, window=w)
+            caches.append(cache)
+            return h
+
+        x = self._run_blocks(params, x, policy, attend)
         new_state = DecodeState(
             kv=None, ssm=None, position=pos + n_valid,
             pages=PagedState(cache=caches, table=table),
@@ -258,9 +385,7 @@ class TransformerLM:
         if all_logits:
             x = _norm(c).apply(params["final_norm"], x)
             return self.head_logits(params, x, policy), new_state
-        sel = torch.clamp_min(n_valid - 1, 0).long()[:, None, None]
-        x = torch.gather(x, 1, sel.expand(B, 1, x.shape[-1]))
-        x = _norm(c).apply(params["final_norm"], x)
+        x = _norm(c).apply(params["final_norm"], self._last_valid(x, n_valid))
         logits = self.head_logits(params, x, policy)
         return logits[:, 0], new_state
 

@@ -2,6 +2,9 @@
 
     model = build_model(cfg, device="cuda")
     params = model.init(gen)                     # nested dict of tensors
+    logits, aux = model.apply(params, batch, policy)
+    logits, state = model.prefill(params, batch, policy, max_len, n_valid)
+    logits, state = model.decode_step(params, token, state, policy)
     state = model.init_paged_state(n_slots, ...)
     logits, state = model.paged_step(params, tokens, state, n_valid=...)
 
@@ -34,6 +37,24 @@ class Model:
     @property
     def is_moe(self) -> bool:
         return False
+
+    def apply(self, params, batch, policy=QuantPolicy(),
+              return_hidden: bool = False):
+        return self.inner.apply(params, batch["tokens"], policy=policy,
+                                return_hidden=return_hidden)
+
+    def prefill(self, params, batch, policy=QuantPolicy(),
+                max_len: int | None = None, n_valid=None):
+        return self.inner.prefill(params, batch["tokens"], policy=policy,
+                                  max_len=max_len, n_valid=n_valid)
+
+    def init_decode_state(self, batch: int, max_len: int, **kw):
+        """Fixed-slot ring-buffer state (TransformerLM family only)."""
+        return self.inner.init_decode_state(batch, max_len,
+                                            device=self.device, **kw)
+
+    def decode_step(self, params, token, state, policy=QuantPolicy()):
+        return self.inner.decode_step(params, token, state, policy=policy)
 
     def init_paged_state(self, batch: int, **kw):
         """Paged-KV serving state (TransformerLM family only)."""

@@ -1,12 +1,16 @@
-"""Attention for paged serving: GQA, sliding window, paged KV (fp or
-quantized) — with the INT-FP-QSim BMM hooks.
+"""Attention: GQA, sliding window, blockwise (flash-style), KV cache (ring
+buffer or paged, fp or quantized) — with the INT-FP-QSim BMM hooks.
 
-Ported so far is what the paged serve engine runs: the reference
-attention path (scores materialized; the QDQ-sim oracle) and
-``paged_step`` with both of its branches — dequantize-then-reference, and
-the compressed branch that hands page codes to the quantized-KV attention
-kernel.  Full-sequence ``apply``, the ring-buffer cache and the blockwise
-path wait for their slices.
+Compute paths:
+  * reference  — materializes scores; the QDQ-sim oracle.
+  * blockwise  — running-softmax loop over KV blocks, taken by ``apply``
+                 at sequence lengths >= ``blockwise_min_seq``.
+  * flash      — the dense flash-attention kernel (``fused`` backend),
+                 taken by ``apply`` where ``flash_ok`` holds.
+  * decode     — ``decode_step`` over the ring-buffer cache, and
+                 ``paged_step`` over the page pool; each either
+                 dequantizes and runs the reference path, or (``compressed``
+                 backend) hands the cache codes to the quantized-KV kernel.
 
 The *window* is a per-layer Python int: window >= T means global.
 
@@ -14,10 +18,10 @@ Serving note: the q/k/v/o projection kernels may arrive as
 ``CompressedKernel`` codes + scales — they flow through ``Dense.apply``
 into qmatmul's execution-backend dispatch untouched.
 
-In-place note: the reference builds a new page pool per step
-(``.at[].set``); here ``_page_write`` updates the pool tensors in place
-(``index_put_``) and returns the same ``PagedKVCache`` — a 7B model's pool
-is not copied per token.
+In-place note: the reference builds a new cache per step (``.at[].set``);
+here ``decode_step`` and ``_page_write`` update the cache tensors in place
+(``index_put_``) and return the same tensors — a 7B model's cache is not
+copied per token.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.analysis.messages import (compressed_attn_storage_message,
+from repro_torch.analysis.messages import (attention_block_message,
+                                           compressed_attn_storage_message,
                                            page_chunk_message)
 from repro_torch.core.formats import IntFormat
 from repro_torch.core.policy import Policy, resolve_policy
@@ -38,6 +43,21 @@ from repro_torch.nn.linear import Dense
 from repro_torch.nn.rotary import apply_rope
 
 NEG_INF = -1e9  # mask value (safe in bf16/f32)
+
+
+class KVCache(NamedTuple):
+    """Ring-buffer decode cache. k/v: (B, S_max, n_kv * head_dim) flat.
+
+    int8 storage mode (policy.kv_cache == 'int8'): k/v hold int8 codes and
+    k_scale/v_scale hold per-(slot, kv_head) f32 unit scales — half the
+    cache bytes and half the read traffic per decode step."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    # int32 scalar: high-water mark of the written positions
+    length: torch.Tensor
+    k_scale: torch.Tensor | None = None  # (B, S_max, n_kv) f32, int8 mode
+    v_scale: torch.Tensor | None = None
 
 
 class PagedKVCache(NamedTuple):
@@ -87,6 +107,22 @@ def _page_unit_scale(alpha: torch.Tensor, mode: str) -> torch.Tensor:
                            qmax)
 
 
+def _kv_quantize(x4: torch.Tensor):
+    """(…, n_kv, D) -> int8 codes + per-(…, head) unit scales."""
+    alpha = x4.abs().amax(dim=-1)  # (..., n_kv)
+    scale = div_by_constant(torch.clamp_min(alpha.to(torch.float32), 1e-12),
+                            127.0)
+    codes = torch.clamp(torch.round(x4.to(torch.float32) / scale[..., None]),
+                        -127, 127).to(torch.int8)
+    return codes, scale
+
+
+def _kv_dequantize(codes_flat, scale, n_kv: int, head_dim: int, dtype):
+    """int8 flat codes + (…, n_kv) scales -> (…, n_kv, D) values."""
+    c4 = codes_flat.reshape(*codes_flat.shape[:-1], n_kv, head_dim)
+    return (c4.to(torch.float32) * scale[..., None]).to(dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class Attention:
     d_model: int
@@ -101,6 +137,10 @@ class Attention:
     query_scale: float | None = None  # default 1/sqrt(head_dim)
     param_dtype: str = "float32"
     dtype: str = "float32"
+    q_block: int = 512
+    kv_block: int = 512
+    blockwise_min_seq: int = 1024  # use blockwise above this length
+    use_flash_kernel: bool = False  # flash kernel under the 'auto' backend
     name: str = "attn"
 
     # ---------------------------------------------------------------- init
@@ -244,6 +284,297 @@ class Attention:
             m = m & (kp <= qp)
         # window >= T means global.
         return m & (kp > qp - window)
+
+    # -------------------------------------------------- blockwise attention
+    def _blockwise(self, qh, kh, vh, q_pos, kv_pos, window, policy):
+        """Running-softmax loop over KV blocks (the reference's recurrence,
+        with its finite ``NEG_INF`` and no masked-row guard); the (S, T)
+        score matrix never exists whole."""
+        policy = resolve_policy(policy, self.name)
+        B, S, H, D = qh.shape
+        T = kh.shape[1]
+        qb, kb = min(self.q_block, S), min(self.kv_block, T)
+        nq, nk = S // qb, T // kb
+        if S % qb or T % kb:
+            raise ValueError(attention_block_message(S, T, qb, kb))
+        KV = self.n_kv
+        G = self.n_heads // KV
+        scale = self._scale()
+        qh, kh, vh = self._maybe_quant_qkv(policy, qh, kh, vh)
+        tq = policy.input if (policy.enabled and policy.attn_bmm) else None
+        torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
+        qs = qh.reshape(B, nq, qb, KV, G, D)
+        qp = q_pos.reshape(B, nq, qb)
+        ks = kh.reshape(B, nk, kb, KV, D)
+        vs = vh.reshape(B, nk, kb, KV, D)
+        kp = kv_pos.reshape(B, nk, kb)
+        dev = qh.device
+        outs = []
+        for i in range(nq):
+            qc, qpc = qs[:, i], qp[:, i]  # (B, qb, KV, G, D), (B, qb)
+            m_run = torch.full((B, KV, G, qb), NEG_INF, dtype=torch.float32,
+                               device=dev)
+            l_run = torch.zeros((B, KV, G, qb), dtype=torch.float32,
+                                device=dev)
+            acc = torch.zeros((B, KV, G, qb, D), dtype=torch.float32,
+                              device=dev)
+            for j in range(nk):
+                kc, vc, kpc = ks[:, j], vs[:, j], kp[:, j]
+                s = torch.einsum("bskgd,btkd->bkgst", qc, kc).to(
+                    torch.float32) * scale
+                if self.softcap is not None and self.softcap > 0:
+                    s = self.softcap * torch.tanh(s / self.softcap)
+                mask = self._mask(qpc, kpc, window)  # (B, qb, kb)
+                s = torch.where(mask[:, None, None], s,
+                                torch.full_like(s, NEG_INF))
+                m_new = torch.maximum(m_run, s.amax(dim=-1))
+                p = torch.exp(s - m_new[..., None])
+                if tq is not None:
+                    p = qdq_activation(p, tq, axis=-1,
+                                       site=self.name + "/probs")
+                corr = torch.exp(m_run - m_new)
+                l_run = l_run * corr + p.sum(dim=-1)
+                pv = torch.einsum("bkgst,btkd->bkgsd", p.to(vc.dtype), vc)
+                acc = acc * corr[..., None] + pv
+                m_run = m_new
+            out = acc / torch.clamp_min(l_run, 1e-20)[..., None]
+            outs.append(out.permute(0, 3, 1, 2, 4))  # (B, qb, KV, G, D)
+        out = torch.stack(outs, dim=1).reshape(B, S, H, D)
+        return out.to(getattr(torch, self.dtype))
+
+    # --------------------------------------------------------- public apply
+    def apply(
+        self,
+        params: dict,
+        x: torch.Tensor,
+        *,
+        positions: torch.Tensor,
+        policy: Policy,
+        window: int | None = None,
+        kv_override: tuple | None = None,  # (k, v, kv_positions) for cross
+        return_kv: bool = False,
+        n_valid: torch.Tensor | None = None,  # (B,) valid prefix lengths
+    ):
+        """Full-sequence attention (prefill).
+
+        ``policy`` may be a PolicyMap: block-level decisions (BMM quant,
+        flash eligibility) resolve at ``self.name`` while the q/k/v/o
+        projections resolve at their own sub-sites inside qmatmul.
+
+        ``n_valid``: bucketed prefill pads prompts to the bucket length;
+        K/V rows at or past each row's valid length are zeroed so the
+        returned ``return_kv`` tensors fill the cache exactly as an
+        exact-length prefill would, and seq-axis quantizer group maxima see
+        zeros, not pad-token projections.
+
+        The flash kernel (``fused`` backend) is taken where ``flash_ok``
+        holds — the reference's rule: the backend asks for it, no softcap,
+        no cross-attention, S == T, and no attention-BMM QDQ.
+        """
+        pol = resolve_policy(policy, self.name)
+        B, S, _ = x.shape
+        qh, kh, vh = self._project_qkv(params, x, positions, policy)
+        if n_valid is not None:
+            steps = torch.arange(S, dtype=torch.int32, device=x.device)
+            keep = (steps[None, :] < n_valid[:, None])[..., None, None]
+            kh = kh * keep.to(kh.dtype)
+            vh = vh * keep.to(vh.dtype)
+        kv_pos = positions
+        if kv_override is not None:
+            kh, vh, kv_pos = kv_override
+        T = kh.shape[1]
+        if window is None:
+            window = max(T, S) + 1
+        use_block = (
+            max(S, T) >= self.blockwise_min_seq
+            and S % min(self.q_block, S) == 0
+            and T % min(self.kv_block, T) == 0
+        )
+        # per-site backend: 'auto' keeps the module's opt-in flag;
+        # 'fused'/'compressed' request the flash kernel ('compressed' has
+        # no stored codes at prefill — dense flash is its prefill form);
+        # 'ref' pins the plain paths
+        backend = attention_backend(pol).name
+        flash_want = (self.use_flash_kernel if backend == "auto"
+                      else backend in ("fused", "compressed"))
+        flash_ok = (
+            flash_want
+            and self.softcap is None
+            and kv_override is None
+            and S == T  # self-attention, standard causal layout
+            and not (pol.enabled and pol.attn_bmm
+                     and pol.input is not None)
+        )
+        if flash_ok:
+            out = attn_backends()["fused"].fn(
+                qh, kh, vh, scale=self._scale(), causal=self.causal,
+                block_q=min(self.q_block, S), block_k=min(self.kv_block, T),
+                q_offset=0,  # full-sequence self-attention: q starts at 0
+            )
+        else:
+            fn = self._blockwise if use_block else self._reference
+            out = fn(qh, kh, vh, positions, kv_pos, window, policy)
+        y = self._dense("o", self.d_model,
+                        self.n_heads * self.head_dim).apply(
+            params["o"], out.reshape(B, S, -1), policy)
+        if return_kv:
+            return y, (kh.reshape(B, T, -1), vh.reshape(B, T, -1))
+        return y
+
+    def fill_cache(self, kh_flat, vh_flat, size: int,
+                   policy: Policy | None = None) -> KVCache:
+        """Build a ring-buffer cache from prefill K/V (B, S, flat).
+
+        With ``policy.kv_cache == 'on_write'`` the entries are quantized
+        here (K per head_dim group; V along seq — exact at prefill because
+        the full sequence is present); with 'int8' they are stored as int8
+        codes with per-(slot, head) scales."""
+        if policy is not None:
+            policy = resolve_policy(policy, self.name)
+        B, S, F = kh_flat.shape
+        dev = kh_flat.device
+        if (policy is not None and policy.enabled and policy.attn_bmm
+                and policy.input is not None
+                and policy.kv_cache == "on_write"):
+            kh4 = kh_flat.reshape(B, S, self.n_kv, self.head_dim)
+            vh4 = vh_flat.reshape(B, S, self.n_kv, self.head_dim)
+            kh4 = qdq_activation(kh4, policy.input, axis=-1,
+                                 site=self.name + "/bmm_k")
+            vh4 = qdq_activation(vh4, policy.input, axis=1,
+                                 site=self.name + "/bmm_v")
+            kh_flat = kh4.reshape(B, S, F)
+            vh_flat = vh4.reshape(B, S, F)
+        take = min(S, size)
+        idx = torch.arange(S - take, S, device=dev) % size
+        length = torch.tensor(S, dtype=torch.int32, device=dev)
+        if policy is not None and policy.kv_cache == "int8":
+            kc, ks = _kv_quantize(
+                kh_flat.reshape(B, S, self.n_kv, self.head_dim))
+            vc, vs = _kv_quantize(
+                vh_flat.reshape(B, S, self.n_kv, self.head_dim))
+            cache = self.init_cache(B, size, quantized=True, device=dev)
+            cache.k[:, idx] = kc.reshape(B, S, F)[:, -take:]
+            cache.v[:, idx] = vc.reshape(B, S, F)[:, -take:]
+            cache.k_scale[:, idx] = ks[:, -take:]
+            cache.v_scale[:, idx] = vs[:, -take:]
+            return cache._replace(length=length)
+        cache = self.init_cache(B, size, dtype=kh_flat.dtype, device=dev)
+        cache.k[:, idx] = kh_flat[:, -take:]
+        cache.v[:, idx] = vh_flat[:, -take:]
+        return cache._replace(length=length)
+
+    # ------------------------------------------------------------ decoding
+    def init_cache(self, batch: int, max_len: int, dtype=None,
+                   window: int | None = None, quantized: bool = False,
+                   device="cuda") -> KVCache:
+        """Ring-buffer cache of size min(max_len, window) (SWA truncates).
+
+        ``quantized``: int8 codes + per-(slot, head) f32 scales."""
+        size = max_len if window is None else min(max_len, window)
+        flat = self.n_kv * self.head_dim
+        length = torch.zeros((), dtype=torch.int32, device=device)
+        if quantized:
+            codes = lambda: torch.zeros((batch, size, flat), dtype=torch.int8,
+                                        device=device)
+            scales = lambda: torch.zeros((batch, size, self.n_kv),
+                                         dtype=torch.float32, device=device)
+            return KVCache(k=codes(), v=codes(), length=length,
+                           k_scale=scales(), v_scale=scales())
+        dt = dtype or getattr(torch, self.dtype)
+        return KVCache(
+            k=torch.zeros((batch, size, flat), dtype=dt, device=device),
+            v=torch.zeros((batch, size, flat), dtype=dt, device=device),
+            length=length,
+        )
+
+    def decode_step(
+        self,
+        params: dict,
+        x: torch.Tensor,  # (B, 1, d_model)
+        cache: KVCache,
+        *,
+        position,  # int32 scalar (aligned) or (B,) per-slot
+        policy: Policy,
+        window: int | None = None,
+    ) -> tuple[torch.Tensor, KVCache]:
+        """One token per row against the ring buffer: write this token's
+        K/V (in place) at ``position % size``, then attend over the slots
+        whose absolute position is written and not in the future."""
+        pol = resolve_policy(policy, self.name)
+        B = x.shape[0]
+        dev = x.device
+        position = torch.as_tensor(position, dtype=torch.int32, device=dev)
+        pos_vec = torch.broadcast_to(torch.atleast_1d(position), (B,))
+        qh, kh, vh = self._project_qkv(params, x, pos_vec[:, None], policy)
+        int8_cache = cache.k_scale is not None
+        kv_on_write = (pol.enabled and pol.attn_bmm
+                       and pol.input is not None
+                       and pol.kv_cache == "on_write")
+        if kv_on_write:
+            # quantize ONCE at write time; reads skip the re-QDQ
+            kh = qdq_activation(kh, pol.input, axis=-1,
+                                site=self.name + "/bmm_k")
+            vh = qdq_activation(vh, pol.input, axis=-1,
+                                site=self.name + "/bmm_v")
+        size = cache.k.shape[1]
+        slot = (pos_vec % size).long()
+        rows = torch.arange(B, device=dev)
+        if int8_cache:
+            # int8 storage: the quantization IS the write (per token, head)
+            kc, ks = _kv_quantize(kh)  # kh: (B, 1, n_kv, D)
+            vc, vs = _kv_quantize(vh)
+            cache.k[rows, slot] = kc.reshape(B, -1)
+            cache.v[rows, slot] = vc.reshape(B, -1)
+            cache.k_scale[rows, slot] = ks[:, 0]
+            cache.v_scale[rows, slot] = vs[:, 0]
+        else:
+            cache.k[rows, slot] = kh.reshape(B, -1).to(cache.k.dtype)
+            cache.v[rows, slot] = vh.reshape(B, -1).to(cache.v.dtype)
+        # length stays a scalar high-water mark even for vector positions
+        cache = cache._replace(length=position.max() + 1)
+
+        # absolute position stored in each slot of the ring buffer
+        idx = torch.arange(size, dtype=torch.int32, device=dev)[None]
+        slot_b = (pos_vec % size)[:, None]
+        ring_rounds = torch.div(pos_vec, size,
+                                rounding_mode="floor")[:, None] * size
+        slot_pos = idx + torch.where(idx <= slot_b, ring_rounds,
+                                     ring_rounds - size)
+        unwritten = (slot_pos > pos_vec[:, None]) | (slot_pos < 0)
+        slot_pos = torch.where(unwritten, torch.full_like(slot_pos, -1),
+                               slot_pos)
+
+        dt = getattr(torch, self.dtype)
+        if window is None:
+            window = size + 1
+        qp = pos_vec[:, None]
+        kp = slot_pos
+        if self._use_compressed(pol, mode="int8" if int8_cache else "fp",
+                                where="the ring-buffer cache"):
+            # codes go straight to the kernel: reads stay 1 byte/element
+            out = attn_backends()["compressed"].fn(
+                self._quant_q(pol, qh),
+                cache.k.reshape(B, size, self.n_kv, self.head_dim),
+                cache.v.reshape(B, size, self.n_kv, self.head_dim),
+                cache.k_scale, cache.v_scale, qp, kp, window,
+                scale=self._scale(), causal=self.causal,
+                probs_tq=self._attn_probs_tq(pol),
+            ).to(dt)
+        else:
+            if int8_cache:
+                kv = _kv_dequantize(cache.k, cache.k_scale, self.n_kv,
+                                    self.head_dim, dt)
+                vv = _kv_dequantize(cache.v, cache.v_scale, self.n_kv,
+                                    self.head_dim, dt)
+            else:
+                kv = cache.k.reshape(B, size, self.n_kv, self.head_dim)
+                vv = cache.v.reshape(B, size, self.n_kv, self.head_dim)
+            out = self._reference(qh, kv, vv, qp, kp, window, policy,
+                                  kv_prequant=kv_on_write or int8_cache)
+        y = self._dense("o", self.d_model,
+                        self.n_heads * self.head_dim).apply(
+            params["o"], out.reshape(B, 1, -1), policy)
+        return y, cache
 
     # ------------------------------------------------------- paged decoding
     def init_paged_cache(self, n_pages: int, page_size: int, dtype=None,

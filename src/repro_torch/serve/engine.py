@@ -1,4 +1,14 @@
-"""Continuous-batching paged serving engine (eager PyTorch, two step shapes).
+"""Continuous-batching serving engines (eager PyTorch).
+
+Two engines share the queue / completion machinery:
+
+``ServeEngine`` — fixed-slot ring-buffer KV.  ``n_slots`` sequences share
+one batched DecodeState sized ``(n_slots, max_len)``; prefill runs per
+request at a *bucketed* length (prompts are right-padded to the next
+multiple of ``prefill_bucket`` and masked via ``n_valid``, so at most
+``max_len / prefill_bucket`` distinct prefill shapes occur) and the
+resulting batch-1 cache is copied into the slot's rows.  Every tick is one
+batched decode step; idle slots compute garbage — the fixed-shape tax.
 
 ``PagedServeEngine`` — vLLM-style paged KV (``serve.kv_pages``).  All
 slots share one physical page pool per layer; a host-side ``PagePool``
@@ -26,8 +36,8 @@ drops its weight quantizers; qmatmul's ``compressed`` execution backend
 then contracts the stored codes directly, so decode never dequantizes a
 kernel.  ``engine.weight_bytes`` records the resident-byte accounting.
 
-The fixed-slot ring-buffer engine, speculative serving and the MoE expert
-store of the reference are later slices of the port.
+Speculative serving and the MoE expert store of the reference are later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -121,12 +131,54 @@ class _EngineBase:
     n_slots: int
     max_len: int
 
+    def _bind(self, model, params, device):
+        """Check that the model and every parameter live on ``device`` (the
+        engine moves nothing between devices on its own)."""
+        self.model = model
+        self.device = require_device(device)
+        for where in (*_tree_devices(params, set()), model.device):
+            if not _same_device(where, self.device):
+                raise ValueError(
+                    f"engine device is {self.device} but the model or its "
+                    f"params live on {where}; build and init the model on "
+                    "the engine's device")
+
+    def _compress(self, params, policy, compress: bool):
+        """Compressed serving: weights stored per resolved site rule once,
+        the runtime policy without weight quantizers."""
+        self.weight_bytes = None
+        if compress:
+            from repro_torch.models import serving_transforms as st
+
+            served = st.compress_weights(params, policy)
+            self.weight_bytes = st.weight_bytes_report(params, served)
+            params = served
+            policy = st.serving_policy(policy)
+        self.params = params
+        self.policy = policy
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        """(n_slots, vocab) logits -> (n_slots, 1) sampled tokens."""
+        topk = (torch.as_tensor(self._topk, device=self.device)
+                if (self._topk > 0).any() else None)
+        return serve_steps.sample_step(logits, self._gens, self._temps, topk)
+
+    def _seed_slot(self, slot: int, req: "Request"):
+        self._temps[slot] = req.temperature
+        self._topk[slot] = req.top_k
+        self._gens[slot].manual_seed(req.uid if req.seed is None else req.seed)
+
     def _init_common(self, n_slots: int):
         self.req: list[Request | None] = [None] * n_slots
         self.generated: list[list[int]] = [[] for _ in range(n_slots)]
         self.queue: list[Request] = []
         self.done: list[Completion] = []
         self.ticks = 0
+        self._temps = np.zeros(n_slots, np.float32)
+        self._topk = np.zeros(n_slots, np.int32)
+        # one sampling stream per slot, re-seeded at admission
+        self._gens = [torch.Generator(device=self.device)
+                      for _ in range(n_slots)]
 
     def submit(self, req: Request):
         need = len(req.prompt) + req.max_new_tokens
@@ -177,6 +229,158 @@ class _EngineBase:
         return self.done
 
 
+class ServeEngine(_EngineBase):
+    """Slot-based continuous batching over a TransformerLM-family model.
+
+    ``device`` defaults to the card and must be where ``params`` live; the
+    engine moves nothing between devices on its own.  The ring-buffer
+    caches are updated in place by every decode step.
+    """
+
+    def __init__(
+        self,
+        model,
+        params,
+        *,
+        n_slots: int = 4,
+        max_len: int = 512,
+        policy: Policy = QuantPolicy(),
+        prefill_bucket: int = 64,
+        compress: bool = False,
+        device="cuda",
+    ):
+        self._bind(model, params, device)
+        mode = kv_cache_mode(policy)  # engine-global cache storage: fail
+        # fast on maps whose rules disagree on kv_cache
+        if mode == "fp8":
+            raise ValueError(msg.fp8_fixed_slot_message())
+        self.attn_backend = attn_backend_mode(policy)
+        if self.attn_backend == "compressed" and mode != "int8":
+            # the decode path would raise this at its first step anyway
+            raise ValueError(msg.compressed_attn_storage_message(
+                mode, "the ring-buffer cache"))
+        self._compress(params, policy, compress)
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.prefill_bucket = prefill_bucket
+
+        state = model.init_decode_state(n_slots, max_len,
+                                        kv_quant=(mode == "int8"))
+        self.state = state._replace(position=torch.zeros(
+            (n_slots,), dtype=torch.int32, device=self.device))
+        self._cur = np.zeros((n_slots, 1), np.int32)
+        self.active = np.zeros(n_slots, dtype=bool)
+        self._padded_lengths: set[int] = set()
+        self.prefills = 0  # prefill calls made (one per admitted request)
+        self._init_common(n_slots)
+
+    def _bucketed(self, S: int) -> int:
+        """Pad length for a prompt of S tokens: next bucket multiple,
+        capped at max_len."""
+        b = self.prefill_bucket
+        return min(-(-S // b) * b, self.max_len)
+
+    @property
+    def prefill_compiles(self) -> int:
+        """Distinct padded prefill lengths seen so far (the reference
+        counts compiled prefill programs, one per length; bucketing keeps
+        this <= the bucket count)."""
+        return len(self._padded_lengths)
+
+    def _insert_state(self, slot: int, sub, prompt_len: int,
+                      first_token: int):
+        """Copy a batch-1 prefill DecodeState into slot ``slot``."""
+        for full, part in zip(self.state.kv, sub.kv):
+            for f, p in zip(full, part):
+                if f is None or f.ndim == 0:
+                    continue  # absent scales / the scalar length mark
+                if p.shape[0] != 1:
+                    raise ValueError(
+                        f"prefill state must be batch-1 along axis 0 to "
+                        f"scatter into a slot; got shape {tuple(p.shape)}")
+                if p.shape[1:] != f.shape[1:]:
+                    raise ValueError(
+                        "prefill cache shape mismatch — prefill with the "
+                        f"engine's max_len: got {tuple(p.shape)} vs engine "
+                        f"{tuple(f.shape)} (batch axis 0)")
+                f[slot] = p[0].to(f.dtype)
+        self.state.position[slot] = prompt_len
+        self._cur[slot, 0] = first_token
+
+    def _admit(self):
+        dev = self.device
+        for slot in range(self.n_slots):
+            if self.active[slot] or not self.queue:
+                continue
+            req = self.queue.pop(0)
+            S = len(req.prompt)
+            padded = self._bucketed(S)
+            tokens = np.zeros((1, padded), np.int32)
+            tokens[0, :S] = req.prompt
+            logits, sub = self.model.prefill(
+                self.params, {"tokens": torch.as_tensor(tokens, device=dev)},
+                self.policy, max_len=self.max_len,
+                n_valid=torch.tensor([S], dtype=torch.int32, device=dev))
+            self._padded_lengths.add(padded)
+            self.prefills += 1
+            self._seed_slot(slot, req)
+            first = self._first_token(slot, req, logits[0:1])
+            self.active[slot] = True
+            self.req[slot] = req
+            self.generated[slot] = [first]
+            self._insert_state(slot, sub, S, first)
+            if req.eos_id is not None and first == req.eos_id:
+                self._evict(slot, "eos")
+            elif req.max_new_tokens <= 1:
+                self._evict(slot, "length")
+
+    def _first_token(self, slot: int, req: Request,
+                     logits: torch.Tensor) -> int:
+        """Sample a request's first token from its (1, vocab) prefill
+        logits, with the slot's freshly seeded stream."""
+        topk = (torch.tensor([req.top_k], device=self.device)
+                if req.top_k > 0 else None)
+        return int(serve_steps.sample_tokens(
+            logits, [self._gens[slot]], [req.temperature], topk)[0, 0])
+
+    def _evict(self, slot: int, reason: str):
+        self._complete(slot, reason)
+        self.active[slot] = False
+
+    def _has_work(self) -> bool:
+        return bool(self.queue) or bool(self.active.any())
+
+    def _decode(self) -> np.ndarray:
+        """One batched decode step over every slot (idle ones included)."""
+        logits, self.state = self.model.decode_step(
+            self.params, torch.as_tensor(self._cur, device=self.device),
+            self.state, self.policy)
+        return self._sample(logits)[:, 0].cpu().numpy()
+
+    def tick(self):
+        """One engine iteration: admit -> batched decode -> evict."""
+        self._admit()
+        if not self.active.any():
+            return
+        toks = self._decode()
+        self.ticks += 1
+        for slot in range(self.n_slots):
+            if not self.active[slot]:
+                continue
+            req = self.req[slot]
+            tok = int(toks[slot])
+            self.generated[slot].append(tok)
+            self._cur[slot, 0] = tok
+            if req.eos_id is not None and tok == req.eos_id:
+                self._evict(slot, "eos")
+            elif len(self.generated[slot]) >= req.max_new_tokens:
+                self._evict(slot, "length")
+
+    @property
+    def utilization(self) -> float:
+        return float(self.active.mean())
+
+
 class PagedServeEngine(_EngineBase):
     """Paged-KV continuous batching: block pool + chunked prefill.
 
@@ -209,14 +413,7 @@ class PagedServeEngine(_EngineBase):
         compress: bool = False,
         device="cuda",
     ):
-        self.model = model
-        self.device = require_device(device)
-        for where in (*_tree_devices(params, set()), model.device):
-            if not _same_device(where, self.device):
-                raise ValueError(
-                    f"engine device is {self.device} but the model or its "
-                    f"params live on {where}; build and init the model on "
-                    "the engine's device")
+        self._bind(model, params, device)
         mode = kv_cache_mode(policy)
         if kv == "auto":
             kv = {"int8": "int8", "fp8": "fp8"}.get(mode, "fp")
@@ -239,17 +436,8 @@ class PagedServeEngine(_EngineBase):
             raise ValueError(msg.compressed_attn_storage_message(
                 "fp", "the paged KV pool"))
 
-        self.weight_bytes = None
-        if compress:
-            from repro_torch.models import serving_transforms as st
-
-            served = st.compress_weights(params, policy)
-            self.weight_bytes = st.weight_bytes_report(params, served)
-            params = served
-            policy = st.serving_policy(policy)
-        self.params = params
-        self.policy = policy
-        self._paged_step = serve_steps.make_paged_step(model, policy)
+        self._compress(params, policy, compress)
+        self._paged_step = serve_steps.make_paged_step(model, self.policy)
         self.n_slots = n_slots
         self.max_len = max_len
 
@@ -263,11 +451,6 @@ class PagedServeEngine(_EngineBase):
         self.prefilling = np.zeros(n_slots, dtype=bool)  # mid-prefill
         self._pf_pos = [0] * n_slots  # prompt tokens consumed so far
         self._cur = np.zeros((n_slots, 1), np.int32)
-        self._temps = np.zeros(n_slots, np.float32)
-        self._topk = np.zeros(n_slots, np.int32)
-        # one sampling stream per slot, re-seeded at admission
-        self._gens = [torch.Generator(device=self.device)
-                      for _ in range(n_slots)]
         self.steps = 0  # paged_step calls made (prefill and decode)
         self._init_common(n_slots)
 
@@ -288,12 +471,6 @@ class PagedServeEngine(_EngineBase):
             torch.as_tensor(n_valid.astype(np.int32), device=dev))
         self.steps += 1
         return self._sample(logits)[:, 0].cpu().numpy()
-
-    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        """(n_slots, vocab) logits -> (n_slots, 1) sampled tokens."""
-        topk = (torch.as_tensor(self._topk, device=self.device)
-                if (self._topk > 0).any() else None)
-        return serve_steps.sample_step(logits, self._gens, self._temps, topk)
 
     # ------------------------------------------------------------ admission
     def _admit(self):
@@ -317,10 +494,7 @@ class PagedServeEngine(_EngineBase):
             self.req[slot] = req
             self.generated[slot] = []
             self._pf_pos[slot] = 0
-            self._temps[slot] = req.temperature
-            self._topk[slot] = req.top_k
-            self._gens[slot].manual_seed(
-                req.uid if req.seed is None else req.seed)
+            self._seed_slot(slot, req)
             self.state.position[slot] = 0
 
     # -------------------------------------------------------------- prefill

@@ -15,7 +15,8 @@ PKG = pathlib.Path(build.__file__).resolve().parent
 
 
 def test_every_named_source_exists():
-    assert set(build.SOURCES) == {"quant_matmul", "flash_attention_quant"}
+    assert set(build.SOURCES) == {"quant_matmul", "flash_attention_quant",
+                                  "abfp_qdq", "flash_attention"}
     for name, fname in build.SOURCES.items():
         path = build.CSRC_DIR / fname
         assert path.is_file(), path
@@ -67,9 +68,57 @@ def test_library_path_is_under_the_build_dir(monkeypatch, tmp_path):
 
 
 def test_wrappers_carry_launch_counters():
+    from repro_torch.kernels.abfp_qdq import abfp_qdq
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention_quant import \
         flash_attention_quant
-    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels.quant_matmul import (abfp_matmul,
+                                                  abfp_matmul_int8,
+                                                  quant_matmul)
 
-    assert isinstance(quant_matmul.launches, int)
-    assert isinstance(flash_attention_quant.launches, int)
+    for fn in (quant_matmul, flash_attention_quant, abfp_matmul,
+               abfp_matmul_int8, abfp_qdq, flash_attention):
+        assert isinstance(fn.launches, int)
+
+
+@pytest.mark.parametrize("name", sorted(build.SOURCES))
+def test_headers_are_hashed_and_include_no_pytorch(name):
+    """Every source and header it includes: no PyTorch header (the
+    libraries have a plain C interface), and each local header is part of
+    the library's key."""
+    src = build.CSRC_DIR / build.SOURCES[name]
+    for path in [src, *build.local_headers(src)]:
+        text = path.read_text()
+        for hdr in re.findall(r"#\s*include\s*[<\"]([^>\"]+)[>\"]", text):
+            assert not hdr.startswith(("torch", "ATen", "c10", "cutlass",
+                                       "cublas", "cudnn")), (path, hdr)
+    if name in ("quant_matmul", "abfp_qdq"):  # share the group QDQ
+        assert [h.name for h in build.local_headers(src)] == ["abfp_qdq.cuh"]
+
+
+def test_header_edit_changes_every_library_key(monkeypatch, tmp_path):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "shared.cuh").write_text("#pragma once\n#include \"deep.cuh\"\n")
+    (csrc / "deep.cuh").write_text("// v1\n")
+    (csrc / "a.cu").write_text('#include "shared.cuh"\nint a;\n')
+    (csrc / "b.cu").write_text('#include <cuda_runtime.h>\nint b;\n')
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(build, "SOURCES", {"a": "a.cu", "b": "b.cu"})
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    assert [h.name for h in build.local_headers(csrc / "a.cu")] == [
+        "shared.cuh", "deep.cuh"]
+    before = {n: build.library_path(n) for n in ("a", "b")}
+    (csrc / "deep.cuh").write_text("// v2\n")  # a header two levels down
+    after = {n: build.library_path(n) for n in ("a", "b")}
+    assert after["a"] != before["a"]
+    assert after["b"] == before["b"]  # includes no local header
+
+
+def test_flags_are_the_hopper_build_for_every_source():
+    """One nvcc per source with the same flags: sm_90a code, C++17, -O3,
+    a shared library with position-independent code."""
+    flags = list(build.NVCC_FLAGS)
+    i = flags.index("-gencode")
+    assert flags[i + 1] == "arch=compute_90a,code=sm_90a"
+    assert "--use_fast_math" not in flags and "-ftz=true" not in flags

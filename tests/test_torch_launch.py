@@ -36,12 +36,12 @@ def test_report_matches_reference_launcher(capsys):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    ([], "Fixed-slot engine"),
+    (["--speculate"], "Speculative"),
     (["--paged", "--speculate"], "Speculative"),
     (["--paged", "--recipe", "gptq"], "PTQ methods"),
     (["--paged", "--expert-cache", "2"], "MoE serving"),
     (["--paged", "--expert-precision", "auto"], "MoE serving"),
-    (["--paged", "--attn-backend", "fused"], "flash_attention"),
+    (["--recipe", "gptq"], "PTQ methods"),
 ])
 def test_unported_flags_exit_naming_the_roadmap(flags, needle):
     with pytest.raises(SystemExit) as e:

@@ -76,12 +76,23 @@ def test_qmatmul_output_quantizer_and_batched_input():
 
 
 def test_dense_fused_backend_raises_naming_the_roadmap():
-    x, w = _xw(3)
-    pol = tp.preset("w4a8_abfp").replace(fused=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue B"):
-        tsim.qmatmul(torch.from_numpy(x), torch.from_numpy(w), pol)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue B"):
-        tsim.attn_backends()["fused"].fn()
+    """The dense fused backends are ported now (they raised, naming the
+    ROADMAP item, before): what they still raise is the reference's own
+    messages — K not a multiple of the group, causal S != T without
+    q_offset."""
+    x, w = _xw(3)  # K = 200: not a multiple of 64
+    for name in ("w4a8_abfp", "w4a8_int8_native"):
+        jpol = jp.preset(name).replace(fused=True)
+        with pytest.raises(ValueError) as je:
+            jsim.qmatmul(jnp.asarray(x), jnp.asarray(w), jpol)
+        with pytest.raises(ValueError) as te:
+            tsim.qmatmul(torch.from_numpy(x), torch.from_numpy(w),
+                         tp.preset(name).replace(fused=True))
+        assert str(te.value) == str(je.value)
+    q = torch.zeros(1, 3, 2, 16)
+    kv = torch.zeros(1, 5, 2, 16)
+    with pytest.raises(ValueError, match="needs an explicit q_offset"):
+        tsim.attn_backends()["fused"].fn(q, kv, kv)
 
 
 @pytest.mark.parametrize("fmt", ["int4", "int8"])
