@@ -16,7 +16,9 @@ Phases (each fatal on failure):
   kernels   kernel vs plain version, then timed (CUDA events, L2 flushed
             between launches, median) beside the plain version, the card's
             bound for the same work and, where one PyTorch call computes
-            the same function, that call
+            the same function, that call; for abfp_matmul also the kernel
+            each M launches (profiler), a sweep of its decode grid and the
+            summed forward pass
   serve     paged, full width, full depth: 6 greedy requests; launch counts
             per step asserted (197 quant_matmul + 28 flash_attention_quant)
   fixed     fixed-slot, full width, full depth, dense f32 weights: the same
@@ -89,19 +91,30 @@ class Timer:
     """Median time of a call on the card: CUDA events around each launch,
     with a buffer larger than the 50 MB L2 rewritten in between so every
     launch finds its operands in device memory, as the serving loop does
-    (197 different weights stream through between two uses of one)."""
+    (197 different weights stream through between two uses of one).
+
+    By default the card is kept busy (``torch.cuda._sleep``, about a
+    millisecond) while the host enqueues the events and the call, so the
+    time is the device's alone.  ``with_enqueue=True`` leaves the card idle
+    meanwhile: a call shorter than its own enqueue then reads as the
+    host's time to enqueue it."""
+
+    SLEEP_CYCLES = 2_000_000
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn, iters: int, warmup: int = 2) -> float:
+    def __call__(self, fn, iters: int, warmup: int = 2,
+                 with_enqueue: bool = False) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(iters):
             self.flush.zero_()
+            if not with_enqueue:
+                torch.cuda._sleep(self.SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -286,19 +299,21 @@ def check_abfp_qdq(torch, timer, gen, *, M, K, n, fmt_name, label,
 
 
 def check_dense_matmul(torch, timer, gen, *, kind, M, K, N, n=64, label,
-                       timed=True, exact=False) -> dict:
-    """``kind`` 'fp' (abfp_matmul, w4a8_abfp formats) or 'int8'
-    (abfp_matmul_int8, w4a8_int8_native formats)."""
-    from repro_torch.core.formats import INT4, INT8
+                       timed=True, exact=False, fx="int8",
+                       fw="int4") -> dict:
+    """``kind`` 'fp' (abfp_matmul) or 'int8' (abfp_matmul_int8); formats
+    ``fx`` of x and ``fw`` of w (by default w4a8's: int8 x, int4 w)."""
+    from repro_torch.core.formats import get_format
     from repro_torch.kernels import quant_matmul as qm
 
     fn, plain = ((qm.abfp_matmul, qm.abfp_matmul_plain) if kind == "fp"
                  else (qm.abfp_matmul_int8, qm.abfp_matmul_int8_plain))
+    FX, FW = get_format(fx), get_format(fw)
     x = activations(torch, gen, (M, K))
     w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
-    got = fn(x, w, INT8, INT4, n=n)
+    got = fn(x, w, FX, FW, n=n)
     torch.cuda.synchronize()
-    want = plain(x, w, INT8, INT4, n=n)
+    want = plain(x, w, FX, FW, n=n)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     ref = want.abs().max().item()
@@ -309,14 +324,20 @@ def check_dense_matmul(torch, timer, gen, *, kind, M, K, N, n=64, label,
     # must be bit-exact, which pins the kernel's int32 group sums.
     tol = 0.0 if exact else 1e-5 * ref
     ok = bool(torch.isfinite(got).all().item()) and err <= tol
-    row = {"shape": label, "M": M, "K": K, "N": N, "n": n,
-           "max_abs_err": err, "tol": tol, "ok": ok}
+    row = {"shape": label, "M": M, "K": K, "N": N, "n": n, "fx": fx,
+           "fw": fw, "max_abs_err": err, "tol": tol, "ok": ok}
+    if kind == "fp":
+        plan = qm.plan_abfp_matmul(M, N, K, n)
+        row.update(regime=plan.regime, splits=plan.splits,
+                   blocks=plan.tiles * plan.splits)
     if timed:
         row.update(bound_fields(nbytes(x, w, got), 2.0 * M * N * K,
                                 PEAK_F32_FLOPS if kind == "fp"
                                 else PEAK_INT8_OPS))
-        row["ms"] = timer(lambda: fn(x, w, INT8, INT4, n=n), iters=10)
-        row["plain_ms"] = timer(lambda: plain(x, w, INT8, INT4, n=n),
+        row["ms"] = timer(lambda: fn(x, w, FX, FW, n=n), iters=10)
+        row["ms_with_enqueue"] = timer(lambda: fn(x, w, FX, FW, n=n),
+                                       iters=10, with_enqueue=True)
+        row["plain_ms"] = timer(lambda: plain(x, w, FX, FW, n=n),
                                 iters=3, warmup=1)
         row["library_ms"] = None  # no single PyTorch call computes it
     name = "abfp_matmul" if kind == "fp" else "abfp_matmul_int8"
@@ -382,6 +403,118 @@ DENSE_SHAPES = (("q,o", 3584, 3584), ("k,v", 3584, 512),
                 ("wi,wg", 3584, 18944), ("wo", 18944, 3584))
 
 
+def fp_decode_checks(torch, timer, gen) -> list:
+    """``abfp_matmul``'s decode kernel (M <= 16) beyond the main-path rows:
+    timed at M = 16; held against the plain version at every M where its
+    row block changes (4, 8, 16) and at M = 17, the first M of the prefill
+    kernel; with groups of 32; with minifloats (e4m3 x, e2m1 w); and at
+    ragged N with groups of 32.  Returns the timed rows."""
+    rows = [check_dense_matmul(torch, timer, gen, kind="fp", M=16, K=K, N=N,
+                               label=f"{name} M=16 K={K} N={N}")
+            for name, K, N in DENSE_SHAPES]
+    for M in (1, 2, 3, 5, 8, 16, 17):
+        check_dense_matmul(torch, timer, gen, kind="fp", M=M, K=3584, N=3584,
+                           label=f"q,o M={M}", timed=False)
+    for name, K, N in DENSE_SHAPES[:2] + (("wo", 18944, 3584),):
+        check_dense_matmul(torch, timer, gen, kind="fp", M=4, K=K, N=N, n=32,
+                           label=f"{name} M=4 n=32", timed=False)
+        check_dense_matmul(torch, timer, gen, kind="fp", M=4, K=K, N=N,
+                           fx="e4m3", fw="e2m1", timed=False,
+                           label=f"{name} M=4 e4m3 x e2m1 w")
+    for M, K, N in ((13, 640, 77), (3, 96, 130)):
+        check_dense_matmul(torch, timer, gen, kind="fp", M=M, K=K, N=N, n=32,
+                           label=f"ragged M={M} K={K} N={N} n=32",
+                           timed=False)
+    return rows
+
+
+def waves_sweep(torch, timer, gen) -> dict:
+    """The decode kernel at M = 4 against the size of its grid: with
+    ``DECODE_WAVES`` (the constant ``plan_abfp_matmul`` aims for) set to 2,
+    4, 8 and 16 in turn, the splits, the device time and the error against
+    the plain version, at the four layer shapes."""
+    from repro_torch.core.formats import INT4, INT8
+    from repro_torch.kernels import quant_matmul as qm
+
+    out = {}
+    default = qm.DECODE_WAVES
+    try:
+        for name, K, N in DENSE_SHAPES:
+            x = activations(torch, gen, (4, K))
+            w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+            want = qm.abfp_matmul_plain(x, w, INT8, INT4)
+            tol = 1e-5 * want.abs().max().item()
+            out[name] = {}
+            for waves in (2, 4, 8, 16):
+                qm.DECODE_WAVES = waves
+                call = lambda: qm.abfp_matmul(x, w, INT8, INT4)
+                err = (call() - want).abs().max().item()
+                if not err <= tol:
+                    raise SystemExit(
+                        f"abfp_matmul {name} M=4 with {waves} waves "
+                        f"disagrees: max_abs_err={err} > {tol}")
+                out[name][waves] = {
+                    "splits": qm.plan_abfp_matmul(4, N, K, 64).splits,
+                    "ms": timer(call, iters=10), "max_abs_err": err}
+    finally:
+        qm.DECODE_WAVES = default
+    log(f"  abfp_matmul decode grid at M=4 (waves: splits, ms; default "
+        f"{default}): " + json.dumps(out))
+    return out
+
+
+def forward_pass_ms(rows, at: str) -> dict:
+    """One decode forward pass of qwen2-7b from the timed rows at ``at``
+    (e.g. "M=4"): 28 x (2 q,o + 2 k,v + 2 wi,wg + wo) + lm_head."""
+    by = {r["shape"].split(" ")[0]: r for r in rows
+          if f" {at} " in r["shape"] + " " and "ms" in r}
+    per_layer = {"q,o": 2, "k,v": 2, "wi,wg": 2, "wo": 1}
+    out = {}
+    for key in ("ms", "ms_with_enqueue", "bound_ms"):
+        if any(key not in r for r in by.values()):
+            continue
+        layers = 28 * sum(c * by[name][key] for name, c in per_layer.items())
+        out[key] = layers + (by["lm_head"][key] if "lm_head" in by else 0.0)
+    out["lm_head_included"] = "lm_head" in by
+    return out
+
+
+def check_regimes(torch, gen) -> None:
+    """Which kernel an ``abfp_matmul`` call launches, read from the
+    profiler: the x QDQ and the decode kernel up to 16 rows, the x QDQ and
+    the prefill kernel from 17 rows; two launches a call either way."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.formats import INT4, INT8
+    from repro_torch.kernels.quant_matmul import abfp_matmul
+
+    w = torch.randn((3584, 512), generator=gen, device="cuda")
+    seen = {}
+    for M in (1, 4, 16, 17, 64):
+        x = torch.randn((M, 3584), generator=gen, device="cuda")
+        abfp_matmul(x, w, INT8, INT4)  # warm: tickets, library
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            abfp_matmul(x, w, INT8, INT4)
+            torch.cuda.synchronize()
+        names = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and (
+                    "fp_" in e.key or "qdq_rows" in e.key):
+                kind = ("decode" if "fp_decode_kernel" in e.key else
+                        "prefill" if "fp_contract_kernel" in e.key else
+                        "x_qdq")
+                names[kind] = names.get(kind, 0) + e.count
+        seen[M] = names
+        want = {"x_qdq": 1, "decode" if M <= 16 else "prefill": 1}
+        if names != want:
+            raise SystemExit(f"abfp_matmul at M={M} launched {names}, "
+                             f"expected {want}")
+    log("  abfp_matmul regimes (kernel launches a call): " + json.dumps(seen))
+
+
 def phase_dense_kernels(torch, timer, gen) -> dict:
     """The fixed-slot path's kernels (abfp_matmul, abfp_matmul_int8,
     flash_attention) and abfp_qdq, at that path's shapes and ragged ones."""
@@ -421,6 +554,14 @@ def phase_dense_kernels(torch, timer, gen) -> dict:
                                timed=False, exact=(kind == "int8"
                                                    and K == 64))
         torch.cuda.empty_cache()
+    dense["fp"] += fp_decode_checks(torch, timer, gen)
+    for kind, rows in dense.items():
+        log(f"  {kind} forward pass at M=4: " + json.dumps(
+            forward_pass_ms(rows, "M=4")))
+    log("  fp forward pass at M=16: " + json.dumps(
+        forward_pass_ms(dense["fp"], "M=16")))
+    check_regimes(torch, gen)
+    waves_sweep(torch, timer, gen)
 
     flash = []
     for S in (64, 128, 192):  # the prefill buckets: S = T, q_offset 0

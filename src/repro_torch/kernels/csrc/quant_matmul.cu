@@ -259,24 +259,50 @@ extern "C" int repro_quant_matmul(const void* x, const void* wc,
 // column's group is n rows of one column), with the device functions of
 // abfp_qdq.cuh.  Nothing is cached across calls, as on the TPU.
 //
-// What bounds them on this card: at decode (M = a handful of rows) reading
-// the f32 weight once from device memory; at prefill (M in the hundreds)
-// the f32 multiply-adds, since the contraction stays on the CUDA cores (see
-// below).
+// What bounds them on this card: at decode (M <= 16 rows) reading the f32
+// weight once from device memory (4 K N bytes; the QDQ costs about 16
+// instructions per weight element and the contraction M FMAs, which the
+// CUDA cores do in well under the byte time at M = 4 and in about the
+// byte time at M = 16); at prefill (M in the hundreds) the f32
+// multiply-adds, since the contraction stays on the CUDA cores.  No TF32
+// and no tensor core: an int8 code times a bf16 scale has up to 16
+// significant bits, TF32 keeps 11, so it would change the product the
+// reference computes in f32.
 //
 // abfp_matmul.  Stage 1 QDQs x once into scratch (qdq_rows_kernel: x is
 // read by every column block, so its QDQ is not repeated per tile).  Stage
-// 2 is an f32 SIMT tiled contraction: per K step of one group a block
-// loads a (BM, n) x tile and an (n, BN) w tile into shared memory, QDQs
-// each of the BN column groups of the w tile in place (a column's max is
-// reduced over kThreads / BN threads through shared memory), then every
-// thread accumulates its TM x TN outputs.  w crosses the memory bus once
-// per row block and is QDQ'd on chip, as the TPU kernel does in VMEM.  No
-// TF32 and no tensor core: an int8 code times a bf16 scale has up to 16
-// significant bits, TF32 keeps 11, so it would change the product the
-// reference computes in f32.  Each group's partial sum is added to the
-// running total once, which keeps the f32 rounding error of K = 18944
-// terms near that of a pairwise sum.
+// 2 depends on the regime (the wrapper's plan_abfp_matmul chooses it):
+//
+//   decode (M <= 16, fp_decode_kernel).  A block owns 64 columns and one
+//   K split of whole groups; the grid is (column tiles) x (splits), with
+//   enough splits for two waves of blocks on the 132 SMs and, while a
+//   split keeps two groups, for up to eight (k,v: 8 tiles x 33 splits;
+//   q,o and wo: 56 x 19; wi,wg: 296 x 4); short blocks even out the tail.  The block streams its (n, 64) w tiles and (BM, n) x tiles
+//   through a ring of kStages shared-memory stages with 16-byte cp.async
+//   copies (4-byte ones when a row of w is not 16-byte aligned), so while
+//   one group is QDQ'd and contracted the next kStages - 1 are in flight;
+//   one barrier per group.  Thread layout: the 16 lanes of a half-warp
+//   share 4 adjacent columns, lane p taking rows p, p + 16, ...; a column
+//   group's max is reduced with __shfl_xor_sync over those 16 lanes (no
+//   shared-memory round trip).  Rows are padded by 4 floats, so the
+//   16-byte reads of 8 consecutive rows by a quarter-warp hit 8 distinct
+//   bank groups.  The weight is QDQ'd with group_scale / qdq_value of
+//   abfp_qdq.cuh (true IEEE division): bit for bit the plain version's.
+//   Each split writes its (M, 64) partial to an (S, M, N) scratch; the
+//   last block of a column tile to arrive (an integer ticket it resets)
+//   sums the S partials in split order: deterministic, no float atomics.
+//   With one split the block writes y itself.
+//
+//   prefill (M > 16, fp_contract_kernel<64, 64, 4, 4>).  An f32 SIMT tiled
+//   contraction: per group a block loads a (64, n) x tile and an (n, 64) w
+//   tile into shared memory, QDQs the 64 column groups of the w tile in
+//   place (a column's max reduced over 4 threads through shared memory),
+//   then every thread accumulates its 4 x 4 outputs.  w crosses the memory
+//   bus once per row block.
+//
+// In both, each group's partial sum is added to the running total once,
+// which keeps the f32 rounding error of K = 18944 terms near that of a
+// pairwise sum.
 //
 // abfp_matmul_int8.  x codes and scales per (row, group) (stage 1,
 // quantize_rows_kernel) and w codes and scales per (group, column)
@@ -418,35 +444,324 @@ int launch_fp_contract(const float* xq, const float* w, float* y, int M,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ decode regime
+constexpr int kDecBN = 64;                   // columns per block
+constexpr int kDecStride = kDecBN + 4;       // floats per w tile row (padded)
+constexpr int kStages = 4;                   // shared-memory ring depth
+constexpr int kRowLanes = 16;                // lanes sharing 4 columns
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool live) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool live) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Start the copies of one group into ring stage ``st``: the (n, 64) w tile
+// at rows k0.. (row stride kDecStride) and the (BM, n) x tile.  Columns at
+// or past N and rows at or past M are zero-filled (source size 0).  VEC:
+// N % 4 == 0 and w 16-byte aligned, so a 16-byte chunk of a row is wholly
+// inside or outside the matrix.
+template <int BM, int R, bool VEC>
+__device__ __forceinline__ void load_decode_stage(
+    float* st, const float* __restrict__ xq, const float* __restrict__ w,
+    int M, int N, int K, int col0, int k0) {
+  constexpr int n = kRowLanes * R;
+  float* ws = st;
+  float* xs = st + n * kDecStride;
+  const int tid = threadIdx.x;
+  if constexpr (VEC) {
+    constexpr int kChunks = kDecBN / 4;  // 16-byte chunks per tile row
+    for (int c = tid; c < n * kChunks; c += kThreads) {
+      const int r = c / kChunks, q = c - r * kChunks;
+      const int col = col0 + 4 * q;
+      const bool live = col < N;
+      cp_async16(ws + r * kDecStride + 4 * q,
+                 live ? w + (size_t)(k0 + r) * N + col : w, live);
+    }
+  } else {
+    for (int e = tid; e < n * kDecBN; e += kThreads) {
+      const int r = e / kDecBN, c = e - r * kDecBN;
+      const int col = col0 + c;
+      const bool live = col < N;
+      cp_async4(ws + r * kDecStride + c,
+                live ? w + (size_t)(k0 + r) * N + col : w, live);
+    }
+  }
+  constexpr int chunks = n / 4;  // x rows 16-byte aligned: K % n == 0
+  for (int c = tid; c < BM * chunks; c += kThreads) {
+    const int m = c / chunks, q = c - m * chunks;
+    const bool live = m < M;
+    cp_async16(xs + m * n + 4 * q,
+               live ? xq + (size_t)m * K + k0 + 4 * q : xq, live);
+  }
+}
+
+// Block (tile, split): columns tile*64.. over groups [split*G/S,
+// (split+1)*G/S).  Thread: 4 adjacent columns (its half-warp's), rows
+// part, part + 16, ... of every group (n = 16 R, R = 2 or 4), held in
+// registers between the max and the QDQ.  INT: the weight format is an
+// integer grid (the format's branch is resolved at compile time; fw is
+// otherwise used as given).  Blocks an SM: 3 at BM = 4, 2 at BM = 8, 1 at
+// BM = 16, whose 2 x 64 sums a thread need more registers.
+template <int BM, int R, bool VEC, bool INT>
+__global__ void __launch_bounds__(kThreads, BM == 4 ? 3 : BM == 8 ? 2 : 1)
+fp_decode_kernel(const float* __restrict__ xq,  // (M, K) QDQ'd x
+                 const float* __restrict__ w,   // (K, N) raw weight
+                 float* __restrict__ y,         // (M, N)
+                 float* __restrict__ partial,   // (S, M, N) when S > 1
+                 int* __restrict__ tickets,     // one per tile, zero
+                 int M, int N, int K, repro::QdqFormat fw) {
+  constexpr int n = kRowLanes * R;
+  constexpr int stage = n * kDecStride + BM * n;
+  extern __shared__ __align__(16) float ring[];
+  __shared__ int is_last;
+  repro::QdqFormat f = fw;
+  f.is_int = INT;
+  const int S = gridDim.y, split = blockIdx.y;
+  const int col0 = blockIdx.x * kDecBN;
+  const int G = K / n;
+  const int g_lo = (int)((long long)split * G / S);
+  const int T = (int)((long long)(split + 1) * G / S) - g_lo;
+  const int lane = threadIdx.x & 31;
+  const int part = lane & (kRowLanes - 1);
+  const int c4 = ((threadIdx.x >> 5) * 2 + (lane >> 4)) * 4;
+
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < T)
+      load_decode_stage<BM, R, VEC>(ring + s * stage, xq, w, M, N, K, col0,
+                                    (g_lo + s) * n);
+    cp_async_commit();  // empty groups keep the count uniform
+  }
+
+  float acc[BM][4];
+#pragma unroll
+  for (int m = 0; m < BM; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+
+  for (int t = 0; t < T; ++t) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of group t landed
+    __syncthreads();  // everyone's; and stage (t - 1) % kStages is free
+    const int nt = t + kStages - 1;
+    if (nt < T)
+      load_decode_stage<BM, R, VEC>(ring + (nt % kStages) * stage, xq, w, M,
+                                    N, K, col0, (g_lo + nt) * n);
+    cp_async_commit();
+
+    const float* ws = ring + (t % kStages) * stage + part * kDecStride + c4;
+    const float* xs = ring + (t % kStages) * stage + n * kDecStride + part;
+    float v[R][4];
+    float amax[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float4 u =
+          *reinterpret_cast<const float4*>(ws + kRowLanes * i * kDecStride);
+      v[i][0] = u.x;
+      v[i][1] = u.y;
+      v[i][2] = u.z;
+      v[i][3] = u.w;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) amax[j] = fmaxf(amax[j], fabsf(v[i][j]));
+    }
+    float sc[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int o = 1; o < kRowLanes; o <<= 1)
+        amax[j] = fmaxf(amax[j], __shfl_xor_sync(0xffffffffu, amax[j], o));
+      sc[j] = repro::group_scale(amax[j], f.qmax);
+    }
+
+    float ps[BM][4];
+#pragma unroll
+    for (int m = 0; m < BM; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ps[m][j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      float q[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) q[j] = repro::qdq_value(v[i][j], sc[j], f);
+#pragma unroll
+      for (int m = 0; m < BM; ++m) {
+        const float xv = xs[m * n + kRowLanes * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ps[m][j] = fmaf(xv, q[j], ps[m][j]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < BM; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][j] += ps[m][j];
+  }
+  cp_async_wait<0>();
+
+  // sum over the 16 lanes of the half-warp (the rows); every lane ends
+  // with the same bits, the lane of part 0 writes
+#pragma unroll
+  for (int m = 0; m < BM; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      for (int o = 1; o < kRowLanes; o <<= 1)
+        acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], o);
+  float* dst = S == 1 ? y : partial + (size_t)split * M * N;
+  if (part == 0) {
+#pragma unroll
+    for (int m = 0; m < BM; ++m) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = col0 + c4 + j;
+        if (m < M && col < N) dst[(size_t)m * N + col] = acc[m][j];
+      }
+    }
+  }
+  if (S == 1) return;  // uniform over the grid
+
+  // the last block of this column tile to finish adds the S partials in
+  // split order and resets the tile's ticket for the next launch
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(&tickets[blockIdx.x], 1) == S - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  constexpr int kBatch = 8;  // partials loaded together, added in order
+  for (int e = threadIdx.x; e < M * kDecBN; e += kThreads) {
+    const int m = e / kDecBN, col = col0 + (e - m * kDecBN);
+    if (col >= N) continue;
+    const float* src = partial + (size_t)m * N + col;
+    float s = 0.f;
+    for (int s0 = 0; s0 < S; s0 += kBatch) {
+      float p[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        p[b] = s0 + b < S ? __ldcg(src + (size_t)(s0 + b) * M * N) : 0.f;
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (s0 + b < S) s += p[b];
+    }
+    y[(size_t)m * N + col] = s;
+  }
+  if (threadIdx.x == 0) tickets[blockIdx.x] = 0;
+}
+
+template <int BM, int R, bool VEC, bool INT>
+int launch_fp_decode(const float* xq, const float* w, float* y,
+                     float* partial, int* tickets, int M, int N, int K,
+                     int splits, const repro::QdqFormat& fw,
+                     cudaStream_t stream) {
+  constexpr int n = kRowLanes * R;
+  const size_t smem =
+      sizeof(float) * kStages * ((size_t)n * kDecStride + (size_t)BM * n);
+  auto kern = fp_decode_kernel<BM, R, VEC, INT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((N + kDecBN - 1) / kDecBN, splits);
+  kern<<<grid, kThreads, smem, stream>>>(xq, w, y, partial, tickets, M, N,
+                                         K, fw);
+  return (int)cudaGetLastError();
+}
+
+template <int BM, int R>
+int launch_fp_decode_as(const float* xq, const float* w, float* y,
+                        float* partial, int* tickets, int M, int N, int K,
+                        int splits, bool vec, const repro::QdqFormat& fw,
+                        cudaStream_t stream) {
+  if (vec)
+    return fw.is_int ? launch_fp_decode<BM, R, true, true>(
+                           xq, w, y, partial, tickets, M, N, K, splits, fw,
+                           stream)
+                     : launch_fp_decode<BM, R, true, false>(
+                           xq, w, y, partial, tickets, M, N, K, splits, fw,
+                           stream);
+  return fw.is_int ? launch_fp_decode<BM, R, false, true>(
+                         xq, w, y, partial, tickets, M, N, K, splits, fw,
+                         stream)
+                   : launch_fp_decode<BM, R, false, false>(
+                         xq, w, y, partial, tickets, M, N, K, splits, fw,
+                         stream);
+}
+
+template <int BM>
+int launch_fp_decode_rows(const float* xq, const float* w, float* y,
+                          float* partial, int* tickets, int M, int N, int K,
+                          int n, int splits, bool vec,
+                          const repro::QdqFormat& fw, cudaStream_t stream) {
+  return n == 32 ? launch_fp_decode_as<BM, 2>(xq, w, y, partial, tickets, M,
+                                               N, K, splits, vec, fw, stream)
+                 : launch_fp_decode_as<BM, 4>(xq, w, y, partial, tickets, M,
+                                               N, K, splits, vec, fw, stream);
+}
+
 }  // namespace
 
 // x: (M, K) f32, w: (K, N) f32, K a multiple of n; xq_scratch: M*K floats;
-// y: (M, N) f32.  fmt_x / fmt_w as QdqFormat fields.  Returns a CUDA error.
+// y: (M, N) f32.  fmt_x / fmt_w as QdqFormat fields.  splits = 0: the
+// prefill regime.  splits >= 1: the decode regime (M <= 16, n = 32 or 64)
+// with that many K splits; then partial holds splits*M*N floats
+// (unused for one split), tickets (N+63)/64 ints that are zero and are
+// left zero, and vec says that N % 4 == 0 and w is 16-byte aligned.
+// Returns a CUDA error.
 extern "C" int repro_abfp_matmul(const void* x, const void* w,
-                                 void* xq_scratch, void* y, int M, int N,
-                                 int K, int n, int x_int, float x_qmax,
-                                 float x_qmin, int x_man, int x_emin,
-                                 int x_emax, int w_int, float w_qmax,
-                                 float w_qmin, int w_man, int w_emin,
-                                 int w_emax, void* stream_ptr) {
+                                 void* xq_scratch, void* partial,
+                                 void* tickets, void* y, int M, int N, int K,
+                                 int n, int splits, int vec, int x_int,
+                                 float x_qmax, float x_qmin, int x_man,
+                                 int x_emin, int x_emax, int w_int,
+                                 float w_qmax, float w_qmin, int w_man,
+                                 int w_emin, int w_emax, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const repro::QdqFormat fx{x_int, x_qmax, x_qmin, x_man, x_emin, x_emax};
   const repro::QdqFormat fw{w_int, w_qmax, w_qmin, w_man, w_emin, w_emax};
+  if (splits > 0 && (M > 16 || (n != 32 && n != 64) ||
+                     splits > K / n + (K == 0)))
+    return (int)cudaErrorInvalidValue;
   float* xq = static_cast<float*>(xq_scratch);
-  repro::launch_qdq_rows(static_cast<const float*>(x), xq,
-                         (long long)M * (K / n), n, fx, stream);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const long long x_groups = (long long)M * (K / n);
+  if (x_groups > 0) {
+    repro::launch_qdq_rows(static_cast<const float*>(x), xq, x_groups, n, fx,
+                           stream);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const float* wf = static_cast<const float*>(w);
   float* out = static_cast<float*>(y);
-  if (M <= 4)
-    return launch_fp_contract<4, 64, 1, 1>(xq, wf, out, M, N, K, n, fw,
-                                           stream);
-  if (M <= 16)
-    return launch_fp_contract<16, 64, 1, 4>(xq, wf, out, M, N, K, n, fw,
+  float* part = static_cast<float*>(partial);
+  int* tick = static_cast<int*>(tickets);
+  if (splits == 0)
+    return launch_fp_contract<64, 64, 4, 4>(xq, wf, out, M, N, K, n, fw,
                                             stream);
-  return launch_fp_contract<64, 64, 4, 4>(xq, wf, out, M, N, K, n, fw,
-                                          stream);
+  if (M <= 4)
+    return launch_fp_decode_rows<4>(xq, wf, out, part, tick, M, N, K, n,
+                                    splits, vec != 0, fw, stream);
+  if (M <= 8)
+    return launch_fp_decode_rows<8>(xq, wf, out, part, tick, M, N, K, n,
+                                    splits, vec != 0, fw, stream);
+  return launch_fp_decode_rows<16>(xq, wf, out, part, tick, M, N, K, n,
+                                   splits, vec != 0, fw, stream);
 }
 
 // x: (M, K) f32, w: (K, N) f32, K a multiple of n (n / 16 a power of two

@@ -27,6 +27,7 @@ package and which a chip run holds the kernel against.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -178,9 +179,18 @@ quant_matmul.launches = 0  # kernel launches made through this wrapper
 # ``::abfp_matmul_int8`` (body ``_int8_kernel``): integer codes of both
 # operands, exact integer group sums, rescaled by ``sx * sw`` in f32 and
 # summed over groups.  The kernels (in ``csrc/quant_matmul.cu``) QDQ the
-# weight at every call, as the TPU kernels do; on an H100 a decode call is
-# bound by reading the f32 weight, a prefill call by the f32 (or dp4a)
-# multiply-adds.
+# weight at every call, as the TPU kernels do.
+#
+# On an H100 ``abfp_matmul`` has two regimes, chosen by ``plan_abfp_matmul``.
+# Decode (M <= 16) is bound by reading the f32 weight once (4 K N bytes);
+# the on-chip QDQ and the M FMAs per weight element fit under that time if
+# they overlap the loads.  Its kernel splits K into whole groups across
+# blocks so that every shape puts about eight waves of blocks on the 132
+# SMs (k,v at N = 512 has only 8 column tiles), streams the weight through
+# a 4-stage ring of asynchronous copies, QDQs each column group within one
+# half-warp (shuffles, no barrier), and sums the split partials in a fixed
+# order in the last block of each column tile.  Prefill (M > 16) is bound
+# by the f32 multiply-adds and keeps the 64 x 64 tiled contraction.
 
 
 def _check_dense(x, w, n: int):
@@ -237,7 +247,7 @@ def _bind_fp(lib: ctypes.CDLL):
     if not fn.argtypes:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fmt = [i, f, f, i, i, i]  # format_args
-        fn.argtypes = [p] * 4 + [i] * 4 + fmt + fmt + [p]
+        fn.argtypes = [p] * 6 + [i] * 6 + fmt + fmt + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -251,7 +261,83 @@ def _bind_int8(lib: ctypes.CDLL):
     return fn
 
 
-_FP_SMEM_MAX = 232448  # dynamic shared memory a block may use on sm_90
+_SMEM_MAX = 232448  # dynamic shared memory a block may use on sm_90
+SMS = 132  # streaming multiprocessors of an H100 SXM
+DECODE_MAX_M = 16  # rows up to which abfp_matmul takes the decode kernel
+_DEC_BN = 64  # columns per decode block (kDecBN)
+_DEC_STAGES = 4  # shared-memory ring depth (kStages)
+DECODE_GROUPS = (32, 64)  # group lengths the decode kernel is built for
+# Decode blocks aimed for, in waves of one block per SM: a few dozen
+# groups' work a block or less, so that blocks that start late or run
+# slow leave a short tail (chip_smoke.py times 2, 4, 8 and 16 waves).
+DECODE_WAVES = 8
+
+
+class AbfpPlan(NamedTuple):
+    """How ``abfp_matmul`` launches for one shape (``plan_abfp_matmul``)."""
+    regime: str      # "decode" (fp_decode_kernel) or "prefill"
+    block_rows: int  # rows of x a block holds (the kernel's BM)
+    tiles: int       # blocks along the output (column tiles x row blocks)
+    splits: int      # K splits of whole groups (decode; 1 for prefill)
+    smem_bytes: int  # dynamic shared memory of one block
+
+
+def plan_abfp_matmul(M: int, N: int, K: int, n: int, sms: int = SMS,
+                     waves: int | None = None) -> AbfpPlan:
+    """The regime and grid of ``abfp_matmul`` at (M, K) x (K, N), groups of
+    n along K.  Decode (M <= 16, n = 32 or 64): 64-column tiles times K
+    splits of whole groups, at most one split per group: enough splits for
+    two waves of blocks on ``sms`` SMs, and beyond that up to ``waves``
+    (default ``DECODE_WAVES``) waves as long as a split keeps two groups
+    or more (a block of one group has no next group to load while it
+    computes).  Otherwise the prefill kernel, one block per 64 x 64 output
+    tile; it raises if its tiles do not fit in a block's shared memory."""
+    G = K // n
+    if M <= DECODE_MAX_M and n in DECODE_GROUPS:
+        bm = 4 if M <= 4 else 8 if M <= 8 else 16
+        smem = 4 * _DEC_STAGES * (n * (_DEC_BN + 4) + bm * n)
+        tiles = -(-N // _DEC_BN)
+        two = -(-2 * sms // max(tiles, 1))
+        aim = -(-(waves or DECODE_WAVES) * sms // max(tiles, 1))
+        splits = max(1, min(G, max(two, min(aim, G // 2))))
+        return AbfpPlan("decode", bm, tiles, splits, smem)
+    smem = 4 * (64 * n + 64 * n + 256)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"abfp_matmul kernel: group length n={n} needs "
+                         "more shared memory than a block has")
+    return AbfpPlan("prefill", 64, -(-N // 64) * -(-M // 64), 1, smem)
+
+
+def split_bounds(G: int, splits: int) -> list[tuple[int, int]]:
+    """Groups ``[lo, hi)`` of each K split, as the decode kernel cuts them
+    (``split * G / S``)."""
+    return [(s * G // splits, (s + 1) * G // splits) for s in range(splits)]
+
+
+def split_partials(plan: AbfpPlan, M: int, N: int, device
+                   ) -> torch.Tensor | None:
+    """The (S, M, N) f32 scratch of the decode kernel's split partials, or
+    None where it writes y directly (one split, or the prefill regime)."""
+    if plan.regime != "decode" or plan.splits == 1:
+        return None
+    return torch.empty((plan.splits, M, N), dtype=torch.float32,
+                       device=device)
+
+
+# Zeroed int32 tickets, one per column tile, per (device, stream): the
+# last block of a tile to finish resets its ticket, so the buffer is zero
+# again at the end of every launch.  A plan splits K only when it has
+# fewer than ``DECODE_WAVES * SMS`` tiles.
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < tiles:
+        t = _TICKETS[key] = torch.zeros(max(tiles, DECODE_WAVES * SMS),
+                                        dtype=torch.int32, device=device)
+    return t
 
 
 def abfp_matmul(x: torch.Tensor, w: torch.Tensor, fmt_x: Format,
@@ -265,19 +351,24 @@ def abfp_matmul(x: torch.Tensor, w: torch.Tensor, fmt_x: Format,
         raise ValueError(f"abfp_matmul: unsupported device {x.device}")
     M, K, N = _check_dense(x, w, n)
     _check_cuda_operands("abfp_matmul", x, w)
-    if 4 * (64 * n + 64 * n + 256) > _FP_SMEM_MAX:
-        raise ValueError(f"abfp_matmul kernel: group length n={n} needs "
-                         "more shared memory than a block has")
+    plan = plan_abfp_matmul(M, N, K, n)
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
     xq = torch.empty_like(x)
+    partial = split_partials(plan, M, N, x.device)
+    decode = plan.regime == "decode"
+    vec = N % 4 == 0 and w.data_ptr() % 16 == 0  # 16-byte weight copies
     fn = _bind_fp(build.load("quant_matmul"))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), xq.data_ptr(), y.data_ptr(),
-                 M, N, K, n, *format_args(fmt_x), *format_args(fmt_w),
-                 stream)
+        tickets = (None if partial is None
+                   else _tickets(x.device, stream, plan.tiles))
+        err = fn(x.data_ptr(), w.data_ptr(), xq.data_ptr(),
+                 None if partial is None else partial.data_ptr(),
+                 None if tickets is None else tickets.data_ptr(),
+                 y.data_ptr(), M, N, K, n, plan.splits if decode else 0,
+                 int(vec), *format_args(fmt_x), *format_args(fmt_w), stream)
     abfp_matmul.launches += 1
     if err != 0:
         raise RuntimeError(f"abfp_matmul kernel launch failed: CUDA error "

@@ -210,3 +210,147 @@ def test_format_args_describe_the_grid():
         assert t_qdq_mod.format_args(f) == (
             0, f.qmax_pos, 0.0, f.man_bits, f.min_normal_exp,
             f.max_biased_exp - f._bias)
+
+
+# ---------------------------------------------------------------------------
+# The decode regime's plan (pure Python: the CPU reaches it; the kernel runs
+# it on the card)
+# ---------------------------------------------------------------------------
+# (K, N) of qwen2-7b's dense layers and lm_head; the reduced config's q
+# (G = 1), wo (G = 2) and its ragged lm_head (N = 503)
+DECODE_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
+                 (3584, 152064), (64, 64), (128, 64), (64, 503), (640, 77),
+                 (64, 130)]
+
+
+@pytest.mark.parametrize("n", [64, 32])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 16])
+@pytest.mark.parametrize("K,N", DECODE_SHAPES)
+def test_decode_plan_splits_whole_groups_and_fills_the_card(K, N, M, n):
+    plan = t_mm.plan_abfp_matmul(M, N, K, n)
+    assert plan.regime == "decode"
+    assert plan.block_rows == (4 if M <= 4 else 8 if M <= 8 else 16)
+    assert plan.block_rows >= M
+    assert plan.tiles == -(-N // 64)
+    G = K // n
+    bounds = t_mm.split_bounds(G, plan.splits)
+    # contiguous, non-empty runs of whole groups that cover K exactly
+    assert bounds[0][0] == 0 and bounds[-1][1] == G
+    assert all(lo < hi for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert sum((hi - lo) * n for lo, hi in bounds) == K
+    # at least two waves of blocks on 132 SMs, unless there are too few
+    # groups
+    blocks = plan.tiles * plan.splits
+    assert blocks >= 2 * t_mm.SMS or plan.splits == G
+    # no more splits than the planned waves need; beyond two waves, two
+    # groups or more a split
+    if plan.splits > 1:
+        waves = t_mm.DECODE_WAVES * t_mm.SMS
+        assert plan.tiles * (plan.splits - 1) < waves
+        assert plan.tiles < waves  # a ticket buffer of that size suffices
+        if plan.tiles * (plan.splits - 1) >= 2 * t_mm.SMS:
+            assert all(hi - lo >= 2 for lo, hi in bounds)
+    assert plan.smem_bytes <= 227 * 1024
+
+
+def test_decode_plan_at_the_main_path_shapes():
+    """The grids of a decode tick at M = 4, n = 64: eight waves of blocks
+    by default, two when asked."""
+    grid = {(K, N): (p.tiles, p.splits) for K, N in DECODE_SHAPES[:5]
+            for p in [t_mm.plan_abfp_matmul(4, N, K, 64)]}
+    assert t_mm.DECODE_WAVES == 8
+    assert grid[(3584, 512)] == (8, 33)       # k,v: two waves, 1-2 groups
+    assert grid[(3584, 3584)] == (56, 19)     # q,o: 2-3 groups a split
+    assert grid[(18944, 3584)] == (56, 19)    # wo: 15-16 groups a split
+    assert grid[(3584, 18944)] == (296, 4)    # wi,wg
+    assert grid[(3584, 152064)] == (2376, 1)  # lm_head needs no split
+    two = {(K, N): t_mm.plan_abfp_matmul(4, N, K, 64, waves=2).splits
+           for K, N in DECODE_SHAPES[:5]}
+    assert two == {(3584, 512): 33, (3584, 3584): 5, (18944, 3584): 5,
+                   (3584, 18944): 1, (3584, 152064): 1}
+    # the shared memory the wrapper reckons is the ring's: 4 stages of an
+    # (n, 64 + 4) w tile and a (BM, n) x tile
+    p = t_mm.plan_abfp_matmul(4, 512, 3584, 64)
+    assert p.smem_bytes == 4 * 4 * (64 * 68 + 4 * 64)
+    p = t_mm.plan_abfp_matmul(16, 512, 3584, 32)
+    assert p.smem_bytes == 4 * 4 * (32 * 68 + 16 * 32)
+    assert max(t_mm.plan_abfp_matmul(M, 64, 64, n).smem_bytes
+               for M in (1, 16) for n in t_mm.DECODE_GROUPS) <= 227 * 1024
+
+
+@pytest.mark.parametrize("M", [17, 64, 192])
+def test_more_than_16_rows_take_the_prefill_kernel(M):
+    plan = t_mm.plan_abfp_matmul(M, 3584, 3584, 64)
+    assert plan.regime == "prefill" and plan.splits == 1
+    assert plan.tiles == 56 * -(-M // 64)
+    assert plan.smem_bytes == 4 * (64 * 64 + 64 * 64 + 256)
+
+
+def test_plan_falls_back_to_the_prefill_kernel_or_raises():
+    # group lengths the decode kernel is not built for
+    for n in (8, 16, 48, 128, 256):
+        assert t_mm.plan_abfp_matmul(4, 64, 512, n).regime == "prefill"
+    assert t_mm.plan_abfp_matmul(16, 64, 512, 32).regime == "decode"
+    with pytest.raises(ValueError, match="more shared memory"):
+        t_mm.plan_abfp_matmul(4, 64, 1024, 512)
+    # K = 0: one empty split, the kernel writes zeros
+    assert t_mm.plan_abfp_matmul(4, 64, 0, 64).splits == 1
+
+
+@pytest.mark.parametrize("M,K,N,n", [(4, 3584, 512, 64), (16, 18944, 3584, 64),
+                                     (1, 3584, 152064, 64), (3, 640, 77, 32),
+                                     (20, 3584, 512, 64)])
+def test_split_scratch_has_the_planned_size(M, K, N, n):
+    plan = t_mm.plan_abfp_matmul(M, N, K, n)
+    part = t_mm.split_partials(plan, M, N, "cpu")
+    if plan.regime == "prefill" or plan.splits == 1:
+        assert part is None
+    else:
+        assert part.shape == (plan.splits, M, N)
+        assert part.dtype == torch.float32
+        assert part.numel() * 4 == plan.splits * M * N * 4
+        # one ticket per column tile, from a buffer of that many
+        assert plan.tiles <= t_mm.DECODE_WAVES * t_mm.SMS
+
+
+def _split_k_emulation(x, w, fx, fw, n, plan):
+    """The decode kernel's arithmetic in PyTorch: per split, per group, the
+    QDQ'd group product added to the split's sum once; the split sums
+    added in split order."""
+    M, K = x.shape
+    xq = t_qdq_mod.abfp_qdq_plain(x, fx, n=n)
+    wq = t_qdq_mod.abfp_qdq_plain(w.t().contiguous(), fw, n=n).t()
+    y = torch.zeros((M, w.shape[1]))
+    for lo, hi in t_mm.split_bounds(K // n, plan.splits):
+        acc = torch.zeros_like(y)
+        for g in range(lo, hi):
+            k = slice(g * n, (g + 1) * n)
+            acc = acc + xq[:, k] @ wq[k]
+        y = y + acc
+    return y
+
+
+@pytest.mark.parametrize("fx,fw", [("int8", "int4"), ("e4m3", "e2m1")])
+@pytest.mark.parametrize("M,K,N,n", [(4, 1024, 40, 64), (16, 512, 130, 32),
+                                     (2, 64, 77, 64)])
+def test_split_k_is_the_plain_function(fx, fw, M, K, N, n):
+    """Cutting K as the plan does changes only the order of the f32 sum:
+    the emulated kernel agrees with ``abfp_matmul_plain`` (and so with the
+    reference) within 1e-5; a CPU tensor runs the plain version itself."""
+    x = torch.from_numpy(_x(M * K, M, K))
+    w = torch.from_numpy((np.random.RandomState(N).randn(K, N)
+                          / np.sqrt(K)).astype(np.float32))
+    tx, tw = t_get_format(fx), t_get_format(fw)
+    plan = t_mm.plan_abfp_matmul(M, N, K, n)
+    assert plan.regime == "decode"
+    assert 1 <= plan.splits <= K // n
+    want = t_mm.abfp_matmul_plain(x, w, tx, tw, n=n)
+    _close(_split_k_emulation(x, w, tx, tw, n, plan), want)
+    before = t_mm.abfp_matmul.launches
+    got = t_mm.abfp_matmul(x, w, tx, tw, n=n)
+    assert t_mm.abfp_matmul.launches == before
+    assert torch.equal(got, want)
+    _close(got, jref.abfp_matmul_ref(jnp.asarray(x.numpy()),
+                                     jnp.asarray(w.numpy()),
+                                     j_get_format(fx), j_get_format(fw), n=n))
