@@ -17,8 +17,7 @@ Phases (each fatal on failure):
             between launches, median) beside the plain version, the card's
             bound for the same work and, where one PyTorch call computes
             the same function, that call; for abfp_matmul also the kernel
-            each M launches (profiler), a sweep of its decode grid and the
-            summed forward pass
+            each M launches (profiler) and the summed forward pass
   serve     paged, full width, full depth: 6 greedy requests; launch counts
             per step asserted (197 quant_matmul + 28 flash_attention_quant)
   fixed     fixed-slot, full width, full depth, dense f32 weights: the same
@@ -428,41 +427,6 @@ def fp_decode_checks(torch, timer, gen) -> list:
     return rows
 
 
-def waves_sweep(torch, timer, gen) -> dict:
-    """The decode kernel at M = 4 against the size of its grid: with
-    ``DECODE_WAVES`` (the constant ``plan_abfp_matmul`` aims for) set to 2,
-    4, 8 and 16 in turn, the splits, the device time and the error against
-    the plain version, at the four layer shapes."""
-    from repro_torch.core.formats import INT4, INT8
-    from repro_torch.kernels import quant_matmul as qm
-
-    out = {}
-    default = qm.DECODE_WAVES
-    try:
-        for name, K, N in DENSE_SHAPES:
-            x = activations(torch, gen, (4, K))
-            w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
-            want = qm.abfp_matmul_plain(x, w, INT8, INT4)
-            tol = 1e-5 * want.abs().max().item()
-            out[name] = {}
-            for waves in (2, 4, 8, 16):
-                qm.DECODE_WAVES = waves
-                call = lambda: qm.abfp_matmul(x, w, INT8, INT4)
-                err = (call() - want).abs().max().item()
-                if not err <= tol:
-                    raise SystemExit(
-                        f"abfp_matmul {name} M=4 with {waves} waves "
-                        f"disagrees: max_abs_err={err} > {tol}")
-                out[name][waves] = {
-                    "splits": qm.plan_abfp_matmul(4, N, K, 64).splits,
-                    "ms": timer(call, iters=10), "max_abs_err": err}
-    finally:
-        qm.DECODE_WAVES = default
-    log(f"  abfp_matmul decode grid at M=4 (waves: splits, ms; default "
-        f"{default}): " + json.dumps(out))
-    return out
-
-
 def forward_pass_ms(rows, at: str) -> dict:
     """One decode forward pass of qwen2-7b from the timed rows at ``at``
     (e.g. "M=4"): 28 x (2 q,o + 2 k,v + 2 wi,wg + wo) + lm_head."""
@@ -561,7 +525,6 @@ def phase_dense_kernels(torch, timer, gen) -> dict:
     log("  fp forward pass at M=16: " + json.dumps(
         forward_pass_ms(dense["fp"], "M=16")))
     check_regimes(torch, gen)
-    waves_sweep(torch, timer, gen)
 
     flash = []
     for S in (64, 128, 192):  # the prefill buckets: S = T, q_offset 0

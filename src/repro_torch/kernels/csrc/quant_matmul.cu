@@ -277,7 +277,8 @@ extern "C" int repro_quant_matmul(const void* x, const void* wc,
 //   K split of whole groups; the grid is (column tiles) x (splits), with
 //   enough splits for two waves of blocks on the 132 SMs and, while a
 //   split keeps two groups, for up to eight (k,v: 8 tiles x 33 splits;
-//   q,o and wo: 56 x 19; wi,wg: 296 x 4); short blocks even out the tail.  The block streams its (n, 64) w tiles and (BM, n) x tiles
+//   q,o and wo: 56 x 19; wi,wg: 296 x 4); short blocks even out the
+//   tail.  The block streams its (n, 64) w tiles and (BM, n) x tiles
 //   through a ring of kStages shared-memory stages with 16-byte cp.async
 //   copies (4-byte ones when a row of w is not 16-byte aligned), so while
 //   one group is QDQ'd and contracted the next kStages - 1 are in flight;
@@ -300,9 +301,12 @@ extern "C" int repro_quant_matmul(const void* x, const void* wc,
 //   then every thread accumulates its 4 x 4 outputs.  w crosses the memory
 //   bus once per row block.
 //
-// In both, each group's partial sum is added to the running total once,
-// which keeps the f32 rounding error of K = 18944 terms near that of a
-// pairwise sum.
+// Summation order.  prefill: each group's partial sum is added to the
+// running total once.  decode: each lane adds its R-row share of a group to
+// its own accumulator once per group; after the last group the 16 lanes of
+// a column are summed by a shuffle tree, and then the split partials in
+// split order.  Either way the f32 rounding error of K = 18944 terms stays
+// near that of a pairwise sum.
 //
 // abfp_matmul_int8.  x codes and scales per (row, group) (stage 1,
 // quantize_rows_kernel) and w codes and scales per (group, column)
@@ -520,8 +524,10 @@ __device__ __forceinline__ void load_decode_stage(
 // part, part + 16, ... of every group (n = 16 R, R = 2 or 4), held in
 // registers between the max and the QDQ.  INT: the weight format is an
 // integer grid (the format's branch is resolved at compile time; fw is
-// otherwise used as given).  Blocks an SM: 3 at BM = 4, 2 at BM = 8, 1 at
-// BM = 16, whose 2 x 64 sums a thread need more registers.
+// otherwise used as given): on an H100 2.3 % faster over an M = 4 forward
+// pass and 6-7 % at M = 16 than one kernel for every format (PERF.md).
+// Blocks an SM: 3 at BM = 4, 2 at BM = 8, 1 at BM = 16, whose 2 x 64 sums
+// a thread need more registers.
 template <int BM, int R, bool VEC, bool INT>
 __global__ void __launch_bounds__(kThreads, BM == 4 ? 3 : BM == 8 ? 2 : 1)
 fp_decode_kernel(const float* __restrict__ xq,  // (M, K) QDQ'd x
@@ -721,7 +727,7 @@ int launch_fp_decode_rows(const float* xq, const float* w, float* y,
 // x: (M, K) f32, w: (K, N) f32, K a multiple of n; xq_scratch: M*K floats;
 // y: (M, N) f32.  fmt_x / fmt_w as QdqFormat fields.  splits = 0: the
 // prefill regime.  splits >= 1: the decode regime (M <= 16, n = 32 or 64)
-// with that many K splits; then partial holds splits*M*N floats
+// with that many K splits; then partial holds at least splits*M*N floats
 // (unused for one split), tickets (N+63)/64 ints that are zero and are
 // left zero, and vec says that N % 4 == 0 and w is 16-byte aligned.
 // Returns a CUDA error.

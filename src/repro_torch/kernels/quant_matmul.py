@@ -269,7 +269,7 @@ _DEC_STAGES = 4  # shared-memory ring depth (kStages)
 DECODE_GROUPS = (32, 64)  # group lengths the decode kernel is built for
 # Decode blocks aimed for, in waves of one block per SM: a few dozen
 # groups' work a block or less, so that blocks that start late or run
-# slow leave a short tail (chip_smoke.py times 2, 4, 8 and 16 waves).
+# slow leave a short tail (8 beat 2 and 4 and matched 16 on an H100).
 DECODE_WAVES = 8
 
 
@@ -282,23 +282,22 @@ class AbfpPlan(NamedTuple):
     smem_bytes: int  # dynamic shared memory of one block
 
 
-def plan_abfp_matmul(M: int, N: int, K: int, n: int, sms: int = SMS,
-                     waves: int | None = None) -> AbfpPlan:
+def plan_abfp_matmul(M: int, N: int, K: int, n: int) -> AbfpPlan:
     """The regime and grid of ``abfp_matmul`` at (M, K) x (K, N), groups of
     n along K.  Decode (M <= 16, n = 32 or 64): 64-column tiles times K
     splits of whole groups, at most one split per group: enough splits for
-    two waves of blocks on ``sms`` SMs, and beyond that up to ``waves``
-    (default ``DECODE_WAVES``) waves as long as a split keeps two groups
-    or more (a block of one group has no next group to load while it
-    computes).  Otherwise the prefill kernel, one block per 64 x 64 output
-    tile; it raises if its tiles do not fit in a block's shared memory."""
+    two waves of blocks on the ``SMS`` SMs, and beyond that up to
+    ``DECODE_WAVES`` waves as long as a split keeps two groups or more (a
+    block of one group has no next group to load while it computes).
+    Otherwise the prefill kernel, one block per 64 x 64 output tile; it
+    raises if its tiles do not fit in a block's shared memory."""
     G = K // n
     if M <= DECODE_MAX_M and n in DECODE_GROUPS:
         bm = 4 if M <= 4 else 8 if M <= 8 else 16
         smem = 4 * _DEC_STAGES * (n * (_DEC_BN + 4) + bm * n)
         tiles = -(-N // _DEC_BN)
-        two = -(-2 * sms // max(tiles, 1))
-        aim = -(-(waves or DECODE_WAVES) * sms // max(tiles, 1))
+        two = -(-2 * SMS // max(tiles, 1))
+        aim = -(-DECODE_WAVES * SMS // max(tiles, 1))
         splits = max(1, min(G, max(two, min(aim, G // 2))))
         return AbfpPlan("decode", bm, tiles, splits, smem)
     smem = 4 * (64 * n + 64 * n + 256)
@@ -314,21 +313,32 @@ def split_bounds(G: int, splits: int) -> list[tuple[int, int]]:
     return [(s * G // splits, (s + 1) * G // splits) for s in range(splits)]
 
 
-def split_partials(plan: AbfpPlan, M: int, N: int, device
+# Zeroed int32 tickets, one per column tile, and the split partials' f32
+# scratch, each cached per (device, stream): calls on one stream run in
+# order, so one buffer serves them all.  The last block of a tile to
+# finish resets its ticket, so the tickets are zero again at the end of
+# every launch.  A plan splits K only when it has fewer than
+# ``DECODE_WAVES * SMS`` tiles.
+_TICKETS: dict[tuple[int | None, int], torch.Tensor] = {}
+_PARTIALS: dict[tuple[int | None, int], torch.Tensor] = {}
+
+
+def split_partials(plan: AbfpPlan, M: int, N: int, device, stream: int = 0
                    ) -> torch.Tensor | None:
-    """The (S, M, N) f32 scratch of the decode kernel's split partials, or
-    None where it writes y directly (one split, or the prefill regime)."""
+    """The flat f32 scratch, of at least S M N floats, in which the decode
+    kernel writes its (S, M, N) split partials; None where it writes y
+    directly (one split, or the prefill regime).  Cached per (device,
+    stream) and grown as needed."""
     if plan.regime != "decode" or plan.splits == 1:
         return None
-    return torch.empty((plan.splits, M, N), dtype=torch.float32,
-                       device=device)
-
-
-# Zeroed int32 tickets, one per column tile, per (device, stream): the
-# last block of a tile to finish resets its ticket, so the buffer is zero
-# again at the end of every launch.  A plan splits K only when it has
-# fewer than ``DECODE_WAVES * SMS`` tiles.
-_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+    device = torch.device(device)
+    key = (device.index, stream)
+    size = plan.splits * M * N
+    buf = _PARTIALS.get(key)
+    if buf is None or buf.numel() < size:
+        buf = _PARTIALS[key] = torch.empty(size, dtype=torch.float32,
+                                           device=device)
+    return buf
 
 
 def _tickets(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
@@ -356,12 +366,12 @@ def abfp_matmul(x: torch.Tensor, w: torch.Tensor, fmt_x: Format,
     if y.numel() == 0:
         return y
     xq = torch.empty_like(x)
-    partial = split_partials(plan, M, N, x.device)
     decode = plan.regime == "decode"
     vec = N % 4 == 0 and w.data_ptr() % 16 == 0  # 16-byte weight copies
     fn = _bind_fp(build.load("quant_matmul"))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        partial = split_partials(plan, M, N, x.device, stream)
         tickets = (None if partial is None
                    else _tickets(x.device, stream, plan.tiles))
         err = fn(x.data_ptr(), w.data_ptr(), xq.data_ptr(),

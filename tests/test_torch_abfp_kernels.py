@@ -255,8 +255,8 @@ def test_decode_plan_splits_whole_groups_and_fills_the_card(K, N, M, n):
 
 
 def test_decode_plan_at_the_main_path_shapes():
-    """The grids of a decode tick at M = 4, n = 64: eight waves of blocks
-    by default, two when asked."""
+    """The grids of a decode tick at M = 4, n = 64: up to eight waves of
+    blocks, at least two groups a split beyond two waves."""
     grid = {(K, N): (p.tiles, p.splits) for K, N in DECODE_SHAPES[:5]
             for p in [t_mm.plan_abfp_matmul(4, N, K, 64)]}
     assert t_mm.DECODE_WAVES == 8
@@ -265,10 +265,6 @@ def test_decode_plan_at_the_main_path_shapes():
     assert grid[(18944, 3584)] == (56, 19)    # wo: 15-16 groups a split
     assert grid[(3584, 18944)] == (296, 4)    # wi,wg
     assert grid[(3584, 152064)] == (2376, 1)  # lm_head needs no split
-    two = {(K, N): t_mm.plan_abfp_matmul(4, N, K, 64, waves=2).splits
-           for K, N in DECODE_SHAPES[:5]}
-    assert two == {(3584, 512): 33, (3584, 3584): 5, (18944, 3584): 5,
-                   (3584, 18944): 1, (3584, 152064): 1}
     # the shared memory the wrapper reckons is the ring's: 4 stages of an
     # (n, 64 + 4) w tile and a (BM, n) x tile
     p = t_mm.plan_abfp_matmul(4, 512, 3584, 64)
@@ -303,15 +299,30 @@ def test_plan_falls_back_to_the_prefill_kernel_or_raises():
                                      (20, 3584, 512, 64)])
 def test_split_scratch_has_the_planned_size(M, K, N, n):
     plan = t_mm.plan_abfp_matmul(M, N, K, n)
-    part = t_mm.split_partials(plan, M, N, "cpu")
+    stream = M * K * N  # a stream of this case's own: a fresh buffer
+    part = t_mm.split_partials(plan, M, N, "cpu", stream)
     if plan.regime == "prefill" or plan.splits == 1:
         assert part is None
     else:
-        assert part.shape == (plan.splits, M, N)
+        assert part.shape == (plan.splits * M * N,)
         assert part.dtype == torch.float32
-        assert part.numel() * 4 == plan.splits * M * N * 4
         # one ticket per column tile, from a buffer of that many
         assert plan.tiles <= t_mm.DECODE_WAVES * t_mm.SMS
+
+
+def test_split_scratch_is_kept_per_stream_and_grown():
+    """Calls on one stream share one partials buffer, grown to the largest
+    plan seen; another stream gets its own."""
+    small = t_mm.plan_abfp_matmul(4, 512, 3584, 64)      # 33 splits
+    large = t_mm.plan_abfp_matmul(16, 3584, 18944, 64)   # 19 splits
+    stream = 0x5eed
+    a = t_mm.split_partials(small, 4, 512, "cpu", stream)
+    assert t_mm.split_partials(small, 4, 512, "cpu", stream) is a
+    b = t_mm.split_partials(large, 16, 3584, "cpu", stream)
+    assert b.numel() == large.splits * 16 * 3584 > a.numel()
+    assert t_mm.split_partials(small, 4, 512, "cpu", stream) is b
+    other = t_mm.split_partials(small, 4, 512, "cpu", stream + 1)
+    assert other is not b and other.numel() == small.splits * 4 * 512
 
 
 def _split_k_emulation(x, w, fx, fw, n, plan):
