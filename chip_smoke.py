@@ -16,8 +16,9 @@ Phases (each fatal on failure):
   kernels   kernel vs plain version, then timed (CUDA events, L2 flushed
             between launches, median) beside the plain version, the card's
             bound for the same work and, where one PyTorch call computes
-            the same function, that call; for abfp_matmul also the kernel
-            each M launches (profiler) and the summed forward pass
+            the same function, that call; for the two dense matmuls also
+            the kernels each M launches (profiler) and the summed forward
+            pass
   serve     paged, full width, full depth: 6 greedy requests; launch counts
             per step asserted (197 quant_matmul + 28 flash_attention_quant)
   fixed     fixed-slot, full width, full depth, dense f32 weights: the same
@@ -325,10 +326,9 @@ def check_dense_matmul(torch, timer, gen, *, kind, M, K, N, n=64, label,
     ok = bool(torch.isfinite(got).all().item()) and err <= tol
     row = {"shape": label, "M": M, "K": K, "N": N, "n": n, "fx": fx,
            "fw": fw, "max_abs_err": err, "tol": tol, "ok": ok}
-    if kind == "fp":
-        plan = qm.plan_abfp_matmul(M, N, K, n)
-        row.update(regime=plan.regime, splits=plan.splits,
-                   blocks=plan.tiles * plan.splits)
+    plan = qm.plan_abfp_matmul(M, N, K, n, int8=(kind == "int8"))
+    row.update(regime=plan.regime, splits=plan.splits,
+               blocks=plan.tiles * plan.splits)
     if timed:
         row.update(bound_fields(nbytes(x, w, got), 2.0 * M * N * K,
                                 PEAK_F32_FLOPS if kind == "fp"
@@ -427,6 +427,39 @@ def fp_decode_checks(torch, timer, gen) -> list:
     return rows
 
 
+def int8_decode_checks(torch, timer, gen) -> list:
+    """``abfp_matmul_int8``'s decode kernel (M <= 16) beyond the main-path
+    rows: timed at M = 16; held against the plain version at every M where
+    its row block changes and at M = 17 (the three-launch path); with
+    groups of 32; with int8 weights (w8a8_int8_native's formats) beside
+    int4; at ragged N; and bit for bit at K = n (one group) for M <= 16,
+    which pins the kernel's exact int32 group sums.  Returns the timed
+    rows."""
+    rows = [check_dense_matmul(torch, timer, gen, kind="int8", M=16, K=K,
+                               N=N, label=f"{name} M=16 K={K} N={N}")
+            for name, K, N in DENSE_SHAPES]
+    for M in (1, 2, 3, 5, 8, 16, 17):
+        check_dense_matmul(torch, timer, gen, kind="int8", M=M, K=3584,
+                           N=3584, label=f"q,o M={M}", timed=False)
+    for name, K, N in DENSE_SHAPES[:2] + (("wo", 18944, 3584),):
+        check_dense_matmul(torch, timer, gen, kind="int8", M=4, K=K, N=N,
+                           n=32, label=f"{name} M=4 n=32", timed=False)
+        check_dense_matmul(torch, timer, gen, kind="int8", M=4, K=K, N=N,
+                           fw="int8", timed=False,
+                           label=f"{name} M=4 int8 x int8 w")
+    for M, K, N in ((13, 640, 77), (3, 96, 130)):
+        check_dense_matmul(torch, timer, gen, kind="int8", M=M, K=K, N=N,
+                           n=32, label=f"ragged M={M} K={K} N={N} n=32",
+                           timed=False)
+    for M, N, n, fw in ((1, 64, 64, "int4"), (16, 130, 64, "int4"),
+                        (5, 77, 32, "int4"), (16, 503, 64, "int8"),
+                        (8, 130, 32, "int8")):
+        check_dense_matmul(torch, timer, gen, kind="int8", M=M, K=n, N=N,
+                           n=n, fw=fw, exact=True, timed=False,
+                           label=f"one group M={M} K={n} N={N} {fw} w")
+    return rows
+
+
 def forward_pass_ms(rows, at: str) -> dict:
     """One decode forward pass of qwen2-7b from the timed rows at ``at``
     (e.g. "M=4"): 28 x (2 q,o + 2 k,v + 2 wi,wg + wo) + lm_head."""
@@ -443,40 +476,59 @@ def forward_pass_ms(rows, at: str) -> dict:
     return out
 
 
-def check_regimes(torch, gen) -> None:
-    """Which kernel an ``abfp_matmul`` call launches, read from the
-    profiler: the x QDQ and the decode kernel up to 16 rows, the x QDQ and
-    the prefill kernel from 17 rows; two launches a call either way."""
+# kernels of one dense matmul call, by the name the profiler gives them
+REGIME_KERNELS = {
+    "fp": {"fp_decode_kernel": "decode", "fp_contract_kernel": "prefill",
+           "qdq_rows_kernel": "x_qdq"},
+    "int8": {"int8_decode_kernel": "decode", "quantize_cols_kernel": "w_codes",
+             "contract_kernel": "prefill", "quantize_rows_kernel": "x_codes"},
+}
+
+
+def check_regimes(torch, gen, kind: str) -> None:
+    """Which kernels one ``abfp_matmul`` (``kind`` 'fp') or
+    ``abfp_matmul_int8`` ('int8') call launches, read from the profiler.
+    fp: the x QDQ and the decode kernel up to 16 rows, the x QDQ and the
+    prefill kernel from 17 rows.  int8: x's codes and the decode kernel up
+    to 16 rows (no w code scratch), x's codes, w's codes and the
+    contraction from 17 rows.  The run fails on any other set."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.formats import INT4, INT8
-    from repro_torch.kernels.quant_matmul import abfp_matmul
+    from repro_torch.kernels import quant_matmul as qm
 
+    fn = qm.abfp_matmul if kind == "fp" else qm.abfp_matmul_int8
+    names_of = REGIME_KERNELS[kind]
     w = torch.randn((3584, 512), generator=gen, device="cuda")
     seen = {}
     for M in (1, 4, 16, 17, 64):
         x = torch.randn((M, 3584), generator=gen, device="cuda")
-        abfp_matmul(x, w, INT8, INT4)  # warm: tickets, library
+        fn(x, w, INT8, INT4)  # warm: tickets, library
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            abfp_matmul(x, w, INT8, INT4)
+            fn(x, w, INT8, INT4)
             torch.cuda.synchronize()
         names = {}
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and (
-                    "fp_" in e.key or "qdq_rows" in e.key):
-                kind = ("decode" if "fp_decode_kernel" in e.key else
-                        "prefill" if "fp_contract_kernel" in e.key else
-                        "x_qdq")
-                names[kind] = names.get(kind, 0) + e.count
+            if e.device_type != DeviceType.CUDA:
+                continue
+            hit = [v for k, v in names_of.items() if k in e.key]
+            key = hit[0] if hit else e.key[:60]
+            names[key] = names.get(key, 0) + e.count
         seen[M] = names
-        want = {"x_qdq": 1, "decode" if M <= 16 else "prefill": 1}
+        if kind == "fp":
+            want = {"x_qdq": 1, "decode" if M <= 16 else "prefill": 1}
+        elif M <= 16:
+            want = {"x_codes": 1, "decode": 1}
+        else:
+            want = {"x_codes": 1, "w_codes": 1, "prefill": 1}
         if names != want:
-            raise SystemExit(f"abfp_matmul at M={M} launched {names}, "
+            raise SystemExit(f"{fn.__name__} at M={M} launched {names}, "
                              f"expected {want}")
-    log("  abfp_matmul regimes (kernel launches a call): " + json.dumps(seen))
+    log(f"  {fn.__name__} regimes (kernel launches a call): "
+        + json.dumps(seen))
 
 
 def phase_dense_kernels(torch, timer, gen) -> dict:
@@ -519,12 +571,13 @@ def phase_dense_kernels(torch, timer, gen) -> dict:
                                                    and K == 64))
         torch.cuda.empty_cache()
     dense["fp"] += fp_decode_checks(torch, timer, gen)
-    for kind, rows in dense.items():
-        log(f"  {kind} forward pass at M=4: " + json.dumps(
-            forward_pass_ms(rows, "M=4")))
-    log("  fp forward pass at M=16: " + json.dumps(
-        forward_pass_ms(dense["fp"], "M=16")))
-    check_regimes(torch, gen)
+    dense["int8"] += int8_decode_checks(torch, timer, gen)
+    for at in ("M=4", "M=16", "M=192"):
+        for kind, rows in dense.items():
+            log(f"  {kind} forward pass at {at}: " + json.dumps(
+                forward_pass_ms(rows, at)))
+    for kind in dense:
+        check_regimes(torch, gen, kind)
 
     flash = []
     for S in (64, 128, 192):  # the prefill buckets: S = T, q_offset 0

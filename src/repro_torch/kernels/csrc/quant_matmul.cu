@@ -308,43 +308,137 @@ extern "C" int repro_quant_matmul(const void* x, const void* wc,
 // split order.  Either way the f32 rounding error of K = 18944 terms stays
 // near that of a pairwise sum.
 //
-// abfp_matmul_int8.  x codes and scales per (row, group) (stage 1,
-// quantize_rows_kernel) and w codes and scales per (group, column)
-// (quantize_cols_kernel, written transposed as (N, K) so a column's codes
-// are contiguous) go to scratch once; stage 2 is contract_kernel above on
-// int8 codes: exact int32 group sums by __dp4a, rescaled by sx * sw in
-// f32 and summed over groups.
+// abfp_matmul_int8.  Stage 1, quantize_rows_kernel, writes x's int8 codes
+// and scales per (row, group) to scratch (M K bytes: negligible).  Stage 2
+// depends on the regime (plan_abfp_matmul(..., int8=True) chooses it, on
+// the same grid as abfp_matmul's):
+//
+//   decode (M <= 16, n = 32 or 64, int8_decode_kernel).  Bound, like
+//   abfp_matmul's, by reading the f32 weight once (4 K N bytes).  No (N, K)
+//   code scratch: each block streams its (n, 64) f32 w tiles, its (BM, n)
+//   x codes and BM x scales through the same 4-stage cp.async ring, makes
+//   the weight's int codes on chip and contracts them with __dp4a in the
+//   same pass.  Four neighbouring lanes share a column, each holding a
+//   quarter of its group in registers: the column max is two shuffles, and
+//   a row's exact int32 group sum is whole after two rounds of shuffles
+//   that leave each row with one lane.  Split partials, tickets and the
+//   split-order sum are fp_decode_kernel's.  Two launches a call.
+//
+//   prefill (M > 16, or another n: quantize_cols_kernel, then
+//   contract_kernel<BM, CN, false> above).  quantize_cols_kernel writes w's
+//   codes transposed, (N, K), and scales (N, G) once: a block stages whole
+//   groups x 32 columns in shared memory and each warp writes a column's
+//   codes as contiguous runs of >= 128 bytes.  contract_kernel is bound by
+//   __dp4a issue at M in the hundreds.  Three launches a call.
+//
+// Summation order, both regimes: a (row, column, group) sum of code
+// products is an exact int32, rescaled as ((float)P * sx) * sw (never sx *
+// sw folded: the reference multiplies in that order).  decode: each row's
+// f32 sum adds its groups in order within a split, then the split partials
+// in split order; prefill: each lane adds its groups in order, then a
+// shuffle tree adds the lanes.
 // ===========================================================================
 namespace {
 
-// w (K, N) f32 -> codes wc (N, K) int8 and unit scales sw (N, G): one
-// thread per (group, column); neighbouring threads read neighbouring
-// columns, so the reads of a row of the group are coalesced.
+// w (K, N) f32 -> codes wc (N, K) int8 and unit scales sw (N, G), the
+// layout contract_kernel reads (a column's codes contiguous).  A block owns
+// kColTile columns and GB = rows / n whole groups, rows = max(128, n):
+//   1. it reads the (rows, 32) f32 tile row by row (a warp reads 128
+//      contiguous bytes, a thread keeps 16 loads in flight) into shared
+//      memory;
+//   2. one thread per (group, column) forms the group's scale;
+//   3. one thread per (4 rows, column) packs their codes into a word of a
+//      (32, rows / 4 + 1) code tile (the pad keeps the 32 columns of a
+//      warp's writes on 32 banks);
+//   4. a warp per column writes that column's rows codes, contiguous in wc,
+//      as whole words: runs of GB * n >= 128 bytes, whole 32-byte sectors
+//      (shorter only where K itself is shorter).
+// The codes and scales are those of one thread per (group, column) with
+// group_scale / int_code: the same bits at any tiling.
+constexpr int kColTile = 32;   // columns per block
+constexpr int kColRows = 128;  // tile rows when n <= 128
+constexpr int kLoads = 16;     // loads a thread keeps in flight
+
+__host__ __device__ constexpr int col_tile_rows(int n) {
+  return n > kColRows ? n : kColRows;
+}
+
+__host__ __device__ constexpr size_t col_tile_smem(int n) {
+  return sizeof(float) * ((size_t)col_tile_rows(n) * kColTile +
+                          (size_t)(col_tile_rows(n) / n) * kColTile +
+                          (size_t)kColTile * (col_tile_rows(n) / 4 + 1));
+}
+
 __global__ void __launch_bounds__(kThreads)
 quantize_cols_kernel(const float* __restrict__ w, int8_t* __restrict__ wc,
                      float* __restrict__ sw, int K, int N, int n, float qmax,
                      float qmin) {
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  extern __shared__ __align__(16) float tile[];  // [rows][kColTile]
+  const int rows = col_tile_rows(n);
+  const int GB = rows / n;
+  const int cw = rows / 4 + 1;  // words of a column's codes, padded
+  float* scale = tile + rows * kColTile;                   // [GB][kColTile]
+  uint32_t* codes = reinterpret_cast<uint32_t*>(scale + GB * kColTile);
   const int G = K / n;
-  if (idx >= (long long)G * N) return;
-  const int c = (int)(idx % N);
-  const int g = (int)(idx / N);
-  const float* src = w + (size_t)g * n * N + c;
-  float amax = 0.f;
-  for (int i = 0; i < n; ++i) amax = fmaxf(amax, fabsf(src[(size_t)i * N]));
-  const float s = repro::group_scale(amax, qmax);
+  const int g0 = blockIdx.y * GB;
+  const int ng = min(GB, G - g0);  // groups of this tile
+  const int nr = ng * n;           // rows of this tile
+  const int k0 = g0 * n;
+  const int col0 = blockIdx.x * kColTile;
+  const int tid = threadIdx.x;
+
+  // kLoads loads of a thread in flight together (a load followed by its
+  // store would wait out one memory latency per element)
+  const int col = col0 + (tid % kColTile);
+  for (int e0 = tid; e0 < nr * kColTile; e0 += kLoads * kThreads) {
+    float v[kLoads];
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = e0 + i * kThreads;
+      v[i] = e < nr * kColTile && col < N
+                 ? __ldg(w + (size_t)(k0 + e / kColTile) * N + col)
+                 : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i)
+      if (e0 + i * kThreads < nr * kColTile) tile[e0 + i * kThreads] = v[i];
+  }
+  __syncthreads();
+  for (int e = tid; e < ng * kColTile; e += kThreads) {
+    const int g = e / kColTile, c = e - g * kColTile;
+    const float* src = tile + g * n * kColTile + c;
+    float m4[4] = {0.f, 0.f, 0.f, 0.f};  // four independent chains
+    for (int i = 0; i < n; i += 4)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        m4[k] = fmaxf(m4[k], fabsf(src[(i + k) * kColTile]));
+    const float amax = fmaxf(fmaxf(m4[0], m4[1]), fmaxf(m4[2], m4[3]));
+    scale[e] = repro::group_scale(amax, qmax);
+  }
+  __syncthreads();
   const repro::QdqFormat f{1, qmax, qmin, 0, 0, 0};
-  uint32_t* dst = reinterpret_cast<uint32_t*>(wc + (size_t)c * K + g * n);
-  for (int i = 0; i < n; i += 4) {  // n % 16 == 0: whole 32-bit words
+  for (int e = tid; e < (nr / 4) * kColTile; e += kThreads) {
+    const int q = e / kColTile, c = e - q * kColTile;
+    const float s = scale[(4 * q / n) * kColTile + c];
     uint32_t word = 0u;
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
-      const int8_t q = (int8_t)repro::int_code(src[(size_t)(i + b) * N], s, f);
-      word |= (uint32_t)(uint8_t)q << (8 * b);
+      const int8_t code = (int8_t)repro::int_code(
+          tile[(4 * q + b) * kColTile + c], s, f);
+      word |= (uint32_t)(uint8_t)code << (8 * b);
     }
-    dst[i / 4] = word;
+    codes[c * cw + q] = word;
   }
-  sw[(size_t)c * G + g] = s;
+  __syncthreads();
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int c = warp; c < kColTile; c += kWarpsPerBlock) {
+    const int col = col0 + c;
+    if (col >= N) break;  // uniform per warp; columns ascend
+    uint32_t* dst = reinterpret_cast<uint32_t*>(wc + (size_t)col * K + k0);
+    for (int q = lane; q < nr / 4; q += 32) dst[q] = codes[c * cw + q];
+    if (lane < ng)
+      sw[(size_t)col * G + g0 + lane] = scale[lane * kColTile + c];
+  }
 }
 
 template <int BM, int BN, int TM, int TN>
@@ -479,22 +573,18 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
-// Start the copies of one group into ring stage ``st``: the (n, 64) w tile
-// at rows k0.. (row stride kDecStride) and the (BM, n) x tile.  Columns at
-// or past N and rows at or past M are zero-filled (source size 0).  VEC:
-// N % 4 == 0 and w 16-byte aligned, so a 16-byte chunk of a row is wholly
-// inside or outside the matrix.
-template <int BM, int R, bool VEC>
-__device__ __forceinline__ void load_decode_stage(
-    float* st, const float* __restrict__ xq, const float* __restrict__ w,
-    int M, int N, int K, int col0, int k0) {
-  constexpr int n = kRowLanes * R;
-  float* ws = st;
-  float* xs = st + n * kDecStride;
+// Start the copies of one group's (n, 64) w tile at rows k0.. into ``ws``
+// (row stride kDecStride), NT threads sharing them.  Columns at or past N
+// are zero-filled (source size 0).  VEC: N % 4 == 0 and w 16-byte aligned,
+// so a 16-byte chunk of a row is wholly inside or outside the matrix.
+template <int n, bool VEC, int NT>
+__device__ __forceinline__ void load_w_tile(float* ws,
+                                            const float* __restrict__ w,
+                                            int N, int col0, int k0) {
   const int tid = threadIdx.x;
   if constexpr (VEC) {
     constexpr int kChunks = kDecBN / 4;  // 16-byte chunks per tile row
-    for (int c = tid; c < n * kChunks; c += kThreads) {
+    for (int c = tid; c < n * kChunks; c += NT) {
       const int r = c / kChunks, q = c - r * kChunks;
       const int col = col0 + 4 * q;
       const bool live = col < N;
@@ -502,7 +592,7 @@ __device__ __forceinline__ void load_decode_stage(
                  live ? w + (size_t)(k0 + r) * N + col : w, live);
     }
   } else {
-    for (int e = tid; e < n * kDecBN; e += kThreads) {
+    for (int e = tid; e < n * kDecBN; e += NT) {
       const int r = e / kDecBN, c = e - r * kDecBN;
       const int col = col0 + c;
       const bool live = col < N;
@@ -510,13 +600,61 @@ __device__ __forceinline__ void load_decode_stage(
                 live ? w + (size_t)(k0 + r) * N + col : w, live);
     }
   }
+}
+
+// Start the copies of one group into ring stage ``st``: the w tile, then
+// the (BM, n) x tile; rows at or past M are zero-filled.
+template <int BM, int R, bool VEC>
+__device__ __forceinline__ void load_decode_stage(
+    float* st, const float* __restrict__ xq, const float* __restrict__ w,
+    int M, int N, int K, int col0, int k0) {
+  constexpr int n = kRowLanes * R;
+  load_w_tile<n, VEC, kThreads>(st, w, N, col0, k0);
+  float* xs = st + n * kDecStride;
   constexpr int chunks = n / 4;  // x rows 16-byte aligned: K % n == 0
-  for (int c = tid; c < BM * chunks; c += kThreads) {
+  for (int c = threadIdx.x; c < BM * chunks; c += kThreads) {
     const int m = c / chunks, q = c - m * chunks;
     const bool live = m < M;
     cp_async16(xs + m * n + 4 * q,
                live ? xq + (size_t)m * K + k0 + 4 * q : xq, live);
   }
+}
+
+// Split-K epilogue of the decode kernels, after every block has written
+// its (M, 64) partial to ``partial`` (S, M, N): the last block of column
+// tile blockIdx.x to arrive (an integer ticket) adds the S partials in
+// split order into y and resets the tile's ticket for the next launch.
+// No float atomics: the sum is the same bits on every run.
+template <int NT>
+__device__ __forceinline__ void sum_split_partials(
+    const float* __restrict__ partial, int* __restrict__ tickets,
+    float* __restrict__ y, int M, int N, int col0, int S) {
+  __shared__ int is_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(&tickets[blockIdx.x], 1) == S - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  constexpr int kBatch = 8;  // partials loaded together, added in order
+  for (int e = threadIdx.x; e < M * kDecBN; e += NT) {
+    const int m = e / kDecBN, col = col0 + (e - m * kDecBN);
+    if (col >= N) continue;
+    const float* src = partial + (size_t)m * N + col;
+    float s = 0.f;
+    for (int s0 = 0; s0 < S; s0 += kBatch) {
+      float p[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        p[b] = s0 + b < S ? __ldcg(src + (size_t)(s0 + b) * M * N) : 0.f;
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (s0 + b < S) s += p[b];
+    }
+    y[(size_t)m * N + col] = s;
+  }
+  if (threadIdx.x == 0) tickets[blockIdx.x] = 0;
 }
 
 // Block (tile, split): columns tile*64.. over groups [split*G/S,
@@ -539,7 +677,6 @@ fp_decode_kernel(const float* __restrict__ xq,  // (M, K) QDQ'd x
   constexpr int n = kRowLanes * R;
   constexpr int stage = n * kDecStride + BM * n;
   extern __shared__ __align__(16) float ring[];
-  __shared__ int is_last;
   repro::QdqFormat f = fw;
   f.is_int = INT;
   const int S = gridDim.y, split = blockIdx.y;
@@ -641,34 +778,7 @@ fp_decode_kernel(const float* __restrict__ xq,  // (M, K) QDQ'd x
     }
   }
   if (S == 1) return;  // uniform over the grid
-
-  // the last block of this column tile to finish adds the S partials in
-  // split order and resets the tile's ticket for the next launch
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    is_last = atomicAdd(&tickets[blockIdx.x], 1) == S - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  constexpr int kBatch = 8;  // partials loaded together, added in order
-  for (int e = threadIdx.x; e < M * kDecBN; e += kThreads) {
-    const int m = e / kDecBN, col = col0 + (e - m * kDecBN);
-    if (col >= N) continue;
-    const float* src = partial + (size_t)m * N + col;
-    float s = 0.f;
-    for (int s0 = 0; s0 < S; s0 += kBatch) {
-      float p[kBatch];
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b)
-        p[b] = s0 + b < S ? __ldcg(src + (size_t)(s0 + b) * M * N) : 0.f;
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b)
-        if (s0 + b < S) s += p[b];
-    }
-    y[(size_t)m * N + col] = s;
-  }
-  if (threadIdx.x == 0) tickets[blockIdx.x] = 0;
+  sum_split_partials<kThreads>(partial, tickets, y, M, N, col0, S);
 }
 
 template <int BM, int R, bool VEC, bool INT>
@@ -722,6 +832,226 @@ int launch_fp_decode_rows(const float* xq, const float* w, float* y,
                                                N, K, splits, vec, fw, stream);
 }
 
+// ------------------------------------------- abfp_matmul_int8, decode regime
+constexpr int kTPC = 4;  // threads sharing a column of the 64-column tile
+
+// Floats of one ring stage: the (n, 64) f32 w tile (rows padded to
+// kDecStride), the (BM, n) int8 x codes and the BM x scales of one group.
+template <int BM, int n>
+__host__ __device__ constexpr int int8_stage_floats() {
+  return n * kDecStride + BM * n / 4 + BM;
+}
+
+// Start the copies of group g into ring stage ``st``.  x code word q of a
+// row (its codes k0 + 4q .. k0 + 4q + 3) goes to word (q % 4) * n / 16 +
+// q / 4 of the row's slot, so the words a thread contracts (q = 4j + t)
+// are contiguous.  Rows at or past M are zero-filled: zero codes and a zero
+// scale, whose product adds exactly 0.
+template <int BM, int n, bool VEC>
+__device__ __forceinline__ void load_int8_stage(
+    float* st, const int8_t* __restrict__ xc, const float* __restrict__ sx,
+    const float* __restrict__ w, int M, int N, int K, int col0, int g) {
+  const int k0 = g * n;
+  load_w_tile<n, VEC, kThreads>(st, w, N, col0, k0);
+  constexpr int words = n / 4;
+  float* xs = st + n * kDecStride;
+  for (int e = threadIdx.x; e < BM * words; e += kThreads) {
+    const int m = e / words, q = e - m * words;
+    const bool live = m < M;
+    const int8_t* src = live ? xc + (size_t)m * K + k0 + 4 * q : xc;
+    cp_async4(xs + m * words + (q % kTPC) * (words / kTPC) + q / kTPC,
+              reinterpret_cast<const float*>(src), live);
+  }
+  if (threadIdx.x < BM) {
+    const int m = threadIdx.x;
+    const bool live = m < M;
+    cp_async4(xs + BM * words + m, live ? sx + (size_t)m * (K / n) + g : sx,
+              live);
+  }
+}
+
+// x code words [t * n/16, (t + 1) * n/16) of one row slot (16 or 8 bytes).
+template <int Q>
+__device__ __forceinline__ void load_x_words(const float* src, uint32_t* dst) {
+  if constexpr (Q == 4) {
+    const uint4 u = *reinterpret_cast<const uint4*>(src);
+    dst[0] = u.x; dst[1] = u.y; dst[2] = u.z; dst[3] = u.w;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    dst[0] = u.x; dst[1] = u.y;
+  }
+}
+
+// Block (tile, split) of abfp_matmul_int8 at decode: columns tile*64..
+// over groups [split*G/S, (split+1)*G/S), as fp_decode_kernel cuts them.
+// Thread: column c = 8 * warp + lane / 4 of the tile and the quarter t =
+// lane % 4 of each of its groups: quads q = 4j + t, rows 16j + 4t .. 16j +
+// 4t + 3 (j < n/16); the four threads of a column are neighbouring lanes.
+// A quad's rows are read in an order turned by 2 for t = 2, 3, so the 8
+// columns x 4 rows a warp reads at once fall on 32 distinct banks (rows 4
+// apart are 16 banks apart); the turn only moves a code's byte in its
+// word.  Per group a thread holds its n/4 weights in registers, takes
+// their max (two shuffles complete the column's), makes their int codes
+// (IEEE division, rintf, clip) and packs each quad into one __dp4a word;
+// x's codes of the same 4 k make the other word.  Its int32 sums over its
+// quarter of the group, one per row, are exact; two rounds of shuffles
+// hand each row's quarters to the thread that keeps the row (thread t
+// keeps rows 4i + t), so each group sum is whole before ((float)P * sx) *
+// sw is added to the row's f32 sum.
+template <int BM, int n, bool VEC>
+__global__ void __launch_bounds__(kThreads, 3)
+int8_decode_kernel(const int8_t* __restrict__ xc,  // (M, K) x codes
+                   const float* __restrict__ sx,   // (M, G) x scales
+                   const float* __restrict__ w,    // (K, N) raw weight
+                   float* __restrict__ y,          // (M, N)
+                   float* __restrict__ partial,    // (S, M, N) when S > 1
+                   int* __restrict__ tickets,      // one per tile, zero
+                   int M, int N, int K, float w_qmax, float w_qmin) {
+  constexpr int stage = int8_stage_floats<BM, n>();
+  constexpr int Q = n / 16;  // code words of a thread per group
+  static_assert(BM % kTPC == 0 && (Q == 2 || Q == 4), "row and word split");
+  extern __shared__ __align__(16) float ring[];
+  const repro::QdqFormat f{1, w_qmax, w_qmin, 0, 0, 0};
+  const int S = gridDim.y, split = blockIdx.y;
+  const int col0 = blockIdx.x * kDecBN;
+  const int G = K / n;
+  const int g_lo = (int)((long long)split * G / S);
+  const int T = (int)((long long)(split + 1) * G / S) - g_lo;
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int turn = (t >> 1) * 2;  // row order within a quad: b + turn
+  const int c = (threadIdx.x >> 5) * 8 + (lane >> 2);
+
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < T)
+      load_int8_stage<BM, n, VEC>(ring + s * stage, xc, sx, w, M, N, K, col0,
+                                  g_lo + s);
+    cp_async_commit();  // empty groups keep the count uniform
+  }
+
+  float acc[BM / 4];
+#pragma unroll
+  for (int i = 0; i < BM / 4; ++i) acc[i] = 0.f;
+
+  for (int gt = 0; gt < T; ++gt) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of group gt landed
+    __syncthreads();  // everyone's; and stage (gt - 1) % kStages is free
+    const int nt = gt + kStages - 1;
+    if (nt < T)
+      load_int8_stage<BM, n, VEC>(ring + (nt % kStages) * stage, xc, sx, w, M,
+                                  N, K, col0, g_lo + nt);
+    cp_async_commit();
+
+    const float* st = ring + (gt % kStages) * stage;
+    const float* ws = st + 4 * t * kDecStride + c;
+    float v[Q][4];  // v[j][b]: row 16j + 4t + ((b + turn) & 3)
+    float amax = 0.f;
+#pragma unroll
+    for (int j = 0; j < Q; ++j)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        v[j][b] = ws[(16 * j + ((b + turn) & 3)) * kDecStride];
+        amax = fmaxf(amax, fabsf(v[j][b]));
+      }
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+    const float sw = repro::group_scale(amax, f.qmax);
+    uint32_t wq[Q];
+#pragma unroll
+    for (int j = 0; j < Q; ++j) {
+      uint32_t word = 0u;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int8_t q = (int8_t)repro::int_code(v[j][b], sw, f);
+        word |= (uint32_t)(uint8_t)q << (8 * ((b + turn) & 3));
+      }
+      wq[j] = word;
+    }
+
+    const float* xs = st + n * kDecStride;
+    const float* ss = xs + BM * n / 4;
+    int p[BM];
+#pragma unroll
+    for (int m = 0; m < BM; ++m) {
+      uint32_t xw[Q];
+      load_x_words<Q>(xs + m * (n / 4) + t * Q, xw);
+      int sum = 0;
+#pragma unroll
+      for (int j = 0; j < Q; ++j) sum = __dp4a((int)wq[j], (int)xw[j], sum);
+      p[m] = sum;
+    }
+    // thread t ends with the whole sums of rows 4i + t: first lanes t, t^1
+    // trade the rows of the other's parity, then lanes t, t^2 the rows of
+    // the other's pair (integer adds: exact in any order)
+    const int t0 = t & 1, t1 = t >> 1;
+    int p2[BM / 2];
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) {
+      const int mine = t0 ? p[2 * i + 1] : p[2 * i];
+      const int other = t0 ? p[2 * i] : p[2 * i + 1];
+      p2[i] = mine + __shfl_xor_sync(0xffffffffu, other, 1);
+    }
+#pragma unroll
+    for (int i = 0; i < BM / 4; ++i) {
+      const int mine = t1 ? p2[2 * i + 1] : p2[2 * i];
+      const int other = t1 ? p2[2 * i] : p2[2 * i + 1];
+      const int P = mine + __shfl_xor_sync(0xffffffffu, other, 2);
+      acc[i] += ((float)P * ss[4 * i + t]) * sw;
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dst = S == 1 ? y : partial + (size_t)split * M * N;
+  const int col = col0 + c;
+  if (col < N) {
+#pragma unroll
+    for (int i = 0; i < BM / 4; ++i) {
+      const int m = 4 * i + t;
+      if (m < M) dst[(size_t)m * N + col] = acc[i];
+    }
+  }
+  if (S == 1) return;  // uniform over the grid
+  sum_split_partials<kThreads>(partial, tickets, y, M, N, col0, S);
+}
+
+template <int BM, int n, bool VEC>
+int launch_int8_decode(const int8_t* xc, const float* sx, const float* w,
+                       float* y, float* partial, int* tickets, int M, int N,
+                       int K, int splits, float w_qmax, float w_qmin,
+                       cudaStream_t stream) {
+  const size_t smem = sizeof(float) * kStages * int8_stage_floats<BM, n>();
+  auto kern = int8_decode_kernel<BM, n, VEC>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((N + kDecBN - 1) / kDecBN, splits);
+  kern<<<grid, kThreads, smem, stream>>>(xc, sx, w, y, partial, tickets, M,
+                                         N, K, w_qmax, w_qmin);
+  return (int)cudaGetLastError();
+}
+
+template <int BM>
+int launch_int8_decode_rows(const int8_t* xc, const float* sx, const float* w,
+                            float* y, float* partial, int* tickets, int M,
+                            int N, int K, int n, int splits, bool vec,
+                            float w_qmax, float w_qmin, cudaStream_t stream) {
+  if (n == 32)
+    return vec ? launch_int8_decode<BM, 32, true>(xc, sx, w, y, partial,
+                                                  tickets, M, N, K, splits,
+                                                  w_qmax, w_qmin, stream)
+               : launch_int8_decode<BM, 32, false>(xc, sx, w, y, partial,
+                                                   tickets, M, N, K, splits,
+                                                   w_qmax, w_qmin, stream);
+  return vec ? launch_int8_decode<BM, 64, true>(xc, sx, w, y, partial,
+                                                tickets, M, N, K, splits,
+                                                w_qmax, w_qmin, stream)
+             : launch_int8_decode<BM, 64, false>(xc, sx, w, y, partial,
+                                                 tickets, M, N, K, splits,
+                                                 w_qmax, w_qmin, stream);
+}
+
 }  // namespace
 
 // x: (M, K) f32, w: (K, N) f32, K a multiple of n; xq_scratch: M*K floats;
@@ -771,37 +1101,72 @@ extern "C" int repro_abfp_matmul(const void* x, const void* w,
 }
 
 // x: (M, K) f32, w: (K, N) f32, K a multiple of n (n / 16 a power of two
-// <= 32); scratch: xc M*K bytes, sx M*G floats, wc N*K bytes, sw N*G
-// floats; y: (M, N) f32.  Returns a CUDA error.
+// <= 32); scratch: xc M*K bytes, sx M*G floats; y: (M, N) f32.  splits = 0:
+// the prefill regime, with scratch wc N*K bytes and sw N*G floats.  splits
+// >= 1: the decode regime (M <= 16, n = 32 or 64; wc and sw unused) with
+// that many K splits; partial, tickets and vec as for repro_abfp_matmul.
+// Returns a CUDA error.
 extern "C" int repro_abfp_matmul_int8(const void* x, const void* w,
                                       void* xc_scratch, void* sx_scratch,
                                       void* wc_scratch, void* sw_scratch,
-                                      void* y, int M, int N, int K, int n,
-                                      float x_qmax, float x_qmin,
+                                      void* partial, void* tickets, void* y,
+                                      int M, int N, int K, int n, int splits,
+                                      int vec, float x_qmax, float x_qmin,
                                       float w_qmax, float w_qmin,
                                       void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (splits > 0 && (M > 16 || (n != 32 && n != 64) ||
+                     splits > K / n + (K == 0)))
+    return (int)cudaErrorInvalidValue;
   const long long n_groups = (long long)M * (K / n);
-  const int qblocks =
-      (int)((n_groups + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  quantize_rows_kernel<<<qblocks, kThreads, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<int8_t*>(xc_scratch),
-      static_cast<float*>(sx_scratch), n_groups, n, x_qmax, x_qmin);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long w_groups = (long long)(K / n) * N;
-  quantize_cols_kernel<<<(unsigned)((w_groups + kThreads - 1) / kThreads),
-                         kThreads, 0, stream>>>(
-      static_cast<const float*>(w), static_cast<int8_t*>(wc_scratch),
-      static_cast<float*>(sw_scratch), K, N, n, w_qmax, w_qmin);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
+  if (n_groups > 0) {
+    const int qblocks =
+        (int)((n_groups + kWarpsPerBlock - 1) / kWarpsPerBlock);
+    quantize_rows_kernel<<<qblocks, kThreads, 0, stream>>>(
+        static_cast<const float*>(x), static_cast<int8_t*>(xc_scratch),
+        static_cast<float*>(sx_scratch), n_groups, n, x_qmax, x_qmin);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const int8_t* xc = static_cast<const int8_t*>(xc_scratch);
   const float* sx = static_cast<const float*>(sx_scratch);
+  const float* wf = static_cast<const float*>(w);
+  float* out = static_cast<float*>(y);
+  if (splits > 0) {
+    float* part = static_cast<float*>(partial);
+    int* tick = static_cast<int*>(tickets);
+    if (M <= 4)
+      return launch_int8_decode_rows<4>(xc, sx, wf, out, part, tick, M, N, K,
+                                        n, splits, vec != 0, w_qmax, w_qmin,
+                                        stream);
+    if (M <= 8)
+      return launch_int8_decode_rows<8>(xc, sx, wf, out, part, tick, M, N, K,
+                                        n, splits, vec != 0, w_qmax, w_qmin,
+                                        stream);
+    return launch_int8_decode_rows<16>(xc, sx, wf, out, part, tick, M, N, K,
+                                       n, splits, vec != 0, w_qmax, w_qmin,
+                                       stream);
+  }
+
+  const int G = K / n;
+  if (G > 0) {
+    const size_t smem = col_tile_smem(n);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          quantize_cols_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const int GB = col_tile_rows(n) / n;
+    dim3 grid((N + kColTile - 1) / kColTile, (G + GB - 1) / GB);
+    quantize_cols_kernel<<<grid, kThreads, smem, stream>>>(
+        wf, static_cast<int8_t*>(wc_scratch), static_cast<float*>(sw_scratch),
+        K, N, n, w_qmax, w_qmin);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   const uint8_t* wc = static_cast<const uint8_t*>(wc_scratch);
   const float* sw = static_cast<const float*>(sw_scratch);
-  float* out = static_cast<float*>(y);
   if (M <= 4)
     launch_contract<4, 4>(xc, sx, wc, sw, out, M, N, K, n, false, stream);
   else if (M <= 8)

@@ -177,20 +177,29 @@ quant_matmul.launches = 0  # kernel launches made through this wrapper
 # ``(K, N)`` f32 QDQ'd per group of n along K (any int or minifloat format,
 # bf16 group scales) and an f32 contraction.  ``abfp_matmul_int8`` replaces
 # ``::abfp_matmul_int8`` (body ``_int8_kernel``): integer codes of both
-# operands, exact integer group sums, rescaled by ``sx * sw`` in f32 and
-# summed over groups.  The kernels (in ``csrc/quant_matmul.cu``) QDQ the
-# weight at every call, as the TPU kernels do.
+# operands, exact integer group sums, each rescaled as ``(P * sx) * sw`` in
+# f32 and summed over groups.  The kernels (in ``csrc/quant_matmul.cu``)
+# quantize the weight at every call, as the TPU kernels do.
 #
-# On an H100 ``abfp_matmul`` has two regimes, chosen by ``plan_abfp_matmul``.
-# Decode (M <= 16) is bound by reading the f32 weight once (4 K N bytes);
-# the on-chip QDQ and the M FMAs per weight element fit under that time if
-# they overlap the loads.  Its kernel splits K into whole groups across
-# blocks so that every shape puts about eight waves of blocks on the 132
-# SMs (k,v at N = 512 has only 8 column tiles), streams the weight through
-# a 4-stage ring of asynchronous copies, QDQs each column group within one
-# half-warp (shuffles, no barrier), and sums the split partials in a fixed
-# order in the last block of each column tile.  Prefill (M > 16) is bound
-# by the f32 multiply-adds and keeps the 64 x 64 tiled contraction.
+# Both have two regimes on an H100, chosen by ``plan_abfp_matmul``.  Decode
+# (M <= 16, n = 32 or 64) is bound by reading the f32 weight once (4 K N
+# bytes); the on-chip quantization and the M products per weight element
+# fit under that time if they overlap the loads.  Its kernels split K into
+# whole groups across blocks so that every shape puts about eight waves of
+# blocks on the 132 SMs (k,v at N = 512 has only 8 column tiles), stream
+# the weight through a 4-stage ring of asynchronous copies, and sum the
+# split partials in a fixed order in the last block of each column tile.
+# ``abfp_matmul``'s QDQs each column group within one half-warp (shuffles,
+# no barrier).  ``abfp_matmul_int8``'s makes the weight's int codes in the
+# same pass, four lanes a column, and contracts them with x's codes by
+# ``__dp4a``: each row's group sum is a whole int32 after two shuffle
+# rounds, then rescaled; groups are added in order within a split, splits
+# in split order.  No (N, K) code scratch: a call is two launches (x codes,
+# decode kernel).  Prefill (M > 16) is bound by the multiply-adds:
+# ``abfp_matmul`` keeps the 64 x 64 tiled f32 contraction;
+# ``abfp_matmul_int8`` writes w's codes once, transposed and coalesced
+# (whole 128-byte runs of a column), then contracts them by ``__dp4a``
+# (three launches).
 
 
 def _check_dense(x, w, n: int):
@@ -256,7 +265,7 @@ def _bind_int8(lib: ctypes.CDLL):
     fn = lib.repro_abfp_matmul_int8
     if not fn.argtypes:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 7 + [i] * 4 + [f] * 4 + [p]
+        fn.argtypes = [p] * 9 + [i] * 6 + [f] * 4 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -274,32 +283,43 @@ DECODE_WAVES = 8
 
 
 class AbfpPlan(NamedTuple):
-    """How ``abfp_matmul`` launches for one shape (``plan_abfp_matmul``)."""
-    regime: str      # "decode" (fp_decode_kernel) or "prefill"
+    """How ``abfp_matmul`` or ``abfp_matmul_int8`` launches for one shape
+    (``plan_abfp_matmul``)."""
+    regime: str      # "decode" (fp_ / int8_decode_kernel) or "prefill"
     block_rows: int  # rows of x a block holds (the kernel's BM)
     tiles: int       # blocks along the output (column tiles x row blocks)
     splits: int      # K splits of whole groups (decode; 1 for prefill)
-    smem_bytes: int  # dynamic shared memory of one block
+    smem_bytes: int  # dynamic shared memory of one contraction block
 
 
-def plan_abfp_matmul(M: int, N: int, K: int, n: int) -> AbfpPlan:
-    """The regime and grid of ``abfp_matmul`` at (M, K) x (K, N), groups of
-    n along K.  Decode (M <= 16, n = 32 or 64): 64-column tiles times K
-    splits of whole groups, at most one split per group: enough splits for
-    two waves of blocks on the ``SMS`` SMs, and beyond that up to
+def plan_abfp_matmul(M: int, N: int, K: int, n: int,
+                     int8: bool = False) -> AbfpPlan:
+    """The regime and grid of ``abfp_matmul`` (``int8``: of
+    ``abfp_matmul_int8``) at (M, K) x (K, N), groups of n along K.  Decode
+    (M <= 16, n = 32 or 64), the same grid for both: 64-column tiles times
+    K splits of whole groups, at most one split per group: enough splits
+    for two waves of blocks on the ``SMS`` SMs, and beyond that up to
     ``DECODE_WAVES`` waves as long as a split keeps two groups or more (a
-    block of one group has no next group to load while it computes).
-    Otherwise the prefill kernel, one block per 64 x 64 output tile; it
-    raises if its tiles do not fit in a block's shared memory."""
+    block of one group has no next group to load while it computes).  Its
+    ring stage holds an (n, 64 + 4) f32 w tile and the x tile: (BM, n) f32
+    values, or for int8 (BM, n) codes and BM scales.  Otherwise the
+    prefill kernels: ``abfp_matmul``'s, one block per 64 x 64 output tile
+    (it raises if its tiles do not fit in a block's shared memory);
+    ``abfp_matmul_int8``'s contract_kernel, 8 warps of CN columns x BM rows
+    a block, no shared memory."""
     G = K // n
+    bm = 4 if M <= 4 else 8 if M <= 8 else 16
     if M <= DECODE_MAX_M and n in DECODE_GROUPS:
-        bm = 4 if M <= 4 else 8 if M <= 8 else 16
-        smem = 4 * _DEC_STAGES * (n * (_DEC_BN + 4) + bm * n)
+        x_tile = bm * n + 4 * bm if int8 else 4 * bm * n
+        smem = _DEC_STAGES * (4 * n * (_DEC_BN + 4) + x_tile)
         tiles = -(-N // _DEC_BN)
         two = -(-2 * SMS // max(tiles, 1))
         aim = -(-DECODE_WAVES * SMS // max(tiles, 1))
         splits = max(1, min(G, max(two, min(aim, G // 2))))
         return AbfpPlan("decode", bm, tiles, splits, smem)
+    if int8:
+        cn = 4 if M <= 4 else 2
+        return AbfpPlan("prefill", bm, -(-N // (8 * cn)) * -(-M // bm), 1, 0)
     smem = 4 * (64 * n + 64 * n + 256)
     if smem > _SMEM_MAX:
         raise ValueError(f"abfp_matmul kernel: group length n={n} needs "
@@ -409,21 +429,33 @@ def abfp_matmul_int8(x: torch.Tensor, w: torch.Tensor, fmt_x: IntFormat,
         raise ValueError(
             "abfp_matmul_int8 kernel needs a group length that is 16 times "
             f"a power of two <= 32; got n={n}")
+    plan = plan_abfp_matmul(M, N, K, n, int8=True)
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
     G = K // n
     dev = x.device
+    decode = plan.regime == "decode"
     xc = torch.empty((M, K), dtype=torch.int8, device=dev)
     sx = torch.empty((M, G), dtype=torch.float32, device=dev)
-    wc = torch.empty((N, K), dtype=torch.int8, device=dev)
-    sw = torch.empty((N, G), dtype=torch.float32, device=dev)
+    # the prefill kernels' (N, K) codes and (N, G) scales of w
+    wc = None if decode else torch.empty((N, K), dtype=torch.int8, device=dev)
+    sw = None if decode else torch.empty((N, G), dtype=torch.float32,
+                                         device=dev)
+    vec = N % 4 == 0 and w.data_ptr() % 16 == 0  # 16-byte weight copies
     fn = _bind_int8(build.load("quant_matmul"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        partial = split_partials(plan, M, N, dev, stream)
+        tickets = (None if partial is None
+                   else _tickets(dev, stream, plan.tiles))
         err = fn(x.data_ptr(), w.data_ptr(), xc.data_ptr(), sx.data_ptr(),
-                 wc.data_ptr(), sw.data_ptr(), y.data_ptr(), M, N, K, n,
-                 float(fmt_x.qmax_pos), float(fmt_x.qmin),
+                 None if wc is None else wc.data_ptr(),
+                 None if sw is None else sw.data_ptr(),
+                 None if partial is None else partial.data_ptr(),
+                 None if tickets is None else tickets.data_ptr(),
+                 y.data_ptr(), M, N, K, n, plan.splits if decode else 0,
+                 int(vec), float(fmt_x.qmax_pos), float(fmt_x.qmin),
                  float(fmt_w.qmax_pos), float(fmt_w.qmin), stream)
     abfp_matmul_int8.launches += 1
     if err != 0:
