@@ -16,16 +16,18 @@ Phases (each fatal on failure):
   kernels   kernel vs plain version, then timed (CUDA events, L2 flushed
             between launches, median) beside the plain version, the card's
             bound for the same work and, where one PyTorch call computes
-            the same function, that call; for the two dense matmuls also
-            the kernels each M launches (profiler) and the summed forward
-            pass
+            the same function, that call; for the three matmuls also the
+            kernels each M launches (profiler) and the summed forward
+            passes; the int8 tensor-core contraction (above 16 rows) at
+            ragged shapes and group lengths, bit-exact at K = n
   serve     paged, full width, full depth: 6 greedy requests; launch counts
-            per step asserted (197 quant_matmul + 28 flash_attention_quant)
+            per step asserted (197 quant_matmul + 28 flash_attention_quant);
+            profiles of decode steps and of prefill steps (M = 256)
   fixed     fixed-slot, full width, full depth, dense f32 weights: the same
             6 requests under P-int8 (abfp_matmul_int8 + flash_attention)
             and P-fp (abfp_matmul + flash_attention); 197 matmul launches
             per forward pass and 28 flash_attention launches per prefill
-            asserted
+            asserted; profiles of decode ticks and of one 192-row prefill
   reduced   reduced width: the kernel path on the card must emit the tokens
             of the plain path on the CPU (the path the CPU tests hold
             token-identical to the JAX reference), paged and fixed-slot
@@ -144,13 +146,12 @@ def bound_fields(moved_bytes: float, ops: float, peak_ops: float) -> dict:
 
 
 def check_quant_matmul(torch, timer, gen, *, M, K, N, packed, label,
-                       timed=True) -> dict:
+                       n=64, timed=True, exact=False) -> dict:
     from repro_torch.core.formats import INT8
     from repro_torch.core.quantize import pack_int4_codes
     from repro_torch.kernels.quant_matmul import (quant_matmul,
                                                   quant_matmul_plain)
 
-    n = 64
     G = K // n
     x = torch.randn((M, K), generator=gen, device="cuda")
     # a few outlier channels, as activations have
@@ -169,9 +170,11 @@ def check_quant_matmul(torch, timer, gen, *, M, K, N, packed, label,
     ref = want.abs().max().item()
     # Same codes, same integer group sums; only the f32 sum over up to 296
     # groups runs in another order: 1e-5 of the largest output magnitude.
-    tol = 1e-5 * ref
+    # With K = n there is one group: (sum * sx) * sw on both sides, which
+    # must be bit-exact and pins the kernel's int32 group sums.
+    tol = 0.0 if exact else 1e-5 * ref
     ok = bool(torch.isfinite(got).all().item()) and err <= tol
-    row = {"shape": label, "M": M, "K": K, "N": N, "packed": packed,
+    row = {"shape": label, "M": M, "K": K, "N": N, "n": n, "packed": packed,
            "max_abs_err": err, "tol": tol, "ok": ok}
     if timed:
         row.update(bound_fields(nbytes(x, codes, scales, got),
@@ -476,39 +479,81 @@ def forward_pass_ms(rows, at: str) -> dict:
     return out
 
 
-# kernels of one dense matmul call, by the name the profiler gives them
+# kernels of one matmul call, by the name the profiler gives them (matched
+# as substrings: no name here is part of another kernel's name)
 REGIME_KERNELS = {
     "fp": {"fp_decode_kernel": "decode", "fp_contract_kernel": "prefill",
            "qdq_rows_kernel": "x_qdq"},
     "int8": {"int8_decode_kernel": "decode", "quantize_cols_kernel": "w_codes",
-             "contract_kernel": "prefill", "quantize_rows_kernel": "x_codes"},
+             "int8_mma_kernel": "mma", "quantize_rows_kernel": "x_codes"},
+    "quant": {"contract_kernel": "contract", "int8_mma_kernel": "mma",
+              "quantize_rows_kernel": "x_codes"},
 }
+
+# (M, n) of each call check_regimes profiles, per kind
+REGIME_CASES = {"fp": ((1, 64), (4, 64), (16, 64), (17, 64), (64, 64)),
+                "int8": ((1, 64), (4, 64), (16, 64), (17, 64), (64, 64),
+                         (4, 48)),
+                "quant": ((4, 64), (16, 64), (17, 64), (256, 64))}
+
+
+def regime_want(kind: str, M: int, n: int) -> dict:
+    """The kernels one call launches, by role.  fp: the x QDQ and the
+    decode kernel up to 16 rows, the x QDQ and the prefill kernel from 17
+    rows.  int8: x's codes and the decode kernel up to 16 rows for n = 32
+    or 64 (no w code scratch), otherwise x's codes, w's codes and the
+    tensor-core contraction.  quant (``quant_matmul``, packed int4): x's
+    codes and contract_kernel up to 16 rows, x's codes and the tensor-core
+    contraction from 17 rows."""
+    if kind == "fp":
+        return {"x_qdq": 1, "decode" if M <= 16 else "prefill": 1}
+    if kind == "int8":
+        if M <= 16 and n in (32, 64):
+            return {"x_codes": 1, "decode": 1}
+        return {"x_codes": 1, "w_codes": 1, "mma": 1}
+    return {"x_codes": 1, "contract" if M <= 16 else "mma": 1}
 
 
 def check_regimes(torch, gen, kind: str) -> None:
-    """Which kernels one ``abfp_matmul`` (``kind`` 'fp') or
-    ``abfp_matmul_int8`` ('int8') call launches, read from the profiler.
-    fp: the x QDQ and the decode kernel up to 16 rows, the x QDQ and the
-    prefill kernel from 17 rows.  int8: x's codes and the decode kernel up
-    to 16 rows (no w code scratch), x's codes, w's codes and the
-    contraction from 17 rows.  The run fails on any other set."""
+    """Which kernels one ``abfp_matmul`` (``kind`` 'fp'),
+    ``abfp_matmul_int8`` ('int8') or ``quant_matmul`` ('quant') call
+    launches at each case of ``REGIME_CASES``, read from the profiler; the
+    run fails on any other set than ``regime_want``'s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.formats import INT4, INT8
+    from repro_torch.core.quantize import pack_int4_codes
     from repro_torch.kernels import quant_matmul as qm
 
-    fn = qm.abfp_matmul if kind == "fp" else qm.abfp_matmul_int8
     names_of = REGIME_KERNELS[kind]
-    w = torch.randn((3584, 512), generator=gen, device="cuda")
+    N = 512
     seen = {}
-    for M in (1, 4, 16, 17, 64):
-        x = torch.randn((M, 3584), generator=gen, device="cuda")
-        fn(x, w, INT8, INT4)  # warm: tickets, library
+    for M, n in REGIME_CASES[kind]:
+        K = 3840 if n == 48 else 3584  # whole groups
+        x = torch.randn((M, K), generator=gen, device="cuda")
+        if kind == "quant":
+            codes = pack_int4_codes(torch.randint(
+                -8, 8, (N, K // n, n), generator=gen, device="cuda",
+                dtype=torch.int8))
+            scales = torch.rand((N, K // n), generator=gen, device="cuda")
+            name = qm.quant_matmul.__name__
+
+            def call():
+                return qm.quant_matmul(x, codes, scales, INT8, n=n,
+                                       packed=True)
+        else:
+            fn = qm.abfp_matmul if kind == "fp" else qm.abfp_matmul_int8
+            w = torch.randn((K, N), generator=gen, device="cuda")
+            name = fn.__name__
+
+            def call():
+                return fn(x, w, INT8, INT4, n=n)
+        call()  # warm: tickets, library
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            fn(x, w, INT8, INT4)
+            call()
             torch.cuda.synchronize()
         names = {}
         for e in prof.key_averages():
@@ -517,18 +562,65 @@ def check_regimes(torch, gen, kind: str) -> None:
             hit = [v for k, v in names_of.items() if k in e.key]
             key = hit[0] if hit else e.key[:60]
             names[key] = names.get(key, 0) + e.count
-        seen[M] = names
-        if kind == "fp":
-            want = {"x_qdq": 1, "decode" if M <= 16 else "prefill": 1}
-        elif M <= 16:
-            want = {"x_codes": 1, "decode": 1}
-        else:
-            want = {"x_codes": 1, "w_codes": 1, "prefill": 1}
+        seen[f"M={M} n={n}"] = names
+        want = regime_want(kind, M, n)
         if names != want:
-            raise SystemExit(f"{fn.__name__} at M={M} launched {names}, "
+            raise SystemExit(f"{name} at M={M}, n={n} launched {names}, "
                              f"expected {want}")
-    log(f"  {fn.__name__} regimes (kernel launches a call): "
-        + json.dumps(seen))
+    log(f"  {name} regimes (kernel launches a call): " + json.dumps(seen))
+
+
+def mma_checks(torch, timer, gen) -> None:
+    """``int8_mma_kernel`` (the contraction of ``quant_matmul`` above 16
+    rows and of ``abfp_matmul_int8``'s prefill regime) against the plain
+    versions, untimed: at M = 17, 33, 64, 128; at ragged N = 77 and 130;
+    with groups of 32, 48, 64 and 128 (and 96 for packed codes, which take
+    multiples of 32); at n = 48 below 16 rows and at 192; bit for bit at
+    K = n (one group) at M = 33 and 64."""
+    for packed in (True, False):
+        tag = "int4-packed" if packed else "int8"
+        for M in (17, 33, 64, 128):
+            check_quant_matmul(torch, timer, gen, M=M, K=3584, N=3584,
+                               packed=packed, timed=False,
+                               label=f"mma q,o M={M} {tag}")
+        for M, K, N, n in ((40, 640, 77, 32), (96, 768, 130, 128),
+                           (17, 384, 130, 64)):
+            check_quant_matmul(torch, timer, gen, M=M, K=K, N=N, n=n,
+                               packed=packed, timed=False,
+                               label=f"mma ragged M={M} K={K} N={N} n={n} "
+                                     f"{tag}")
+        for n in (32, 48, 64, 128) if not packed else (32, 64, 96, 128):
+            for M in (4, 192):
+                check_quant_matmul(torch, timer, gen, M=M, K=15 * n, N=512,
+                                   n=n, packed=packed, timed=False,
+                                   label=f"groups M={M} n={n} {tag}")
+        for M in (33, 64):
+            for n in (32, 64) if packed else (32, 48, 64):
+                check_quant_matmul(torch, timer, gen, M=M, K=n, N=130, n=n,
+                                   packed=packed, timed=False, exact=True,
+                                   label=f"mma one group M={M} n={n} {tag}")
+    for fw in ("int4", "int8"):
+        for M in (17, 33, 64, 128):
+            check_dense_matmul(torch, timer, gen, kind="int8", M=M, K=3584,
+                               N=512, fw=fw, timed=False,
+                               label=f"mma k,v M={M} {fw} w")
+        for M, K, N, n in ((40, 640, 77, 32), (96, 768, 130, 128),
+                           (17, 384, 130, 64)):
+            check_dense_matmul(torch, timer, gen, kind="int8", M=M, K=K, N=N,
+                               n=n, fw=fw, timed=False,
+                               label=f"mma ragged M={M} K={K} N={N} n={n} "
+                                     f"{fw} w")
+        for n in (32, 48, 64, 128):
+            for M in (4, 192):
+                check_dense_matmul(torch, timer, gen, kind="int8", M=M,
+                                   K=15 * n, N=512, n=n, fw=fw, timed=False,
+                                   label=f"groups M={M} n={n} {fw} w")
+        for M in (33, 64):
+            for n in (32, 48, 64):
+                check_dense_matmul(torch, timer, gen, kind="int8", M=M, K=n,
+                                   N=130, n=n, fw=fw, timed=False,
+                                   exact=True,
+                                   label=f"mma one group M={M} n={n} {fw} w")
 
 
 def phase_dense_kernels(torch, timer, gen) -> dict:
@@ -578,6 +670,8 @@ def phase_dense_kernels(torch, timer, gen) -> dict:
                 forward_pass_ms(rows, at)))
     for kind in dense:
         check_regimes(torch, gen, kind)
+    mma_checks(torch, timer, gen)
+    torch.cuda.empty_cache()
 
     flash = []
     for S in (64, 128, 192):  # the prefill buckets: S = T, q_offset 0
@@ -613,6 +707,10 @@ def phase_kernels(torch, seed: int) -> dict:
     mm.append(check_quant_matmul(
         torch, timer, gen, M=4, K=3584, N=152064, packed=True,
         label="lm_head M=4 K=3584 N=152064 int4-packed"))
+    for at in ("M=4", "M=256"):  # decode step; prefill chunk (no lm_head)
+        log(f"  quant_matmul forward pass at {at}: "
+            + json.dumps(forward_pass_ms(mm, at)))
+    check_regimes(torch, gen, "quant")
     # off the main path: plain int8 codes (8-bit rules), ragged M and N
     check_quant_matmul(torch, timer, gen, M=4, K=3584, N=512, packed=False,
                        label="int8 codes M=4 K=3584 N=512", timed=False)
@@ -825,7 +923,58 @@ def phase_serve(torch, seed: int) -> dict:
     log("  " + json.dumps(report))
     report["profile"] = profile_decode(
         torch, cfg, eng, seed, report["step_ms_median"]["decode"])
+    report["prefill_profile"] = profile_paged_prefill(torch, cfg, eng, seed)
     return report
+
+
+def long_requests(cfg, seed: int, n: int, length: int, uid0: int = 1000):
+    """``n`` requests of ``length`` random prompt tokens and 2 new tokens."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.RandomState(seed)
+    return [Request(uid=uid0 + i, max_new_tokens=2,
+                    prompt=rng.randint(0, cfg.vocab, size=length).astype(
+                        np.int32))
+            for i in range(n)]
+
+
+def profile_paged_prefill(torch, cfg, eng, seed: int) -> dict:
+    """Where a paged prefill step's time goes (after the counted run): four
+    prompts of 256 tokens fill every slot, so each step is one 64-token
+    chunk a slot (M = 256 rows in every matmul).  The first chunk is timed
+    without the profiler, the next two are profiled."""
+    for r in long_requests(cfg, seed + 2, eng.n_slots, 256):
+        eng.submit(r)
+    eng._admit()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._prefill_tick()  # ends in a host copy: synchronized
+    step_ms = (time.perf_counter() - t0) * 1e3
+    out = profile_steps(torch, eng._prefill_tick, 2, step_ms, "prefill")
+    eng.run_until_done(max_ticks=2000)
+    log("  prefill profile: " + json.dumps(out))
+    return out
+
+
+def profile_fixed_prefill(torch, cfg, eng, seed: int) -> dict:
+    """Where one fixed-slot prefill of 192 rows goes (after the counted
+    run): a 180-token prompt, padded to the 192 bucket, admitted once
+    without the profiler (its wall time) and once under it."""
+    def admit(uid0):
+        eng.submit(long_requests(cfg, seed + 2, 1, 180, uid0)[0])
+        torch.cuda.synchronize()
+        eng._admit()  # prefill, first token (a host copy), slot insert
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    admit(2000)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    out = profile_steps(torch, lambda: admit(2001), 1, step_ms, "prefill")
+    eng.run_until_done(max_ticks=2000)
+    log("  prefill profile: " + json.dumps(out))
+    return out
 
 
 def profile_decode(torch, cfg, eng, seed: int, step_ms: float) -> dict:
@@ -845,11 +994,13 @@ def profile_decode(torch, cfg, eng, seed: int, step_ms: float) -> dict:
     return out
 
 
-def profile_steps(torch, step, n_steps: int, step_ms: float) -> dict:
-    """``n_steps`` calls of ``step`` under ``torch.profiler``: operator
-    calls, device busy time and kernel launches per step, the device's idle
-    share against ``step_ms`` (a step's wall time measured WITHOUT the
-    profiler, whose own cost stretches the host side), top kernels."""
+def profile_steps(torch, step, n_steps: int, step_ms: float,
+                  kind: str = "decode") -> dict:
+    """``n_steps`` calls of ``step`` (a ``kind`` step) under
+    ``torch.profiler``: operator calls, device busy time and kernel
+    launches per step, the device's idle share against ``step_ms`` (a
+    step's wall time measured WITHOUT the profiler, whose own cost
+    stretches the host side), top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -866,11 +1017,11 @@ def profile_steps(torch, step, n_steps: int, step_ms: float) -> dict:
                   if e.device_type == DeviceType.CUDA
                   and e.self_device_time_total > 0), key=lambda d: -d[1])
     busy_ms = sum(d[1] for d in dev) / n_steps
-    out = {"decode_steps_profiled": n_steps,
+    out = {f"{kind}_steps_profiled": n_steps,
            "aten_ops_per_step": sum(
                e.count for e in events
                if e.key.startswith("aten::")) / n_steps,
-           "decode_step_ms_unprofiled": step_ms}
+           f"{kind}_step_ms_unprofiled": step_ms}
     if busy_ms <= 0:
         out["device_time"] = "not measured (the profiler saw no device time)"
     else:
@@ -1036,6 +1187,8 @@ def phase_fixed(torch, seed: int) -> dict:
         log("  " + json.dumps(report))
         report["profile"] = profile_decode(torch, cfg, eng, seed,
                                            report["decode_ms_median"])
+        report["prefill_profile"] = profile_fixed_prefill(torch, cfg, eng,
+                                                          seed)
         reports[kind] = report
         del eng, timed
         torch.cuda.empty_cache()

@@ -14,22 +14,32 @@
 //
 // What bounds it on this card: at decode (M = n_slots, a handful of rows)
 // the call is bound by reading the weight codes once from device memory;
-// at prefill (M in the hundreds) by integer multiply-accumulate.
+// at a prefill chunk (M = 256 rows) bytes and int8 tensor-core operations
+// take about the same time (wi,wg: 61 MB of x, codes, scales and y in
+// 0.018 ms at 3.35 TB/s; 2 M N K = 34.8 G operations in 0.018 ms at 1,979
+// TOP/s).
 //
 // Design.  The TPU kernel walks a sequential (M/bm, N/bn, K/bk) grid and
 // carries an accumulator across K steps; here nothing carries across
-// blocks, so each warp owns CN output columns for a tile of BM rows and
-// loops over all of K itself.
+// blocks, so a block loops over K itself.
 //   stage 1  quantize_rows: one warp per (row, group) writes the int8
 //            codes and the unit scale of x once, so the contraction never
 //            repeats the divide/round per output tile.
-//   stage 2  contract: per step a lane loads 16 bytes of each of its CN
-//            weight rows (coalesced, 512 bytes a warp, CN loads in flight),
-//            unpacks 4-bit codes in registers, multiplies with __dp4a
-//            against the x codes, reduces the int32 sums over the lanes of
-//            a group by shuffles, and folds sx * ws in f32.  Packed 4-bit
-//            codes are read as stored: the weight bytes cross the memory
-//            bus once and are never expanded in device memory.
+//   stage 2, M <= 16  contract_kernel: per step a lane loads 16 bytes of
+//            each of its CN weight rows (coalesced, 512 bytes a warp, CN
+//            loads in flight), unpacks 4-bit codes in registers, multiplies
+//            with __dp4a against the x codes, reduces the int32 sums over
+//            the lanes of a group by shuffles, and folds sx * ws in f32.
+//   stage 2, M > 16 (or a group length contract_kernel is not built for)
+//            int8_mma_kernel: the contraction on the int8 tensor cores
+//            (mma.sync m16n8k32), fed from shared memory by a 4-stage
+//            cp.async ring; it replaces the TPU kernels
+//            repro/kernels/quant_matmul.py:226 quant_matmul (body
+//            _stored_codes_kernel) and :171 abfp_matmul_int8 (body
+//            _int8_kernel) above 16 rows.  See its note below, with its
+//            summation order.
+// Packed 4-bit codes are read as stored by both: the weight bytes cross
+// the memory bus once and are never expanded in device memory.
 // Both stages are launched by one host entry on the caller's stream.
 //
 // The same file holds the two dense matmuls that QDQ both operands per
@@ -50,6 +60,33 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
+
+// 16- and 4-byte asynchronous copies global -> shared; a copy that is not
+// live zero-fills its destination (source size 0).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool live) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
 
 // ---------------------------------------------------------------- stage 1
 // int codes of x per (row, group): one warp per group.
@@ -215,31 +252,437 @@ void launch_contract(const int8_t* xc, const float* sx, const uint8_t* wc,
         <<<grid, kThreads, 0, stream>>>(xc, sx, wc, ws, y, M, N, K, n);
 }
 
+// ------------------------------------------------ stage 2, above 16 rows
+// int8_mma_kernel: the contraction on the int8 tensor cores (mma.sync).
+// A block owns a 64 x 128 output tile (eight warps, 2 x 4, of 32 x 32) and
+// one K split of whole groups; two blocks fit on an SM.  Per stage it
+// copies one chunk of a group (C codes: the whole group up to 128, else
+// the largest multiple of 16 (packed: 32) <= 128 dividing n) of x's
+// (64, C) codes, the weight's (128, C) codes or (128, C/2) packed bytes,
+// and the 64 + 128 scales of that group into a ring of kMmaStages
+// shared-memory stages by cp.async copies (16 bytes; 4 for a scale); rows
+// are an odd number of 16-byte units apart, so the 8 rows an ldmatrix (or
+// a quarter-warp's loads) touch fall on 8 distinct bank groups.  A
+// fragments come by ldmatrix.x4; int8 weight fragments by ldmatrix.x4 too;
+// packed weight fragments by two 16-bit loads a register, each expanded on
+// chip into four int8 in element order as 16 x the signed code (a nibble
+// moved to the top of its byte), so the group sum comes out 16 times the
+// true one and is shifted back exactly.  Each K step of 32 codes is one
+// m16n8k32 MMA per (16-row, 8-column) tile of the warp; a remainder of 16
+// codes (n = 48, 80, ...) one m16n8k16.  The int32 sums of a group
+// accumulate over its chunks (exact); after the group's last chunk each
+// is folded as acc += ((float)P * sx) * sw (in that order, as the
+// reference multiplies) and zeroed.
+// Summation order: each output adds its groups in order within a split;
+// the last block of a tile to finish (an integer ticket) adds the split
+// partials in split order.  Deterministic, no float atomics.
+// Grid (plan_int8_contract in kernels/quant_matmul.py, which the wrapper
+// passes in): K is split into whole groups until the tiles fill a wave of
+// 132 blocks (M = 256: q,o and wo 112 tiles x 2 splits, k,v 16 x 9, wi,wg
+// 592 x 1).  Splitting K rather than narrowing the column tile keeps each
+// x fragment feeding four weight tiles; it costs one pass over S x M x N
+// partial floats, in L2.  On an H100 a block's warps spend each chunk in
+// three phases of similar length, one after another: issuing the copies
+// (the warps stall while the load queue drains), the ldmatrix loads and
+// MMAs, and the fold.  Neither the mma.sync rate nor the fold rate alone
+// (tools/int8_mma_rate.py) nor the bytes set the time; the second block
+// on an SM overlaps its phases with the first's (PERF.md).
+constexpr int kMmaBM = 64;         // output rows per block
+constexpr int kMmaBN = 128;        // output columns per block
+constexpr int kMmaStages = 4;      // ring depth
+constexpr int kMmaChunkMax = 128;  // codes of a group per stage, at most
+
+// bytes of a shared-memory row that holds b bytes: an odd number of
+// 16-byte units
+__host__ __device__ constexpr int mma_row_bytes(int b) {
+  return (b / 16) % 2 ? b : b + 16;
+}
+
+__host__ __device__ inline int mma_chunk(int n, bool packed) {
+  if (n <= kMmaChunkMax) return n;
+  const int step = packed ? 32 : 16;
+  for (int c = kMmaChunkMax; c > step; c -= step)
+    if (n % c == 0) return c;
+  return step;
+}
+
+__host__ __device__ inline size_t mma_stage_bytes(int bm, int chunk,
+                                                  bool packed) {
+  return (size_t)bm * mma_row_bytes(chunk) +
+         (size_t)kMmaBN * mma_row_bytes(packed ? chunk / 2 : chunk) +
+         sizeof(float) * (size_t)(bm + kMmaBN);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a . b: one m16n8k32 / m16n8k16 int8 MMA, int32 sums
+__device__ __forceinline__ void mma_k32(int* d, const uint32_t* a,
+                                        const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_k16(int* d, const uint32_t* a,
+                                        uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// acc += ((float)P * sx) * sw for each output of a warp, P its exact group
+// sum (packed: p = 16 P, so P = p >> 4), and P zeroed for the next group.
+// sxv[2 i + h]: the scale of the warp's row 16 i + g + 8 h; swv[2 j + h]:
+// that of its column 8 j + 2 tig + h.
+template <bool PACKED, int MT, int NT>
+__device__ __forceinline__ void fold_group(float (&acc)[MT][NT][4],
+                                           int (&p)[MT][NT][4],
+                                           const float (&sxv)[2 * MT],
+                                           const float (&swv)[2 * NT]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float fp = (float)(PACKED ? p[i][j][e] >> 4 : p[i][j][e]);
+        acc[i][j][e] += (fp * sxv[2 * i + (e >> 1)]) * swv[2 * j + (e & 1)];
+        p[i][j][e] = 0;
+      }
+}
+
+// two packed bytes (elements 2i .. 2i + 3, element 2i in the low nibble
+// of byte i) -> four int8 in element order, each 16 x its signed 4-bit
+// code (a nibble moved to the top of its byte)
+__device__ __forceinline__ uint32_t nibbles_x16(uint32_t v) {
+  const uint32_t u = __byte_perm(v, 0u, 0x1100);  // bytes v0 v0 v1 v1
+  return ((u << 4) & 0x00F000F0u) | (u & 0xF000F000u);
+}
+
+// int8_mma_kernel itself (see the note above kMmaBM).  Block: 64 x 128
+// outputs, 8 warps (2 x 4) of 32 x 32, i.e. 2 x 4 (16-row, 8-column) MMA
+// tiles a warp; up to two blocks an SM (128 registers a thread), so one
+// block's copies can overlap the other's MMAs and rescaling.
+template <bool PACKED>
+__global__ void __launch_bounds__(kThreads, 2)
+int8_mma_kernel(const int8_t* __restrict__ xc,   // (M, K) codes
+                const float* __restrict__ sx,    // (M, G)
+                const uint8_t* __restrict__ wc,  // (N, K) or (N, K/2)
+                const float* __restrict__ sw,    // (N, G)
+                float* __restrict__ y,           // (M, N)
+                float* __restrict__ partial,     // (S, M, N) when S > 1
+                int* __restrict__ tickets,       // one per tile, zero
+                int M, int N, int K, int n) {
+  constexpr int BM = kMmaBM, BN = kMmaBN, WM = 32, WN = 32;
+  constexpr int MT = WM / 16, NT = WN / 8;  // m16 and n8 tiles of a warp
+  extern __shared__ __align__(16) uint8_t mma_ring[];
+  const int C = mma_chunk(n, PACKED);
+  const int xrow = mma_row_bytes(C);
+  const int wrow = mma_row_bytes(PACKED ? C / 2 : C);
+  const int stage = (int)mma_stage_bytes(BM, C, PACKED);
+  const int G = K / n, Q = n / C;  // groups, chunks a group
+  const int S = gridDim.z, split = blockIdx.z;
+  const int g_lo = (int)((long long)split * G / S);
+  const int T = ((int)((long long)(split + 1) * G / S) - g_lo) * Q;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wbytes = PACKED ? K / 2 : K;
+
+  // This thread's copies of every chunk, fixed once: up to XP pieces of 16
+  // x-code bytes (BM x C/16 a stage) and up to WP of weight bytes (128 x
+  // C/16, packed C/32), each as a shared-memory offset (-1: no copy) and
+  // a source offset (-1: past M or N, zero-filled), moved by the chunk's
+  // K offset; and one scale (x's rows for tid < BM, then w's columns).
+  // (The wrapper keeps M K and N K below 2^31.)
+  constexpr int XP = BM * (kMmaChunkMax / 16) / kThreads;
+  constexpr int WP = BN * (kMmaChunkMax / 16) / kThreads;
+  const int xq = C / 16, wq = (PACKED ? C / 2 : C) / 16;
+  int x_dst[XP], x_off[XP], w_dst[WP], w_off[WP];
+#pragma unroll
+  for (int i = 0; i < XP; ++i) {
+    const int e = tid + i * kThreads;
+    const int r = e / xq, q = e - r * xq;
+    x_dst[i] = e < BM * xq ? r * xrow + 16 * q : -1;
+    x_off[i] = row0 + r < M ? (row0 + r) * K + 16 * q : -1;
+  }
+#pragma unroll
+  for (int i = 0; i < WP; ++i) {
+    const int e = tid + i * kThreads;
+    const int r = e / wq, q = e - r * wq;
+    w_dst[i] = e < BN * wq ? BM * xrow + r * wrow + 16 * q : -1;
+    w_off[i] = col0 + r < N ? (col0 + r) * wbytes + 16 * q : -1;
+  }
+  const int s_dst = BM * xrow + BN * wrow + 4 * tid;
+  const bool s_live = tid < BM ? row0 + tid < M : col0 + tid - BM < N;
+  const float* s_src = !s_live    ? sx
+                       : tid < BM ? sx + (size_t)(row0 + tid) * G
+                                  : sw + (size_t)(col0 + tid - BM) * G;
+  auto load = [&](int t) {
+    uint8_t* st = mma_ring + (t % kMmaStages) * stage;
+    const int tc = g_lo * Q + t;
+    const int k0 = tc * C, wk0 = PACKED ? k0 / 2 : k0;
+#pragma unroll
+    for (int i = 0; i < XP; ++i)
+      if (x_dst[i] >= 0)
+        cp_async16(st + x_dst[i], x_off[i] >= 0 ? xc + x_off[i] + k0 : xc,
+                   x_off[i] >= 0);
+#pragma unroll
+    for (int i = 0; i < WP; ++i)
+      if (w_dst[i] >= 0)
+        cp_async16(st + w_dst[i], w_off[i] >= 0 ? wc + w_off[i] + wk0 : wc,
+                   w_off[i] >= 0);
+    if (tid < BM + BN)
+      cp_async4(st + s_dst, s_live ? s_src + (Q == 1 ? tc : tc / Q) : sx,
+                s_live);
+  };
+
+  for (int s = 0; s < kMmaStages - 1; ++s) {
+    if (s < T) load(s);
+    cp_async_commit();  // empty groups keep the count uniform
+  }
+
+  float acc[MT][NT][4];
+  int p[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = 0.f;
+        p[i][j][e] = 0;
+      }
+
+  for (int t = 0; t < T; ++t) {
+    cp_async_wait<kMmaStages - 2>();  // this thread's copies of chunk t
+    __syncthreads();  // everyone's; and stage (t - 1) % kMmaStages is free
+    if (t + kMmaStages - 1 < T) load(t + kMmaStages - 1);
+    cp_async_commit();
+
+    const uint8_t* xs = mma_ring + (t % kMmaStages) * stage;
+    const uint8_t* ws = xs + BM * xrow;
+    const unsigned xa = (unsigned)__cvta_generic_to_shared(xs) +
+                        (wm * WM + (lane & 15)) * xrow;
+    for (int k = 0; k + 32 <= C; k += 32) {
+      uint32_t a[MT][4], b[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        ldmatrix_x4(a[i], xa + 16 * i * xrow + k + 16 * (lane >> 4));
+      if constexpr (PACKED) {
+        // the codes k + 4 tig .. + 3 and k + 16 + 4 tig .. + 3 of column g
+        // of each n8 tile: two bytes of packed nibbles each
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint8_t* wr = ws + (wn * WN + 8 * j + g) * wrow + k / 2 +
+                              2 * tig;
+          b[j][0] = nibbles_x16(*reinterpret_cast<const uint16_t*>(wr));
+          b[j][1] = nibbles_x16(*reinterpret_cast<const uint16_t*>(wr + 8));
+        }
+      } else {
+        const unsigned wa = (unsigned)__cvta_generic_to_shared(ws) +
+                            (wn * WN + 8 * (lane >> 4) + (lane & 7)) * wrow +
+                            k + 16 * ((lane >> 3) & 1);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t r[4];
+          ldmatrix_x4(r, wa + 8 * j * wrow);
+          b[j][0] = r[0];
+          b[j][1] = r[1];
+          b[j + 1][0] = r[2];
+          b[j + 1][1] = r[3];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_k32(p[i][j], a[i], b[j]);
+    }
+    if (!PACKED && C % 32) {  // the last 16 codes of the chunk
+      const int k = C - 16;
+      uint32_t a[MT][2], b[NT];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) ldmatrix_x2(a[i], xa + 16 * i * xrow + k);
+      ldmatrix_x4(b, (unsigned)__cvta_generic_to_shared(ws) +
+                         (wn * WN + 8 * (lane >> 3) + (lane & 7)) * wrow + k);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_k16(p[i][j], a[i], b[j]);
+    }
+    if ((t + 1) % Q == 0) {  // the group's last chunk: rescale and fold
+      const float* ss =
+          reinterpret_cast<const float*>(ws + BN * wrow);
+      float sxv[2 * MT], swv[2 * NT];
+#pragma unroll
+      for (int i = 0; i < 2 * MT; ++i)
+        sxv[i] = ss[wm * WM + 16 * (i >> 1) + g + 8 * (i & 1)];
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j)
+        swv[j] = ss[BM + wn * WN + 8 * (j >> 1) + 2 * tig + (j & 1)];
+      fold_group<PACKED>(acc, p, sxv, swv);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dst = S == 1 ? y : partial + (size_t)split * M * N;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + wm * WM + 16 * i + g + 8 * (e >> 1);
+        const int col = col0 + wn * WN + 8 * j + 2 * tig + (e & 1);
+        if (row < M && col < N) dst[(size_t)row * N + col] = acc[i][j][e];
+      }
+  if (S == 1) return;  // uniform over the grid
+
+  // the last block of this tile to finish adds the partials in split
+  // order, four columns a thread, the loads of up to 8 splits in flight
+  __shared__ int is_last;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(&tickets[tile], 1) == S - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const size_t MN = (size_t)M * N;
+  const bool vec = (N & 3) == 0;
+  for (int e = tid; e < BM * BN / 4; e += kThreads) {
+    const int row = row0 + e / (BN / 4), col = col0 + 4 * (e % (BN / 4));
+    if (row >= M || col >= N) continue;
+    const size_t off = (size_t)row * N + col;
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s0 = 0; s0 < S; s0 += 8) {
+      float4 v[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const float* src = partial + (size_t)(s0 + b) * MN + off;
+        if (s0 + b >= S) continue;
+        if (vec) {
+          v[b] = __ldcg(reinterpret_cast<const float4*>(src));
+        } else {
+          v[b].x = __ldcg(src);
+          v[b].y = col + 1 < N ? __ldcg(src + 1) : 0.f;
+          v[b].z = col + 2 < N ? __ldcg(src + 2) : 0.f;
+          v[b].w = col + 3 < N ? __ldcg(src + 3) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        if (s0 + b < S) {
+          s[0] += v[b].x;
+          s[1] += v[b].y;
+          s[2] += v[b].z;
+          s[3] += v[b].w;
+        }
+    }
+    if (vec) {
+      *reinterpret_cast<float4*>(y + off) = make_float4(s[0], s[1], s[2],
+                                                        s[3]);
+    } else {
+      for (int c = 0; c < 4 && col + c < N; ++c) y[off + c] = s[c];
+    }
+  }
+  if (tid == 0) tickets[tile] = 0;
+}
+
+// The launch of int8_mma_kernel: ``splits`` K splits of whole groups
+// (partial: splits * M * N floats and tickets: one zero int per output
+// tile, when splits > 1).  Returns a CUDA error.
+template <bool PACKED>
+int launch_int8_mma(const int8_t* xc, const float* sx, const uint8_t* wc,
+                    const float* sw, float* y, float* partial, int* tickets,
+                    int M, int N, int K, int n, int splits,
+                    cudaStream_t stream) {
+  const int G = n > 0 ? K / n : 0;
+  if (n <= 0 || n % (PACKED ? 32 : 16) || K % n || splits < 1 ||
+      splits > G + (G == 0) ||
+      (splits > 1 && (partial == nullptr || tickets == nullptr)) ||
+      (long long)M * K >= (1ll << 31) || (long long)N * K >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      kMmaStages * mma_stage_bytes(kMmaBM, mma_chunk(n, PACKED), PACKED);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  auto kern = &int8_mma_kernel<PACKED>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM, splits);
+  kern<<<grid, kThreads, smem, stream>>>(xc, sx, wc, sw, y, partial, tickets,
+                                         M, N, K, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (M, K) f32, K = G * n already zero-padded.  wc: (N, K) int8 codes or
-// (N, K/2) packed nibbles.  ws: (N, G) f32.  xc_scratch: M*K bytes,
-// sx_scratch: M*G floats, y: (M, N) f32.  Returns cudaGetLastError().
+// (N, K/2) packed nibbles, 16-byte aligned.  ws: (N, G) f32.  xc_scratch:
+// M*K bytes, sx_scratch: M*G floats, y: (M, N) f32.  mma_rows = 0:
+// contract_kernel (n = 16, packed 32, times a power of two <= 32).
+// mma_rows = 64: int8_mma_kernel (64 rows a block) with ``splits`` K
+// splits (partial: splits*M*N floats and tickets: one zero
+// int per output tile, when splits > 1).  Returns a CUDA error.
 extern "C" int repro_quant_matmul(const void* x, const void* wc,
                                   const void* ws, void* xc_scratch,
-                                  void* sx_scratch, void* y, int M, int N,
-                                  int K, int n, int packed, float qmax,
-                                  float qmin, void* stream_ptr) {
+                                  void* sx_scratch, void* partial,
+                                  void* tickets, void* y, int M, int N,
+                                  int K, int n, int packed, int mma_rows,
+                                  int splits, float qmax, float qmin,
+                                  void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int cpl = packed ? 32 : 16;  // codes a lane of contract_kernel takes
+  const int lpg = n / cpl;
+  if (mma_rows == 0 &&
+      (n <= 0 || n % cpl || (lpg & (lpg - 1)) || lpg > 32))
+    return (int)cudaErrorInvalidValue;
   const long long n_groups = (long long)M * (K / n);
   const int qblocks =
       (int)((n_groups + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  quantize_rows_kernel<<<qblocks, kThreads, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<int8_t*>(xc_scratch),
-      static_cast<float*>(sx_scratch), n_groups, n, qmax, qmin);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (n_groups > 0) {
+    quantize_rows_kernel<<<qblocks, kThreads, 0, stream>>>(
+        static_cast<const float*>(x), static_cast<int8_t*>(xc_scratch),
+        static_cast<float*>(sx_scratch), n_groups, n, qmax, qmin);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
 
   const int8_t* xc = static_cast<const int8_t*>(xc_scratch);
   const float* sx = static_cast<const float*>(sx_scratch);
   const uint8_t* w = static_cast<const uint8_t*>(wc);
   const float* s = static_cast<const float*>(ws);
   float* out = static_cast<float*>(y);
+  if (mma_rows > 0) {
+    float* part = static_cast<float*>(partial);
+    int* tick = static_cast<int*>(tickets);
+    if (mma_rows != kMmaBM) return (int)cudaErrorInvalidValue;
+    return packed ? launch_int8_mma<true>(xc, sx, w, s, out, part, tick, M,
+                                          N, K, n, splits, stream)
+                  : launch_int8_mma<false>(xc, sx, w, s, out, part, tick, M,
+                                           N, K, n, splits, stream);
+  }
   if (M <= 4)
     launch_contract<4, 4>(xc, sx, w, s, out, M, N, K, n, packed != 0, stream);
   else if (M <= 8)
@@ -324,19 +767,21 @@ extern "C" int repro_quant_matmul(const void* x, const void* wc,
 //   that leave each row with one lane.  Split partials, tickets and the
 //   split-order sum are fp_decode_kernel's.  Two launches a call.
 //
-//   prefill (M > 16, or another n: quantize_cols_kernel, then
-//   contract_kernel<BM, CN, false> above).  quantize_cols_kernel writes w's
-//   codes transposed, (N, K), and scales (N, G) once: a block stages whole
-//   groups x 32 columns in shared memory and each warp writes a column's
-//   codes as contiguous runs of >= 128 bytes.  contract_kernel is bound by
-//   __dp4a issue at M in the hundreds.  Three launches a call.
+//   prefill (M > 16, or another n that is a multiple of 16:
+//   quantize_cols_kernel, then int8_mma_kernel above).  quantize_cols_kernel
+//   writes w's codes transposed, (N, K), and scales (N, G) once: a block
+//   stages whole groups x 32 columns in shared memory and each warp writes
+//   a column's codes as contiguous runs of >= 128 bytes.  int8_mma_kernel
+//   contracts them on the int8 tensor cores; at M = 192 its operations
+//   (0.013 ms at wi,wg) take less than the f32 weight's bytes, which
+//   quantize_cols_kernel reads (0.081 ms).  Three launches a call.
 //
 // Summation order, both regimes: a (row, column, group) sum of code
 // products is an exact int32, rescaled as ((float)P * sx) * sw (never sx *
-// sw folded: the reference multiplies in that order).  decode: each row's
-// f32 sum adds its groups in order within a split, then the split partials
-// in split order; prefill: each lane adds its groups in order, then a
-// shuffle tree adds the lanes.
+// sw folded: the reference multiplies in that order).  Each output's f32
+// sum adds its groups in order within a K split, then the split partials
+// in split order (decode: the last block of a 64-column tile; prefill: the
+// last block of a BM x 128 tile).
 // ===========================================================================
 namespace {
 
@@ -547,31 +992,6 @@ constexpr int kDecBN = 64;                   // columns per block
 constexpr int kDecStride = kDecBN + 4;       // floats per w tile row (padded)
 constexpr int kStages = 4;                   // shared-memory ring depth
 constexpr int kRowLanes = 16;                // lanes sharing 4 columns
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool live) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(live ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool live) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(live ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
 
 // Start the copies of one group's (n, 64) w tile at rows k0.. into ``ws``
 // (row stride kDecStride), NT threads sharing them.  Columns at or past N
@@ -1100,23 +1520,26 @@ extern "C" int repro_abfp_matmul(const void* x, const void* w,
                                    splits, vec != 0, fw, stream);
 }
 
-// x: (M, K) f32, w: (K, N) f32, K a multiple of n (n / 16 a power of two
-// <= 32); scratch: xc M*K bytes, sx M*G floats; y: (M, N) f32.  splits = 0:
-// the prefill regime, with scratch wc N*K bytes and sw N*G floats.  splits
-// >= 1: the decode regime (M <= 16, n = 32 or 64; wc and sw unused) with
-// that many K splits; partial, tickets and vec as for repro_abfp_matmul.
-// Returns a CUDA error.
+// x: (M, K) f32, w: (K, N) f32, K a multiple of n (n a multiple of 16);
+// scratch: xc M*K bytes, sx M*G floats; y: (M, N) f32; ``splits`` K splits
+// of whole groups, partial and tickets as for repro_abfp_matmul.
+// mma_rows = 64: the prefill regime (int8_mma_kernel, 64 rows a block),
+// with scratch wc N*K bytes and sw N*G floats.  mma_rows =
+// 0: the decode regime (M <= 16, n = 32 or 64; wc and sw unused), vec as
+// for repro_abfp_matmul.  Returns a CUDA error.
 extern "C" int repro_abfp_matmul_int8(const void* x, const void* w,
                                       void* xc_scratch, void* sx_scratch,
                                       void* wc_scratch, void* sw_scratch,
                                       void* partial, void* tickets, void* y,
                                       int M, int N, int K, int n, int splits,
-                                      int vec, float x_qmax, float x_qmin,
+                                      int mma_rows, int vec, float x_qmax,
+                                      float x_qmin,
                                       float w_qmax, float w_qmin,
                                       void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (splits > 0 && (M > 16 || (n != 32 && n != 64) ||
-                     splits > K / n + (K == 0)))
+  if (n <= 0 || n % 16 || (mma_rows != 0 && mma_rows != kMmaBM) ||
+      (mma_rows == 0 && (M > 16 || (n != 32 && n != 64) || splits < 1 ||
+                         splits > K / n + (K == 0))))
     return (int)cudaErrorInvalidValue;
   const long long n_groups = (long long)M * (K / n);
   if (n_groups > 0) {
@@ -1132,9 +1555,9 @@ extern "C" int repro_abfp_matmul_int8(const void* x, const void* w,
   const float* sx = static_cast<const float*>(sx_scratch);
   const float* wf = static_cast<const float*>(w);
   float* out = static_cast<float*>(y);
-  if (splits > 0) {
-    float* part = static_cast<float*>(partial);
-    int* tick = static_cast<int*>(tickets);
+  float* part = static_cast<float*>(partial);
+  int* tick = static_cast<int*>(tickets);
+  if (mma_rows == 0) {
     if (M <= 4)
       return launch_int8_decode_rows<4>(xc, sx, wf, out, part, tick, M, N, K,
                                         n, splits, vec != 0, w_qmax, w_qmin,
@@ -1165,13 +1588,9 @@ extern "C" int repro_abfp_matmul_int8(const void* x, const void* w,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const uint8_t* wc = static_cast<const uint8_t*>(wc_scratch);
-  const float* sw = static_cast<const float*>(sw_scratch);
-  if (M <= 4)
-    launch_contract<4, 4>(xc, sx, wc, sw, out, M, N, K, n, false, stream);
-  else if (M <= 8)
-    launch_contract<8, 2>(xc, sx, wc, sw, out, M, N, K, n, false, stream);
-  else
-    launch_contract<16, 2>(xc, sx, wc, sw, out, M, N, K, n, false, stream);
-  return (int)cudaGetLastError();
+  return launch_int8_mma<false>(
+      xc, sx, static_cast<const uint8_t*>(wc_scratch),
+      static_cast<const float*>(sw_scratch), out, part, tick, M, N, K, n,
+      splits, stream);
 }
+

@@ -14,10 +14,14 @@ rescale and the sum across groups are f32.
 
 On an H100 the call is bound by reading the weight codes once at decode
 (M = a handful of rows: about N*K bytes of int8 codes, half that for
-packed 4-bit codes) and by integer multiply-accumulate at prefill; the
-kernel (``csrc/quant_matmul.cu``) therefore reads packed codes as stored
-and unpacks them in registers, and quantizes x once in a first stage
-instead of once per output tile.  See the source for the design.
+packed 4-bit codes); at a prefill chunk (M = 256) bytes and int8
+tensor-core operations take about the same time.  The kernels
+(``csrc/quant_matmul.cu``) read packed codes as stored and unpack them on
+chip, and quantize x once in a first stage instead of once per output
+tile.  Up to 16 rows ``contract_kernel`` contracts by ``__dp4a``; above 16
+rows (and for group lengths it is not built for) ``int8_mma_kernel`` runs
+the contraction on the int8 tensor cores, on the grid that
+``plan_int8_contract`` chooses.  See the source for the design.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs
 ``quant_matmul_plain``, which the CPU tests hold against the reference
@@ -103,11 +107,102 @@ def quant_matmul_plain(x: torch.Tensor, w_codes: torch.Tensor,
                           max_abs_product=fmt_x.qmax_pos * w_bound)
 
 
+_SMEM_MAX = 232448  # dynamic shared memory a block may use on sm_90
+SMS = 132  # streaming multiprocessors of an H100 SXM
+CONTRACT_MAX_M = 16  # rows up to which quant_matmul takes contract_kernel
+MMA_BM = 64  # output rows of an int8_mma_kernel block (kMmaBM)
+MMA_BN = 128  # output columns of an int8_mma_kernel block (kMmaBN)
+MMA_STAGES = 4  # its shared-memory ring depth (kMmaStages)
+MMA_CHUNK_MAX = 128  # codes of a group one ring stage holds, at most
+
+
+def mma_row_bytes(b: int) -> int:
+    """Bytes of a shared-memory row holding ``b`` bytes of codes: an odd
+    number of 16-byte units, so 8 consecutive rows hit 8 bank groups."""
+    return b if (b // 16) % 2 else b + 16
+
+
+def mma_chunk(n: int, packed: bool) -> int:
+    """Codes of a group one ring stage of ``int8_mma_kernel`` holds: the
+    whole group up to 128 codes, else the largest multiple of 16 (packed:
+    32) <= 128 that divides n."""
+    if n <= MMA_CHUNK_MAX:
+        return n
+    step = 32 if packed else 16
+    return next((c for c in range(MMA_CHUNK_MAX, step, -step) if n % c == 0),
+                step)
+
+
+class Int8ContractPlan(NamedTuple):
+    """How ``int8_mma_kernel`` launches for one shape
+    (``plan_int8_contract``)."""
+    block_rows: int  # rows of x a block (MMA_BM)
+    chunk: int       # codes of a group a ring stage holds
+    splits: int      # K splits of whole groups
+    grid: tuple      # (column tiles, row tiles, splits)
+    smem_bytes: int  # dynamic shared memory of one block
+
+    @property
+    def tiles(self) -> int:
+        """Output tiles (one ticket each when K is split)."""
+        return self.grid[0] * self.grid[1]
+
+
+def plan_int8_contract(M: int, N: int, K: int, n: int,
+                       packed: bool = False) -> Int8ContractPlan:
+    """The grid of ``int8_mma_kernel`` at x codes (M, K) against weight
+    codes (N, K), groups of n along K (``packed``: the weight as nibble
+    pairs).  A block owns ``MMA_BM`` x ``MMA_BN`` outputs; where those
+    tiles alone give fewer blocks than the ``SMS`` SMs, K is split into
+    whole groups until they do (at most one split per group).  Its ring
+    holds ``MMA_STAGES`` stages of (BM, chunk) x codes, (128, chunk)
+    weight codes or (128, chunk / 2) packed bytes, rows padded by
+    ``mma_row_bytes``, and the BM + 128 scales of the chunk's group.
+    Raises where the kernel cannot take the group length or the shape
+    overflows its 32-bit offsets."""
+    step = 32 if packed else 16
+    if n <= 0 or n % step:
+        raise ValueError(
+            f"the int8 tensor-core contraction needs a group length that is "
+            f"a multiple of {step} (packed={packed}); got n={n}")
+    if max(M, N) * K >= 2 ** 31:
+        raise ValueError(f"int8 tensor-core contraction: M={M} or N={N} "
+                         f"times K={K} codes exceeds 2^31 (32-bit offsets)")
+    cols = -(-N // MMA_BN)
+    bm = MMA_BM
+    rows = -(-M // bm)
+    splits = max(1, min(K // n, -(-SMS // max(cols * rows, 1))))
+    chunk = mma_chunk(n, packed)
+    stage = (bm * mma_row_bytes(chunk)
+             + MMA_BN * mma_row_bytes(chunk // 2 if packed else chunk)
+             + 4 * (bm + MMA_BN))
+    smem = MMA_STAGES * stage
+    if smem > _SMEM_MAX:
+        raise ValueError(f"int8 tensor-core contraction: n={n} needs "
+                         f"{smem} bytes of shared memory, more than a block "
+                         "has")
+    return Int8ContractPlan(bm, chunk, splits, (cols, rows, splits), smem)
+
+
+def quant_matmul_plan(M: int, N: int, K: int, n: int, packed: bool
+                      ) -> Int8ContractPlan | None:
+    """The contraction ``quant_matmul`` launches: None for
+    ``contract_kernel`` (M <= 16 and a group length it is built for: 16,
+    packed 32, codes a lane times a power of two <= 32), else the plan of
+    ``int8_mma_kernel``."""
+    cpl = 32 if packed else 16  # codes a lane of contract_kernel takes
+    lpg = n // cpl
+    if (M <= CONTRACT_MAX_M and n > 0 and n % cpl == 0
+            and lpg & (lpg - 1) == 0 and lpg <= 32):
+        return None
+    return plan_int8_contract(M, N, K, n, packed)
+
+
 def _bind(lib: ctypes.CDLL):
     fn = lib.repro_quant_matmul
     if not fn.argtypes:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f, p]
+        fn.argtypes = [p] * 8 + [i] * 7 + [f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -130,12 +225,7 @@ def quant_matmul(x: torch.Tensor, w_codes: torch.Tensor,
     if not isinstance(fmt_x, IntFormat) or fmt_x.bits > 8:
         raise ValueError(
             f"quant_matmul quantizes x to int8 codes; got format {fmt_x}")
-    cpl = 32 if packed else 16  # codes a lane takes per step in the kernel
-    lpg = n // cpl
-    if n % cpl or lpg & (lpg - 1) or lpg > 32:
-        raise ValueError(
-            f"quant_matmul kernel needs a group length that is {cpl} times "
-            f"a power of two <= 32 (packed={packed}); got n={n}")
+    plan = quant_matmul_plan(M, N, K, n, packed)  # raises on other n
     want = torch.uint8 if packed else torch.int8
     for name, t, dt in (("x", x, torch.float32), ("w_codes", w_codes, want),
                         ("w_scales", w_scales, torch.float32)):
@@ -152,13 +242,22 @@ def quant_matmul(x: torch.Tensor, w_codes: torch.Tensor,
         return y
     xc = torch.empty((M, K), dtype=torch.int8, device=x.device)
     sx = torch.empty((M, G), dtype=torch.float32, device=x.device)
+    _check_aligned("quant_matmul", w_codes=w_codes, x_codes=xc)
     fn = _bind(build.load("quant_matmul"))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        partial = None if plan is None else split_partials(plan, M, N,
+                                                           x.device, stream)
+        tickets = (None if partial is None
+                   else _tickets(x.device, stream, plan.tiles))
         err = fn(x.data_ptr(), w_codes.data_ptr(), w_scales.data_ptr(),
-                 xc.data_ptr(), sx.data_ptr(), y.data_ptr(), M, N, K, n,
-                 int(packed), float(fmt_x.qmax_pos), float(fmt_x.qmin),
-                 stream)
+                 xc.data_ptr(), sx.data_ptr(),
+                 None if partial is None else partial.data_ptr(),
+                 None if tickets is None else tickets.data_ptr(),
+                 y.data_ptr(), M, N, K, n, int(packed),
+                 0 if plan is None else plan.block_rows,
+                 1 if plan is None else plan.splits,
+                 float(fmt_x.qmax_pos), float(fmt_x.qmin), stream)
     quant_matmul.launches += 1
     if err != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error "
@@ -167,6 +266,15 @@ def quant_matmul(x: torch.Tensor, w_codes: torch.Tensor,
 
 
 quant_matmul.launches = 0  # kernel launches made through this wrapper
+
+
+def _check_aligned(name: str, **tensors) -> None:
+    """The contractions copy codes in 16-byte pieces: their base addresses
+    must be 16-byte aligned."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must start on a 16-byte "
+                             f"boundary, got address {t.data_ptr():#x}")
 
 
 # ---------------------------------------------------------------------------
@@ -195,11 +303,12 @@ quant_matmul.launches = 0  # kernel launches made through this wrapper
 # ``__dp4a``: each row's group sum is a whole int32 after two shuffle
 # rounds, then rescaled; groups are added in order within a split, splits
 # in split order.  No (N, K) code scratch: a call is two launches (x codes,
-# decode kernel).  Prefill (M > 16) is bound by the multiply-adds:
-# ``abfp_matmul`` keeps the 64 x 64 tiled f32 contraction;
-# ``abfp_matmul_int8`` writes w's codes once, transposed and coalesced
-# (whole 128-byte runs of a column), then contracts them by ``__dp4a``
-# (three launches).
+# decode kernel).  Prefill (M > 16): ``abfp_matmul`` keeps the 64 x 64
+# tiled f32 contraction, bound by its multiply-adds; ``abfp_matmul_int8``
+# writes w's codes once, transposed and coalesced (whole 128-byte runs of
+# a column), then contracts them on the int8 tensor cores with
+# ``int8_mma_kernel``, as ``quant_matmul`` does above 16 rows (three
+# launches); reading the f32 weight once then bounds it.
 
 
 def _check_dense(x, w, n: int):
@@ -265,13 +374,11 @@ def _bind_int8(lib: ctypes.CDLL):
     fn = lib.repro_abfp_matmul_int8
     if not fn.argtypes:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 9 + [i] * 6 + [f] * 4 + [p]
+        fn.argtypes = [p] * 9 + [i] * 7 + [f] * 4 + [p]
         fn.restype = ctypes.c_int
     return fn
 
 
-_SMEM_MAX = 232448  # dynamic shared memory a block may use on sm_90
-SMS = 132  # streaming multiprocessors of an H100 SXM
 DECODE_MAX_M = 16  # rows up to which abfp_matmul takes the decode kernel
 _DEC_BN = 64  # columns per decode block (kDecBN)
 _DEC_STAGES = 4  # shared-memory ring depth (kStages)
@@ -305,8 +412,8 @@ def plan_abfp_matmul(M: int, N: int, K: int, n: int,
     values, or for int8 (BM, n) codes and BM scales.  Otherwise the
     prefill kernels: ``abfp_matmul``'s, one block per 64 x 64 output tile
     (it raises if its tiles do not fit in a block's shared memory);
-    ``abfp_matmul_int8``'s contract_kernel, 8 warps of CN columns x BM rows
-    a block, no shared memory."""
+    ``abfp_matmul_int8``'s int8_mma_kernel on the grid of
+    ``plan_int8_contract`` (int8 weight codes)."""
     G = K // n
     bm = 4 if M <= 4 else 8 if M <= 8 else 16
     if M <= DECODE_MAX_M and n in DECODE_GROUPS:
@@ -318,8 +425,9 @@ def plan_abfp_matmul(M: int, N: int, K: int, n: int,
         splits = max(1, min(G, max(two, min(aim, G // 2))))
         return AbfpPlan("decode", bm, tiles, splits, smem)
     if int8:
-        cn = 4 if M <= 4 else 2
-        return AbfpPlan("prefill", bm, -(-N // (8 * cn)) * -(-M // bm), 1, 0)
+        mma = plan_int8_contract(M, N, K, n)
+        return AbfpPlan("prefill", mma.block_rows, mma.tiles, mma.splits,
+                        mma.smem_bytes)
     smem = 4 * (64 * n + 64 * n + 256)
     if smem > _SMEM_MAX:
         raise ValueError(f"abfp_matmul kernel: group length n={n} needs "
@@ -338,18 +446,19 @@ def split_bounds(G: int, splits: int) -> list[tuple[int, int]]:
 # order, so one buffer serves them all.  The last block of a tile to
 # finish resets its ticket, so the tickets are zero again at the end of
 # every launch.  A plan splits K only when it has fewer than
-# ``DECODE_WAVES * SMS`` tiles.
+# ``DECODE_WAVES * SMS`` tiles (int8_mma_kernel: fewer than ``SMS``).
 _TICKETS: dict[tuple[int | None, int], torch.Tensor] = {}
 _PARTIALS: dict[tuple[int | None, int], torch.Tensor] = {}
 
 
-def split_partials(plan: AbfpPlan, M: int, N: int, device, stream: int = 0
+def split_partials(plan, M: int, N: int, device, stream: int = 0
                    ) -> torch.Tensor | None:
-    """The flat f32 scratch, of at least S M N floats, in which the decode
-    kernel writes its (S, M, N) split partials; None where it writes y
-    directly (one split, or the prefill regime).  Cached per (device,
-    stream) and grown as needed."""
-    if plan.regime != "decode" or plan.splits == 1:
+    """The flat f32 scratch, of at least S M N floats, in which a split-K
+    kernel (a decode kernel, or int8_mma_kernel; ``plan`` an ``AbfpPlan``
+    or ``Int8ContractPlan``) writes its (S, M, N) split partials; None where
+    it writes y directly (one split).  Cached per (device, stream) and
+    grown as needed."""
+    if plan.splits == 1:
         return None
     device = torch.device(device)
     key = (device.index, stream)
@@ -424,12 +533,7 @@ def abfp_matmul_int8(x: torch.Tensor, w: torch.Tensor, fmt_x: IntFormat,
         if not isinstance(fmt, IntFormat) or fmt.bits > 8:
             raise ValueError(f"abfp_matmul_int8 takes int formats of at most "
                              f"8 bits; got {fmt}")
-    lpg = n // 16
-    if n % 16 or lpg & (lpg - 1) or lpg > 32:
-        raise ValueError(
-            "abfp_matmul_int8 kernel needs a group length that is 16 times "
-            f"a power of two <= 32; got n={n}")
-    plan = plan_abfp_matmul(M, N, K, n, int8=True)
+    plan = plan_abfp_matmul(M, N, K, n, int8=True)  # raises on other n
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
@@ -454,8 +558,9 @@ def abfp_matmul_int8(x: torch.Tensor, w: torch.Tensor, fmt_x: IntFormat,
                  None if sw is None else sw.data_ptr(),
                  None if partial is None else partial.data_ptr(),
                  None if tickets is None else tickets.data_ptr(),
-                 y.data_ptr(), M, N, K, n, plan.splits if decode else 0,
-                 int(vec), float(fmt_x.qmax_pos), float(fmt_x.qmin),
+                 y.data_ptr(), M, N, K, n, plan.splits,
+                 0 if decode else plan.block_rows, int(vec),
+                 float(fmt_x.qmax_pos), float(fmt_x.qmin),
                  float(fmt_w.qmax_pos), float(fmt_w.qmin), stream)
     abfp_matmul_int8.launches += 1
     if err != 0:

@@ -89,14 +89,20 @@ def test_int8_decode_plan_at_the_main_path_shapes():
                                  (4, 512), (16, 128)])
 def test_int8_other_rows_and_groups_take_the_prefill_path(M, n):
     """Above 16 rows, or a group length the decode kernel is not built for,
-    the three-launch path: its contraction needs no shared memory, so any
-    group length the kernel takes plans (abfp_matmul's raises at n=512)."""
+    the three-launch path on int8_mma_kernel's grid: 64 x 128 tiles, K
+    split into whole groups until the blocks fill the 132 SMs, a
+    ring of whole groups (chunks of at most 128 codes) that fits in a
+    block's shared memory at any group length (abfp_matmul's raises at
+    n=512)."""
     plan = t_mm.plan_abfp_matmul(M, 3584, 4096, n, int8=True)
-    assert plan.regime == "prefill" and plan.splits == 1
-    assert plan.smem_bytes == 0
-    bm = 4 if M <= 4 else 8 if M <= 8 else 16
-    cn = 4 if M <= 4 else 2
-    assert plan.tiles == -(-3584 // (8 * cn)) * -(-M // bm)
+    mma = t_mm.plan_int8_contract(M, 3584, 4096, n)
+    assert plan.regime == "prefill"
+    assert plan.block_rows == mma.block_rows == 64
+    assert plan.tiles == mma.tiles == -(-3584 // 128) * -(-M // 64)
+    assert plan.splits == mma.splits == max(
+        1, min(4096 // n, -(-t_mm.SMS // plan.tiles)))
+    assert plan.smem_bytes == mma.smem_bytes
+    assert 0 < plan.smem_bytes <= 232448
     if n == 512:
         with pytest.raises(ValueError, match="more shared memory"):
             t_mm.plan_abfp_matmul(M, 3584, 4096, n)
