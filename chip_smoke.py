@@ -18,8 +18,11 @@ Phases (each fatal on failure):
             bound for the same work and, where one PyTorch call computes
             the same function, that call; for the three matmuls also the
             kernels each M launches (profiler) and the summed forward
-            passes; the int8 tensor-core contraction (above 16 rows) at
-            ragged shapes and group lengths, bit-exact at K = n
+            passes; the tensor-core contraction (int8, packed int4 and
+            bf16 codes) at ragged shapes and every group length that
+            divides K (codes zero-padded off the 16 grid); abfp_matmul on
+            the bf16 tensor cores bit-equal to abfp_matmul_int8 for int
+            formats
   serve     paged, full width, full depth: 6 greedy requests; launch counts
             per step asserted (197 quant_matmul + 28 flash_attention_quant);
             profiles of decode steps and of prefill steps (M = 256)
@@ -55,6 +58,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 
 PHASES = ("kernels", "serve", "fixed", "reduced", "identity")
@@ -305,13 +309,17 @@ def check_dense_matmul(torch, timer, gen, *, kind, M, K, N, n=64, label,
                        timed=True, exact=False, fx="int8",
                        fw="int4") -> dict:
     """``kind`` 'fp' (abfp_matmul) or 'int8' (abfp_matmul_int8); formats
-    ``fx`` of x and ``fw`` of w (by default w4a8's: int8 x, int4 w)."""
-    from repro_torch.core.formats import get_format
+    ``fx`` of x and ``fw`` of w (by default w4a8's: int8 x, int4 w; a name
+    of ``get_format`` or "intB" for an int format of B bits).  Where
+    abfp_matmul contracts int codes of at most 8 bits on the bf16 tensor
+    cores, its result must be abfp_matmul_int8's kernel's, bit for bit."""
+    from repro_torch.core.formats import IntFormat, get_format
     from repro_torch.kernels import quant_matmul as qm
 
     fn, plain = ((qm.abfp_matmul, qm.abfp_matmul_plain) if kind == "fp"
                  else (qm.abfp_matmul_int8, qm.abfp_matmul_int8_plain))
-    FX, FW = get_format(fx), get_format(fw)
+    FX, FW = (IntFormat(int(f[3:])) if f.startswith("int") else
+              get_format(f) for f in (fx, fw))
     x = activations(torch, gen, (M, K))
     w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
     got = fn(x, w, FX, FW, n=n)
@@ -320,22 +328,31 @@ def check_dense_matmul(torch, timer, gen, *, kind, M, K, N, n=64, label,
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     ref = want.abs().max().item()
-    # same QDQ'd operands (same codes); the f32 sum over K (fp) or over the
-    # groups (int8, whose group sums are exact integers) runs in another
-    # order: 1e-5 of the largest output magnitude.  With K = n there is one
-    # group: the int8 result is then (sum * sx) * sw on both sides, and
-    # must be bit-exact, which pins the kernel's int32 group sums.
+    # same codes on both sides; the fp kernel rescales each group's sum of
+    # code products where the plain version multiplies QDQ'd values, and
+    # the f32 sum over K (fp) or over the groups (int8, whose group sums
+    # are exact integers) runs in another order: 1e-5 of the largest
+    # output magnitude.  With K = n there is one group: the int8 result is
+    # then (sum * sx) * sw on both sides, and must be bit-exact, which pins
+    # the kernel's int32 group sums.
     tol = 0.0 if exact else 1e-5 * ref
     ok = bool(torch.isfinite(got).all().item()) and err <= tol
     row = {"shape": label, "M": M, "K": K, "N": N, "n": n, "fx": fx,
            "fw": fw, "max_abs_err": err, "tol": tol, "ok": ok}
-    plan = qm.plan_abfp_matmul(M, N, K, n, int8=(kind == "int8"))
-    row.update(regime=plan.regime, splits=plan.splits,
+    plan = qm.plan_abfp_matmul(M, N, K, n, int8=(kind == "int8"),
+                               formats=(FX, FW))
+    row.update(regime=plan.regime, n_pad=plan.n_pad, splits=plan.splits,
                blocks=plan.tiles * plan.splits)
+    if (kind == "fp" and plan.regime == "prefill"
+            and all(isinstance(f, IntFormat) and f.bits <= 8
+                    for f in (FX, FW))):
+        twin = qm.abfp_matmul_int8(x, w, FX, FW, n=n)
+        row["bit_equal_int8"] = bool(torch.equal(got, twin))
+        ok = row["ok"] = ok and row["bit_equal_int8"]
     if timed:
-        row.update(bound_fields(nbytes(x, w, got), 2.0 * M * N * K,
-                                PEAK_F32_FLOPS if kind == "fp"
-                                else PEAK_INT8_OPS))
+        peak = (PEAK_INT8_OPS if kind == "int8" else PEAK_BF16_FLOPS
+                if plan.regime == "prefill" else PEAK_F32_FLOPS)
+        row.update(bound_fields(nbytes(x, w, got), 2.0 * M * N * K, peak))
         row["ms"] = timer(lambda: fn(x, w, FX, FW, n=n), iters=10)
         row["ms_with_enqueue"] = timer(lambda: fn(x, w, FX, FW, n=n),
                                        iters=10, with_enqueue=True)
@@ -345,8 +362,9 @@ def check_dense_matmul(torch, timer, gen, *, kind, M, K, N, n=64, label,
     name = "abfp_matmul" if kind == "fp" else "abfp_matmul_int8"
     log(f"  {name} {label}: " + json.dumps(row))
     if not ok:
-        raise SystemExit(f"{name} disagrees with its plain version at "
-                         f"{label}: max_abs_err={err} > {tol}")
+        raise SystemExit(f"{name} disagrees with its plain version (or, on "
+                         f"int codes, with abfp_matmul_int8) at {label}: "
+                         f"max_abs_err={err} > {tol}")
     return row
 
 
@@ -480,38 +498,52 @@ def forward_pass_ms(rows, at: str) -> dict:
 
 
 # kernels of one matmul call, by the name the profiler gives them (matched
-# as substrings: no name here is part of another kernel's name)
+# as substrings: no name here is part of another kernel's name; the code
+# type of mma_contract_kernel names its variant)
 REGIME_KERNELS = {
-    "fp": {"fp_decode_kernel": "decode", "fp_contract_kernel": "prefill",
-           "qdq_rows_kernel": "x_qdq"},
-    "int8": {"int8_decode_kernel": "decode", "quantize_cols_kernel": "w_codes",
-             "int8_mma_kernel": "mma", "quantize_rows_kernel": "x_codes"},
-    "quant": {"contract_kernel": "contract", "int8_mma_kernel": "mma",
-              "quantize_rows_kernel": "x_codes"},
+    "fp": {"fp_decode_kernel": "decode", "fp_contract_kernel": "simt",
+           "qdq_rows_kernel": "x_qdq",
+           "quantize_rows_kernel<__nv_bfloat16": "x_codes",
+           "quantize_cols_kernel<__nv_bfloat16": "w_codes",
+           "Bf16Codes>": "mma"},
+    "int8": {"int8_decode_kernel": "decode",
+             "quantize_cols_kernel<signed char": "w_codes",
+             "Int8Codes>": "mma",
+             "quantize_rows_kernel<signed char": "x_codes"},
+    "quant": {"::contract_kernel<": "contract", "Int4PackedCodes>": "mma",
+              "at::native::": "pad_copy",
+              "quantize_rows_kernel<signed char": "x_codes"},
 }
 
-# (M, n) of each call check_regimes profiles, per kind
-REGIME_CASES = {"fp": ((1, 64), (4, 64), (16, 64), (17, 64), (64, 64)),
+# (M, n) of each call check_regimes profiles, per kind; (M, n, "int12"):
+# abfp_matmul with x and w in a 12-bit int format (unit codes bf16 cannot
+# hold)
+REGIME_CASES = {"fp": ((1, 64), (4, 64), (16, 64), (17, 64), (64, 64),
+                       (4, 48), (4, 40), (64, 64, "int12")),
                 "int8": ((1, 64), (4, 64), (16, 64), (17, 64), (64, 64),
-                         (4, 48)),
-                "quant": ((4, 64), (16, 64), (17, 64), (256, 64))}
+                         (4, 48), (4, 40)),
+                "quant": ((4, 64), (16, 64), (17, 64), (256, 64), (4, 40),
+                          (17, 40))}
 
 
-def regime_want(kind: str, M: int, n: int) -> dict:
-    """The kernels one call launches, by role.  fp: the x QDQ and the
-    decode kernel up to 16 rows, the x QDQ and the prefill kernel from 17
-    rows.  int8: x's codes and the decode kernel up to 16 rows for n = 32
-    or 64 (no w code scratch), otherwise x's codes, w's codes and the
-    tensor-core contraction.  quant (``quant_matmul``, packed int4): x's
-    codes and contract_kernel up to 16 rows, x's codes and the tensor-core
-    contraction from 17 rows."""
-    if kind == "fp":
-        return {"x_qdq": 1, "decode" if M <= 16 else "prefill": 1}
-    if kind == "int8":
+def regime_want(kind: str, M: int, n: int, wide: bool = False) -> dict:
+    """The kernels one call launches, by role.  fp and int8 up to 16 rows
+    at n = 32 or 64: the x QDQ (int8: x's codes) and the decode kernel
+    (no w code scratch); otherwise x's codes, w's codes and the
+    tensor-core contraction (bf16 codes for fp, int8 for int8); fp with a
+    format bf16 cannot hold (``wide``): the x QDQ and the f32 SIMT kernel.
+    quant (``quant_matmul``, packed int4): x's codes and contract_kernel up
+    to 16 rows, x's codes and the tensor-core contraction from 17 rows;
+    at a group length off the 32 grid, first PyTorch's two launches that
+    copy the stored codes into a zero-padded buffer (fill, copy)."""
+    if kind in ("fp", "int8"):
         if M <= 16 and n in (32, 64):
-            return {"x_codes": 1, "decode": 1}
+            return {"x_qdq" if kind == "fp" else "x_codes": 1, "decode": 1}
+        if wide:
+            return {"x_qdq": 1, "simt": 1}
         return {"x_codes": 1, "w_codes": 1, "mma": 1}
-    return {"x_codes": 1, "contract" if M <= 16 else "mma": 1}
+    pad = {"pad_copy": 2} if n % 32 else {}
+    return {**pad, "x_codes": 1, "contract" if M <= 16 else "mma": 1}
 
 
 def check_regimes(torch, gen, kind: str) -> None:
@@ -522,15 +554,16 @@ def check_regimes(torch, gen, kind: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.formats import INT4, INT8
+    from repro_torch.core.formats import INT4, INT8, IntFormat
     from repro_torch.core.quantize import pack_int4_codes
     from repro_torch.kernels import quant_matmul as qm
 
     names_of = REGIME_KERNELS[kind]
     N = 512
     seen = {}
-    for M, n in REGIME_CASES[kind]:
-        K = 3840 if n == 48 else 3584  # whole groups
+    for M, n, *wide in REGIME_CASES[kind]:
+        K = 3840 if n in (40, 48) else 3584  # whole groups
+        fx, fw = (IntFormat(12), IntFormat(12)) if wide else (INT8, INT4)
         x = torch.randn((M, K), generator=gen, device="cuda")
         if kind == "quant":
             codes = pack_int4_codes(torch.randint(
@@ -548,7 +581,7 @@ def check_regimes(torch, gen, kind: str) -> None:
             name = fn.__name__
 
             def call():
-                return fn(x, w, INT8, INT4, n=n)
+                return fn(x, w, fx, fw, n=n)
         call()  # warm: tickets, library
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -560,23 +593,26 @@ def check_regimes(torch, gen, kind: str) -> None:
             if e.device_type != DeviceType.CUDA:
                 continue
             hit = [v for k, v in names_of.items() if k in e.key]
-            key = hit[0] if hit else e.key[:60]
+            key = hit[0] if hit else e.key[:90]
             names[key] = names.get(key, 0) + e.count
-        seen[f"M={M} n={n}"] = names
-        want = regime_want(kind, M, n)
+        case = f"M={M} n={n}" + (" int12" if wide else "")
+        seen[case] = names
+        want = regime_want(kind, M, n, bool(wide))
         if names != want:
-            raise SystemExit(f"{name} at M={M}, n={n} launched {names}, "
+            raise SystemExit(f"{name} at {case} launched {names}, "
                              f"expected {want}")
     log(f"  {name} regimes (kernel launches a call): " + json.dumps(seen))
 
 
 def mma_checks(torch, timer, gen) -> None:
-    """``int8_mma_kernel`` (the contraction of ``quant_matmul`` above 16
-    rows and of ``abfp_matmul_int8``'s prefill regime) against the plain
-    versions, untimed: at M = 17, 33, 64, 128; at ragged N = 77 and 130;
-    with groups of 32, 48, 64 and 128 (and 96 for packed codes, which take
-    multiples of 32); at n = 48 below 16 rows and at 192; bit for bit at
-    K = n (one group) at M = 33 and 64."""
+    """``mma_contract_kernel`` on int8 and packed int4 codes (the
+    contraction of ``quant_matmul`` above 16 rows and of
+    ``abfp_matmul_int8``'s prefill regime) against the plain versions,
+    untimed: at M = 17, 33, 64, 128; at ragged N = 77 and 130; with groups
+    of 32, 48, 64 and 128 (and 96 for packed codes, which take multiples
+    of 32), and of 8, 24, 40 and 512 (codes zero-padded to the grid), each
+    below 16 rows and at 192; bit for bit at K = n (one group) at M = 33
+    and 64."""
     for packed in (True, False):
         tag = "int4-packed" if packed else "int8"
         for M in (17, 33, 64, 128):
@@ -589,7 +625,8 @@ def mma_checks(torch, timer, gen) -> None:
                                packed=packed, timed=False,
                                label=f"mma ragged M={M} K={K} N={N} n={n} "
                                      f"{tag}")
-        for n in (32, 48, 64, 128) if not packed else (32, 64, 96, 128):
+        groups = (32, 64, 96, 128) if packed else (32, 48, 64, 128)
+        for n in groups + (8, 24, 40, 512):
             for M in (4, 192):
                 check_quant_matmul(torch, timer, gen, M=M, K=15 * n, N=512,
                                    n=n, packed=packed, timed=False,
@@ -610,7 +647,7 @@ def mma_checks(torch, timer, gen) -> None:
                                n=n, fw=fw, timed=False,
                                label=f"mma ragged M={M} K={K} N={N} n={n} "
                                      f"{fw} w")
-        for n in (32, 48, 64, 128):
+        for n in (8, 24, 32, 40, 48, 64, 128, 512):
             for M in (4, 192):
                 check_dense_matmul(torch, timer, gen, kind="int8", M=M,
                                    K=15 * n, N=512, n=n, fw=fw, timed=False,
@@ -621,6 +658,57 @@ def mma_checks(torch, timer, gen) -> None:
                                    N=130, n=n, fw=fw, timed=False,
                                    exact=True,
                                    label=f"mma one group M={M} n={n} {fw} w")
+
+
+def fp_prefill_checks(torch, timer, gen) -> None:
+    """``abfp_matmul`` above 16 rows (the bf16 tensor cores) against the
+    plain version, untimed: at M = 17, 33, 64, 192 with ragged N (77, 130),
+    at every group length n = 8, 16, 24, 32, 40, 48, 64, 128, 512 (codes
+    zero-padded off the 16 grid), in int8 x int4 (then bit-equal to
+    ``abfp_matmul_int8``'s kernel), e4m3 x e2m1 (inexact group sums) and
+    e5m2 x int8; at wo's K = 18944 in each; and in a 12-bit int format,
+    which bf16 cannot hold, on the f32 SIMT kernel at n = 64 and 512."""
+    for fx, fw in (("int8", "int4"), ("e4m3", "e2m1"), ("e5m2", "int8")):
+        for M in (17, 33, 64, 192):
+            for n in (8, 16, 24, 32, 40, 48, 64, 128, 512):
+                K = n * max(8, -(-384 // n))
+                N = 77 if M % 2 else 130
+                check_dense_matmul(torch, timer, gen, kind="fp", M=M, K=K,
+                                   N=N, n=n, fx=fx, fw=fw, timed=False,
+                                   label=f"bf16 M={M} K={K} N={N} n={n} "
+                                         f"{fx} x {fw}")
+        check_dense_matmul(torch, timer, gen, kind="fp", M=192, K=18944,
+                           N=512, fx=fx, fw=fw, timed=False,
+                           label=f"bf16 M=192 K=18944 N=512 {fx} x {fw}")
+    for n in (64, 512):
+        check_dense_matmul(torch, timer, gen, kind="fp", M=40, K=1024, N=77,
+                           n=n, fx="int12", fw="int12", timed=False,
+                           label=f"simt M=40 K=1024 N=77 n={n} int12")
+
+
+def check_pad_copy(torch, timer, gen) -> dict:
+    """``quant_matmul`` at a group length off the 32 grid (n = 56, packed
+    int4) copies the stored codes into a zero-padded buffer (n_pad = 64)
+    before its launch: that copy alone, timed at wi,wg, beside the bytes
+    it moves.  Exact: the padded buffer holds the codes and zeros."""
+    from repro_torch.kernels import quant_matmul as qm
+
+    N, G, n = 18944, 64, 56
+    codes = torch.randint(0, 256, (N, G, n // 2), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+    padded = qm.pad_group_codes(codes, n, packed=True)
+    ok = (padded.shape == (N, G, 32)
+          and bool(torch.equal(padded[..., :n // 2], codes))
+          and not bool(padded[..., n // 2:].any()))
+    row = {"shape": f"pad copy wi,wg N={N} G={G} n={n} int4-packed",
+           "max_abs_err": 0.0, "tol": 0.0, "ok": ok}
+    row.update(bound_fields(nbytes(codes, padded), 0.0, PEAK_INT8_OPS))
+    row["ms"] = timer(lambda: qm.pad_group_codes(codes, n, packed=True),
+                      iters=10)
+    log("  quant_matmul " + json.dumps(row))
+    if not ok:
+        raise SystemExit("the zero-padded copy of stored codes is wrong")
+    return row
 
 
 def phase_dense_kernels(torch, timer, gen) -> dict:
@@ -671,6 +759,7 @@ def phase_dense_kernels(torch, timer, gen) -> dict:
     for kind in dense:
         check_regimes(torch, gen, kind)
     mma_checks(torch, timer, gen)
+    fp_prefill_checks(torch, timer, gen)
     torch.cuda.empty_cache()
 
     flash = []
@@ -711,7 +800,13 @@ def phase_kernels(torch, seed: int) -> dict:
         log(f"  quant_matmul forward pass at {at}: "
             + json.dumps(forward_pass_ms(mm, at)))
     check_regimes(torch, gen, "quant")
-    # off the main path: plain int8 codes (8-bit rules), ragged M and N
+    # off the main path: a group length off the 32 grid (the stored codes
+    # copied into a zero-padded buffer, then the call), plain int8 codes
+    # (8-bit rules), ragged M and N
+    mm.append(check_pad_copy(torch, timer, gen))
+    mm.append(check_quant_matmul(
+        torch, timer, gen, M=4, K=3584, N=18944, n=56, packed=True,
+        label="n=56 wi,wg at M=4: K=3584 N=18944 int4-packed"))
     check_quant_matmul(torch, timer, gen, M=4, K=3584, N=512, packed=False,
                        label="int8 codes M=4 K=3584 N=512", timed=False)
     check_quant_matmul(torch, timer, gen, M=13, K=640, N=77, packed=True,
@@ -1011,8 +1106,12 @@ def profile_steps(torch, step, n_steps: int, step_ms: float,
             step()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    # kernel rows only: an operator row repeats its kernels' device time
-    dev = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+    # kernel rows only: an operator row repeats its kernels' device time;
+    # names without "void " and namespaces, so 60 characters show the
+    # template arguments
+    dev = sorted(((e.key.replace("void ", "").replace(
+                       "(anonymous namespace)::", ""),
+                   e.self_device_time_total / 1e3, e.count)
                   for e in events
                   if e.device_type == DeviceType.CUDA
                   and e.self_device_time_total > 0), key=lambda d: -d[1])
@@ -1189,6 +1288,13 @@ def phase_fixed(torch, seed: int) -> dict:
                                            report["decode_ms_median"])
         report["prefill_profile"] = profile_fixed_prefill(torch, cfg, eng,
                                                           seed)
+        # the 192-row prefill contracts on the tensor cores
+        planned = {"p_int8": "Int8Codes>", "p_fp": "Bf16Codes>"}[kind]
+        top = report["prefill_profile"].get("top_device_kernels_ms_per_step",
+                                            [])
+        if not any(planned in k["name"] for k in top):
+            raise SystemExit(f"fixed {kind}: the prefill profile shows no "
+                             f"mma_contract_kernel<{planned[:-1]}>: {top}")
         reports[kind] = report
         del eng, timed
         torch.cuda.empty_cache()

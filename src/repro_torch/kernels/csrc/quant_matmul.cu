@@ -31,16 +31,24 @@
 //            with __dp4a against the x codes, reduces the int32 sums over
 //            the lanes of a group by shuffles, and folds sx * ws in f32.
 //   stage 2, M > 16 (or a group length contract_kernel is not built for)
-//            int8_mma_kernel: the contraction on the int8 tensor cores
+//            mma_contract_kernel: the contraction on the int8 tensor cores
 //            (mma.sync m16n8k32), fed from shared memory by a 4-stage
 //            cp.async ring; it replaces the TPU kernels
 //            repro/kernels/quant_matmul.py:226 quant_matmul (body
 //            _stored_codes_kernel) and :171 abfp_matmul_int8 (body
-//            _int8_kernel) above 16 rows.  See its note below, with its
-//            summation order.
+//            _int8_kernel) above 16 rows, and (on bf16 unit codes) :156
+//            abfp_matmul.  See its note below, with its summation order.
 // Packed 4-bit codes are read as stored by both: the weight bytes cross
 // the memory bus once and are never expanded in device memory.
 // Both stages are launched by one host entry on the caller's stream.
+//
+// Any group length n that divides K: the codes of each group are
+// zero-padded to n_pad, n rounded up to a multiple of 16 (packed: 32).
+// A zero code adds exactly 0 to a group sum, so the contractions see a
+// group length they are built for; the scales stay (rows, G).  Stage 1
+// reads x with stride n and writes codes with stride n_pad (zeros in the
+// pad); stored weight codes off that grid arrive zero-padded from the
+// wrapper (a plain copy).
 //
 // The same file holds the two dense matmuls that QDQ both operands per
 // call (repro/kernels/quant_matmul.py::abfp_matmul and ::abfp_matmul_int8);
@@ -89,25 +97,82 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------- stage 1
-// int codes of x per (row, group): one warp per group.
+// A unit code (qdq_unit's output) as stored: int8_t for int formats of at
+// most 8 bits, __nv_bfloat16 for any format whose unit codes bf16 holds
+// exactly (the conversion is then exact), and its bits.
+template <typename T>
+__device__ __forceinline__ T to_code(float u);
+template <>
+__device__ __forceinline__ int8_t to_code<int8_t>(float u) {
+  return (int8_t)u;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_code<__nv_bfloat16>(float u) {
+  return __float2bfloat16_rn(u);
+}
+template <typename T>
+__device__ __forceinline__ uint32_t code_bits(float u) {
+  if constexpr (sizeof(T) == 1)
+    return (uint32_t)(uint8_t)to_code<int8_t>(u);
+  else
+    return (uint32_t)__bfloat16_as_ushort(to_code<__nv_bfloat16>(u));
+}
+
+// The unit code of x in a group of scale s (qdq_unit of x / s), with the
+// format's branch resolved at compile time.
+template <bool INT>
+__device__ __forceinline__ float unit_code(float x, float s,
+                                           const repro::QdqFormat& f) {
+  if constexpr (INT)
+    return fminf(fmaxf(rintf(x / s), f.qmin), f.qmax);
+  else
+    return repro::qdq_unit(x / s, f);
+}
+
+// Unit codes of x per (row, group): one warp per group, which reads its n
+// values (stride n) and writes n codes and n_pad - n zeros (stride
+// n_pad).  INT: the format is an integer grid (resolved at compile time;
+// int8_t codes always are).
+template <typename T, bool INT>
 __global__ void __launch_bounds__(kThreads)
-quantize_rows_kernel(const float* __restrict__ x, int8_t* __restrict__ xc,
+quantize_rows_kernel(const float* __restrict__ x, T* __restrict__ xc,
                      float* __restrict__ sx, long long n_groups, int n,
-                     float qmax, float qmin) {
+                     int n_pad, repro::QdqFormat f) {
   const long long wid =
       (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (wid >= n_groups) return;  // uniform per warp
   const float* src = x + wid * n;
-  int8_t* dst = xc + wid * n;
+  T* dst = xc + wid * n_pad;
   float amax = 0.f;
   for (int i = lane; i < n; i += 32) amax = fmaxf(amax, fabsf(src[i]));
   // scales live in bf16 (round to nearest even), floored, then alpha/qmax
-  const float s = repro::group_scale(repro::warp_max(amax), qmax);
-  const repro::QdqFormat f{1, qmax, qmin, 0, 0, 0};
-  for (int i = lane; i < n; i += 32)
-    dst[i] = (int8_t)repro::int_code(src[i], s, f);
+  const float s = repro::group_scale(repro::warp_max(amax), f.qmax);
+  for (int i = lane; i < n_pad; i += 32)
+    dst[i] = to_code<T>(i < n ? unit_code<INT>(src[i], s, f) : 0.f);
   if (lane == 0) sx[wid] = s;
+}
+
+// Stage 1 on the caller's stream: M * G groups.  Returns a CUDA error.
+template <typename T>
+int launch_quantize_rows(const float* x, T* xc, float* sx, long long n_groups,
+                         int n, int n_pad, const repro::QdqFormat& f,
+                         cudaStream_t stream) {
+  if (n_groups <= 0) return (int)cudaSuccess;
+  const unsigned blocks =
+      (unsigned)((n_groups + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  if constexpr (sizeof(T) == 1) {
+    quantize_rows_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
+        x, xc, sx, n_groups, n, n_pad, f);
+  } else {
+    if (f.is_int)
+      quantize_rows_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
+          x, xc, sx, n_groups, n, n_pad, f);
+    else
+      quantize_rows_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
+          x, xc, sx, n_groups, n, n_pad, f);
+  }
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- stage 2
@@ -253,30 +318,47 @@ void launch_contract(const int8_t* xc, const float* sx, const uint8_t* wc,
 }
 
 // ------------------------------------------------ stage 2, above 16 rows
-// int8_mma_kernel: the contraction on the int8 tensor cores (mma.sync).
+// mma_contract_kernel: the contraction on the tensor cores (mma.sync), for
+// three code types (Codes below): int8 codes of x and the weight, int8 x
+// codes against packed 4-bit weight codes, and bf16 unit codes of both
+// (abfp_matmul's operands, in any format whose unit codes bf16 holds
+// exactly).  A bf16 m16n8k16 fragment has the byte layout of an int8
+// m16n8k32 one (16 rows x 32 bytes, four bytes a register), so one kernel
+// counts its operands in bytes and differs by code type only in the MMA
+// instruction, the type of a group sum and how a group sum is read.
 // A block owns a 64 x 128 output tile (eight warps, 2 x 4, of 32 x 32) and
 // one K split of whole groups; two blocks fit on an SM.  Per stage it
-// copies one chunk of a group (C codes: the whole group up to 128, else
-// the largest multiple of 16 (packed: 32) <= 128 dividing n) of x's
-// (64, C) codes, the weight's (128, C) codes or (128, C/2) packed bytes,
-// and the 64 + 128 scales of that group into a ring of kMmaStages
-// shared-memory stages by cp.async copies (16 bytes; 4 for a scale); rows
-// are an odd number of 16-byte units apart, so the 8 rows an ldmatrix (or
-// a quarter-warp's loads) touch fall on 8 distinct bank groups.  A
-// fragments come by ldmatrix.x4; int8 weight fragments by ldmatrix.x4 too;
-// packed weight fragments by two 16-bit loads a register, each expanded on
-// chip into four int8 in element order as 16 x the signed code (a nibble
-// moved to the top of its byte), so the group sum comes out 16 times the
-// true one and is shifted back exactly.  Each K step of 32 codes is one
-// m16n8k32 MMA per (16-row, 8-column) tile of the warp; a remainder of 16
-// codes (n = 48, 80, ...) one m16n8k16.  The int32 sums of a group
-// accumulate over its chunks (exact); after the group's last chunk each
-// is folded as acc += ((float)P * sx) * sw (in that order, as the
-// reference multiplies) and zeroed.
+// copies one chunk of a group (C codes: the whole group up to 128 bytes of
+// x codes a row, else the largest multiple of 16 (packed: 32) codes within
+// that which divides n) of x's (64, C) codes, the weight's (128, C) codes
+// or (128, C/2) packed bytes, and the 64 + 128 scales of that group into a
+// ring of kMmaStages shared-memory stages by cp.async copies (16 bytes; 4
+// for a scale); rows are an odd number of 16-byte units apart, so the 8
+// rows an ldmatrix (or a quarter-warp's loads) touch fall on 8 distinct
+// bank groups.  A fragments come by ldmatrix.x4; int8 and bf16 weight
+// fragments by ldmatrix.x4 too; packed weight fragments by two 16-bit
+// loads a register, each expanded on chip into four int8 in element order
+// as 16 x the signed code (a nibble moved to the top of its byte), so the
+// group sum comes out 16 times the true one and is shifted back exactly.
+// Each K step of 32 bytes is one MMA per (16-row, 8-column) tile of the
+// warp: m16n8k32 s8 (32 int8 codes) or m16n8k16 bf16 with f32 sums (16
+// bf16 codes); an int8 chunk's remainder of 16 codes (n = 48, 80, ...) is
+// one m16n8k16 s8.  A group's sums accumulate over its chunks; after the
+// group's last chunk each is folded as acc += (P * sx) * sw (in that
+// order, as the reference multiplies) and zeroed.
+// Exactness.  int8: P is an exact int32.  bf16: every unit code of the
+// formats the planner sends here is an integer of magnitude <= 256 or a
+// minifloat grid point of at most 8 significant bits inside bf16's
+// exponent range, so bf16 holds it exactly and each product u * v is
+// exact in f32; for int codes every partial sum is an integer below 2^24
+// while n * max|u| * max|v| < 2^24 (int8 x int8: n <= 1040), so P is exact
+// and the result is bit for bit the int8 kernel's on the same grid.  For
+// minifloat codes P is rounded to f32 on the tensor cores; the reference
+// leaves its f32 accumulation order free.
 // Summation order: each output adds its groups in order within a split;
 // the last block of a tile to finish (an integer ticket) adds the split
 // partials in split order.  Deterministic, no float atomics.
-// Grid (plan_int8_contract in kernels/quant_matmul.py, which the wrapper
+// Grid (plan_mma_contract in kernels/quant_matmul.py, which the wrapper
 // passes in): K is split into whole groups until the tiles fill a wave of
 // 132 blocks (M = 256: q,o and wo 112 tiles x 2 splits, k,v 16 x 9, wi,wg
 // 592 x 1).  Splitting K rather than narrowing the column tile keeps each
@@ -290,7 +372,7 @@ void launch_contract(const int8_t* xc, const float* sx, const uint8_t* wc,
 constexpr int kMmaBM = 64;         // output rows per block
 constexpr int kMmaBN = 128;        // output columns per block
 constexpr int kMmaStages = 4;      // ring depth
-constexpr int kMmaChunkMax = 128;  // codes of a group per stage, at most
+constexpr int kMmaChunkMax = 128;  // bytes of a row's x codes per stage
 
 // bytes of a shared-memory row that holds b bytes: an odd number of
 // 16-byte units
@@ -298,18 +380,21 @@ __host__ __device__ constexpr int mma_row_bytes(int b) {
   return (b / 16) % 2 ? b : b + 16;
 }
 
-__host__ __device__ inline int mma_chunk(int n, bool packed) {
-  if (n <= kMmaChunkMax) return n;
+// codes of a group one stage holds, x codes of ``xbytes`` bytes each
+__host__ __device__ inline int mma_chunk(int n, int xbytes, bool packed) {
+  const int most = kMmaChunkMax / xbytes;
+  if (n <= most) return n;
   const int step = packed ? 32 : 16;
-  for (int c = kMmaChunkMax; c > step; c -= step)
+  for (int c = most; c > step; c -= step)
     if (n % c == 0) return c;
   return step;
 }
 
 __host__ __device__ inline size_t mma_stage_bytes(int bm, int chunk,
-                                                  bool packed) {
-  return (size_t)bm * mma_row_bytes(chunk) +
-         (size_t)kMmaBN * mma_row_bytes(packed ? chunk / 2 : chunk) +
+                                                  int xbytes, bool packed) {
+  return (size_t)bm * mma_row_bytes(chunk * xbytes) +
+         (size_t)kMmaBN *
+             mma_row_bytes(packed ? chunk / 2 : chunk * xbytes) +
          sizeof(float) * (size_t)(bm + kMmaBN);
 }
 
@@ -347,22 +432,63 @@ __device__ __forceinline__ void mma_k16(int* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
-// acc += ((float)P * sx) * sw for each output of a warp, P its exact group
-// sum (packed: p = 16 P, so P = p >> 4), and P zeroed for the next group.
-// sxv[2 i + h]: the scale of the warp's row 16 i + g + 8 h; swv[2 j + h]:
-// that of its column 8 j + 2 tig + h.
-template <bool PACKED, int MT, int NT>
-__device__ __forceinline__ void fold_group(float (&acc)[MT][NT][4],
-                                           int (&p)[MT][NT][4],
-                                           const float (&sxv)[2 * MT],
-                                           const float (&swv)[2 * NT]) {
+// d += a . b: one m16n8k16 bf16 MMA, f32 sums
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The code types of mma_contract_kernel: bytes of an x code, whether the
+// weight is packed 4-bit, the type of a group sum, the MMA of a 32-byte K
+// step, and the group sum P that a fold reads.
+struct Int8Codes {
+  using Sum = int;
+  static constexpr int kXBytes = 1;
+  static constexpr bool kPacked = false;
+  __device__ static void mma(int* d, const uint32_t* a, const uint32_t* b) {
+    mma_k32(d, a, b);
+  }
+  __device__ static float group_sum(int p) { return (float)p; }
+};
+struct Int4PackedCodes {  // the sum is 16 P: shifted back exactly
+  using Sum = int;
+  static constexpr int kXBytes = 1;
+  static constexpr bool kPacked = true;
+  __device__ static void mma(int* d, const uint32_t* a, const uint32_t* b) {
+    mma_k32(d, a, b);
+  }
+  __device__ static float group_sum(int p) { return (float)(p >> 4); }
+};
+struct Bf16Codes {
+  using Sum = float;
+  static constexpr int kXBytes = 2;
+  static constexpr bool kPacked = false;
+  __device__ static void mma(float* d, const uint32_t* a,
+                             const uint32_t* b) {
+    mma_bf16(d, a, b);
+  }
+  __device__ static float group_sum(float p) { return p; }
+};
+
+// acc += (P * sx) * sw for each output of a warp, P its group sum, and
+// the sum zeroed for the next group.  sxv[2 i + h]: the scale of the
+// warp's row 16 i + g + 8 h; swv[2 j + h]: that of its column 8 j + 2 tig
+// + h.
+template <typename Codes, int MT, int NT>
+__device__ __forceinline__ void fold_group(
+    float (&acc)[MT][NT][4], typename Codes::Sum (&p)[MT][NT][4],
+    const float (&sxv)[2 * MT], const float (&swv)[2 * NT]) {
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float fp = (float)(PACKED ? p[i][j][e] >> 4 : p[i][j][e]);
+        const float fp = Codes::group_sum(p[i][j][e]);
         acc[i][j][e] += (fp * sxv[2 * i + (e >> 1)]) * swv[2 * j + (e & 1)];
         p[i][j][e] = 0;
       }
@@ -376,27 +502,32 @@ __device__ __forceinline__ uint32_t nibbles_x16(uint32_t v) {
   return ((u << 4) & 0x00F000F0u) | (u & 0xF000F000u);
 }
 
-// int8_mma_kernel itself (see the note above kMmaBM).  Block: 64 x 128
+// mma_contract_kernel itself (see the note above kMmaBM).  Block: 64 x 128
 // outputs, 8 warps (2 x 4) of 32 x 32, i.e. 2 x 4 (16-row, 8-column) MMA
 // tiles a warp; up to two blocks an SM (128 registers a thread), so one
 // block's copies can overlap the other's MMAs and rescaling.
-template <bool PACKED>
+template <typename Codes>
 __global__ void __launch_bounds__(kThreads, 2)
-int8_mma_kernel(const int8_t* __restrict__ xc,   // (M, K) codes
-                const float* __restrict__ sx,    // (M, G)
-                const uint8_t* __restrict__ wc,  // (N, K) or (N, K/2)
-                const float* __restrict__ sw,    // (N, G)
-                float* __restrict__ y,           // (M, N)
-                float* __restrict__ partial,     // (S, M, N) when S > 1
-                int* __restrict__ tickets,       // one per tile, zero
-                int M, int N, int K, int n) {
+mma_contract_kernel(const uint8_t* __restrict__ xc,  // (M, K) codes
+                    const float* __restrict__ sx,    // (M, G)
+                    const uint8_t* __restrict__ wc,  // (N, K) codes or
+                                                     // (N, K/2) packed
+                    const float* __restrict__ sw,    // (N, G)
+                    float* __restrict__ y,           // (M, N)
+                    float* __restrict__ partial,     // (S, M, N) when S > 1
+                    int* __restrict__ tickets,       // one per tile, zero
+                    int M, int N, int K, int n) {
   constexpr int BM = kMmaBM, BN = kMmaBN, WM = 32, WN = 32;
   constexpr int MT = WM / 16, NT = WN / 8;  // m16 and n8 tiles of a warp
+  constexpr int XB = Codes::kXBytes;
+  constexpr bool PACKED = Codes::kPacked;
   extern __shared__ __align__(16) uint8_t mma_ring[];
-  const int C = mma_chunk(n, PACKED);
-  const int xrow = mma_row_bytes(C);
-  const int wrow = mma_row_bytes(PACKED ? C / 2 : C);
-  const int stage = (int)mma_stage_bytes(BM, C, PACKED);
+  const int C = mma_chunk(n, XB, PACKED);
+  const int CB = C * XB;               // bytes of a row's x codes a stage
+  const int WB = PACKED ? C / 2 : CB;  // and of a weight row's codes
+  const int xrow = mma_row_bytes(CB);
+  const int wrow = mma_row_bytes(WB);
+  const int stage = (int)mma_stage_bytes(BM, C, XB, PACKED);
   const int G = K / n, Q = n / C;  // groups, chunks a group
   const int S = gridDim.z, split = blockIdx.z;
   const int g_lo = (int)((long long)split * G / S);
@@ -405,24 +536,24 @@ int8_mma_kernel(const int8_t* __restrict__ xc,   // (M, K) codes
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const int g = lane >> 2, tig = lane & 3;
-  const int wbytes = PACKED ? K / 2 : K;
+  const int xbytes = K * XB, wbytes = PACKED ? K / 2 : K * XB;
 
   // This thread's copies of every chunk, fixed once: up to XP pieces of 16
-  // x-code bytes (BM x C/16 a stage) and up to WP of weight bytes (128 x
-  // C/16, packed C/32), each as a shared-memory offset (-1: no copy) and
-  // a source offset (-1: past M or N, zero-filled), moved by the chunk's
-  // K offset; and one scale (x's rows for tid < BM, then w's columns).
-  // (The wrapper keeps M K and N K below 2^31.)
+  // x-code bytes (BM x CB/16 a stage) and up to WP of weight bytes (128 x
+  // WB/16), each as a shared-memory offset (-1: no copy) and a source
+  // offset (-1: past M or N, zero-filled), moved by the chunk's K offset;
+  // and one scale (x's rows for tid < BM, then w's columns).  (The wrapper
+  // keeps the M K and N K code bytes below 2^31.)
   constexpr int XP = BM * (kMmaChunkMax / 16) / kThreads;
   constexpr int WP = BN * (kMmaChunkMax / 16) / kThreads;
-  const int xq = C / 16, wq = (PACKED ? C / 2 : C) / 16;
+  const int xq = CB / 16, wq = WB / 16;
   int x_dst[XP], x_off[XP], w_dst[WP], w_off[WP];
 #pragma unroll
   for (int i = 0; i < XP; ++i) {
     const int e = tid + i * kThreads;
     const int r = e / xq, q = e - r * xq;
     x_dst[i] = e < BM * xq ? r * xrow + 16 * q : -1;
-    x_off[i] = row0 + r < M ? (row0 + r) * K + 16 * q : -1;
+    x_off[i] = row0 + r < M ? (row0 + r) * xbytes + 16 * q : -1;
   }
 #pragma unroll
   for (int i = 0; i < WP; ++i) {
@@ -439,7 +570,7 @@ int8_mma_kernel(const int8_t* __restrict__ xc,   // (M, K) codes
   auto load = [&](int t) {
     uint8_t* st = mma_ring + (t % kMmaStages) * stage;
     const int tc = g_lo * Q + t;
-    const int k0 = tc * C, wk0 = PACKED ? k0 / 2 : k0;
+    const int k0 = tc * CB, wk0 = tc * WB;
 #pragma unroll
     for (int i = 0; i < XP; ++i)
       if (x_dst[i] >= 0)
@@ -461,7 +592,7 @@ int8_mma_kernel(const int8_t* __restrict__ xc,   // (M, K) codes
   }
 
   float acc[MT][NT][4];
-  int p[MT][NT][4];
+  typename Codes::Sum p[MT][NT][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -482,7 +613,7 @@ int8_mma_kernel(const int8_t* __restrict__ xc,   // (M, K) codes
     const uint8_t* ws = xs + BM * xrow;
     const unsigned xa = (unsigned)__cvta_generic_to_shared(xs) +
                         (wm * WM + (lane & 15)) * xrow;
-    for (int k = 0; k + 32 <= C; k += 32) {
+    for (int k = 0; k + 32 <= CB; k += 32) {  // k: a byte of the row
       uint32_t a[MT][4], b[NT][2];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
@@ -514,19 +645,23 @@ int8_mma_kernel(const int8_t* __restrict__ xc,   // (M, K) codes
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_k32(p[i][j], a[i], b[j]);
+        for (int j = 0; j < NT; ++j) Codes::mma(p[i][j], a[i], b[j]);
     }
-    if (!PACKED && C % 32) {  // the last 16 codes of the chunk
-      const int k = C - 16;
-      uint32_t a[MT][2], b[NT];
+    if constexpr (XB == 1 && !PACKED) {
+      if (CB % 32) {  // the last 16 int8 codes of the chunk
+        const int k = CB - 16;
+        uint32_t a[MT][2], b[NT];
 #pragma unroll
-      for (int i = 0; i < MT; ++i) ldmatrix_x2(a[i], xa + 16 * i * xrow + k);
-      ldmatrix_x4(b, (unsigned)__cvta_generic_to_shared(ws) +
-                         (wn * WN + 8 * (lane >> 3) + (lane & 7)) * wrow + k);
+        for (int i = 0; i < MT; ++i)
+          ldmatrix_x2(a[i], xa + 16 * i * xrow + k);
+        ldmatrix_x4(b, (unsigned)__cvta_generic_to_shared(ws) +
+                           (wn * WN + 8 * (lane >> 3) + (lane & 7)) * wrow +
+                           k);
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+        for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_k16(p[i][j], a[i], b[j]);
+          for (int j = 0; j < NT; ++j) mma_k16(p[i][j], a[i], b[j]);
+      }
     }
     if ((t + 1) % Q == 0) {  // the group's last chunk: rescale and fold
       const float* ss =
@@ -538,7 +673,7 @@ int8_mma_kernel(const int8_t* __restrict__ xc,   // (M, K) codes
 #pragma unroll
       for (int j = 0; j < 2 * NT; ++j)
         swv[j] = ss[BM + wn * WN + 8 * (j >> 1) + 2 * tig + (j & 1)];
-      fold_group<PACKED>(acc, p, sxv, swv);
+      fold_group<Codes>(acc, p, sxv, swv);
     }
   }
   cp_async_wait<0>();
@@ -607,67 +742,69 @@ int8_mma_kernel(const int8_t* __restrict__ xc,   // (M, K) codes
   if (tid == 0) tickets[tile] = 0;
 }
 
-// The launch of int8_mma_kernel: ``splits`` K splits of whole groups
+// The launch of mma_contract_kernel: ``splits`` K splits of whole groups
 // (partial: splits * M * N floats and tickets: one zero int per output
 // tile, when splits > 1).  Returns a CUDA error.
-template <bool PACKED>
-int launch_int8_mma(const int8_t* xc, const float* sx, const uint8_t* wc,
-                    const float* sw, float* y, float* partial, int* tickets,
-                    int M, int N, int K, int n, int splits,
-                    cudaStream_t stream) {
+template <typename Codes>
+int launch_mma(const void* xc, const float* sx, const void* wc,
+               const float* sw, float* y, float* partial, int* tickets,
+               int M, int N, int K, int n, int splits, cudaStream_t stream) {
+  constexpr int XB = Codes::kXBytes;
+  constexpr bool PACKED = Codes::kPacked;
   const int G = n > 0 ? K / n : 0;
   if (n <= 0 || n % (PACKED ? 32 : 16) || K % n || splits < 1 ||
       splits > G + (G == 0) ||
       (splits > 1 && (partial == nullptr || tickets == nullptr)) ||
-      (long long)M * K >= (1ll << 31) || (long long)N * K >= (1ll << 31))
+      (long long)M * K * XB >= (1ll << 31) ||
+      (long long)N * K * XB >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      kMmaStages * mma_stage_bytes(kMmaBM, mma_chunk(n, PACKED), PACKED);
+  const size_t smem = kMmaStages * mma_stage_bytes(
+                                       kMmaBM, mma_chunk(n, XB, PACKED), XB,
+                                       PACKED);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  auto kern = &int8_mma_kernel<PACKED>;
+  auto kern = &mma_contract_kernel<Codes>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM, splits);
-  kern<<<grid, kThreads, smem, stream>>>(xc, sx, wc, sw, y, partial, tickets,
-                                         M, N, K, n);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const uint8_t*>(xc), sx, static_cast<const uint8_t*>(wc),
+      sw, y, partial, tickets, M, N, K, n);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (M, K) f32, K = G * n already zero-padded.  wc: (N, K) int8 codes or
-// (N, K/2) packed nibbles, 16-byte aligned.  ws: (N, G) f32.  xc_scratch:
-// M*K bytes, sx_scratch: M*G floats, y: (M, N) f32.  mma_rows = 0:
-// contract_kernel (n = 16, packed 32, times a power of two <= 32).
-// mma_rows = 64: int8_mma_kernel (64 rows a block) with ``splits`` K
-// splits (partial: splits*M*N floats and tickets: one zero
-// int per output tile, when splits > 1).  Returns a CUDA error.
+// x: (M, K) f32, K = G * n.  wc: (N, G * n_pad) int8 codes or (N, G *
+// n_pad / 2) packed nibbles, each group zero-padded to n_pad (a multiple of
+// 16, packed 32, >= n), 16-byte aligned.  ws: (N, G) f32.  xc_scratch:
+// M*G*n_pad bytes, sx_scratch: M*G floats, y: (M, N) f32.  mma_rows = 0:
+// contract_kernel (n_pad = 16, packed 32, times a power of two <= 32).
+// mma_rows = 64: mma_contract_kernel (64 rows a block) with ``splits`` K
+// splits (partial: splits*M*N floats and tickets: one zero int per output
+// tile, when splits > 1).  Returns a CUDA error.
 extern "C" int repro_quant_matmul(const void* x, const void* wc,
                                   const void* ws, void* xc_scratch,
                                   void* sx_scratch, void* partial,
                                   void* tickets, void* y, int M, int N,
-                                  int K, int n, int packed, int mma_rows,
-                                  int splits, float qmax, float qmin,
-                                  void* stream_ptr) {
+                                  int K, int n, int n_pad, int packed,
+                                  int mma_rows, int splits, float qmax,
+                                  float qmin, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int cpl = packed ? 32 : 16;  // codes a lane of contract_kernel takes
-  const int lpg = n / cpl;
-  if (mma_rows == 0 &&
-      (n <= 0 || n % cpl || (lpg & (lpg - 1)) || lpg > 32))
+  const int lpg = n_pad / cpl;
+  if (n <= 0 || K % n || n_pad < n || n_pad % cpl ||
+      (mma_rows == 0 && ((lpg & (lpg - 1)) || lpg > 32)))
     return (int)cudaErrorInvalidValue;
-  const long long n_groups = (long long)M * (K / n);
-  const int qblocks =
-      (int)((n_groups + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  if (n_groups > 0) {
-    quantize_rows_kernel<<<qblocks, kThreads, 0, stream>>>(
-        static_cast<const float*>(x), static_cast<int8_t*>(xc_scratch),
-        static_cast<float*>(sx_scratch), n_groups, n, qmax, qmin);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int G = K / n;
+  const int K_pad = G * n_pad;
+  const repro::QdqFormat f{1, qmax, qmin, 0, 0, 0};
+  int err = launch_quantize_rows(
+      static_cast<const float*>(x), static_cast<int8_t*>(xc_scratch),
+      static_cast<float*>(sx_scratch), (long long)M * G, n, n_pad, f, stream);
+  if (err != (int)cudaSuccess) return err;
 
   const int8_t* xc = static_cast<const int8_t*>(xc_scratch);
   const float* sx = static_cast<const float*>(sx_scratch);
@@ -678,18 +815,21 @@ extern "C" int repro_quant_matmul(const void* x, const void* wc,
     float* part = static_cast<float*>(partial);
     int* tick = static_cast<int*>(tickets);
     if (mma_rows != kMmaBM) return (int)cudaErrorInvalidValue;
-    return packed ? launch_int8_mma<true>(xc, sx, w, s, out, part, tick, M,
-                                          N, K, n, splits, stream)
-                  : launch_int8_mma<false>(xc, sx, w, s, out, part, tick, M,
-                                           N, K, n, splits, stream);
+    return packed ? launch_mma<Int4PackedCodes>(xc, sx, w, s, out, part, tick,
+                                                M, N, K_pad, n_pad, splits,
+                                                stream)
+                  : launch_mma<Int8Codes>(xc, sx, w, s, out, part, tick, M,
+                                          N, K_pad, n_pad, splits, stream);
   }
   if (M <= 4)
-    launch_contract<4, 4>(xc, sx, w, s, out, M, N, K, n, packed != 0, stream);
+    launch_contract<4, 4>(xc, sx, w, s, out, M, N, K_pad, n_pad, packed != 0,
+                          stream);
   else if (M <= 8)
-    launch_contract<8, 2>(xc, sx, w, s, out, M, N, K, n, packed != 0, stream);
+    launch_contract<8, 2>(xc, sx, w, s, out, M, N, K_pad, n_pad, packed != 0,
+                          stream);
   else
-    launch_contract<16, 2>(xc, sx, w, s, out, M, N, K, n, packed != 0,
-                           stream);
+    launch_contract<16, 2>(xc, sx, w, s, out, M, N, K_pad, n_pad,
+                           packed != 0, stream);
   return (int)cudaGetLastError();
 }
 
@@ -706,55 +846,69 @@ extern "C" int repro_quant_matmul(const void* x, const void* wc,
 // weight once from device memory (4 K N bytes; the QDQ costs about 16
 // instructions per weight element and the contraction M FMAs, which the
 // CUDA cores do in well under the byte time at M = 4 and in about the
-// byte time at M = 16); at prefill (M in the hundreds) the f32
-// multiply-adds, since the contraction stays on the CUDA cores.  No TF32
-// and no tensor core: an int8 code times a bf16 scale has up to 16
-// significant bits, TF32 keeps 11, so it would change the product the
-// reference computes in f32.
+// byte time at M = 16); above 16 rows, with the contraction on the tensor
+// cores, reading the f32 weight once too (wi,wg at M = 192: 0.086 ms of
+// bytes against 0.026 ms of bf16 tensor-core operations), plus the code
+// scratch each call writes and reads back (2 + 2 bytes a weight element in
+// bf16, 1 + 1 in int8).
 //
-// abfp_matmul.  Stage 1 QDQs x once into scratch (qdq_rows_kernel: x is
-// read by every column block, so its QDQ is not repeated per tile).  Stage
-// 2 depends on the regime (the wrapper's plan_abfp_matmul chooses it):
+// Both take every n that divides K.  Outside the decode kernels' n = 32
+// and 64, the codes of each group are zero-padded to n_pad (n rounded up
+// to a multiple of 16) in the code scratch; a zero code adds exactly 0.
 //
-//   decode (M <= 16, fp_decode_kernel).  A block owns 64 columns and one
-//   K split of whole groups; the grid is (column tiles) x (splits), with
-//   enough splits for two waves of blocks on the 132 SMs and, while a
-//   split keeps two groups, for up to eight (k,v: 8 tiles x 33 splits;
-//   q,o and wo: 56 x 19; wi,wg: 296 x 4); short blocks even out the
-//   tail.  The block streams its (n, 64) w tiles and (BM, n) x tiles
-//   through a ring of kStages shared-memory stages with 16-byte cp.async
-//   copies (4-byte ones when a row of w is not 16-byte aligned), so while
-//   one group is QDQ'd and contracted the next kStages - 1 are in flight;
-//   one barrier per group.  Thread layout: the 16 lanes of a half-warp
-//   share 4 adjacent columns, lane p taking rows p, p + 16, ...; a column
-//   group's max is reduced with __shfl_xor_sync over those 16 lanes (no
-//   shared-memory round trip).  Rows are padded by 4 floats, so the
-//   16-byte reads of 8 consecutive rows by a quarter-warp hit 8 distinct
-//   bank groups.  The weight is QDQ'd with group_scale / qdq_value of
-//   abfp_qdq.cuh (true IEEE division): bit for bit the plain version's.
-//   Each split writes its (M, 64) partial to an (S, M, N) scratch; the
-//   last block of a column tile to arrive (an integer ticket it resets)
-//   sums the S partials in split order: deterministic, no float atomics.
-//   With one split the block writes y itself.
+// abfp_matmul.  The wrapper's plan_abfp_matmul chooses the regime:
 //
-//   prefill (M > 16, fp_contract_kernel<64, 64, 4, 4>).  An f32 SIMT tiled
-//   contraction: per group a block loads a (64, n) x tile and an (n, 64) w
-//   tile into shared memory, QDQs the 64 column groups of the w tile in
-//   place (a column's max reduced over 4 threads through shared memory),
-//   then every thread accumulates its 4 x 4 outputs.  w crosses the memory
-//   bus once per row block.
+//   decode (M <= 16, n = 32 or 64: qdq_rows_kernel, fp_decode_kernel).
+//   qdq_rows_kernel QDQs x once into scratch (x is read by every column
+//   block).  A block owns 64 columns and one K split of whole groups; the
+//   grid is (column tiles) x (splits), with enough splits for two waves of
+//   blocks on the 132 SMs and, while a split keeps two groups, for up to
+//   eight (k,v: 8 tiles x 33 splits; q,o and wo: 56 x 19; wi,wg: 296 x 4);
+//   short blocks even out the tail.  The block streams its (n, 64) w tiles
+//   and (BM, n) x tiles through a ring of kStages shared-memory stages
+//   with 16-byte cp.async copies (4-byte ones when a row of w is not
+//   16-byte aligned), so while one group is QDQ'd and contracted the next
+//   kStages - 1 are in flight; one barrier per group.  Thread layout: the
+//   16 lanes of a half-warp share 4 adjacent columns, lane p taking rows
+//   p, p + 16, ...; a column group's max is reduced with __shfl_xor_sync
+//   over those 16 lanes (no shared-memory round trip).  Rows are padded by
+//   4 floats, so the 16-byte reads of 8 consecutive rows by a quarter-warp
+//   hit 8 distinct bank groups.  The weight is QDQ'd with group_scale /
+//   qdq_value of abfp_qdq.cuh (true IEEE division): bit for bit the plain
+//   version's.  Each split writes its (M, 64) partial to an (S, M, N)
+//   scratch; the last block of a column tile to arrive (an integer ticket
+//   it resets) sums the S partials in split order: deterministic, no float
+//   atomics.  With one split the block writes y itself.
 //
-// Summation order.  prefill: each group's partial sum is added to the
-// running total once.  decode: each lane adds its R-row share of a group to
-// its own accumulator once per group; after the last group the 16 lanes of
-// a column are summed by a shuffle tree, and then the split partials in
-// split order.  Either way the f32 rounding error of K = 18944 terms stays
-// near that of a pairwise sum.
+//   prefill (every other M and n, for formats whose unit codes bf16 holds:
+//   quantize_rows_kernel<bf16>, quantize_cols_kernel<bf16>,
+//   mma_contract_kernel<Bf16Codes>).  Write x = u sx and w = v sw with u, v
+//   the unit codes qdq_unit returns and sx, sw the group scales: then y =
+//   sum_g (P_g sx_g) sw_g with P_g = sum_k u_k v_k.  The first two launches
+//   write the unit codes as bf16 (exact: integers of magnitude <= 256 or
+//   minifloat grid points of <= 8 significant bits in bf16's exponent
+//   range; the planner names the rule) and the f32 scales, w's transposed
+//   and coalesced as abfp_matmul_int8's int8 codes are; the third forms
+//   each P_g on the bf16 tensor cores with f32 sums and folds it, as the
+//   int8 contraction does.  The plain version multiplies QDQ'd values
+//   instead; the two differ only in f32 rounding (the rounding of u * sx
+//   and the summation order), which the reference leaves free.  For int
+//   codes P_g is exact, so the result is bit for bit abfp_matmul_int8's
+//   prefill regime's on the same formats.
+//
+//   simt (a format whose unit codes bf16 cannot hold: an int format of
+//   more than 9 bits, a minifloat with more than 7 mantissa bits:
+//   qdq_rows_kernel, fp_contract_kernel).  An f32 SIMT tiled contraction:
+//   per group a block loads a (BM, n) QDQ'd x tile and an (n, 64) w tile
+//   into shared memory, QDQs the 64 column groups of the w tile in place
+//   (a column's max reduced over 4 threads through shared memory), then
+//   every thread accumulates its TM x 4 outputs (BM = 64, or 32 where a
+//   long group would not fit).  w crosses the memory bus once per row
+//   block.  Each group's partial sum is added to the running total once.
 //
 // abfp_matmul_int8.  Stage 1, quantize_rows_kernel, writes x's int8 codes
 // and scales per (row, group) to scratch (M K bytes: negligible).  Stage 2
-// depends on the regime (plan_abfp_matmul(..., int8=True) chooses it, on
-// the same grid as abfp_matmul's):
+// depends on the regime (plan_abfp_matmul(..., int8=True) chooses it):
 //
 //   decode (M <= 16, n = 32 or 64, int8_decode_kernel).  Bound, like
 //   abfp_matmul's, by reading the f32 weight once (4 K N bytes).  No (N, K)
@@ -767,39 +921,45 @@ extern "C" int repro_quant_matmul(const void* x, const void* wc,
 //   that leave each row with one lane.  Split partials, tickets and the
 //   split-order sum are fp_decode_kernel's.  Two launches a call.
 //
-//   prefill (M > 16, or another n that is a multiple of 16:
-//   quantize_cols_kernel, then int8_mma_kernel above).  quantize_cols_kernel
-//   writes w's codes transposed, (N, K), and scales (N, G) once: a block
+//   prefill (every other M and n: quantize_cols_kernel<int8>, then
+//   mma_contract_kernel<Int8Codes> above).  quantize_cols_kernel writes
+//   w's codes transposed, (N, K_pad), and scales (N, G) once: a block
 //   stages whole groups x 32 columns in shared memory and each warp writes
-//   a column's codes as contiguous runs of >= 128 bytes.  int8_mma_kernel
-//   contracts them on the int8 tensor cores; at M = 192 its operations
-//   (0.013 ms at wi,wg) take less than the f32 weight's bytes, which
-//   quantize_cols_kernel reads (0.081 ms).  Three launches a call.
+//   a column's codes as contiguous runs of >= 128 bytes.  The contraction
+//   runs on the int8 tensor cores; at M = 192 its operations (0.013 ms at
+//   wi,wg) take less than the f32 weight's bytes, which quantize_cols_kernel
+//   reads (0.081 ms).  Three launches a call.
 //
-// Summation order, both regimes: a (row, column, group) sum of code
-// products is an exact int32, rescaled as ((float)P * sx) * sw (never sx *
-// sw folded: the reference multiplies in that order).  Each output's f32
-// sum adds its groups in order within a K split, then the split partials
-// in split order (decode: the last block of a 64-column tile; prefill: the
-// last block of a BM x 128 tile).
+// Summation order, all regimes but simt: a (row, column, group) sum of
+// code products is exact (int32, or an integer-valued f32 for int codes
+// in bf16), rescaled as (P * sx) * sw (never sx * sw folded: the reference
+// multiplies in that order).  Each output's f32 sum adds its groups in
+// order within a K split, then the split partials in split order (decode:
+// the last block of a 64-column tile; prefill: the last block of a 64 x
+// 128 tile).  decode adds per lane first: each lane adds its R-row share
+// of a group to its own sum, and after the last group the 16 lanes of a
+// column are summed by a shuffle tree.  Either way the f32 rounding error
+// of K = 18944 terms stays near that of a pairwise sum.
 // ===========================================================================
 namespace {
 
-// w (K, N) f32 -> codes wc (N, K) int8 and unit scales sw (N, G), the
-// layout contract_kernel reads (a column's codes contiguous).  A block owns
+// w (K, N) f32 -> unit codes wc (N, G * n_pad) (int8, or bf16) and scales
+// sw (N, G), the layout the contractions read (a column's codes
+// contiguous, each group zero-padded from n to n_pad).  A block owns
 // kColTile columns and GB = rows / n whole groups, rows = max(128, n):
-//   1. it reads the (rows, 32) f32 tile row by row (a warp reads 128
+//   1. it reads the (GB n, 32) f32 tile row by row (a warp reads 128
 //      contiguous bytes, a thread keeps 16 loads in flight) into shared
 //      memory;
 //   2. one thread per (group, column) forms the group's scale;
-//   3. one thread per (4 rows, column) packs their codes into a word of a
-//      (32, rows / 4 + 1) code tile (the pad keeps the 32 columns of a
-//      warp's writes on 32 banks);
-//   4. a warp per column writes that column's rows codes, contiguous in wc,
-//      as whole words: runs of GB * n >= 128 bytes, whole 32-byte sectors
+//   3. one thread per (word, column) makes the codes of one 32-bit word of
+//      the column's padded codes (4 int8 or 2 bf16; zero in the pad) in a
+//      (32, GB n_pad / CPW + 1) code tile (the odd row length keeps the 32
+//      columns of a warp's writes on 32 banks);
+//   4. a warp per column writes that column's GB n_pad codes, contiguous in
+//      wc, as whole words: runs of >= 128 bytes, whole 32-byte sectors
 //      (shorter only where K itself is shorter).
 // The codes and scales are those of one thread per (group, column) with
-// group_scale / int_code: the same bits at any tiling.
+// group_scale / qdq_unit: the same bits at any tiling.
 constexpr int kColTile = 32;   // columns per block
 constexpr int kColRows = 128;  // tile rows when n <= 128
 constexpr int kLoads = 16;     // loads a thread keeps in flight
@@ -808,20 +968,30 @@ __host__ __device__ constexpr int col_tile_rows(int n) {
   return n > kColRows ? n : kColRows;
 }
 
-__host__ __device__ constexpr size_t col_tile_smem(int n) {
-  return sizeof(float) * ((size_t)col_tile_rows(n) * kColTile +
-                          (size_t)(col_tile_rows(n) / n) * kColTile +
-                          (size_t)kColTile * (col_tile_rows(n) / 4 + 1));
+// 32-bit words of a column's codes in the code tile (odd)
+__host__ __device__ constexpr int col_tile_words(int n, int n_pad,
+                                                 int code_bytes) {
+  return (col_tile_rows(n) / n) * n_pad * code_bytes / 4 + 1;
 }
 
+__host__ __device__ constexpr size_t col_tile_smem(int n, int n_pad,
+                                                   int code_bytes) {
+  return sizeof(float) * ((size_t)col_tile_rows(n) * kColTile +
+                          (size_t)(col_tile_rows(n) / n) * kColTile +
+                          (size_t)kColTile *
+                              col_tile_words(n, n_pad, code_bytes));
+}
+
+template <typename T, bool INT>
 __global__ void __launch_bounds__(kThreads)
-quantize_cols_kernel(const float* __restrict__ w, int8_t* __restrict__ wc,
-                     float* __restrict__ sw, int K, int N, int n, float qmax,
-                     float qmin) {
+quantize_cols_kernel(const float* __restrict__ w, T* __restrict__ wc,
+                     float* __restrict__ sw, int K, int N, int n, int n_pad,
+                     repro::QdqFormat f) {
+  constexpr int CPW = 4 / sizeof(T);  // codes a 32-bit word
   extern __shared__ __align__(16) float tile[];  // [rows][kColTile]
   const int rows = col_tile_rows(n);
   const int GB = rows / n;
-  const int cw = rows / 4 + 1;  // words of a column's codes, padded
+  const int cw = col_tile_words(n, n_pad, sizeof(T));
   float* scale = tile + rows * kColTile;                   // [GB][kColTile]
   uint32_t* codes = reinterpret_cast<uint32_t*>(scale + GB * kColTile);
   const int G = K / n;
@@ -853,37 +1023,76 @@ quantize_cols_kernel(const float* __restrict__ w, int8_t* __restrict__ wc,
     const int g = e / kColTile, c = e - g * kColTile;
     const float* src = tile + g * n * kColTile + c;
     float m4[4] = {0.f, 0.f, 0.f, 0.f};  // four independent chains
-    for (int i = 0; i < n; i += 4)
+    int i = 0;
+    for (; i + 4 <= n; i += 4)
 #pragma unroll
       for (int k = 0; k < 4; ++k)
         m4[k] = fmaxf(m4[k], fabsf(src[(i + k) * kColTile]));
+    for (; i < n; ++i) m4[0] = fmaxf(m4[0], fabsf(src[i * kColTile]));
     const float amax = fmaxf(fmaxf(m4[0], m4[1]), fmaxf(m4[2], m4[3]));
-    scale[e] = repro::group_scale(amax, qmax);
+    scale[e] = repro::group_scale(amax, f.qmax);
   }
   __syncthreads();
-  const repro::QdqFormat f{1, qmax, qmin, 0, 0, 0};
-  for (int e = tid; e < (nr / 4) * kColTile; e += kThreads) {
+  const int words = ng * n_pad / CPW;  // n_pad % 16 == 0: whole words
+  for (int e = tid; e < words * kColTile; e += kThreads) {
     const int q = e / kColTile, c = e - q * kColTile;
-    const float s = scale[(4 * q / n) * kColTile + c];
+    // padded position k of the word's first code: group g, row r of the
+    // tile, offset k - g n_pad in the group
+    const int k = q * CPW, g = k / n_pad, r = k - g * (n_pad - n);
+    const float s = scale[g * kColTile + c];
     uint32_t word = 0u;
+    if (k - g * n_pad + CPW <= n) {  // real codes only (uniform per warp)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int8_t code = (int8_t)repro::int_code(
-          tile[(4 * q + b) * kColTile + c], s, f);
-      word |= (uint32_t)(uint8_t)code << (8 * b);
+      for (int b = 0; b < CPW; ++b)
+        word |= code_bits<T>(unit_code<INT>(tile[(r + b) * kColTile + c], s,
+                                            f))
+                << (32 / CPW * b);
+    } else {  // a word that reaches into the pad
+      for (int b = 0; b < CPW && k - g * n_pad + b < n; ++b)
+        word |= code_bits<T>(unit_code<INT>(tile[(r + b) * kColTile + c], s,
+                                            f))
+                << (32 / CPW * b);
     }
     codes[c * cw + q] = word;
   }
   __syncthreads();
   const int warp = tid >> 5, lane = tid & 31;
+  const int K_pad = G * n_pad;  // N K_pad code bytes < 2^31 (the planner)
   for (int c = warp; c < kColTile; c += kWarpsPerBlock) {
     const int col = col0 + c;
     if (col >= N) break;  // uniform per warp; columns ascend
-    uint32_t* dst = reinterpret_cast<uint32_t*>(wc + (size_t)col * K + k0);
-    for (int q = lane; q < nr / 4; q += 32) dst[q] = codes[c * cw + q];
+    uint32_t* dst =
+        reinterpret_cast<uint32_t*>(wc + (size_t)col * K_pad + g0 * n_pad);
+    for (int q = lane; q < words; q += 32) dst[q] = codes[c * cw + q];
     if (lane < ng)
       sw[(size_t)col * G + g0 + lane] = scale[lane * kColTile + c];
+    if (GB > 32)  // n < 4
+      for (int g = lane + 32; g < ng; g += 32)
+        sw[(size_t)col * G + g0 + g] = scale[g * kColTile + c];
   }
+}
+
+// w's codes and scales on the caller's stream.  Returns a CUDA error.
+template <typename T>
+int launch_quantize_cols(const float* w, T* wc, float* sw, int K, int N,
+                         int n, int n_pad, const repro::QdqFormat& f,
+                         cudaStream_t stream) {
+  const int G = K / n;
+  if (G == 0 || N == 0) return (int)cudaSuccess;
+  const size_t smem = col_tile_smem(n, n_pad, sizeof(T));
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  auto kern = quantize_cols_kernel<T, true>;
+  if constexpr (sizeof(T) > 1)
+    if (!f.is_int) kern = quantize_cols_kernel<T, false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int GB = col_tile_rows(n) / n;
+  dim3 grid((N + kColTile - 1) / kColTile, (G + GB - 1) / GB);
+  kern<<<grid, kThreads, smem, stream>>>(w, wc, sw, K, N, n, n_pad, f);
+  return (int)cudaGetLastError();
 }
 
 template <int BM, int BN, int TM, int TN>
@@ -1474,42 +1683,72 @@ int launch_int8_decode_rows(const int8_t* xc, const float* sx, const float* w,
 
 }  // namespace
 
-// x: (M, K) f32, w: (K, N) f32, K a multiple of n; xq_scratch: M*K floats;
-// y: (M, N) f32.  fmt_x / fmt_w as QdqFormat fields.  splits = 0: the
-// prefill regime.  splits >= 1: the decode regime (M <= 16, n = 32 or 64)
-// with that many K splits; then partial holds at least splits*M*N floats
-// (unused for one split), tickets (N+63)/64 ints that are zero and are
-// left zero, and vec says that N % 4 == 0 and w is 16-byte aligned.
+// x: (M, K) f32, w: (K, N) f32, K a multiple of n; y: (M, N) f32; fmt_x /
+// fmt_w as QdqFormat fields.  regime (plan_abfp_matmul's):
+//   0  decode (M <= 16, n = 32 or 64, n_pad = n) with ``splits`` K splits:
+//      x_scratch M*K floats; partial at least splits*M*N floats (unused for
+//      one split), tickets (N+63)/64 ints that are zero and are left zero;
+//      vec says that N % 4 == 0 and w is 16-byte aligned.
+//   1  prefill on the bf16 tensor cores, groups zero-padded to n_pad (a
+//      multiple of 16 >= n): x_scratch M*G*n_pad bf16, sx_scratch M*G
+//      floats, wc_scratch N*G*n_pad bf16 (16-byte aligned), sw_scratch N*G
+//      floats; ``splits`` K splits, partial and tickets as for
+//      mma_contract_kernel.
+//   2  simt (fp_contract_kernel with ``block_rows`` = 64 or 32 rows a
+//      block): x_scratch M*K floats.
 // Returns a CUDA error.
 extern "C" int repro_abfp_matmul(const void* x, const void* w,
-                                 void* xq_scratch, void* partial,
-                                 void* tickets, void* y, int M, int N, int K,
-                                 int n, int splits, int vec, int x_int,
-                                 float x_qmax, float x_qmin, int x_man,
-                                 int x_emin, int x_emax, int w_int,
-                                 float w_qmax, float w_qmin, int w_man,
-                                 int w_emin, int w_emax, void* stream_ptr) {
+                                 void* x_scratch, void* sx_scratch,
+                                 void* wc_scratch, void* sw_scratch,
+                                 void* partial, void* tickets, void* y,
+                                 int M, int N, int K, int n, int n_pad,
+                                 int regime, int splits, int block_rows,
+                                 int vec, int x_int, float x_qmax,
+                                 float x_qmin, int x_man, int x_emin,
+                                 int x_emax, int w_int, float w_qmax,
+                                 float w_qmin, int w_man, int w_emin,
+                                 int w_emax, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const repro::QdqFormat fx{x_int, x_qmax, x_qmin, x_man, x_emin, x_emax};
   const repro::QdqFormat fw{w_int, w_qmax, w_qmin, w_man, w_emin, w_emax};
-  if (splits > 0 && (M > 16 || (n != 32 && n != 64) ||
-                     splits > K / n + (K == 0)))
+  if (n <= 0 || K % n || regime < 0 || regime > 2 ||
+      (regime == 0 && (M > 16 || (n != 32 && n != 64) || splits < 1 ||
+                       splits > K / n + (K == 0))) ||
+      (regime == 1 && (n_pad < n || n_pad % 16)) ||
+      (regime == 2 && block_rows != 64 && block_rows != 32))
     return (int)cudaErrorInvalidValue;
-  float* xq = static_cast<float*>(xq_scratch);
-  const long long x_groups = (long long)M * (K / n);
-  if (x_groups > 0) {
-    repro::launch_qdq_rows(static_cast<const float*>(x), xq, x_groups, n, fx,
-                           stream);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+  const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);
   float* out = static_cast<float*>(y);
   float* part = static_cast<float*>(partial);
   int* tick = static_cast<int*>(tickets);
-  if (splits == 0)
-    return launch_fp_contract<64, 64, 4, 4>(xq, wf, out, M, N, K, n, fw,
-                                            stream);
+  const int G = K / n;
+  if (regime == 1) {
+    __nv_bfloat16* xc = static_cast<__nv_bfloat16*>(x_scratch);
+    __nv_bfloat16* wc = static_cast<__nv_bfloat16*>(wc_scratch);
+    float* sx = static_cast<float*>(sx_scratch);
+    float* sw = static_cast<float*>(sw_scratch);
+    int err = launch_quantize_rows(xf, xc, sx, (long long)M * G, n, n_pad, fx,
+                                   stream);
+    if (err != (int)cudaSuccess) return err;
+    err = launch_quantize_cols(wf, wc, sw, K, N, n, n_pad, fw, stream);
+    if (err != (int)cudaSuccess) return err;
+    return launch_mma<Bf16Codes>(xc, sx, wc, sw, out, part, tick, M, N,
+                                 G * n_pad, n_pad, splits, stream);
+  }
+  float* xq = static_cast<float*>(x_scratch);
+  const long long x_groups = (long long)M * G;
+  if (x_groups > 0) {
+    repro::launch_qdq_rows(xf, xq, x_groups, n, fx, stream);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (regime == 2)
+    return block_rows == 64
+               ? launch_fp_contract<64, 64, 4, 4>(xq, wf, out, M, N, K, n, fw,
+                                                  stream)
+               : launch_fp_contract<32, 64, 2, 4>(xq, wf, out, M, N, K, n, fw,
+                                                  stream);
   if (M <= 4)
     return launch_fp_decode_rows<4>(xq, wf, out, part, tick, M, N, K, n,
                                     splits, vec != 0, fw, stream);
@@ -1520,39 +1759,37 @@ extern "C" int repro_abfp_matmul(const void* x, const void* w,
                                    splits, vec != 0, fw, stream);
 }
 
-// x: (M, K) f32, w: (K, N) f32, K a multiple of n (n a multiple of 16);
-// scratch: xc M*K bytes, sx M*G floats; y: (M, N) f32; ``splits`` K splits
-// of whole groups, partial and tickets as for repro_abfp_matmul.
-// mma_rows = 64: the prefill regime (int8_mma_kernel, 64 rows a block),
-// with scratch wc N*K bytes and sw N*G floats.  mma_rows =
-// 0: the decode regime (M <= 16, n = 32 or 64; wc and sw unused), vec as
-// for repro_abfp_matmul.  Returns a CUDA error.
+// x: (M, K) f32, w: (K, N) f32, K a multiple of n; scratch: xc M*G*n_pad
+// bytes, sx M*G floats; y: (M, N) f32; ``splits`` K splits of whole
+// groups, partial and tickets as for repro_abfp_matmul.  mma_rows = 64:
+// the prefill regime (mma_contract_kernel, 64 rows a block), groups
+// zero-padded to n_pad (a multiple of 16 >= n), with scratch wc N*G*n_pad
+// bytes (16-byte aligned) and sw N*G floats.  mma_rows = 0: the decode
+// regime (M <= 16, n = n_pad = 32 or 64; wc and sw unused), vec as for
+// repro_abfp_matmul.  Returns a CUDA error.
 extern "C" int repro_abfp_matmul_int8(const void* x, const void* w,
                                       void* xc_scratch, void* sx_scratch,
                                       void* wc_scratch, void* sw_scratch,
                                       void* partial, void* tickets, void* y,
-                                      int M, int N, int K, int n, int splits,
-                                      int mma_rows, int vec, float x_qmax,
-                                      float x_qmin,
+                                      int M, int N, int K, int n, int n_pad,
+                                      int splits, int mma_rows, int vec,
+                                      float x_qmax, float x_qmin,
                                       float w_qmax, float w_qmin,
                                       void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 0 || n % 16 || (mma_rows != 0 && mma_rows != kMmaBM) ||
-      (mma_rows == 0 && (M > 16 || (n != 32 && n != 64) || splits < 1 ||
-                         splits > K / n + (K == 0))))
+  if (n <= 0 || K % n || n_pad < n || n_pad % 16 ||
+      (mma_rows != 0 && mma_rows != kMmaBM) ||
+      (mma_rows == 0 && (M > 16 || (n != 32 && n != 64) || n_pad != n ||
+                         splits < 1 || splits > K / n + (K == 0))))
     return (int)cudaErrorInvalidValue;
-  const long long n_groups = (long long)M * (K / n);
-  if (n_groups > 0) {
-    const int qblocks =
-        (int)((n_groups + kWarpsPerBlock - 1) / kWarpsPerBlock);
-    quantize_rows_kernel<<<qblocks, kThreads, 0, stream>>>(
-        static_cast<const float*>(x), static_cast<int8_t*>(xc_scratch),
-        static_cast<float*>(sx_scratch), n_groups, n, x_qmax, x_qmin);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int8_t* xc = static_cast<const int8_t*>(xc_scratch);
-  const float* sx = static_cast<const float*>(sx_scratch);
+  const int G = K / n;
+  const repro::QdqFormat fx{1, x_qmax, x_qmin, 0, 0, 0};
+  const repro::QdqFormat fw{1, w_qmax, w_qmin, 0, 0, 0};
+  int8_t* xc = static_cast<int8_t*>(xc_scratch);
+  float* sx = static_cast<float*>(sx_scratch);
+  int err = launch_quantize_rows(static_cast<const float*>(x), xc, sx,
+                                 (long long)M * G, n, n_pad, fx, stream);
+  if (err != (int)cudaSuccess) return err;
   const float* wf = static_cast<const float*>(w);
   float* out = static_cast<float*>(y);
   float* part = static_cast<float*>(partial);
@@ -1570,27 +1807,10 @@ extern "C" int repro_abfp_matmul_int8(const void* x, const void* w,
                                        n, splits, vec != 0, w_qmax, w_qmin,
                                        stream);
   }
-
-  const int G = K / n;
-  if (G > 0) {
-    const size_t smem = col_tile_smem(n);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          quantize_cols_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    const int GB = col_tile_rows(n) / n;
-    dim3 grid((N + kColTile - 1) / kColTile, (G + GB - 1) / GB);
-    quantize_cols_kernel<<<grid, kThreads, smem, stream>>>(
-        wf, static_cast<int8_t*>(wc_scratch), static_cast<float*>(sw_scratch),
-        K, N, n, w_qmax, w_qmin);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return launch_int8_mma<false>(
-      xc, sx, static_cast<const uint8_t*>(wc_scratch),
-      static_cast<const float*>(sw_scratch), out, part, tick, M, N, K, n,
-      splits, stream);
+  int8_t* wc = static_cast<int8_t*>(wc_scratch);
+  float* sw = static_cast<float*>(sw_scratch);
+  err = launch_quantize_cols(wf, wc, sw, K, N, n, n_pad, fw, stream);
+  if (err != (int)cudaSuccess) return err;
+  return launch_mma<Int8Codes>(xc, sx, wc, sw, out, part, tick, M, N,
+                               G * n_pad, n_pad, splits, stream);
 }
-

@@ -19,9 +19,12 @@ tensor-core operations take about the same time.  The kernels
 (``csrc/quant_matmul.cu``) read packed codes as stored and unpack them on
 chip, and quantize x once in a first stage instead of once per output
 tile.  Up to 16 rows ``contract_kernel`` contracts by ``__dp4a``; above 16
-rows (and for group lengths it is not built for) ``int8_mma_kernel`` runs
-the contraction on the int8 tensor cores, on the grid that
-``plan_int8_contract`` chooses.  See the source for the design.
+rows (and for group lengths it is not built for) ``mma_contract_kernel``
+runs the contraction on the int8 tensor cores, on the grid that
+``plan_mma_contract`` chooses.  Any group length n that divides K: each
+group's codes are zero-padded to ``pad_group(n)`` (a multiple of 16,
+packed 32), which adds exactly 0 to its sum; stored codes off that grid
+are copied into a padded buffer first.  See the source for the design.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs
 ``quant_matmul_plain``, which the CPU tests hold against the reference
@@ -110,10 +113,36 @@ def quant_matmul_plain(x: torch.Tensor, w_codes: torch.Tensor,
 _SMEM_MAX = 232448  # dynamic shared memory a block may use on sm_90
 SMS = 132  # streaming multiprocessors of an H100 SXM
 CONTRACT_MAX_M = 16  # rows up to which quant_matmul takes contract_kernel
-MMA_BM = 64  # output rows of an int8_mma_kernel block (kMmaBM)
-MMA_BN = 128  # output columns of an int8_mma_kernel block (kMmaBN)
+MMA_BM = 64  # output rows of an mma_contract_kernel block (kMmaBM)
+MMA_BN = 128  # output columns of an mma_contract_kernel block (kMmaBN)
 MMA_STAGES = 4  # its shared-memory ring depth (kMmaStages)
-MMA_CHUNK_MAX = 128  # codes of a group one ring stage holds, at most
+MMA_CHUNK_MAX = 128  # bytes of a row's x codes one ring stage holds, at most
+# bytes of an x code of each code type of mma_contract_kernel (``codes``):
+# int8 x and weight codes, int8 x against packed 4-bit weight codes, bf16
+# unit codes of both
+CODE_BYTES = {"int8": 1, "packed": 1, "bf16": 2}
+
+
+def pad_group(n: int, packed: bool = False) -> int:
+    """The group length of the code layouts the contractions read: ``n``
+    rounded up to a multiple of 16 (``packed``: 32); the codes past n are
+    zeros, which add exactly 0 to a group sum."""
+    step = 32 if packed else 16
+    return -(-n // step) * step
+
+
+def pad_group_codes(w_codes: torch.Tensor, n: int, packed: bool = False
+                    ) -> torch.Tensor:
+    """Stored weight codes (N, G, n) — packed: (N, G, n / 2) bytes — as the
+    contractions read them: each group zero-padded to ``pad_group(n)``
+    codes (the tensor itself where n is on that grid)."""
+    n_pad = pad_group(n, packed)
+    if n_pad == n:
+        return w_codes
+    N, G, width = w_codes.shape
+    out = w_codes.new_zeros((N, G, n_pad // 2 if packed else n_pad))
+    out[:, :, :width] = w_codes
+    return out
 
 
 def mma_row_bytes(b: int) -> int:
@@ -122,20 +151,21 @@ def mma_row_bytes(b: int) -> int:
     return b if (b // 16) % 2 else b + 16
 
 
-def mma_chunk(n: int, packed: bool) -> int:
-    """Codes of a group one ring stage of ``int8_mma_kernel`` holds: the
-    whole group up to 128 codes, else the largest multiple of 16 (packed:
-    32) <= 128 that divides n."""
-    if n <= MMA_CHUNK_MAX:
+def mma_chunk(n: int, packed: bool = False, code_bytes: int = 1) -> int:
+    """Codes of a group one ring stage of ``mma_contract_kernel`` holds:
+    the whole group up to 128 bytes of x codes a row (``code_bytes`` each),
+    else the largest multiple of 16 (packed: 32) codes within that which
+    divides n."""
+    most = MMA_CHUNK_MAX // code_bytes
+    if n <= most:
         return n
     step = 32 if packed else 16
-    return next((c for c in range(MMA_CHUNK_MAX, step, -step) if n % c == 0),
-                step)
+    return next((c for c in range(most, step, -step) if n % c == 0), step)
 
 
-class Int8ContractPlan(NamedTuple):
-    """How ``int8_mma_kernel`` launches for one shape
-    (``plan_int8_contract``)."""
+class MmaPlan(NamedTuple):
+    """How ``mma_contract_kernel`` launches for one shape
+    (``plan_mma_contract``)."""
     block_rows: int  # rows of x a block (MMA_BM)
     chunk: int       # codes of a group a ring stage holds
     splits: int      # K splits of whole groups
@@ -148,61 +178,75 @@ class Int8ContractPlan(NamedTuple):
         return self.grid[0] * self.grid[1]
 
 
-def plan_int8_contract(M: int, N: int, K: int, n: int,
-                       packed: bool = False) -> Int8ContractPlan:
-    """The grid of ``int8_mma_kernel`` at x codes (M, K) against weight
-    codes (N, K), groups of n along K (``packed``: the weight as nibble
-    pairs).  A block owns ``MMA_BM`` x ``MMA_BN`` outputs; where those
+def plan_mma_contract(M: int, N: int, K: int, n: int,
+                      codes: str = "int8") -> MmaPlan:
+    """The grid of ``mma_contract_kernel`` at x codes (M, K) against weight
+    codes (N, K), groups of n along K; ``codes`` is "int8", "packed"
+    (int8 x codes, the weight as nibble pairs) or "bf16" (unit codes of
+    both).  A block owns ``MMA_BM`` x ``MMA_BN`` outputs; where those
     tiles alone give fewer blocks than the ``SMS`` SMs, K is split into
     whole groups until they do (at most one split per group).  Its ring
     holds ``MMA_STAGES`` stages of (BM, chunk) x codes, (128, chunk)
     weight codes or (128, chunk / 2) packed bytes, rows padded by
     ``mma_row_bytes``, and the BM + 128 scales of the chunk's group.
-    Raises where the kernel cannot take the group length or the shape
-    overflows its 32-bit offsets."""
+    Raises where the kernel cannot take the group length (n a multiple of
+    16, packed 32: ``pad_group`` makes one) or the shape overflows its
+    32-bit offsets."""
+    packed = codes == "packed"
+    xb = CODE_BYTES[codes]
     step = 32 if packed else 16
     if n <= 0 or n % step:
         raise ValueError(
-            f"the int8 tensor-core contraction needs a group length that is "
-            f"a multiple of {step} (packed={packed}); got n={n}")
-    if max(M, N) * K >= 2 ** 31:
-        raise ValueError(f"int8 tensor-core contraction: M={M} or N={N} "
-                         f"times K={K} codes exceeds 2^31 (32-bit offsets)")
+            f"the tensor-core contraction needs a group length that is "
+            f"a multiple of {step} ({codes} codes); got n={n}")
+    if max(M, N) * K * xb >= 2 ** 31:
+        raise ValueError(f"tensor-core contraction: M={M} or N={N} times "
+                         f"K={K} codes of {xb} bytes exceeds 2^31 bytes "
+                         "(32-bit offsets)")
     cols = -(-N // MMA_BN)
     bm = MMA_BM
     rows = -(-M // bm)
     splits = max(1, min(K // n, -(-SMS // max(cols * rows, 1))))
-    chunk = mma_chunk(n, packed)
-    stage = (bm * mma_row_bytes(chunk)
-             + MMA_BN * mma_row_bytes(chunk // 2 if packed else chunk)
+    chunk = mma_chunk(n, packed, xb)
+    stage = (bm * mma_row_bytes(chunk * xb)
+             + MMA_BN * mma_row_bytes(chunk // 2 if packed else chunk * xb)
              + 4 * (bm + MMA_BN))
     smem = MMA_STAGES * stage
     if smem > _SMEM_MAX:
-        raise ValueError(f"int8 tensor-core contraction: n={n} needs "
+        raise ValueError(f"tensor-core contraction: n={n} needs "
                          f"{smem} bytes of shared memory, more than a block "
                          "has")
-    return Int8ContractPlan(bm, chunk, splits, (cols, rows, splits), smem)
+    return MmaPlan(bm, chunk, splits, (cols, rows, splits), smem)
+
+
+def plan_int8_contract(M: int, N: int, K: int, n: int,
+                       packed: bool = False) -> MmaPlan:
+    """``plan_mma_contract`` for int8 codes (``packed``: against nibble
+    pairs)."""
+    return plan_mma_contract(M, N, K, n, "packed" if packed else "int8")
 
 
 def quant_matmul_plan(M: int, N: int, K: int, n: int, packed: bool
-                      ) -> Int8ContractPlan | None:
-    """The contraction ``quant_matmul`` launches: None for
-    ``contract_kernel`` (M <= 16 and a group length it is built for: 16,
-    packed 32, codes a lane times a power of two <= 32), else the plan of
-    ``int8_mma_kernel``."""
+                      ) -> MmaPlan | None:
+    """The contraction ``quant_matmul`` launches, planned on the padded
+    group length ``pad_group(n, packed)``: None for ``contract_kernel``
+    (M <= 16 and a padded group it is built for: 16, packed 32, codes a
+    lane times a power of two <= 32), else the plan of
+    ``mma_contract_kernel`` at K = G n_pad."""
+    n_pad = pad_group(n, packed)
     cpl = 32 if packed else 16  # codes a lane of contract_kernel takes
-    lpg = n // cpl
-    if (M <= CONTRACT_MAX_M and n > 0 and n % cpl == 0
-            and lpg & (lpg - 1) == 0 and lpg <= 32):
+    lpg = n_pad // cpl
+    if M <= CONTRACT_MAX_M and n > 0 and lpg & (lpg - 1) == 0 and lpg <= 32:
         return None
-    return plan_int8_contract(M, N, K, n, packed)
+    return plan_int8_contract(M, N, K // n * n_pad if n > 0 else K, n_pad,
+                              packed)
 
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.repro_quant_matmul
     if not fn.argtypes:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 8 + [i] * 7 + [f, f, p]
+        fn.argtypes = [p] * 8 + [i] * 8 + [f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -225,7 +269,7 @@ def quant_matmul(x: torch.Tensor, w_codes: torch.Tensor,
     if not isinstance(fmt_x, IntFormat) or fmt_x.bits > 8:
         raise ValueError(
             f"quant_matmul quantizes x to int8 codes; got format {fmt_x}")
-    plan = quant_matmul_plan(M, N, K, n, packed)  # raises on other n
+    plan = quant_matmul_plan(M, N, K, n, packed)
     want = torch.uint8 if packed else torch.int8
     for name, t, dt in (("x", x, torch.float32), ("w_codes", w_codes, want),
                         ("w_scales", w_scales, torch.float32)):
@@ -240,9 +284,11 @@ def quant_matmul(x: torch.Tensor, w_codes: torch.Tensor,
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0:
         return y
-    xc = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    n_pad = pad_group(n, packed)
+    codes = pad_group_codes(w_codes, n, packed)  # w_codes itself on the grid
+    xc = torch.empty((M, G * n_pad), dtype=torch.int8, device=x.device)
     sx = torch.empty((M, G), dtype=torch.float32, device=x.device)
-    _check_aligned("quant_matmul", w_codes=w_codes, x_codes=xc)
+    _check_aligned("quant_matmul", w_codes=codes, x_codes=xc)
     fn = _bind(build.load("quant_matmul"))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -250,11 +296,11 @@ def quant_matmul(x: torch.Tensor, w_codes: torch.Tensor,
                                                            x.device, stream)
         tickets = (None if partial is None
                    else _tickets(x.device, stream, plan.tiles))
-        err = fn(x.data_ptr(), w_codes.data_ptr(), w_scales.data_ptr(),
+        err = fn(x.data_ptr(), codes.data_ptr(), w_scales.data_ptr(),
                  xc.data_ptr(), sx.data_ptr(),
                  None if partial is None else partial.data_ptr(),
                  None if tickets is None else tickets.data_ptr(),
-                 y.data_ptr(), M, N, K, n, int(packed),
+                 y.data_ptr(), M, N, K, n, n_pad, int(packed),
                  0 if plan is None else plan.block_rows,
                  1 if plan is None else plan.splits,
                  float(fmt_x.qmax_pos), float(fmt_x.qmin), stream)
@@ -287,28 +333,36 @@ def _check_aligned(name: str, **tensors) -> None:
 # ``::abfp_matmul_int8`` (body ``_int8_kernel``): integer codes of both
 # operands, exact integer group sums, each rescaled as ``(P * sx) * sw`` in
 # f32 and summed over groups.  The kernels (in ``csrc/quant_matmul.cu``)
-# quantize the weight at every call, as the TPU kernels do.
+# quantize the weight at every call, as the TPU kernels do.  Both take
+# every n that divides K.
 #
-# Both have two regimes on an H100, chosen by ``plan_abfp_matmul``.  Decode
-# (M <= 16, n = 32 or 64) is bound by reading the f32 weight once (4 K N
-# bytes); the on-chip quantization and the M products per weight element
-# fit under that time if they overlap the loads.  Its kernels split K into
-# whole groups across blocks so that every shape puts about eight waves of
-# blocks on the 132 SMs (k,v at N = 512 has only 8 column tiles), stream
-# the weight through a 4-stage ring of asynchronous copies, and sum the
-# split partials in a fixed order in the last block of each column tile.
-# ``abfp_matmul``'s QDQs each column group within one half-warp (shuffles,
-# no barrier).  ``abfp_matmul_int8``'s makes the weight's int codes in the
-# same pass, four lanes a column, and contracts them with x's codes by
-# ``__dp4a``: each row's group sum is a whole int32 after two shuffle
-# rounds, then rescaled; groups are added in order within a split, splits
-# in split order.  No (N, K) code scratch: a call is two launches (x codes,
-# decode kernel).  Prefill (M > 16): ``abfp_matmul`` keeps the 64 x 64
-# tiled f32 contraction, bound by its multiply-adds; ``abfp_matmul_int8``
-# writes w's codes once, transposed and coalesced (whole 128-byte runs of
-# a column), then contracts them on the int8 tensor cores with
-# ``int8_mma_kernel``, as ``quant_matmul`` does above 16 rows (three
-# launches); reading the f32 weight once then bounds it.
+# ``plan_abfp_matmul`` chooses the regime.  Decode (M <= 16, n = 32 or 64)
+# is bound by reading the f32 weight once (4 K N bytes); the on-chip
+# quantization and the M products per weight element fit under that time
+# if they overlap the loads.  Its kernels split K into whole groups across
+# blocks so that every shape puts about eight waves of blocks on the 132
+# SMs (k,v at N = 512 has only 8 column tiles), stream the weight through a
+# 4-stage ring of asynchronous copies, and sum the split partials in a
+# fixed order in the last block of each column tile.  ``abfp_matmul``'s
+# QDQs each column group within one half-warp (shuffles, no barrier).
+# ``abfp_matmul_int8``'s makes the weight's int codes in the same pass,
+# four lanes a column, and contracts them with x's codes by ``__dp4a``:
+# each row's group sum is a whole int32 after two shuffle rounds, then
+# rescaled; groups are added in order within a split, splits in split
+# order.  No (N, K) code scratch: a call is two launches (x codes, decode
+# kernel).
+#
+# Every other (M, n) takes the prefill regime, three launches on the
+# tensor cores: x's codes, w's codes written once, transposed and
+# coalesced (whole 128-byte runs of a column), then ``mma_contract_kernel``
+# (as ``quant_matmul`` above 16 rows); each group's codes are zero-padded
+# to ``pad_group(n)``.  ``abfp_matmul_int8`` writes int8 codes.
+# ``abfp_matmul`` writes x = u sx and w = v sw as bf16 unit codes u, v
+# (exact for the formats ``bf16_holds_codes`` accepts) and f32 scales, and
+# forms each group's P = u . v on the bf16 tensor cores with f32 sums:
+# exact for int codes, so it is then bit for bit ``abfp_matmul_int8``.  A
+# format whose unit codes bf16 cannot hold takes the "simt" regime: the x
+# QDQ and a 64 x 64 (or 32 x 64) tiled f32 contraction on the CUDA cores.
 
 
 def _check_dense(x, w, n: int):
@@ -365,7 +419,7 @@ def _bind_fp(lib: ctypes.CDLL):
     if not fn.argtypes:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fmt = [i, f, f, i, i, i]  # format_args
-        fn.argtypes = [p] * 6 + [i] * 6 + fmt + fmt + [p]
+        fn.argtypes = [p] * 9 + [i] * 9 + fmt + fmt + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -374,7 +428,7 @@ def _bind_int8(lib: ctypes.CDLL):
     fn = lib.repro_abfp_matmul_int8
     if not fn.argtypes:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 9 + [i] * 7 + [f] * 4 + [p]
+        fn.argtypes = [p] * 9 + [i] * 8 + [f] * 4 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -392,28 +446,64 @@ DECODE_WAVES = 8
 class AbfpPlan(NamedTuple):
     """How ``abfp_matmul`` or ``abfp_matmul_int8`` launches for one shape
     (``plan_abfp_matmul``)."""
-    regime: str      # "decode" (fp_ / int8_decode_kernel) or "prefill"
+    regime: str      # "decode", "prefill" (tensor cores) or "simt"
     block_rows: int  # rows of x a block holds (the kernel's BM)
     tiles: int       # blocks along the output (column tiles x row blocks)
-    splits: int      # K splits of whole groups (decode; 1 for prefill)
+    splits: int      # K splits of whole groups (1 for simt)
     smem_bytes: int  # dynamic shared memory of one contraction block
+    n_pad: int       # group length of the code scratch (prefill), else n
 
 
-def plan_abfp_matmul(M: int, N: int, K: int, n: int,
-                     int8: bool = False) -> AbfpPlan:
+_COL_TILE, _COL_ROWS = 32, 128  # quantize_cols_kernel (kColTile, kColRows)
+
+
+def _col_stage_smem(n: int, n_pad: int, code_bytes: int) -> int:
+    """Dynamic shared memory of a ``quantize_cols_kernel`` block
+    (``col_tile_smem``): the (rows, 32) f32 tile, its scales, and the
+    padded code tile."""
+    rows = max(n, _COL_ROWS)
+    words = rows // n * n_pad * code_bytes // 4 + 1
+    return 4 * (rows * _COL_TILE + rows // n * _COL_TILE + _COL_TILE * words)
+
+
+def bf16_holds_codes(fmt: Format) -> bool:
+    """Whether bf16 holds every unit code of ``fmt`` (the values its
+    ``qdq_unit`` returns) exactly: an int format whose codes have magnitude
+    <= 256 (at most 9 bits), or a minifloat of at most 7 mantissa bits
+    whose grid lies inside bf16's exponent range (smallest quantum >=
+    2**-133, largest exponent <= 127) and whose top value bf16 holds.  The
+    rule by which ``abfp_matmul`` contracts on the bf16 tensor cores."""
+    if isinstance(fmt, IntFormat):
+        return max(fmt.qmax_pos, -fmt.qmin) <= 256
+    top = torch.tensor(fmt.qmax_pos, dtype=torch.float32)
+    return (fmt.man_bits <= 7
+            and fmt.min_normal_exp - fmt.man_bits >= -133
+            and fmt.max_biased_exp - fmt._bias <= 127
+            and bool(top.to(torch.bfloat16).to(torch.float32) == top))
+
+
+def plan_abfp_matmul(M: int, N: int, K: int, n: int, int8: bool = False,
+                     formats: tuple = ()) -> AbfpPlan:
     """The regime and grid of ``abfp_matmul`` (``int8``: of
-    ``abfp_matmul_int8``) at (M, K) x (K, N), groups of n along K.  Decode
-    (M <= 16, n = 32 or 64), the same grid for both: 64-column tiles times
-    K splits of whole groups, at most one split per group: enough splits
-    for two waves of blocks on the ``SMS`` SMs, and beyond that up to
-    ``DECODE_WAVES`` waves as long as a split keeps two groups or more (a
-    block of one group has no next group to load while it computes).  Its
-    ring stage holds an (n, 64 + 4) f32 w tile and the x tile: (BM, n) f32
-    values, or for int8 (BM, n) codes and BM scales.  Otherwise the
-    prefill kernels: ``abfp_matmul``'s, one block per 64 x 64 output tile
-    (it raises if its tiles do not fit in a block's shared memory);
-    ``abfp_matmul_int8``'s int8_mma_kernel on the grid of
-    ``plan_int8_contract`` (int8 weight codes)."""
+    ``abfp_matmul_int8``) at (M, K) x (K, N), groups of n along K
+    (``formats``: ``abfp_matmul``'s formats of x and w).
+
+    Decode (M <= 16, n = 32 or 64), the same grid for both: 64-column
+    tiles times K splits of whole groups, at most one split per group:
+    enough splits for two waves of blocks on the ``SMS`` SMs, and beyond
+    that up to ``DECODE_WAVES`` waves as long as a split keeps two groups
+    or more (a block of one group has no next group to load while it
+    computes).  Its ring stage holds an (n, 64 + 4) f32 w tile and the x
+    tile: (BM, n) f32 values, or for int8 (BM, n) codes and BM scales.
+
+    Otherwise "prefill": ``mma_contract_kernel`` on the grid of
+    ``plan_mma_contract`` at the padded group length n_pad =
+    ``pad_group(n)`` (int8 codes; bf16 unit codes for ``abfp_matmul``),
+    after the two quantize stages (it raises if their tiles do not fit in
+    a block's shared memory).  ``abfp_matmul`` with a format for which
+    ``bf16_holds_codes`` fails takes "simt" instead: one block per 64 x 64
+    output tile (32 x 64 where a long group would not fit; it raises if
+    neither does)."""
     G = K // n
     bm = 4 if M <= 4 else 8 if M <= 8 else 16
     if M <= DECODE_MAX_M and n in DECODE_GROUPS:
@@ -423,16 +513,23 @@ def plan_abfp_matmul(M: int, N: int, K: int, n: int,
         two = -(-2 * SMS // max(tiles, 1))
         aim = -(-DECODE_WAVES * SMS // max(tiles, 1))
         splits = max(1, min(G, max(two, min(aim, G // 2))))
-        return AbfpPlan("decode", bm, tiles, splits, smem)
-    if int8:
-        mma = plan_int8_contract(M, N, K, n)
+        return AbfpPlan("decode", bm, tiles, splits, smem, n)
+    if int8 or all(bf16_holds_codes(f) for f in formats):
+        codes = "int8" if int8 else "bf16"
+        n_pad = pad_group(n)
+        if _col_stage_smem(n, n_pad, CODE_BYTES[codes]) > _SMEM_MAX:
+            raise ValueError(f"abfp_matmul: group length n={n} needs more "
+                             "shared memory than a block has to quantize w")
+        mma = plan_mma_contract(M, N, G * n_pad, n_pad, codes)
         return AbfpPlan("prefill", mma.block_rows, mma.tiles, mma.splits,
-                        mma.smem_bytes)
-    smem = 4 * (64 * n + 64 * n + 256)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"abfp_matmul kernel: group length n={n} needs "
-                         "more shared memory than a block has")
-    return AbfpPlan("prefill", 64, -(-N // 64) * -(-M // 64), 1, smem)
+                        mma.smem_bytes, n_pad)
+    for rows in (64, 32):
+        smem = 4 * (rows * n + 64 * n + 256)
+        if smem <= _SMEM_MAX:
+            return AbfpPlan("simt", rows, -(-N // 64) * -(-M // rows), 1,
+                            smem, n)
+    raise ValueError(f"abfp_matmul kernel: group length n={n} needs more "
+                     "shared memory than a block has")
 
 
 def split_bounds(G: int, splits: int) -> list[tuple[int, int]]:
@@ -446,7 +543,7 @@ def split_bounds(G: int, splits: int) -> list[tuple[int, int]]:
 # order, so one buffer serves them all.  The last block of a tile to
 # finish resets its ticket, so the tickets are zero again at the end of
 # every launch.  A plan splits K only when it has fewer than
-# ``DECODE_WAVES * SMS`` tiles (int8_mma_kernel: fewer than ``SMS``).
+# ``DECODE_WAVES * SMS`` tiles (mma_contract_kernel: fewer than ``SMS``).
 _TICKETS: dict[tuple[int | None, int], torch.Tensor] = {}
 _PARTIALS: dict[tuple[int | None, int], torch.Tensor] = {}
 
@@ -454,10 +551,10 @@ _PARTIALS: dict[tuple[int | None, int], torch.Tensor] = {}
 def split_partials(plan, M: int, N: int, device, stream: int = 0
                    ) -> torch.Tensor | None:
     """The flat f32 scratch, of at least S M N floats, in which a split-K
-    kernel (a decode kernel, or int8_mma_kernel; ``plan`` an ``AbfpPlan``
-    or ``Int8ContractPlan``) writes its (S, M, N) split partials; None where
-    it writes y directly (one split).  Cached per (device, stream) and
-    grown as needed."""
+    kernel (a decode kernel, or mma_contract_kernel; ``plan`` an
+    ``AbfpPlan`` or ``MmaPlan``) writes its (S, M, N) split partials; None
+    where it writes y directly (one split).  Cached per (device, stream)
+    and grown as needed."""
     if plan.splits == 1:
         return None
     device = torch.device(device)
@@ -479,6 +576,9 @@ def _tickets(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
     return t
 
 
+_FP_REGIMES = ("decode", "prefill", "simt")  # repro_abfp_matmul's codes
+
+
 def abfp_matmul(x: torch.Tensor, w: torch.Tensor, fmt_x: Format,
                 fmt_w: Format, n: int = 64) -> torch.Tensor:
     """Fused fp-path ABFP matmul: ``x (M, K)`` f32 @ ``w (K, N)`` f32, both
@@ -490,24 +590,35 @@ def abfp_matmul(x: torch.Tensor, w: torch.Tensor, fmt_x: Format,
         raise ValueError(f"abfp_matmul: unsupported device {x.device}")
     M, K, N = _check_dense(x, w, n)
     _check_cuda_operands("abfp_matmul", x, w)
-    plan = plan_abfp_matmul(M, N, K, n)
+    plan = plan_abfp_matmul(M, N, K, n, formats=(fmt_x, fmt_w))
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
-    xq = torch.empty_like(x)
-    decode = plan.regime == "decode"
+    G, dev = K // n, x.device
+    sx = wc = sw = None
+    if plan.regime == "prefill":  # bf16 unit codes and f32 scales
+        xs = torch.empty((M, G * plan.n_pad), dtype=torch.bfloat16,
+                         device=dev)
+        sx = torch.empty((M, G), dtype=torch.float32, device=dev)
+        wc = torch.empty((N, G * plan.n_pad), dtype=torch.bfloat16,
+                         device=dev)
+        sw = torch.empty((N, G), dtype=torch.float32, device=dev)
+    else:  # QDQ'd f32 x
+        xs = torch.empty_like(x)
     vec = N % 4 == 0 and w.data_ptr() % 16 == 0  # 16-byte weight copies
     fn = _bind_fp(build.load("quant_matmul"))
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        partial = split_partials(plan, M, N, x.device, stream)
+        partial = split_partials(plan, M, N, dev, stream)
         tickets = (None if partial is None
-                   else _tickets(x.device, stream, plan.tiles))
-        err = fn(x.data_ptr(), w.data_ptr(), xq.data_ptr(),
-                 None if partial is None else partial.data_ptr(),
-                 None if tickets is None else tickets.data_ptr(),
-                 y.data_ptr(), M, N, K, n, plan.splits if decode else 0,
-                 int(vec), *format_args(fmt_x), *format_args(fmt_w), stream)
+                   else _tickets(dev, stream, plan.tiles))
+        err = fn(x.data_ptr(), w.data_ptr(), xs.data_ptr(),
+                 *(None if t is None else t.data_ptr()
+                   for t in (sx, wc, sw, partial, tickets)),
+                 y.data_ptr(), M, N, K, n, plan.n_pad,
+                 _FP_REGIMES.index(plan.regime), plan.splits,
+                 plan.block_rows, int(vec), *format_args(fmt_x),
+                 *format_args(fmt_w), stream)
     abfp_matmul.launches += 1
     if err != 0:
         raise RuntimeError(f"abfp_matmul kernel launch failed: CUDA error "
@@ -533,17 +644,18 @@ def abfp_matmul_int8(x: torch.Tensor, w: torch.Tensor, fmt_x: IntFormat,
         if not isinstance(fmt, IntFormat) or fmt.bits > 8:
             raise ValueError(f"abfp_matmul_int8 takes int formats of at most "
                              f"8 bits; got {fmt}")
-    plan = plan_abfp_matmul(M, N, K, n, int8=True)  # raises on other n
+    plan = plan_abfp_matmul(M, N, K, n, int8=True)
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
     G = K // n
     dev = x.device
     decode = plan.regime == "decode"
-    xc = torch.empty((M, K), dtype=torch.int8, device=dev)
+    xc = torch.empty((M, G * plan.n_pad), dtype=torch.int8, device=dev)
     sx = torch.empty((M, G), dtype=torch.float32, device=dev)
-    # the prefill kernels' (N, K) codes and (N, G) scales of w
-    wc = None if decode else torch.empty((N, K), dtype=torch.int8, device=dev)
+    # the prefill kernels' (N, G n_pad) codes and (N, G) scales of w
+    wc = None if decode else torch.empty((N, G * plan.n_pad),
+                                         dtype=torch.int8, device=dev)
     sw = None if decode else torch.empty((N, G), dtype=torch.float32,
                                          device=dev)
     vec = N % 4 == 0 and w.data_ptr() % 16 == 0  # 16-byte weight copies
@@ -558,7 +670,7 @@ def abfp_matmul_int8(x: torch.Tensor, w: torch.Tensor, fmt_x: IntFormat,
                  None if sw is None else sw.data_ptr(),
                  None if partial is None else partial.data_ptr(),
                  None if tickets is None else tickets.data_ptr(),
-                 y.data_ptr(), M, N, K, n, plan.splits,
+                 y.data_ptr(), M, N, K, n, plan.n_pad, plan.splits,
                  0 if decode else plan.block_rows, int(vec),
                  float(fmt_x.qmax_pos), float(fmt_x.qmin),
                  float(fmt_w.qmax_pos), float(fmt_w.qmin), stream)

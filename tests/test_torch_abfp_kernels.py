@@ -32,6 +32,7 @@ from repro.kernels import ops as jops
 from repro.kernels import quant_matmul as j_mm
 from repro.kernels import ref as jref
 from repro_torch.core import policy as tp
+from repro_torch.core.formats import IntFormat
 from repro_torch.core.formats import get_format as t_get_format
 from repro_torch.kernels import abfp_qdq as t_qdq_mod
 from repro_torch.kernels import ops as tops
@@ -277,19 +278,38 @@ def test_decode_plan_at_the_main_path_shapes():
 
 @pytest.mark.parametrize("M", [17, 64, 192])
 def test_more_than_16_rows_take_the_prefill_kernel(M):
+    """The bf16 tensor-core contraction on its own plan: 64 x 128 tiles, K
+    split into whole groups until the blocks fill the SMs, 4 ring stages
+    of (64 + 128) rows of 64 bf16 codes (128 bytes, padded to 144) and
+    192 scales."""
     plan = t_mm.plan_abfp_matmul(M, 3584, 3584, 64)
-    assert plan.regime == "prefill" and plan.splits == 1
-    assert plan.tiles == 56 * -(-M // 64)
-    assert plan.smem_bytes == 4 * (64 * 64 + 64 * 64 + 256)
+    mma = t_mm.plan_mma_contract(M, 3584, 3584, 64, "bf16")
+    assert plan.regime == "prefill" and plan.n_pad == 64
+    assert (plan.block_rows, plan.tiles, plan.splits, plan.smem_bytes) == (
+        mma.block_rows, mma.tiles, mma.splits, mma.smem_bytes)
+    assert plan.tiles == 28 * -(-M // 64)
+    assert plan.splits == -(-t_mm.SMS // plan.tiles)
+    assert plan.smem_bytes == 4 * (64 * 144 + 128 * 144 + 4 * 192)
 
 
 def test_plan_falls_back_to_the_prefill_kernel_or_raises():
-    # group lengths the decode kernel is not built for
-    for n in (8, 16, 48, 128, 256):
-        assert t_mm.plan_abfp_matmul(4, 64, 512, n).regime == "prefill"
+    # group lengths the decode kernel is not built for: the tensor cores,
+    # on codes zero-padded to a multiple of 16
+    for n in (8, 16, 40, 48, 128, 256, 512):
+        plan = t_mm.plan_abfp_matmul(4, 64, 1024 // n * n, n)
+        assert plan.regime == "prefill" and plan.n_pad == -(-n // 16) * 16
     assert t_mm.plan_abfp_matmul(16, 64, 512, 32).regime == "decode"
+    # a format whose unit codes bf16 cannot hold: the f32 SIMT kernel, at
+    # 64 rows a block, 32 where a long group would not fit, else it raises
+    int12 = IntFormat(bits=12)
+    fmts = (int12, t_get_format("int4"))
+    assert t_mm.plan_abfp_matmul(4, 64, 480, 48, formats=fmts)[:2] == (
+        "simt", 64)
+    assert t_mm.plan_abfp_matmul(4, 64, 512, 64, formats=fmts)[0] == "decode"
+    assert t_mm.plan_abfp_matmul(17, 64, 1024, 512, formats=fmts)[:2] == (
+        "simt", 32)
     with pytest.raises(ValueError, match="more shared memory"):
-        t_mm.plan_abfp_matmul(4, 64, 1024, 512)
+        t_mm.plan_abfp_matmul(4, 64, 1024, 1024, formats=fmts)
     # K = 0: one empty split, the kernel writes zeros
     assert t_mm.plan_abfp_matmul(4, 64, 0, 64).splits == 1
 
@@ -301,7 +321,7 @@ def test_split_scratch_has_the_planned_size(M, K, N, n):
     plan = t_mm.plan_abfp_matmul(M, N, K, n)
     stream = M * K * N  # a stream of this case's own: a fresh buffer
     part = t_mm.split_partials(plan, M, N, "cpu", stream)
-    if plan.regime == "prefill" or plan.splits == 1:
+    if plan.splits == 1:
         assert part is None
     else:
         assert part.shape == (plan.splits * M * N,)

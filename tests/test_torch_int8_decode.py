@@ -89,11 +89,11 @@ def test_int8_decode_plan_at_the_main_path_shapes():
                                  (4, 512), (16, 128)])
 def test_int8_other_rows_and_groups_take_the_prefill_path(M, n):
     """Above 16 rows, or a group length the decode kernel is not built for,
-    the three-launch path on int8_mma_kernel's grid: 64 x 128 tiles, K
+    the three-launch path on mma_contract_kernel's grid: 64 x 128 tiles, K
     split into whole groups until the blocks fill the 132 SMs, a
     ring of whole groups (chunks of at most 128 codes) that fits in a
-    block's shared memory at any group length (abfp_matmul's raises at
-    n=512)."""
+    block's shared memory at any group length (abfp_matmul's bf16 ring
+    too, at n = 512)."""
     plan = t_mm.plan_abfp_matmul(M, 3584, 4096, n, int8=True)
     mma = t_mm.plan_int8_contract(M, 3584, 4096, n)
     assert plan.regime == "prefill"
@@ -103,9 +103,10 @@ def test_int8_other_rows_and_groups_take_the_prefill_path(M, n):
         1, min(4096 // n, -(-t_mm.SMS // plan.tiles)))
     assert plan.smem_bytes == mma.smem_bytes
     assert 0 < plan.smem_bytes <= 232448
-    if n == 512:
-        with pytest.raises(ValueError, match="more shared memory"):
-            t_mm.plan_abfp_matmul(M, 3584, 4096, n)
+    if n == 512:  # abfp_matmul's bf16 contraction takes it as well
+        fp = t_mm.plan_abfp_matmul(M, 3584, 4096, n)
+        assert fp.regime == "prefill" and fp.n_pad == n
+        assert 0 < fp.smem_bytes <= 232448
 
 
 def _x_slots(xc_group: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""The int8 tensor-core contraction (``int8_mma_kernel``): its plan, its
-routing, and an emulation of its arithmetic against the plain versions and
-the reference package on the same numpy inputs.
+"""The int8 tensor-core contraction (``mma_contract_kernel`` on int8 and
+packed codes): its plan, its routing, and an emulation of its arithmetic
+against the plain versions and the reference package on the same numpy
+inputs.
 
 The kernel runs only on the card (``chip_smoke.py`` holds it against the
 plain versions there).  What it computes is pinned here step by step: a
@@ -140,7 +141,7 @@ def test_plan_refuses_other_group_lengths(n, packed):
     (2, 1024, False, "mma"), (4, 2048, True, "mma")])
 def test_quant_matmul_routing(M, n, packed, kernel):
     """contract_kernel up to 16 rows for the group lengths it is built for;
-    int8_mma_kernel above 16 rows, and for every other multiple of 16
+    mma_contract_kernel above 16 rows, and for every other multiple of 16
     (packed: 32) at any M."""
     plan = t_mm.quant_matmul_plan(M, 3584, 4 * n, n, packed)
     assert (plan is None) == (kernel == "contract")
@@ -154,7 +155,7 @@ def test_quant_matmul_routing(M, n, packed, kernel):
     (1, 16, "prefill"), (8, 256, "prefill")])
 def test_abfp_int8_routing(M, n, regime):
     """abfp_matmul_int8: the decode kernel up to 16 rows for n = 32 or 64,
-    otherwise the prefill regime on int8_mma_kernel's grid."""
+    otherwise the prefill regime on mma_contract_kernel's grid."""
     plan = t_mm.plan_abfp_matmul(M, 3584, 8 * n, n, int8=True)
     assert plan.regime == regime
     if regime == "prefill":
@@ -165,9 +166,16 @@ def test_abfp_int8_routing(M, n, regime):
 
 
 @pytest.mark.parametrize("n", [40, 8])
-def test_abfp_int8_refuses_group_lengths_off_the_16_grid(n):
-    with pytest.raises(ValueError, match="multiple of 16"):
-        t_mm.plan_abfp_matmul(32, 64, 4 * n, n, int8=True)
+def test_abfp_int8_pads_group_lengths_off_the_16_grid(n):
+    """A group length off the 16 grid takes the prefill regime on the
+    contraction's plan at the padded length (40 -> 48, 8 -> 16)."""
+    plan = t_mm.plan_abfp_matmul(32, 64, 4 * n, n, int8=True)
+    n_pad = t_mm.pad_group(n)
+    assert n_pad == -(-n // 16) * 16 and plan.n_pad == n_pad
+    mma = t_mm.plan_int8_contract(32, 64, 4 * n_pad, n_pad)
+    assert plan.regime == "prefill"
+    assert (plan.block_rows, plan.tiles, plan.splits, plan.smem_bytes) == (
+        mma.block_rows, mma.tiles, mma.splits, mma.smem_bytes)
 
 
 def test_misaligned_codes_are_refused():
@@ -213,7 +221,7 @@ def _expand_packed(packed: torch.Tensor) -> torch.Tensor:
 
 
 def _mma_emulation(xc, sx, wk, sw, n, plan, packed):
-    """``int8_mma_kernel``'s arithmetic.  xc (M, K) and wk (N, K) integer
+    """``mma_contract_kernel``'s arithmetic on int8 codes.  xc (M, K) and wk (N, K) integer
     codes in the kernel's K order (wk 16 x the codes when ``packed``), sx
     (M, G), sw (N, G).  Per split, per group, per chunk of ``plan.chunk``
     codes: K steps of 32 (a last step of 16 where the chunk leaves one)

@@ -27,7 +27,7 @@ SHAPES = (("q,o", 3584, 3584), ("k,v", 3584, 512), ("wi,wg", 3584, 18944),
           ("wo", 18944, 3584))
 PER_LAYER = {"q,o": 2, "k,v": 2, "wi,wg": 2, "wo": 1}
 KERNEL_NAMES = ("quantize_cols", "quantize_rows", "int8_decode",
-                "contract_kernel", "int8_mma")
+                "int8_mma", "mma_contract", "contract_kernel")
 
 
 def main() -> int:

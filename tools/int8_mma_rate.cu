@@ -1,9 +1,9 @@
-// Throughput ceilings of the two instruction streams of int8_mma_kernel
+// Throughput ceilings of the two instruction streams of mma_contract_kernel
 // (src/repro_torch/kernels/csrc/quant_matmul.cu) on one card, each alone:
 //   imma  mma.sync m16n8k32 s8 x s8 -> s32, 16 independent accumulators
 //         a warp, one block of W warps on every SM;
 //   fold  acc += ((float)p * s) * w on 32 independent int sums a thread
-//         (the per-group rescale of int8_mma_kernel).
+//         (its per-group rescale), for int8 codes.
 // Prints one line per measurement.  Build: nvcc -gencode
 // arch=compute_90a,code=sm_90a -O3 -o int8_mma_rate int8_mma_rate.cu
 #include <cstdint>

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Throughput ceilings of int8_mma_kernel's instruction streams on the card.
+"""Throughput ceilings of the int8 contraction's instruction streams.
 
     python3 tools/int8_mma_rate.py
 
