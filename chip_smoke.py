@@ -18,9 +18,16 @@ Phases (each fatal on failure):
             bound for the same work and, where one PyTorch call computes
             the same function, that call; for the three matmuls also the
             kernels each M launches (profiler) and the summed forward
-            passes; the tensor-core contraction (int8, packed int4 and
-            bf16 codes) at ragged shapes and every group length that
-            divides K (codes zero-padded off the 16 grid); abfp_matmul on
+            passes; quant_matmul's one-launch decode kernel at M = 1-16
+            and its two-launch contract_kernel (up to 4 rows of a wide
+            layer) at ragged N, one-group splits and padded groups, timed
+            at M = 4 and 16 beside one PyTorch read of the same code bytes,
+            and at M = 4 in situ (distinct weights back to back: each
+            main-path shape and the decode pass under either route, the
+            one-launch kernel at 1-32 K splits); the tensor-core
+            contraction (int8, packed int4 and bf16 codes) at ragged
+            shapes and every group length that divides K (codes
+            zero-padded off the 16 grid); abfp_matmul on
             the bf16 tensor cores bit-equal to abfp_matmul_int8 for int
             formats
   serve     paged, full width, full depth: 6 greedy requests; launch counts
@@ -185,6 +192,11 @@ def check_quant_matmul(torch, timer, gen, *, M, K, N, packed, label,
                                 2.0 * M * N * K, PEAK_INT8_OPS))
         row["ms"] = timer(lambda: quant_matmul(x, codes, scales, INT8, n=n,
                                                packed=packed), iters=10)
+        if M <= 16:
+            # a yardstick, not the same function: one PyTorch pass that
+            # reads the same code bytes once (a sum of them as f32 words)
+            words = codes.reshape(-1).view(torch.float32)
+            row["read_codes_ms"] = timer(lambda: words.sum(), iters=10)
         row["plain_ms"] = timer(
             lambda: quant_matmul_plain(x, codes, scales, INT8, n=n,
                                        packed=packed), iters=3, warmup=1)
@@ -488,7 +500,8 @@ def forward_pass_ms(rows, at: str) -> dict:
           if f" {at} " in r["shape"] + " " and "ms" in r}
     per_layer = {"q,o": 2, "k,v": 2, "wi,wg": 2, "wo": 1}
     out = {}
-    for key in ("ms", "ms_with_enqueue", "bound_ms"):
+    for key in ("ms", "ms_with_enqueue", "ms_in_situ", "bound_ms",
+                "read_codes_ms"):
         if any(key not in r for r in by.values()):
             continue
         layers = 28 * sum(c * by[name][key] for name, c in per_layer.items())
@@ -510,20 +523,22 @@ REGIME_KERNELS = {
              "quantize_cols_kernel<signed char": "w_codes",
              "Int8Codes>": "mma",
              "quantize_rows_kernel<signed char": "x_codes"},
-    "quant": {"::contract_kernel<": "contract", "Int4PackedCodes>": "mma",
-              "at::native::": "pad_copy",
+    "quant": {"quant_decode_kernel": "decode", "Int4PackedCodes>": "mma",
+              "::contract_kernel<": "contract", "at::native::": "pad_copy",
               "quantize_rows_kernel<signed char": "x_codes"},
 }
 
 # (M, n) of each call check_regimes profiles, per kind; (M, n, "int12"):
 # abfp_matmul with x and w in a 12-bit int format (unit codes bf16 cannot
-# hold)
+# hold); (M, n, "wide"): quant_matmul at N = 18944 (wi,wg) instead of 512
 REGIME_CASES = {"fp": ((1, 64), (4, 64), (16, 64), (17, 64), (64, 64),
                        (4, 48), (4, 40), (64, 64, "int12")),
                 "int8": ((1, 64), (4, 64), (16, 64), (17, 64), (64, 64),
                          (4, 48), (4, 40)),
-                "quant": ((4, 64), (16, 64), (17, 64), (256, 64), (4, 40),
-                          (17, 40))}
+                "quant": ((1, 64), (4, 64), (8, 64), (16, 64), (17, 64),
+                          (256, 64), (4, 40), (16, 40), (17, 40),
+                          (1, 64, "wide"), (4, 64, "wide"), (4, 40, "wide"),
+                          (16, 64, "wide"))}
 
 
 def regime_want(kind: str, M: int, n: int, wide: bool = False) -> dict:
@@ -532,10 +547,12 @@ def regime_want(kind: str, M: int, n: int, wide: bool = False) -> dict:
     (no w code scratch); otherwise x's codes, w's codes and the
     tensor-core contraction (bf16 codes for fp, int8 for int8); fp with a
     format bf16 cannot hold (``wide``): the x QDQ and the f32 SIMT kernel.
-    quant (``quant_matmul``, packed int4): x's codes and contract_kernel up
-    to 16 rows, x's codes and the tensor-core contraction from 17 rows;
-    at a group length off the 32 grid, first PyTorch's two launches that
-    copy the stored codes into a zero-padded buffer (fill, copy)."""
+    quant (``quant_matmul``, packed int4): quant_decode_kernel alone up to
+    16 rows (x's codes made on chip), but x's codes and contract_kernel up
+    to 4 rows of a wide layer (``wide``: N = 18944); x's codes and the
+    tensor-core contraction from 17 rows; at a group length off the 32
+    grid, first PyTorch's two launches that copy the stored codes into a
+    zero-padded buffer (fill, copy)."""
     if kind in ("fp", "int8"):
         if M <= 16 and n in (32, 64):
             return {"x_qdq" if kind == "fp" else "x_codes": 1, "decode": 1}
@@ -543,7 +560,11 @@ def regime_want(kind: str, M: int, n: int, wide: bool = False) -> dict:
             return {"x_qdq": 1, "simt": 1}
         return {"x_codes": 1, "w_codes": 1, "mma": 1}
     pad = {"pad_copy": 2} if n % 32 else {}
-    return {**pad, "x_codes": 1, "contract" if M <= 16 else "mma": 1}
+    if M <= 4 and wide:
+        return {**pad, "x_codes": 1, "contract": 1}
+    if M <= 16:
+        return {**pad, "decode": 1}
+    return {**pad, "x_codes": 1, "mma": 1}
 
 
 def check_regimes(torch, gen, kind: str) -> None:
@@ -559,10 +580,10 @@ def check_regimes(torch, gen, kind: str) -> None:
     from repro_torch.kernels import quant_matmul as qm
 
     names_of = REGIME_KERNELS[kind]
-    N = 512
     seen = {}
     for M, n, *wide in REGIME_CASES[kind]:
         K = 3840 if n in (40, 48) else 3584  # whole groups
+        N = 18944 if wide == ["wide"] else 512
         fx, fw = (IntFormat(12), IntFormat(12)) if wide else (INT8, INT4)
         x = torch.randn((M, K), generator=gen, device="cuda")
         if kind == "quant":
@@ -595,13 +616,175 @@ def check_regimes(torch, gen, kind: str) -> None:
             hit = [v for k, v in names_of.items() if k in e.key]
             key = hit[0] if hit else e.key[:90]
             names[key] = names.get(key, 0) + e.count
-        case = f"M={M} n={n}" + (" int12" if wide else "")
+        case = f"M={M} n={n}" + (f" {wide[0]}" if wide else "")
         seen[case] = names
         want = regime_want(kind, M, n, bool(wide))
         if names != want:
             raise SystemExit(f"{name} at {case} launched {names}, "
                              f"expected {want}")
     log(f"  {name} regimes (kernel launches a call): " + json.dumps(seen))
+
+
+def quant_decode_checks(torch, timer, gen) -> list:
+    """``quant_matmul`` up to 16 rows beyond the main path's rows, against
+    the plain version, packed and int8 codes.  ``quant_decode_kernel``: at
+    M = 1, 2, 3, 4, 5, 8 and 16 (each row block) with groups of 32, 64 and
+    a zero-padded one (packed 40 -> 64, int8 24 -> 32); at ragged N (77,
+    503); at a K whose splits are one group each (K = 8 n on one tile);
+    bit for bit at K = n (one group); and at the longest groups it takes
+    (512 bytes of a column).  ``contract_kernel`` (up to 4 rows at N >=
+    16896): at M = 1-4, the same group lengths, ragged N = 16973, bit for
+    bit at K = n.  Timed at M = 16 at the main-path shapes.  Returns the
+    timed rows."""
+    rows = []
+    for name, K, N in DENSE_SHAPES + (("lm_head", 3584, 152064),):
+        rows.append(check_quant_matmul(
+            torch, timer, gen, M=16, K=K, N=N, packed=True,
+            label=f"{name} M=16 K={K} N={N} int4-packed"))
+    for packed in (True, False):
+        tag = "int4-packed" if packed else "int8"
+        for M in (1, 2, 3, 4, 5, 8, 16):
+            # int8: 24 pads to 32 (40 would pad to 48: the tensor cores)
+            for n in (32, 64, 40 if packed else 24):
+                check_quant_matmul(torch, timer, gen, M=M, K=60 * n, N=512,
+                                   n=n, packed=packed, timed=False,
+                                   label=f"decode M={M} n={n} {tag}")
+        for M, N in ((3, 77), (16, 503), (5, 77), (4, 503)):
+            check_quant_matmul(torch, timer, gen, M=M, K=640, N=N,
+                               packed=packed, timed=False,
+                               label=f"decode ragged M={M} N={N} {tag}")
+        for M in (4, 16):
+            check_quant_matmul(torch, timer, gen, M=M, K=8 * 64, N=64,
+                               packed=packed, timed=False,
+                               label=f"decode one-group splits M={M} {tag}")
+        for M in (1, 4, 5, 16):
+            for n in (32, 64):
+                check_quant_matmul(torch, timer, gen, M=M, K=n, N=503, n=n,
+                                   packed=packed, timed=False, exact=True,
+                                   label=f"decode one group M={M} n={n} "
+                                         f"{tag}")
+        for M in (4, 16):
+            n = 1024 if packed else 512
+            check_quant_matmul(torch, timer, gen, M=M, K=7 * n, N=130, n=n,
+                               packed=packed, timed=False,
+                               label=f"decode long groups M={M} n={n} {tag}")
+        for M in (1, 2, 3, 4):
+            for n in (32, 64, 40 if packed else 24,
+                      1024 if packed else 512):
+                check_quant_matmul(torch, timer, gen, M=M, K=7 * n, N=16973,
+                                   n=n, packed=packed, timed=False,
+                                   label=f"contract M={M} n={n} N=16973 "
+                                         f"{tag}")
+            check_quant_matmul(torch, timer, gen, M=M, K=64, N=16896,
+                               packed=packed, timed=False, exact=True,
+                               label=f"contract one group M={M} {tag}")
+    return rows
+
+
+def stream_ms(torch, calls, reps: int = 7) -> float:
+    """Device ms of ``calls`` run back to back (median of ``reps``), the
+    card held by ``torch.cuda._sleep`` while the host enqueues them."""
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(200_000 * len(calls))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for call in calls:
+            call()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+DECODE_SHAPES = (("q,o", 3584, 3584), ("k,v", 3584, 512),
+                 ("wi,wg", 3584, 18944), ("wo", 18944, 3584),
+                 ("lm_head", 3584, 152064))
+DECODE_LAYER = ("q,o", "k,v", "k,v", "q,o", "wi,wg", "wi,wg", "wo")
+SWEEP_SPLITS = (1, 2, 4, 8, 16, 32)
+
+
+def quant_decode_in_situ(torch, gen) -> dict:
+    """``quant_matmul`` at M = 4 (packed, n = 64) as a decode step meets
+    it, timed by ``stream_ms``: at each main-path shape, distinct weights
+    of at least 200 MB in all called back to back, so every call reads its
+    codes from device memory and finds L2 full of clean lines of other
+    weights (``Timer`` leaves it full of dirty ones); ms a call.  Per
+    shape: the planned kernels, the other route (one-launch
+    ``quant_decode_kernel``, or x's codes then ``contract_kernel``) and the
+    one-launch kernel at each of ``SWEEP_SPLITS`` K splits, each held
+    against the plain version first.  Then the decode step's 197 calls
+    (28 x ``DECODE_LAYER`` + lm_head, distinct weights): planned, all one
+    launch, all two launches."""
+    from repro_torch.core.formats import INT8
+    from repro_torch.kernels import quant_matmul as qm
+
+    def weights(K, N, count):
+        return [(torch.randint(0, 256, (N, K // 64, 32), generator=gen,
+                               device="cuda", dtype=torch.uint8),
+                 torch.rand((N, K // 64), generator=gen, device="cuda")
+                 * 0.02 + 1e-3) for _ in range(count)]
+
+    def one_launch(K, N, splits=None):
+        plan = qm.plan_quant_decode(4, N, K, 64, True)
+        if splits is None:
+            return plan
+        t_max = -(-(K // 64) // splits)
+        return plan._replace(splits=splits, t_max=t_max,
+                             smem_bytes=qm.qd_smem_bytes(32, 4, 64, t_max))
+
+    def two_launch(K, N):
+        return qm.ContractPlan(4, -(-N // qm.CONTRACT_CN), 1)
+
+    def call(x, w, plan):
+        return lambda: qm._quant_matmul(x, *w, INT8, 64, True, plan)
+
+    out = {}
+    for name, K, N in DECODE_SHAPES:
+        count = max(2, -(-200_000_000 // (N * K // 2)))
+        ws = weights(K, N, count)
+        x = torch.randn((4, K), generator=gen, device="cuda")
+        want = qm.quant_matmul_plain(x, *ws[0], INT8, n=64, packed=True)
+        tol = 1e-5 * want.abs().max().item()
+        plans = {"planned": qm.quant_matmul_plan(4, N, K, 64, True),
+                 "one_launch": one_launch(K, N),
+                 "two_launch": two_launch(K, N)}
+        for s in SWEEP_SPLITS:
+            plan = one_launch(K, N, s)
+            if s <= K // 64 and plan.smem_bytes <= qm._SMEM_MAX:
+                plans[f"one_launch splits={s}"] = plan
+        row = {}
+        for label, plan in plans.items():
+            err = (call(x, ws[0], plan)() - want).abs().max().item()
+            if not err <= tol:
+                raise SystemExit(f"quant_matmul {name} M=4 ({label}) "
+                                 f"disagrees: {err} > {tol}")
+            row[label] = stream_ms(torch, [call(x, w, plan)
+                                           for w in ws]) / count
+        out[name] = row
+        del ws
+    # the decode step's matmuls, distinct weights
+    shapes = {name: (K, N) for name, K, N in DECODE_SHAPES}
+    order = [*DECODE_LAYER * 28, "lm_head"]
+    ws = [weights(*shapes[name], 1)[0] for name in order]
+    xs = {K: torch.randn((4, K), generator=gen, device="cuda")
+          for K in (3584, 18944)}
+    for label, route in (
+            ("planned", lambda K, N: qm.quant_matmul_plan(4, N, K, 64, True)),
+            ("one_launch", one_launch), ("two_launch", two_launch)):
+        calls = [call(xs[shapes[name][0]], w, route(*shapes[name]))
+                 for name, w in zip(order, ws)]
+        out[f"decode pass ({len(calls)} calls) {label}"] = stream_ms(
+            torch, calls)
+    del ws
+    torch.cuda.empty_cache()
+    log("  quant_matmul in situ at M=4 (ms a call; a pass: ms): "
+        + json.dumps(out))
+    return out
 
 
 def mma_checks(torch, timer, gen) -> None:
@@ -796,7 +979,16 @@ def phase_kernels(torch, seed: int) -> dict:
     mm.append(check_quant_matmul(
         torch, timer, gen, M=4, K=3584, N=152064, packed=True,
         label="lm_head M=4 K=3584 N=152064 int4-packed"))
-    for at in ("M=4", "M=256"):  # decode step; prefill chunk (no lm_head)
+    mm += quant_decode_checks(torch, timer, gen)
+    in_situ = quant_decode_in_situ(torch, gen)
+    for r in mm:
+        name = r["shape"].split(" ")[0]
+        if r["M"] == 4 and r["shape"] == (
+                f"{name} M=4 K={r['K']} N={r['N']} int4-packed") and (
+                name in in_situ):
+            r["ms_in_situ"] = in_situ[name]["planned"]
+    # decode steps (4 and 16 slots); a prefill chunk (no lm_head)
+    for at in ("M=4", "M=16", "M=256"):
         log(f"  quant_matmul forward pass at {at}: "
             + json.dumps(forward_pass_ms(mm, at)))
     check_regimes(torch, gen, "quant")
@@ -1130,7 +1322,7 @@ def profile_steps(torch, step, n_steps: int, step_ms: float,
         out["device_idle_share"] = max(0.0, 1.0 - busy_ms / step_ms)
         out["top_device_kernels_ms_per_step"] = [
             {"name": k[:60], "ms": ms / n_steps, "launches": c / n_steps}
-            for k, ms, c in dev[:8]]
+            for k, ms, c in dev[:12]]
     return out
 
 

@@ -19,18 +19,24 @@
 // 0.018 ms at 3.35 TB/s; 2 M N K = 34.8 G operations in 0.018 ms at 1,979
 // TOP/s).
 //
-// Design.  The TPU kernel walks a sequential (M/bm, N/bn, K/bk) grid and
-// carries an accumulator across K steps; here nothing carries across
-// blocks, so a block loops over K itself.
-//   stage 1  quantize_rows: one warp per (row, group) writes the int8
-//            codes and the unit scale of x once, so the contraction never
-//            repeats the divide/round per output tile.
-//   stage 2, M <= 16  contract_kernel: per step a lane loads 16 bytes of
-//            each of its CN weight rows (coalesced, 512 bytes a warp, CN
-//            loads in flight), unpacks 4-bit codes in registers, multiplies
-//            with __dp4a against the x codes, reduces the int32 sums over
-//            the lanes of a group by shuffles, and folds sx * ws in f32.
-//   stage 2, M > 16 (or a group length contract_kernel is not built for)
+// Design.  The TPU kernel walks a sequential (M/bm, N/bn, K/bk) grid,
+// quantizes x in VMEM and carries an accumulator across K steps; here
+// nothing carries across blocks, so a block loops over K itself.
+//   M <= 16  quant_decode_kernel, the whole call in one launch: K split
+//            into at most 8 runs of whole groups across blocks, the
+//            weight's codes streamed once through a cp.async ring, x's
+//            codes of a block's split made on chip once a block (as
+//            quantize_rows_kernel makes them), a contraction by __dp4a
+//            into exact int32 group sums, and the split partials added in
+//            split order.  See its note below.
+//   M <= 4 on a layer of N >= 4 x 132 x 32 columns (wi,wg, lm_head)
+//            stage 1, quantize_rows (below), then contract_kernel: a warp
+//            streams 4 columns along K with no split and no prologue;
+//            measured faster there than the one-launch kernel.
+//   M > 16 (or a group length the decode kernels are not built for)
+//            stage 1, quantize_rows: one warp per (row, group) writes the
+//            int8 codes and the unit scale of x once, so the contraction
+//            never repeats the divide/round per output tile; stage 2,
 //            mma_contract_kernel: the contraction on the int8 tensor cores
 //            (mma.sync m16n8k32), fed from shared memory by a 4-stage
 //            cp.async ring; it replaces the TPU kernels
@@ -40,15 +46,14 @@
 //            abfp_matmul.  See its note below, with its summation order.
 // Packed 4-bit codes are read as stored by both: the weight bytes cross
 // the memory bus once and are never expanded in device memory.
-// Both stages are launched by one host entry on the caller's stream.
+// One host entry launches either on the caller's stream.
 //
 // Any group length n that divides K: the codes of each group are
 // zero-padded to n_pad, n rounded up to a multiple of 16 (packed: 32).
 // A zero code adds exactly 0 to a group sum, so the contractions see a
-// group length they are built for; the scales stay (rows, G).  Stage 1
-// reads x with stride n and writes codes with stride n_pad (zeros in the
-// pad); stored weight codes off that grid arrive zero-padded from the
-// wrapper (a plain copy).
+// group length they are built for; the scales stay (rows, G).  x's codes
+// are written with stride n_pad (zeros in the pad); stored weight codes
+// off that grid arrive zero-padded from the wrapper (a plain copy).
 //
 // The same file holds the two dense matmuls that QDQ both operands per
 // call (repro/kernels/quant_matmul.py::abfp_matmul and ::abfp_matmul_int8);
@@ -176,6 +181,16 @@ int launch_quantize_rows(const float* x, T* xc, float* sx, long long n_groups,
 }
 
 // ---------------------------------------------------------------- stage 2
+// contract_kernel, up to 4 rows of a layer of N >= 4 x 132 x 32 columns
+// (wi,wg, lm_head; quant_matmul_plan chooses it): a warp owns CN output
+// columns and walks the whole of K, 32 lanes side by side along it.  Per
+// step a lane loads 16 bytes of each of its CN weight rows (coalesced, 512
+// bytes a warp, CN loads in flight), unpacks 4-bit codes in registers,
+// multiplies with __dp4a against x's codes (stage 1's, read through the
+// cache), reduces the int32 sums over the lanes of a group by shuffles,
+// and folds sx * ws in f32; the lanes' sums are added at the end.  There a
+// block needs no x prologue of its own and the call measured faster than
+// quant_decode_kernel (PERF.md), at the cost of a second launch.
 template <int BM, int CN, bool PACKED>
 __global__ void __launch_bounds__(kThreads)
 contract_kernel(const int8_t* __restrict__ xc,   // (M, K) codes
@@ -775,62 +790,490 @@ int launch_mma(const void* xc, const float* sx, const void* wc,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------ stage 2, M <= 16 rows
+// quant_decode_kernel: the whole call at decode, one launch.  Block (tile,
+// split): 256 columns tile*256.. over groups [split*G/S, (split+1)*G/S),
+// cut as the dense decode kernels cut them.  B bytes hold a column's codes
+// of one group (n_pad int8 codes, or n_pad / 2 packed bytes), contiguous
+// along K, so a split of a column is one run of T B bytes.
+//   x   The block issues the loads of x's groups of its split, starts its
+//       ring, then makes x's codes and scales in shared memory, a
+//       half-warp per (group, row) and as quantize_rows_kernel makes them
+//       (group max, bf16 scale, IEEE division, rintf, clip; pad codes and
+//       rows at or past M zero), in the order its contraction reads them
+//       (qd_make_x).
+//   w   A ring of kQdStages stages streams each column's run in slices of
+//       kQdSlice bytes (whole groups, or part of one): 16-byte cp.async
+//       copies, a column's pieces on neighbouring lanes, each warp copying
+//       the slices of its own 32 columns (so a __syncwarp, not a block
+//       barrier, orders a stage), rows an odd number of 16-byte units apart
+//       (conflict-free reads); beside them the f32 scales of the groups the
+//       slice holds.  Any group length streams through the same stage.
+//   sum DotContract (4, 8 or 16 rows): a thread per column reads its slice
+//       16 bytes at a time against x's codes of the same k, which every
+//       lane reads at one address, by __dp4a.  Packed bytes are split in
+//       registers into their low and high nibbles, each moved to the top of
+//       its byte (16 x the signed code, so a sum is 16 P and is shifted
+//       back exactly), and x's codes are written in the order that meets
+//       them (qd_x_slot).  An output's int32 group sum is exact and whole
+//       after the group's last piece; then it is rescaled as ((float)P *
+//       sx) * sw and added to the output's f32 sum.  Groups in order
+//       within a split; qd_sum_splits adds the splits in split order.
+// Why: at decode the call is bound by reading the weight's codes once (a
+// packed wi,wg is 38.6 MB of codes against 0.06 MB of x).  The ring keeps
+// each warp's next slice in flight while it contracts the current one; x's
+// codes cost one prologue a block instead of a launch and an (M, K)
+// scratch a call; splitting K into whole groups gives the narrow layers
+// more blocks (k,v: 2 tiles x 8 splits; q,o and wo: 14 x 8), which still
+// leaves them under one block an SM: more splits lengthen the tail that
+// adds them and measured no better overall (PERF.md, with the sweep).  On
+// a wide layer the prologue a block costs more than the split gains, and
+// contract_kernel is used there instead.
+constexpr int kQdBN = kThreads;        // columns per block
+constexpr int kQdSlice = 128;          // bytes of a column's run a stage holds
+constexpr int kQdRow = kQdSlice + 16;  // stage row: nine 16-byte units
+constexpr int kQdStages = 2;           // ring depth
+
+// bytes of one ring stage: 256 rows of a slice, then the f32 scales of the
+// groups a slice can hold (kQdSlice / B, at least one), 256 a group
+__host__ __device__ inline int qd_stage_bytes(int B) {
+  const int groups = B < kQdSlice ? kQdSlice / B : 1;
+  return kQdBN * (kQdRow + (int)sizeof(float) * groups);
+}
+
+// dynamic shared memory of a block: the ring, then x's (t_max, BM, n_pad)
+// codes and (t_max, BM) scales, t_max the groups of the longest split
+__host__ __device__ inline size_t qd_smem_bytes(int B, int BM, int n_pad,
+                                                int t_max) {
+  return (size_t)kQdStages * qd_stage_bytes(B) +
+         (size_t)t_max * BM * (n_pad + sizeof(float));
+}
+
+// packed: where code r of 32 goes so that the x codes of a weight word's
+// low nibbles (codes 8q, 8q + 2, 8q + 4, 8q + 6) are bytes 8q .. 8q + 3
+// and those of its high nibbles bytes 8q + 4 .. 8q + 7
+__device__ __forceinline__ int qd_x_slot(int r) {
+  return (r & ~7) | ((r & 1) << 2) | ((r >> 1) & 3);
+}
+
+// Start the copies of slice k (bytes k kQdSlice .. of each column's run)
+// into ring stage ``st``: the warp's 32 columns (at or past N: zero-filled),
+// a column's pieces on neighbouring lanes, and each column's scales of the
+// groups the slice holds (a group wider than a slice: its one group).
+__device__ __forceinline__ void qd_load_slice(
+    uint8_t* st, const uint8_t* __restrict__ wc, const float* __restrict__ ws,
+    int N, int G, int B, int lgB, int col0, int g_lo, int run, int k) {
+  constexpr int kPieces = kQdSlice / 16;
+  const int b0 = k * kQdSlice;
+  const int pieces = min(kQdSlice, run - b0) >> 4;
+  const int lane = threadIdx.x & 31, wcol = threadIdx.x & ~31;
+  const size_t off = (size_t)g_lo * B + b0;
+#pragma unroll
+  for (int it = 0; it < kPieces; ++it) {
+    const int e = lane + 32 * it;
+    const int c = wcol + e / kPieces, q = e % kPieces;
+    const int col = col0 + c;
+    const bool live = col < N;
+    if (q < pieces)
+      cp_async16(st + c * kQdRow + 16 * q,
+                 live ? wc + (size_t)col * G * B + off + 16 * q : wc, live);
+  }
+  const int col = col0 + threadIdx.x;
+  const bool live = col < N;
+  const int g0 = b0 >> lgB;
+  const int groups = B < kQdSlice ? (pieces * 16) >> lgB : 1;
+  float* sd = reinterpret_cast<float*>(st + kQdBN * kQdRow);
+  for (int j = 0; j < groups; ++j)
+    cp_async4(sd + j * kQdBN + threadIdx.x,
+              live ? ws + (size_t)col * G + g_lo + g0 + j : ws, live);
+}
+
+// A thread per column, __dp4a against each of BM rows.  x's codes of item
+// it = (group gl, row m) = gl BM + m are n_pad bytes at it n_pad (packed:
+// qd_x_slot order within each 32 codes).
+template <int BM_, bool PACKED_>
+struct DotContract {
+  static constexpr int BM = BM_;
+  static constexpr bool PACKED = PACKED_;
+  float acc[BM];
+  int p[BM];
+
+  __device__ static int x_pos(int it, int i, int n_pad) {
+    return it * n_pad + (PACKED ? qd_x_slot(i) : i);
+  }
+  __device__ void init() {
+#pragma unroll
+    for (int m = 0; m < BM; ++m) {
+      acc[m] = 0.f;
+      p[m] = 0;
+    }
+  }
+  // bytes b0 .. b0 + len of the column runs, in stage ``st``
+  __device__ void slice(const uint8_t* st, const int8_t* xc, const float* xs,
+                        int b0, int len, int B, int lgB, int n_pad, int M) {
+    const int c = threadIdx.x;
+    const float* sw = reinterpret_cast<const float*>(st + kQdBN * kQdRow);
+    const int g0 = b0 >> lgB;
+    const int pieces = len >> 4;
+#pragma unroll
+    for (int q = 0; q < kQdSlice / 16; ++q) {
+      if (q >= pieces) break;  // uniform
+      const int b = b0 + 16 * q;
+      const int gl = b >> lgB, ob = b & (B - 1);
+      const uint4 w4 =
+          *reinterpret_cast<const uint4*>(st + c * kQdRow + 16 * q);
+      const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
+      const int8_t* xg = xc + gl * BM * n_pad + (PACKED ? 2 * ob : ob);
+      if constexpr (PACKED) {
+        uint32_t lo[4], hi[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          lo[i] = (w[i] << 4) & 0xF0F0F0F0u;  // 16 x the even codes
+          hi[i] = w[i] & 0xF0F0F0F0u;         // 16 x the odd codes
+        }
+#pragma unroll
+        for (int m = 0; m < BM; ++m) {
+          const uint4* xp = reinterpret_cast<const uint4*>(xg + m * n_pad);
+          const uint4 a = xp[0], e = xp[1];
+          p[m] = __dp4a((int)lo[0], (int)a.x, p[m]);
+          p[m] = __dp4a((int)hi[0], (int)a.y, p[m]);
+          p[m] = __dp4a((int)lo[1], (int)a.z, p[m]);
+          p[m] = __dp4a((int)hi[1], (int)a.w, p[m]);
+          p[m] = __dp4a((int)lo[2], (int)e.x, p[m]);
+          p[m] = __dp4a((int)hi[2], (int)e.y, p[m]);
+          p[m] = __dp4a((int)lo[3], (int)e.z, p[m]);
+          p[m] = __dp4a((int)hi[3], (int)e.w, p[m]);
+        }
+      } else {
+#pragma unroll
+        for (int m = 0; m < BM; ++m) {
+          const uint4 a = *reinterpret_cast<const uint4*>(xg + m * n_pad);
+          p[m] = __dp4a((int)w[0], (int)a.x, p[m]);
+          p[m] = __dp4a((int)w[1], (int)a.y, p[m]);
+          p[m] = __dp4a((int)w[2], (int)a.z, p[m]);
+          p[m] = __dp4a((int)w[3], (int)a.w, p[m]);
+        }
+      }
+      if (ob + 16 == B) {  // the group's last piece (uniform): fold
+        const float swc = sw[(gl - g0) * kQdBN + c];
+        const float* sx = xs + gl * BM;
+#pragma unroll
+        for (int m = 0; m < BM; ++m) {
+          const int P = PACKED ? p[m] >> 4 : p[m];  // 16 P: exact
+          acc[m] += ((float)P * sx[m]) * swc;
+          p[m] = 0;
+        }
+      }
+    }
+  }
+  __device__ void store(float* dst, int M, int N, int col0) const {
+    const int col = col0 + threadIdx.x;
+    if (col >= N) return;
+#pragma unroll
+    for (int m = 0; m < BM; ++m)
+      if (m < M) dst[(size_t)m * N + col] = acc[m];
+  }
+};
+
+// x's codes and scales of groups g_lo .. g_lo + T - 1 (item it = (group
+// gl, row m) = gl BM + m: codes at C::x_pos, scale xs[it]) in the block's
+// shared memory.  The ``region`` bytes (codes, then scales) start at zero
+// (pad codes, rows at or past M); the live items are j = gl M + m.
+// Groups of up to 64 values: a half-warp an item (lane h holds values h,
+// h + 16, h + 32, h + 48), the block's 16 half-warps each loading up to
+// eight items before making any, so that a batch costs one memory latency
+// and its max-reductions and divisions overlap.  Longer groups: a warp an
+// item.  ``start()`` (the ring's first copies) is called once, by every
+// thread, after the first batch's loads are issued, so that its copies
+// and those loads are in flight together.
+template <typename C, typename Start>
+__device__ __forceinline__ void qd_make_x(
+    const float* __restrict__ x, int8_t* xc, float* xs, int region, int M,
+    int G, int n, int n_pad, int g_lo, int T, const repro::QdqFormat& f,
+    Start start) {
+  constexpr int BM = C::BM;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint4* z = reinterpret_cast<uint4*>(xc);
+  for (int e = threadIdx.x; e < region / 16; e += kThreads)
+    z[e] = make_uint4(0u, 0u, 0u, 0u);
+  const int items = T * M;  // >= 1
+  const size_t K = (size_t)G * n;
+  if (n <= 64) {
+    constexpr int kHalves = kThreads / 16;  // items made at once
+    constexpr int kBatch = 8;               // rounds of them loaded at once
+    const int h = lane & 15, half = threadIdx.x >> 4;
+    // the same trip count on every lane: the shuffles below take the
+    // whole warp
+    for (int base = 0; base < items; base += kBatch * kHalves) {
+      const int j0 = base + half;
+      // rounds of the batch with a live item (the same on every lane)
+      const int rounds = min(kBatch, (items - base + kHalves - 1) / kHalves);
+      float v[kBatch][4];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (u >= rounds) break;
+        const int j = j0 + u * kHalves;
+        const bool live = j < items;
+        const int gl = live ? j / M : 0, m = live ? j - gl * M : 0;
+        const float* src = x + m * K + (size_t)(g_lo + gl) * n;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          v[u][q] = live && h + 16 * q < n ? __ldg(src + h + 16 * q) : 0.f;
+      }
+      if (base == 0) {
+        start();
+        __syncthreads();  // the zeros written before any code
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (u >= rounds) break;
+        float amax = fmaxf(fmaxf(fabsf(v[u][0]), fabsf(v[u][1])),
+                           fmaxf(fabsf(v[u][2]), fabsf(v[u][3])));
+        for (int o = 8; o > 0; o >>= 1)  // within the half-warp
+          amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+        const int j = j0 + u * kHalves;
+        if (j < items) {  // uniform per half-warp
+          const int gl = j / M, m = j - gl * M, it = gl * BM + m;
+          const float s = repro::group_scale(amax, f.qmax);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int i = h + 16 * q;
+            if (i < n)
+              xc[C::x_pos(it, i, n_pad)] =
+                  (int8_t)repro::int_code(v[u][q], s, f);
+          }
+          if (h == 0) xs[it] = s;
+        }
+      }
+    }
+  } else {
+    start();
+    __syncthreads();  // the zeros written before any code
+    for (int j = warp; j < items; j += kWarpsPerBlock) {
+      const int gl = j / M, m = j - gl * M, it = gl * BM + m;
+      const float* src = x + m * K + (size_t)(g_lo + gl) * n;
+      float amax = 0.f;
+      for (int i = lane; i < n; i += 32) amax = fmaxf(amax, fabsf(src[i]));
+      const float s = repro::group_scale(repro::warp_max(amax), f.qmax);
+      for (int i = lane; i < n; i += 32)
+        xc[C::x_pos(it, i, n_pad)] = (int8_t)repro::int_code(src[i], s, f);
+      if (lane == 0) xs[it] = s;
+    }
+  }
+}
+
+// Split-K epilogue of quant_decode_kernel, as sum_split_partials: the last
+// block of a tile to arrive (an integer ticket) adds the S partials in
+// split order into y, a thread per column with every row's loads of
+// several splits issued together, and resets the ticket.
+template <int BM>
+__device__ __forceinline__ void qd_sum_splits(
+    const float* __restrict__ partial, int* __restrict__ tickets,
+    float* __restrict__ y, int M, int N, int col0, int S) {
+  __shared__ int is_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(&tickets[blockIdx.x], 1) == S - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  constexpr int kBatch = 32 / BM;  // splits loaded together
+  const int col = col0 + threadIdx.x;
+  if (col < N) {
+    float sum[BM];
+#pragma unroll
+    for (int m = 0; m < BM; ++m) sum[m] = 0.f;
+    for (int s0 = 0; s0 < S; s0 += kBatch) {
+      float p[kBatch][BM];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+#pragma unroll
+        for (int m = 0; m < BM; ++m)
+          p[b][m] = s0 + b < S && m < M
+                        ? __ldcg(partial + ((size_t)(s0 + b) * M + m) * N +
+                                 col)
+                        : 0.f;
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (s0 + b < S)
+#pragma unroll
+          for (int m = 0; m < BM; ++m) sum[m] += p[b][m];
+    }
+#pragma unroll
+    for (int m = 0; m < BM; ++m)
+      if (m < M) y[(size_t)m * N + col] = sum[m];
+  }
+  if (threadIdx.x == 0) tickets[blockIdx.x] = 0;
+}
+
+template <typename C>
+__global__ void __launch_bounds__(kThreads, C::BM == 4 ? 3 : 2)
+quant_decode_kernel(const float* __restrict__ x,      // (M, K) f32
+                    const uint8_t* __restrict__ wc,  // (N, G, B) codes
+                    const float* __restrict__ ws,    // (N, G) scales
+                    float* __restrict__ y,           // (M, N)
+                    float* __restrict__ partial,     // (S, M, N) when S > 1
+                    int* __restrict__ tickets,       // one per tile, zero
+                    int M, int N, int G, int n, int n_pad, int t_max,
+                    float qmax, float qmin) {
+  constexpr int BM = C::BM;
+  extern __shared__ __align__(16) uint8_t qd_smem[];
+  const repro::QdqFormat f{1, qmax, qmin, 0, 0, 0};
+  const int B = C::PACKED ? n_pad / 2 : n_pad;  // a power of two >= 16
+  const int lgB = __ffs(B) - 1;
+  const int stage = qd_stage_bytes(B);
+  int8_t* xc = reinterpret_cast<int8_t*>(qd_smem + kQdStages * stage);
+  float* xs = reinterpret_cast<float*>(xc + (size_t)t_max * BM * n_pad);
+  const int S = gridDim.y, split = blockIdx.y;
+  const int col0 = blockIdx.x * kQdBN;
+  const int g_lo = (int)((long long)split * G / S);
+  const int T = (int)((long long)(split + 1) * G / S) - g_lo;
+  const int run = T * B;  // bytes of a column's split
+  const int slices = (run + kQdSlice - 1) / kQdSlice;
+
+  qd_make_x<C>(x, xc, xs, t_max * BM * (n_pad + 4), M, G, n, n_pad, g_lo, T,
+               f, [&] {
+                 for (int s = 0; s < kQdStages - 1; ++s) {
+                   if (s < slices)
+                     qd_load_slice(qd_smem + s * stage, wc, ws, N, G, B,
+                                   lgB, col0, g_lo, run, s);
+                   cp_async_commit();  // empty groups keep the count uniform
+                 }
+               });
+  __syncthreads();  // x's codes, for every thread
+
+  C con;
+  con.init();
+  for (int k = 0; k < slices; ++k) {
+    // a warp copies and reads only its own columns' slices
+    cp_async_wait<kQdStages - 2>();  // this thread's copies of slice k
+    __syncwarp();  // the warp's; and its reads of stage k - 1 are done
+    const int nk = k + kQdStages - 1;
+    if (nk < slices)
+      qd_load_slice(qd_smem + (nk % kQdStages) * stage, wc, ws, N, G, B, lgB,
+                    col0, g_lo, run, nk);
+    cp_async_commit();
+    con.slice(qd_smem + (k % kQdStages) * stage, xc, xs, k * kQdSlice,
+              min(kQdSlice, run - k * kQdSlice), B, lgB, n_pad, M);
+  }
+  cp_async_wait<0>();
+
+  con.store(S == 1 ? y : partial + (size_t)split * M * N, M, N, col0);
+  if (S == 1) return;  // uniform over the grid
+  qd_sum_splits<BM>(partial, tickets, y, M, N, col0, S);
+}
+
+// The launch of quant_decode_kernel on plan_quant_decode's grid: 256-column
+// tiles x ``splits`` K splits, the longest ``t_max`` groups (partial:
+// splits * M * N floats and tickets: one zero int per tile, when splits >
+// 1).  Returns a CUDA error.
+template <typename C>
+int launch_quant_decode(const float* x, const uint8_t* wc, const float* ws,
+                        float* y, float* partial, int* tickets, int M, int N,
+                        int G, int n, int n_pad, int splits, int t_max,
+                        float qmax, float qmin, cudaStream_t stream) {
+  const int B = C::PACKED ? n_pad / 2 : n_pad;
+  const size_t smem = qd_smem_bytes(B, C::BM, n_pad, t_max);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  auto kern = &quant_decode_kernel<C>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((N + kQdBN - 1) / kQdBN, splits);
+  kern<<<grid, kThreads, smem, stream>>>(x, wc, ws, y, partial, tickets, M,
+                                         N, G, n, n_pad, t_max, qmax, qmin);
+  return (int)cudaGetLastError();
+}
+
+template <bool PACKED>
+int launch_quant_decode_rows(const float* x, const uint8_t* wc,
+                             const float* ws, float* y, float* partial,
+                             int* tickets, int M, int N, int G, int n,
+                             int n_pad, int splits, int t_max, float qmax,
+                             float qmin, cudaStream_t stream) {
+  if (M <= 4)
+    return launch_quant_decode<DotContract<4, PACKED>>(
+        x, wc, ws, y, partial, tickets, M, N, G, n, n_pad, splits, t_max,
+        qmax, qmin, stream);
+  if (M <= 8)
+    return launch_quant_decode<DotContract<8, PACKED>>(
+        x, wc, ws, y, partial, tickets, M, N, G, n, n_pad, splits, t_max,
+        qmax, qmin, stream);
+  return launch_quant_decode<DotContract<16, PACKED>>(
+      x, wc, ws, y, partial, tickets, M, N, G, n, n_pad, splits, t_max, qmax,
+      qmin, stream);
+}
+
 }  // namespace
 
 // x: (M, K) f32, K = G * n.  wc: (N, G * n_pad) int8 codes or (N, G *
 // n_pad / 2) packed nibbles, each group zero-padded to n_pad (a multiple of
-// 16, packed 32, >= n), 16-byte aligned.  ws: (N, G) f32.  xc_scratch:
-// M*G*n_pad bytes, sx_scratch: M*G floats, y: (M, N) f32.  mma_rows = 0:
-// contract_kernel (n_pad = 16, packed 32, times a power of two <= 32).
-// mma_rows = 64: mma_contract_kernel (64 rows a block) with ``splits`` K
-// splits (partial: splits*M*N floats and tickets: one zero int per output
-// tile, when splits > 1).  Returns a CUDA error.
+// 16, packed 32, >= n), 16-byte aligned.  ws: (N, G) f32.  y: (M, N) f32.
+// ``splits`` K splits of whole groups (partial: splits*M*N floats and
+// tickets: one zero int per output tile, when splits > 1).  ``kernel``:
+//   0  quant_decode_kernel alone (M <= 16; n_pad = 16, packed 32, times a
+//      power of two <= 32), ``t_max`` groups in its longest split
+//      (plan_quant_decode); the scratch pointers are unused;
+//   1  quantize_rows_kernel (xc_scratch: M*G*n_pad bytes, sx_scratch: M*G
+//      floats), then contract_kernel (M <= 4, the same group lengths, one
+//      split);
+//   2  quantize_rows_kernel, then mma_contract_kernel (64 rows a block).
+// Returns a CUDA error.
 extern "C" int repro_quant_matmul(const void* x, const void* wc,
                                   const void* ws, void* xc_scratch,
                                   void* sx_scratch, void* partial,
                                   void* tickets, void* y, int M, int N,
                                   int K, int n, int n_pad, int packed,
-                                  int mma_rows, int splits, float qmax,
-                                  float qmin, void* stream_ptr) {
+                                  int kernel, int splits, int t_max,
+                                  float qmax, float qmin,
+                                  void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int cpl = packed ? 32 : 16;  // codes a lane of contract_kernel takes
-  const int lpg = n_pad / cpl;
-  if (n <= 0 || K % n || n_pad < n || n_pad % cpl ||
-      (mma_rows == 0 && ((lpg & (lpg - 1)) || lpg > 32)))
+  const int step = packed ? 32 : 16;  // codes of a 16-byte piece
+  const int lpg = n_pad / step;
+  if (n <= 0 || K % n || n_pad < n || n_pad % step || kernel < 0 ||
+      kernel > 2 || (kernel < 2 && ((lpg & (lpg - 1)) || lpg > 32)) ||
+      (kernel == 1 && (M > 4 || splits != 1)))
     return (int)cudaErrorInvalidValue;
   const int G = K / n;
   const int K_pad = G * n_pad;
-  const repro::QdqFormat f{1, qmax, qmin, 0, 0, 0};
-  int err = launch_quantize_rows(
-      static_cast<const float*>(x), static_cast<int8_t*>(xc_scratch),
-      static_cast<float*>(sx_scratch), (long long)M * G, n, n_pad, f, stream);
-  if (err != (int)cudaSuccess) return err;
-
-  const int8_t* xc = static_cast<const int8_t*>(xc_scratch);
-  const float* sx = static_cast<const float*>(sx_scratch);
   const uint8_t* w = static_cast<const uint8_t*>(wc);
   const float* s = static_cast<const float*>(ws);
   float* out = static_cast<float*>(y);
-  if (mma_rows > 0) {
-    float* part = static_cast<float*>(partial);
-    int* tick = static_cast<int*>(tickets);
-    if (mma_rows != kMmaBM) return (int)cudaErrorInvalidValue;
-    return packed ? launch_mma<Int4PackedCodes>(xc, sx, w, s, out, part, tick,
-                                                M, N, K_pad, n_pad, splits,
-                                                stream)
-                  : launch_mma<Int8Codes>(xc, sx, w, s, out, part, tick, M,
-                                          N, K_pad, n_pad, splits, stream);
+  float* part = static_cast<float*>(partial);
+  int* tick = static_cast<int*>(tickets);
+  if (kernel == 0) {
+    if (M < 1 || M > 16 || splits < 1 || splits > G + (G == 0) ||
+        t_max < (G + splits - 1) / splits || t_max < 1 ||
+        (splits > 1 && (partial == nullptr || tickets == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    const float* xf = static_cast<const float*>(x);
+    return packed ? launch_quant_decode_rows<true>(xf, w, s, out, part, tick,
+                                                   M, N, G, n, n_pad, splits,
+                                                   t_max, qmax, qmin, stream)
+                  : launch_quant_decode_rows<false>(xf, w, s, out, part,
+                                                    tick, M, N, G, n, n_pad,
+                                                    splits, t_max, qmax, qmin,
+                                                    stream);
   }
-  if (M <= 4)
+  const repro::QdqFormat f{1, qmax, qmin, 0, 0, 0};
+  int8_t* xc = static_cast<int8_t*>(xc_scratch);
+  float* sx = static_cast<float*>(sx_scratch);
+  int err = launch_quantize_rows(static_cast<const float*>(x), xc, sx,
+                                 (long long)M * G, n, n_pad, f, stream);
+  if (err != (int)cudaSuccess) return err;
+  if (kernel == 1) {
     launch_contract<4, 4>(xc, sx, w, s, out, M, N, K_pad, n_pad, packed != 0,
                           stream);
-  else if (M <= 8)
-    launch_contract<8, 2>(xc, sx, w, s, out, M, N, K_pad, n_pad, packed != 0,
-                          stream);
-  else
-    launch_contract<16, 2>(xc, sx, w, s, out, M, N, K_pad, n_pad,
-                           packed != 0, stream);
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  }
+  return packed ? launch_mma<Int4PackedCodes>(xc, sx, w, s, out, part, tick,
+                                              M, N, K_pad, n_pad, splits,
+                                              stream)
+                : launch_mma<Int8Codes>(xc, sx, w, s, out, part, tick, M, N,
+                                        K_pad, n_pad, splits, stream);
 }
 
 // ===========================================================================

@@ -17,11 +17,17 @@ On an H100 the call is bound by reading the weight codes once at decode
 packed 4-bit codes); at a prefill chunk (M = 256) bytes and int8
 tensor-core operations take about the same time.  The kernels
 (``csrc/quant_matmul.cu``) read packed codes as stored and unpack them on
-chip, and quantize x once in a first stage instead of once per output
-tile.  Up to 16 rows ``contract_kernel`` contracts by ``__dp4a``; above 16
-rows (and for group lengths it is not built for) ``mma_contract_kernel``
-runs the contraction on the int8 tensor cores, on the grid that
-``plan_mma_contract`` chooses.  Any group length n that divides K: each
+chip.  Up to 16 rows one launch of ``quant_decode_kernel`` does the whole
+call: K split into whole groups across blocks (``plan_quant_decode``), the
+weight's codes streamed once through a ring of asynchronous copies, x's
+codes made on chip once a block and a ``__dp4a`` contraction; up to 4 rows
+of a layer wide enough to fill the card without a K split (wi,wg,
+lm_head) x is quantized in a first launch and ``contract_kernel`` streams
+each column's codes along K (``ContractPlan``), which measured faster
+there.  Above 16 rows (and for group lengths the decode kernels are not
+built for) x is quantized once in a first stage and
+``mma_contract_kernel`` runs the contraction on the int8 tensor cores, on
+the grid that ``plan_mma_contract`` chooses.  Any group length n that divides K: each
 group's codes are zero-padded to ``pad_group(n)`` (a multiple of 16,
 packed 32), which adds exactly 0 to its sum; stored codes off that grid
 are copied into a padded buffer first.  See the source for the design.
@@ -112,7 +118,6 @@ def quant_matmul_plain(x: torch.Tensor, w_codes: torch.Tensor,
 
 _SMEM_MAX = 232448  # dynamic shared memory a block may use on sm_90
 SMS = 132  # streaming multiprocessors of an H100 SXM
-CONTRACT_MAX_M = 16  # rows up to which quant_matmul takes contract_kernel
 MMA_BM = 64  # output rows of an mma_contract_kernel block (kMmaBM)
 MMA_BN = 128  # output columns of an mma_contract_kernel block (kMmaBN)
 MMA_STAGES = 4  # its shared-memory ring depth (kMmaStages)
@@ -226,27 +231,108 @@ def plan_int8_contract(M: int, N: int, K: int, n: int,
     return plan_mma_contract(M, N, K, n, "packed" if packed else "int8")
 
 
+# quant_decode_kernel's shape (``kQdBN``, ``kQdSlice``, ``kQdStages`` in
+# the source) and its grid: 256 columns a block; each column's codes
+# streamed in 128-byte slices through two ring stages; splits for about
+# 6 x 132 blocks, but at most 8 (the last block of a tile adds them).  At
+# the main-path layers 8 splits measured best, or within 7 % of the best
+# (PERF.md, the splits sweep of chip_smoke.py).
+QD_BN = 256
+QD_SLICE = 128
+QD_STAGES = 2
+QD_BLOCKS = 6 * SMS
+QD_SPLITS_MAX = 8
+
+
+class QuantDecodePlan(NamedTuple):
+    """How ``quant_decode_kernel`` launches for one shape
+    (``plan_quant_decode``)."""
+    block_rows: int  # rows of x a block holds (the kernel's BM)
+    tiles: int       # 256-column tiles (one ticket each when K is split)
+    splits: int      # K splits of whole groups
+    t_max: int       # groups of the longest split (x's codes a block holds)
+    smem_bytes: int  # dynamic shared memory of one block
+
+
+def qd_stage_bytes(B: int) -> int:
+    """Bytes of a ring stage of ``quant_decode_kernel`` at B bytes of a
+    column's codes a group: 256 rows of a 128-byte slice, each 144 bytes
+    (nine 16-byte units) apart, and the f32 scales of the groups a slice
+    holds (128 / B, at least one)."""
+    groups = QD_SLICE // B if B < QD_SLICE else 1
+    return QD_BN * (QD_SLICE + 16 + 4 * groups)
+
+
+def qd_smem_bytes(B: int, bm: int, n_pad: int, t_max: int) -> int:
+    """Dynamic shared memory of a ``quant_decode_kernel`` block: the ring,
+    then x's (t_max, bm, n_pad) codes and (t_max, bm) scales."""
+    return QD_STAGES * qd_stage_bytes(B) + t_max * bm * (n_pad + 4)
+
+
+def plan_quant_decode(M: int, N: int, K: int, n_pad: int,
+                      packed: bool) -> QuantDecodePlan:
+    """The grid of ``quant_decode_kernel`` at x (M, K) against weight codes
+    (N, K) in groups of n_pad codes (``pad_group``'s; K = G n_pad here),
+    M <= 16: 256-column tiles times K splits of whole groups, enough splits
+    for about ``QD_BLOCKS`` blocks but at most ``QD_SPLITS_MAX`` (and one a
+    group), and more where x's codes of the longest split would not fit in
+    a block's shared memory beside the ring.  Rows a block holds: 4, 8 or
+    16."""
+    G = K // n_pad
+    bm = 4 if M <= 4 else 8 if M <= 8 else 16
+    tiles = -(-N // QD_BN)
+    splits = max(1, min(G, QD_SPLITS_MAX, -(-QD_BLOCKS // tiles)))
+    B = n_pad // 2 if packed else n_pad
+    while True:
+        t_max = max(1, -(-G // splits))
+        smem = qd_smem_bytes(B, bm, n_pad, t_max)
+        if smem <= _SMEM_MAX:
+            return QuantDecodePlan(bm, tiles, splits, t_max, smem)
+        if t_max == 1:
+            raise ValueError(f"quant_matmul decode kernel: groups of {n_pad} "
+                             "codes need more shared memory than a block "
+                             "has")
+        splits += 1
+
+
+CONTRACT_CN = 32  # output columns of a contract_kernel block
+# columns from which up to 4 rows take contract_kernel: N / 32 blocks of
+# eight warps, at least 4 a SM with no K split (wi,wg: 592; q,o: 112)
+CONTRACT_MIN_N = 4 * SMS * CONTRACT_CN
+
+
+class ContractPlan(NamedTuple):
+    """``quantize_rows_kernel``, then ``contract_kernel`` (no K split): up
+    to 4 rows of a layer at least ``CONTRACT_MIN_N`` columns wide."""
+    block_rows: int  # rows of x a block holds (4)
+    blocks: int      # 32-column blocks
+    splits: int      # 1: the whole of K a warp
+
+
 def quant_matmul_plan(M: int, N: int, K: int, n: int, packed: bool
-                      ) -> MmaPlan | None:
-    """The contraction ``quant_matmul`` launches, planned on the padded
-    group length ``pad_group(n, packed)``: None for ``contract_kernel``
-    (M <= 16 and a padded group it is built for: 16, packed 32, codes a
-    lane times a power of two <= 32), else the plan of
-    ``mma_contract_kernel`` at K = G n_pad."""
+                      ) -> QuantDecodePlan | ContractPlan | MmaPlan:
+    """The kernels ``quant_matmul`` launches, planned on the padded group
+    length n_pad = ``pad_group(n, packed)`` at K = G n_pad.  Up to 16 rows
+    with a padded group the decode kernels are built for (16, packed 32,
+    codes times a power of two <= 32): ``ContractPlan`` for up to 4 rows
+    at N >= ``CONTRACT_MIN_N`` (the two-launch kernel measured faster
+    there), else ``plan_quant_decode`` (one launch).  Otherwise the plan
+    of ``mma_contract_kernel``."""
     n_pad = pad_group(n, packed)
-    cpl = 32 if packed else 16  # codes a lane of contract_kernel takes
-    lpg = n_pad // cpl
-    if M <= CONTRACT_MAX_M and n > 0 and lpg & (lpg - 1) == 0 and lpg <= 32:
-        return None
-    return plan_int8_contract(M, N, K // n * n_pad if n > 0 else K, n_pad,
-                              packed)
+    K_pad = K // n * n_pad if n > 0 else K
+    lpg = n_pad // (32 if packed else 16)  # 16-byte pieces of a group
+    if M <= DECODE_MAX_M and n > 0 and lpg & (lpg - 1) == 0 and lpg <= 32:
+        if M <= 4 and N >= CONTRACT_MIN_N:
+            return ContractPlan(4, -(-N // CONTRACT_CN), 1)
+        return plan_quant_decode(M, N, K_pad, n_pad, packed)
+    return plan_int8_contract(M, N, K_pad, n_pad, packed)
 
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.repro_quant_matmul
     if not fn.argtypes:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 8 + [i] * 8 + [f, f, p]
+        fn.argtypes = [p] * 8 + [i] * 9 + [f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -269,7 +355,15 @@ def quant_matmul(x: torch.Tensor, w_codes: torch.Tensor,
     if not isinstance(fmt_x, IntFormat) or fmt_x.bits > 8:
         raise ValueError(
             f"quant_matmul quantizes x to int8 codes; got format {fmt_x}")
-    plan = quant_matmul_plan(M, N, K, n, packed)
+    return _quant_matmul(x, w_codes, w_scales, fmt_x, n, packed,
+                         quant_matmul_plan(M, N, K, n, packed))
+
+
+def _quant_matmul(x, w_codes, w_scales, fmt_x, n, packed, plan):
+    """``quant_matmul`` on a CUDA tensor with the kernels of ``plan`` (one
+    ``quant_matmul_plan`` returns, or another valid for the shape: what
+    ``chip_smoke.py`` compares them with)."""
+    M, K, N, G = _check_shapes(x, w_codes, w_scales, n, packed)
     want = torch.uint8 if packed else torch.int8
     for name, t, dt in (("x", x, torch.float32), ("w_codes", w_codes, want),
                         ("w_scales", w_scales, torch.float32)):
@@ -282,27 +376,31 @@ def quant_matmul(x: torch.Tensor, w_codes: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"quant_matmul: {name} must be contiguous")
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    if M == 0:
-        return y
+    if y.numel() == 0 or K == 0:
+        return y.zero_()
     n_pad = pad_group(n, packed)
     codes = pad_group_codes(w_codes, n, packed)  # w_codes itself on the grid
-    xc = torch.empty((M, G * n_pad), dtype=torch.int8, device=x.device)
-    sx = torch.empty((M, G), dtype=torch.float32, device=x.device)
-    _check_aligned("quant_matmul", w_codes=codes, x_codes=xc)
+    decode = isinstance(plan, QuantDecodePlan)
+    kernel = 0 if decode else 1 if isinstance(plan, ContractPlan) else 2
+    # x's codes and scales: written by a first stage, except that the
+    # one-launch decode kernel makes them on chip
+    xc = sx = None
+    if not decode:
+        xc = torch.empty((M, G * n_pad), dtype=torch.int8, device=x.device)
+        sx = torch.empty((M, G), dtype=torch.float32, device=x.device)
+    _check_aligned("quant_matmul", w_codes=codes)
     fn = _bind(build.load("quant_matmul"))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        partial = None if plan is None else split_partials(plan, M, N,
-                                                           x.device, stream)
+        partial = split_partials(plan, M, N, x.device, stream)
         tickets = (None if partial is None
                    else _tickets(x.device, stream, plan.tiles))
         err = fn(x.data_ptr(), codes.data_ptr(), w_scales.data_ptr(),
-                 xc.data_ptr(), sx.data_ptr(),
-                 None if partial is None else partial.data_ptr(),
-                 None if tickets is None else tickets.data_ptr(),
+                 *(None if t is None else t.data_ptr()
+                   for t in (xc, sx, partial, tickets)),
                  y.data_ptr(), M, N, K, n, n_pad, int(packed),
-                 0 if plan is None else plan.block_rows,
-                 1 if plan is None else plan.splits,
+                 kernel, plan.splits,
+                 plan.t_max if decode else 0,
                  float(fmt_x.qmax_pos), float(fmt_x.qmin), stream)
     quant_matmul.launches += 1
     if err != 0:
@@ -552,9 +650,9 @@ def split_partials(plan, M: int, N: int, device, stream: int = 0
                    ) -> torch.Tensor | None:
     """The flat f32 scratch, of at least S M N floats, in which a split-K
     kernel (a decode kernel, or mma_contract_kernel; ``plan`` an
-    ``AbfpPlan`` or ``MmaPlan``) writes its (S, M, N) split partials; None
-    where it writes y directly (one split).  Cached per (device, stream)
-    and grown as needed."""
+    ``AbfpPlan``, ``QuantDecodePlan`` or ``MmaPlan``) writes its (S, M, N)
+    split partials; None where it writes y directly (one split).  Cached
+    per (device, stream) and grown as needed."""
     if plan.splits == 1:
         return None
     device = torch.device(device)

@@ -129,8 +129,8 @@ def test_planner_takes_simt_exactly_where_bf16_fails(fmt):
 def test_planners_at_every_group_length(M, n):
     """``plan_abfp_matmul`` (both entries) and ``quant_matmul_plan`` plan on
     the padded group length: the decode kernels up to 16 rows at n = 32,
-    64, contract_kernel up to 16 rows where the padded group is 16 (packed
-    32) codes a lane times a power of two, else the tensor-core
+    64, quant_decode_kernel up to 16 rows where the padded group is 16
+    (packed 32) codes times a power of two, else the tensor-core
     contraction at K = G n_pad, whose ring fits in a block."""
     K, N = 8 * n, 3584
     G = K // n
@@ -157,7 +157,9 @@ def test_planners_at_every_group_length(M, n):
         qp = t_mm.quant_matmul_plan(M, N, K, n, packed)
         lanes = q_pad // (32 if packed else 16)
         if M <= 16 and lanes & (lanes - 1) == 0:
-            assert qp is None
+            assert qp == t_mm.plan_quant_decode(M, N, G * q_pad, q_pad,
+                                                packed)
+            assert qp.smem_bytes <= 232448
         else:
             assert qp == t_mm.plan_int8_contract(M, N, G * q_pad, q_pad,
                                                  packed)
@@ -331,8 +333,9 @@ def test_quant_matmul_padded_layout_is_the_plain_function(n, packed):
     """quant_matmul's codes as the kernels read them (x's written padded,
     the stored weight copied into a padded buffer): the plain contraction
     on the padded layout is bit for bit the unpadded plain version, the
-    emulated kernel (contract_kernel below 16 rows, the tensor cores above)
-    within 1e-5, and both match the reference's Pallas kernel."""
+    emulated kernel (quant_decode_kernel's plan below 16 rows, the tensor
+    cores above) within 1e-5, and both match the reference's Pallas
+    kernel."""
     n_pad = t_mm.pad_group(n, packed)
     for M, K, N in ((4, 4 * n, 24), (40, 6 * n, 24)):
         G = K // n
@@ -355,9 +358,11 @@ def test_quant_matmul_padded_layout_is_the_plain_function(n, packed):
         assert torch.equal(t_mm.group_contract(
             xp, sx, wk, scales, max_abs_product=127.0 * bound), want)
         plan = t_mm.quant_matmul_plan(M, N, K, n, packed)
-        grid = plan or t_mm.MmaPlan(64, n_pad, 1, (1, 1, 1), 0)
+        decode = M <= 16 and (n_pad // (32 if packed else 16)) in (1, 2, 4)
+        assert isinstance(plan, t_mm.QuantDecodePlan if decode
+                          else t_mm.MmaPlan)
         got = _contract(xp.to(torch.float64), sx, wk.to(torch.float64),
-                        scales, grid, 16, exact=True)
+                        scales, plan, 16, exact=True)
         _within(got.numpy(), want.numpy())
         ref = j_mm.quant_matmul(jnp.asarray(x), jnp.asarray(c),
                                 jnp.asarray(s), j_get_format("int8"), n=n,

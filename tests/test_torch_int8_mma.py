@@ -134,18 +134,19 @@ def test_plan_refuses_other_group_lengths(n, packed):
 
 
 @pytest.mark.parametrize("M,n,packed,kernel", [
-    (1, 64, True, "contract"), (4, 32, True, "contract"),
-    (16, 64, False, "contract"), (16, 512, False, "contract"),
+    (1, 64, True, "decode"), (4, 32, True, "decode"),
+    (16, 64, False, "decode"), (16, 512, False, "decode"),
     (17, 64, True, "mma"), (256, 64, True, "mma"), (64, 32, False, "mma"),
     (4, 48, False, "mma"), (16, 96, True, "mma"), (4, 80, False, "mma"),
     (2, 1024, False, "mma"), (4, 2048, True, "mma")])
 def test_quant_matmul_routing(M, n, packed, kernel):
-    """contract_kernel up to 16 rows for the group lengths it is built for;
-    mma_contract_kernel above 16 rows, and for every other multiple of 16
-    (packed: 32) at any M."""
+    """quant_decode_kernel up to 16 rows for the group lengths it is built
+    for; mma_contract_kernel above 16 rows, and for every other multiple of
+    16 (packed: 32) at any M."""
     plan = t_mm.quant_matmul_plan(M, 3584, 4 * n, n, packed)
-    assert (plan is None) == (kernel == "contract")
-    if plan is not None:
+    if kernel == "decode":
+        assert plan == t_mm.plan_quant_decode(M, 3584, 4 * n, n, packed)
+    else:
         assert plan == t_mm.plan_int8_contract(M, 3584, 4 * n, n, packed)
 
 
