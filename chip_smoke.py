@@ -29,10 +29,17 @@ Phases (each fatal on failure):
             shapes and every group length that divides K (codes
             zero-padded off the 16 grid); abfp_matmul on
             the bf16 tensor cores bit-equal to abfp_matmul_int8 for int
-            formats
+            formats; flash_attention_quant at each checked shape with the
+            kernel it launches read from the profiler (attention_kernel at
+            decode and on the long bodies, attention_prefill_kernel on the
+            exact body from 2 positions), the prefill kernel timed beside
+            attention_kernel forced onto the same call and SDPA (a
+            yardstick, not the same function), and both kernels at S = 1-64
   serve     paged, full width, full depth: 6 greedy requests; launch counts
-            per step asserted (197 quant_matmul + 28 flash_attention_quant);
-            profiles of decode steps and of prefill steps (M = 256)
+            per step asserted (197 quant_matmul + 28 flash_attention_quant:
+            attention_prefill_kernel on chunk steps, attention_kernel on
+            decode steps); profiles of decode steps and of prefill steps
+            (M = 256)
   fixed     fixed-slot, full width, full depth, dense f32 weights: the same
             6 requests under P-int8 (abfp_matmul_int8 + flash_attention)
             and P-fp (abfp_matmul + flash_attention); 197 matmul launches
@@ -229,21 +236,47 @@ def attention_inputs(torch, gen, *, B, S, T, H, KV, D, fp8, q_starts):
     return q, kc, vc, ks, vs, q_pos.contiguous(), kv_pos.contiguous()
 
 
+# the kernels of flash_attention_quant, as the profiler names them
+ATTENTION_KERNELS = {"attention_prefill_kernel": "attention_prefill_kernel",
+                     "attention_kernel": "attention_kernel"}
+
+
+def attention_pairs(torch, q_pos, kv_pos, window: int, causal: bool):
+    """(query, key) pairs of one head that the scores need (the mask keeps
+    them) and that P.V needs (those, and every key of a row that keeps
+    none: its uniform mean), summed over the batch."""
+    qp, kp = q_pos[:, :, None], kv_pos[:, None, :]
+    keep = (kp >= 0) & (kp > qp - window)
+    if causal:
+        keep = keep & (kp <= qp)
+    seen = keep.sum(-1)
+    return (int(seen.sum().item()),
+            int(torch.where(seen > 0, seen, kv_pos.shape[1]).sum().item()))
+
+
 def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
-                    q_starts, timed=True, window=1 << 30,
-                    causal=True) -> dict:
-    from repro_torch.kernels.flash_attention_quant import (
-        flash_attention_quant, flash_attention_quant_plain)
+                    q_starts, want_kernel, timed=True, window=1 << 30,
+                    causal=True, probs_n=64) -> dict:
+    """One ``flash_attention_quant`` call against its plain version; the
+    kernel it launches, read from the profiler, must be ``want_kernel``.
+    Timed: beside the plain version, the card's bound for the pairs this
+    call's mask keeps, and, at S > 1, ``attention_kernel`` forced onto the
+    same call and SDPA as a yardstick."""
+    from repro_torch.kernels import flash_attention_quant as faq
 
     B, H, KV, D = 4, 28, 4, 128
     args = attention_inputs(torch, gen, B=B, S=S, T=T, H=H, KV=KV, D=D,
                             fp8=fp8, q_starts=q_starts)
     kw = dict(scale=D ** -0.5, causal=causal, block_k=block_k)
     if probs:
-        kw.update(probs_n=64, probs_qmax=127.0, probs_qmin=-127.0)
-    got = flash_attention_quant(*args, window, **kw)
+        kw.update(probs_n=probs_n, probs_qmax=127.0, probs_qmin=-127.0)
+
+    def call():
+        return faq.flash_attention_quant(*args, window, **kw)
+
+    got = call()
     torch.cuda.synchronize()
-    want = flash_attention_quant_plain(*args, window, **kw)
+    want = faq.flash_attention_quant_plain(*args, window, **kw)
     torch.cuda.synchronize()
     diff = (got - want).abs()
     err = diff.max().item()
@@ -259,21 +292,86 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
     else:
         tol = 2e-5 * vmax  # f32 products, sums in another order
         ok = finite and err <= tol
+    launched = device_launches(torch, call, ATTENTION_KERNELS)
     row = {"shape": label, "S": S, "T": T, "probs_qdq": probs, "fp8": fp8,
-           "max_abs_err": err, "tol": tol, "ok": ok}
+           "kernel": launched, "max_abs_err": err, "tol": tol, "ok": ok}
+    if probs:
+        row["within_2e-5"] = tight
     if timed:
-        row.update(bound_fields(nbytes(*args) + nbytes(got),
-                                4.0 * B * H * S * T * D, PEAK_F32_FLOPS))
-        row["ms"] = timer(
-            lambda: flash_attention_quant(*args, window, **kw), iters=10)
+        score_pairs, pv_pairs = attention_pairs(torch, args[5], args[6],
+                                                window, causal)
+        ops = 2.0 * H * D * (score_pairs + pv_pairs)
+        row.update(bound_fields(nbytes(*args) + nbytes(got), ops,
+                                PEAK_F32_FLOPS))
+        # every (query, key) pair, as the bound counted before the skip;
+        # the same operations as three bf16 products each (split terms)
+        row["ops_every_pair_ms"] = (4.0 * B * H * S * T * D
+                                    / PEAK_F32_FLOPS * 1e3)
+        row["ops_bf16_split_ms"] = 3 * ops / PEAK_BF16_FLOPS * 1e3
+        row["ms"] = timer(call, iters=10)
         row["plain_ms"] = timer(
-            lambda: flash_attention_quant_plain(*args, window, **kw),
+            lambda: faq.flash_attention_quant_plain(*args, window, **kw),
             iters=3, warmup=1)
+        if S > 1:
+            old = faq.plan_attention_kernel(B, S, H, KV, D, T)
+            row["attention_kernel_ms"] = timer(
+                lambda: faq._flash_attention_quant(*args, window, plan=old,
+                                                   **kw), iters=10)
+            # yardstick only, NOT the same function: SDPA, causal GQA f32
+            # over K/V dequantized beforehand, no position masks beyond
+            # causal, no probs QDQ
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qf = args[0].transpose(1, 2).contiguous()
+            kf, vf = ((c.to(torch.float32) * sc[..., None]).transpose(
+                1, 2).contiguous() for c, sc in ((args[1], args[3]),
+                                                 (args[2], args[4])))
+            row["library_ms"] = timer(
+                lambda: sdpa(qf, kf, vf, is_causal=True, enable_gqa=True),
+                iters=10)
+            row["library_is"] = ("SDPA causal GQA f32 over dequantized K/V, "
+                                 "no probs QDQ: not the same function")
+        else:
+            row["library_ms"] = None
     log(f"  flash_attention_quant {label}: " + json.dumps(row))
     if not ok:
         raise SystemExit(f"flash_attention_quant disagrees with its plain "
                          f"version at {label}: max_abs_err={err} > {tol}")
+    if launched != {want_kernel: 1}:
+        raise SystemExit(f"flash_attention_quant at {label} launched "
+                         f"{launched}, expected {want_kernel}")
     return row
+
+
+def attention_route_sweep(torch, timer, gen) -> None:
+    """Both kernels of ``flash_attention_quant`` on the exact body at
+    T = 512 (int8, probs QDQ) and S = 1-64 query positions: the times
+    ``PREFILL_MIN_S`` rests on, and the prefill kernel's error against the
+    plain version at each S."""
+    from repro_torch.kernels import flash_attention_quant as faq
+
+    B, T, H, KV, D = 4, 512, 28, 4, 128
+    kw = dict(scale=D ** -0.5, causal=True, block_k=0, probs_n=64,
+              probs_qmax=127.0, probs_qmin=-127.0)
+    out = {}
+    for S in (1, 2, 3, 4, 5, 8, 16, 64):
+        args = attention_inputs(torch, gen, B=B, S=S, T=T, H=H, KV=KV, D=D,
+                                fp8=False, q_starts=[100, 448, 37, -1])
+        plans = {"attention_kernel": faq.plan_attention_kernel(
+                     B, S, H, KV, D, T),
+                 "attention_prefill_kernel": faq.plan_attention_prefill(
+                     B, S, T, H, KV, D)}
+        want = faq.flash_attention_quant_plain(*args, 1 << 30, **kw)
+        got = faq._flash_attention_quant(
+            *args, 1 << 30, plan=plans["attention_prefill_kernel"], **kw)
+        out[f"S={S}"] = {
+            "planned": faq.plan_attention(B, S, T, H, KV, D, T, 64).kernel,
+            "prefill_max_abs_err": (got - want).abs().max().item(),
+            **{f"{k}_ms": timer(
+                lambda: faq._flash_attention_quant(*args, 1 << 30, plan=pl,
+                                                   **kw), iters=10)
+               for k, pl in plans.items()}}
+    log("  flash_attention_quant routes (exact body, T=512, int8, probs "
+        "QDQ): " + json.dumps(out))
 
 
 def activations(torch, gen, shape):
@@ -567,19 +665,39 @@ def regime_want(kind: str, M: int, n: int, wide: bool = False) -> dict:
     return {**pad, "x_codes": 1, "mma": 1}
 
 
+def device_launches(torch, call, names_of: dict) -> dict:
+    """Kernel launches of one ``call`` (after a warm call), read from the
+    profiler: {role: count}, a kernel named by the first key of
+    ``names_of`` its name contains, else by its name's first 90
+    characters."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()  # warm: tickets, library
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        hit = [v for k, v in names_of.items() if k in e.key]
+        key = hit[0] if hit else e.key[:90]
+        names[key] = names.get(key, 0) + e.count
+    return names
+
+
 def check_regimes(torch, gen, kind: str) -> None:
     """Which kernels one ``abfp_matmul`` (``kind`` 'fp'),
     ``abfp_matmul_int8`` ('int8') or ``quant_matmul`` ('quant') call
     launches at each case of ``REGIME_CASES``, read from the profiler; the
     run fails on any other set than ``regime_want``'s."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.formats import INT4, INT8, IntFormat
     from repro_torch.core.quantize import pack_int4_codes
     from repro_torch.kernels import quant_matmul as qm
 
-    names_of = REGIME_KERNELS[kind]
     seen = {}
     for M, n, *wide in REGIME_CASES[kind]:
         K = 3840 if n in (40, 48) else 3584  # whole groups
@@ -603,19 +721,7 @@ def check_regimes(torch, gen, kind: str) -> None:
 
             def call():
                 return fn(x, w, fx, fw, n=n)
-        call()  # warm: tickets, library
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        names = {}
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            hit = [v for k, v in names_of.items() if k in e.key]
-            key = hit[0] if hit else e.key[:90]
-            names[key] = names.get(key, 0) + e.count
+        names = device_launches(torch, call, REGIME_KERNELS[kind])
         case = f"M={M} n={n}" + (f" {wide[0]}" if wide else "")
         seen[case] = names
         want = regime_want(kind, M, n, bool(wide))
@@ -962,6 +1068,73 @@ def phase_dense_kernels(torch, timer, gen) -> dict:
             "abfp_matmul_int8": dense["int8"], "flash_attention": flash}
 
 
+def attention_checks(torch, timer, gen) -> list:
+    """``flash_attention_quant`` against its plain version at each shape,
+    the kernel each call launches (profiler), the two timed main-path
+    shapes, and the route sweep."""
+    general, prefill = "attention_kernel", "attention_prefill_kernel"
+    at = []
+    # main path: the exact body with the in-kernel probs QDQ (int8, n = 64)
+    at.append(check_attention(
+        torch, timer, gen, S=1, T=512, probs=True, fp8=False, block_k=0,
+        q_starts=[100, 510, 37, -1], label="decode S=1 T=512 int8 exact",
+        want_kernel=general))
+    at.append(check_attention(
+        torch, timer, gen, S=64, T=512, probs=True, fp8=False, block_k=0,
+        q_starts=[0, 448, 128, -1], label="prefill S=64 T=512 int8 exact",
+        want_kernel=prefill))
+    # off the main path: fp8 codes, no probs QDQ, and the two long bodies
+    check_attention(torch, timer, gen, S=1, T=512, probs=True, fp8=True,
+                    block_k=0, q_starts=[100, 510, 37, -1],
+                    label="decode S=1 T=512 fp8 exact", timed=False,
+                    want_kernel=general)
+    check_attention(torch, timer, gen, S=1, T=512, probs=False, fp8=False,
+                    block_k=0, q_starts=[100, 510, 37, -1],
+                    label="decode S=1 T=512 int8 exact no-qdq", timed=False,
+                    want_kernel=general)
+    check_attention(torch, timer, gen, S=1, T=512, probs=True, fp8=False,
+                    block_k=0, q_starts=[100, 510, 37, -1], window=100,
+                    label="decode S=1 T=512 int8 exact window=100",
+                    timed=False, want_kernel=general)
+    check_attention(torch, timer, gen, S=5, T=512, probs=False, fp8=False,
+                    block_k=0, q_starts=[100, 400, 37, -1], causal=False,
+                    label="chunk S=5 T=512 int8 exact non-causal",
+                    timed=False, want_kernel=prefill)
+    check_attention(torch, timer, gen, S=1, T=4096, probs=False, fp8=False,
+                    block_k=512, q_starts=[4000, 700, 37, -1],
+                    label="decode S=1 T=4096 int8 online", timed=False,
+                    want_kernel=general)
+    check_attention(torch, timer, gen, S=1, T=4096, probs=True, fp8=False,
+                    block_k=512, q_starts=[4000, 700, 37, -1],
+                    label="decode S=1 T=4096 int8 phased", timed=False,
+                    want_kernel=general)
+    check_attention(torch, timer, gen, S=5, T=4096, probs=True, fp8=True,
+                    block_k=512, q_starts=[4000, 700, 37, -1],
+                    label="chunk S=5 T=4096 fp8 phased", timed=False,
+                    want_kernel=general)
+    # the prefill kernel beyond the main path: fp8, no probs QDQ, a window,
+    # ragged T (a partial last tile), 32- and 128-key probs groups
+    check_attention(torch, timer, gen, S=64, T=512, probs=True, fp8=True,
+                    block_k=0, q_starts=[0, 448, 128, -1],
+                    label="prefill S=64 T=512 fp8 exact", timed=False,
+                    want_kernel=prefill)
+    check_attention(torch, timer, gen, S=64, T=512, probs=False, fp8=False,
+                    block_k=0, q_starts=[0, 448, 128, -1], window=100,
+                    label="prefill S=64 T=512 int8 exact no-qdq window=100",
+                    timed=False, want_kernel=prefill)
+    check_attention(torch, timer, gen, S=37, T=200, probs=False, fp8=False,
+                    block_k=0, q_starts=[0, 163, 90, -1],
+                    label="chunk S=37 T=200 int8 exact no-qdq", timed=False,
+                    want_kernel=prefill)
+    for n in (32, 128):
+        check_attention(torch, timer, gen, S=64, T=512, probs=True,
+                        fp8=False, block_k=0, q_starts=[0, 448, 128, -1],
+                        probs_n=n, want_kernel=prefill, timed=False,
+                        label=f"prefill S=64 T=512 int8 exact probs n={n}")
+    attention_route_sweep(torch, timer, gen)
+    return at
+
+
 def phase_kernels(torch, seed: int) -> dict:
     log("== kernels: each kernel vs its plain version, then timed")
     gen = torch.Generator(device="cuda")
@@ -1008,38 +1181,7 @@ def phase_kernels(torch, seed: int) -> dict:
                        label="ragged M=7 K=640 N=77 int8", timed=False)
     torch.cuda.empty_cache()
 
-    at = []
-    # main path: the exact body with the in-kernel probs QDQ (int8, n = 64)
-    at.append(check_attention(
-        torch, timer, gen, S=1, T=512, probs=True, fp8=False, block_k=0,
-        q_starts=[100, 510, 37, -1], label="decode S=1 T=512 int8 exact"))
-    at.append(check_attention(
-        torch, timer, gen, S=64, T=512, probs=True, fp8=False, block_k=0,
-        q_starts=[0, 448, 128, -1], label="prefill S=64 T=512 int8 exact"))
-    # off the main path: fp8 codes, no probs QDQ, and the two long bodies
-    check_attention(torch, timer, gen, S=1, T=512, probs=True, fp8=True,
-                    block_k=0, q_starts=[100, 510, 37, -1],
-                    label="decode S=1 T=512 fp8 exact", timed=False)
-    check_attention(torch, timer, gen, S=1, T=512, probs=False, fp8=False,
-                    block_k=0, q_starts=[100, 510, 37, -1],
-                    label="decode S=1 T=512 int8 exact no-qdq", timed=False)
-    check_attention(torch, timer, gen, S=1, T=512, probs=True, fp8=False,
-                    block_k=0, q_starts=[100, 510, 37, -1], window=100,
-                    label="decode S=1 T=512 int8 exact window=100",
-                    timed=False)
-    check_attention(torch, timer, gen, S=5, T=512, probs=False, fp8=False,
-                    block_k=0, q_starts=[100, 400, 37, -1], causal=False,
-                    label="chunk S=5 T=512 int8 exact non-causal",
-                    timed=False)
-    check_attention(torch, timer, gen, S=1, T=4096, probs=False, fp8=False,
-                    block_k=512, q_starts=[4000, 700, 37, -1],
-                    label="decode S=1 T=4096 int8 online", timed=False)
-    check_attention(torch, timer, gen, S=1, T=4096, probs=True, fp8=False,
-                    block_k=512, q_starts=[4000, 700, 37, -1],
-                    label="decode S=1 T=4096 int8 phased", timed=False)
-    check_attention(torch, timer, gen, S=5, T=4096, probs=True, fp8=True,
-                    block_k=512, q_starts=[4000, 700, 37, -1],
-                    label="chunk S=5 T=4096 fp8 phased", timed=False)
+    at = attention_checks(torch, timer, gen)
     torch.cuda.empty_cache()
     return {"quant_matmul": mm, "flash_attention_quant": at,
             **phase_dense_kernels(torch, timer, gen)}
@@ -1085,10 +1227,20 @@ def _wrappers() -> dict:
 def reset_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        by_kernel = getattr(fn, "launches_by_kernel", {})
+        for k in by_kernel:
+            by_kernel[k] = 0
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def read_kernel_counts() -> dict:
+    """Launches of each kernel of a wrapper that has several
+    (``flash_attention_quant``: attention_kernel, attention_prefill_kernel)."""
+    return {k: v for fn in _wrappers().values()
+            for k, v in getattr(fn, "launches_by_kernel", {}).items()}
 
 
 def build_engine(torch, cfg, seed: int, kernel_path: bool, trace=None,
@@ -1179,6 +1331,7 @@ def phase_serve(torch, seed: int) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    by_kernel = read_kernel_counts()
     done = eng.done
     check_completions(cfg, eng, done, reqs)
     # every step runs 7 matmuls per layer + lm_head, and one attention
@@ -1193,6 +1346,17 @@ def phase_serve(torch, seed: int) -> dict:
     stray = {k: v for k, v in counts.items() if k not in per_step and v}
     if stray:
         raise SystemExit(f"serve: kernels off this path launched: {stray}")
+    # attention: the prefill kernel on every chunk step, attention_kernel
+    # on every decode step
+    from repro_torch.kernels.flash_attention_quant import PREFILL_MIN_S
+
+    chunks = sum(1 for s, _ in eng.step_ms if s >= PREFILL_MIN_S)
+    want = {"attention_kernel": cfg.n_layers * (eng.steps - chunks),
+            "attention_prefill_kernel": cfg.n_layers * chunks}
+    if by_kernel != want or not chunks or chunks == eng.steps:
+        raise SystemExit(f"serve: attention kernels launched {by_kernel} in "
+                         f"{chunks} chunk and {eng.steps - chunks} decode "
+                         f"steps, expected {want}")
     n_tok = sum(len(c.tokens) for c in done)
     by_kind = {"decode": [ms for s, ms in eng.step_ms if s == 1],
                "prefill": [ms for s, ms in eng.step_ms if s > 1]}
@@ -1204,6 +1368,7 @@ def phase_serve(torch, seed: int) -> dict:
                            for k, v in by_kind.items() if v},
         "step_counts": {k: len(v) for k, v in by_kind.items()},
         "launches": counts, "launches_per_step": per_step,
+        "launches_by_kernel": by_kernel,
         "page_stats": eng.page_stats(), "kv_bytes_first_tick": kv_bytes,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
     }
@@ -1864,6 +2029,34 @@ def main() -> int:
             "timed_shape": head.get("shape"),
             "shapes": rows,
         })
+    # flash_attention_quant's prefill kernel: an entry of its own, timed at
+    # the main path's prefill shape, launched on the serve path's chunks
+    rows = (kernel_rows or {}).get("flash_attention_quant", [])
+    head = next((r for r in rows
+                 if r["shape"].startswith("prefill S=64 T=512 int8")), {})
+    n_prefill = (serve or {}).get("launches_by_kernel", {}).get(
+        "attention_prefill_kernel", 0)
+    kernels[[k["name"] for k in kernels].index("flash_attention_quant")][
+        "launches_by_kernel"] = (serve or {}).get("launches_by_kernel")
+    kernels.append({
+        "name": "attention_prefill_kernel", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_quant.cu",
+        "replaces": "src/repro/kernels/flash_attention_quant.py:223 "
+                    "(_kernel_exact, :109)",
+        "launches": n_prefill,
+        "launches_by_path": {"serve": n_prefill} if n_prefill else {},
+        "on_main_path": True, "wrapper": "flash_attention_quant",
+        "max_abs_err": max((r["max_abs_err"] for r in rows
+                            if r.get("kernel") == {
+                                "attention_prefill_kernel": 1}),
+                           default=None),
+        "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
+        "bound_ms": head.get("bound_ms"), "bound_by": head.get("bound_by"),
+        "library_ms": head.get("library_ms"),
+        "library_is": head.get("library_is"),
+        "attention_kernel_ms": head.get("attention_kernel_ms"),
+        "timed_shape": head.get("shape"),
+    })
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -22,10 +22,19 @@ Layouts are the front-end's own — ``q (B, S, H, D)``, codes
 ``(B, T, KV, D)``, scales ``(B, T, KV)`` — so a gathered page list goes in
 without a transposed copy; query head ``h`` reads KV head ``h // (H // KV)``.
 
-On an H100 at serving sizes (B = 4, T = 512: about 2 MB of codes) a call is
-bound by latency and f32 multiply-adds, not by bandwidth; the kernel
-(``csrc/flash_attention_quant.cu``) lets one block serve all query heads of
-a KV head so codes are read once.  See the source for the design.
+On the card ``plan_attention`` picks one of two kernels a call
+(``csrc/flash_attention_quant.cu``; see the source for both designs).  The
+exact body at S >= ``PREFILL_MIN_S`` positions (the paged prefill chunk)
+takes ``attention_prefill_kernel``: 64 rows a block, scores as the plain
+version's own f32 multiply-add chain (bit for bit, so no probs-QDQ code
+flips against it), P.V on the bf16 tensor cores at f32 accuracy (the
+probabilities split into three bf16 terms, codes exact in bf16), key
+tiles no row can see skipped.  At B = 4, S = 64, T = 512 that call is
+bound by its operations, not its 9.4 MB.  Everything else — decode (S =
+1, bound by latency: 16 blocks at B = 4), the online and phased bodies,
+and score rows too long for the prefill kernel's shared memory — takes
+``attention_kernel`` (f32 on the CUDA cores, all query heads of a KV head
+a block, so codes are read once).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs
 ``flash_attention_quant_plain``.
@@ -34,6 +43,7 @@ A CUDA tensor launches the kernel or raises; a CPU tensor runs
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -47,6 +57,15 @@ M_INIT = -1e30  # running-max init; exp(M_INIT - m_new) underflows to 0
 
 _ROWS_MAX = 16          # query rows (positions x grouped heads) per block
 _SMEM_MAX = 232448      # dynamic shared memory a block may use on sm_90
+
+# attention_prefill_kernel: rows a block serves (4 m16 tiles), keys a K / V
+# tile holds, and the fewest query positions a call must have to take it.
+# At T = 512 (chip_smoke.py's route sweep, PERF.md) attention_kernel takes
+# 0.080-0.082 ms at S = 1 and 0.107-0.113 from S = 2; the prefill kernel
+# 0.087-0.089 at every S: decode keeps attention_kernel.
+PREFILL_ROWS = 64
+PREFILL_KEYS = 64
+PREFILL_MIN_S = 2
 
 
 def _probs_qdq(p: torch.Tensor, *, n: int, qmax: float, qmin: float):
@@ -68,6 +87,71 @@ def _tiling(S: int, T: int, block_k: int, probs_n: int) -> int:
     if probs_n and bk % probs_n:
         raise ValueError(abfp_group_message(bk, probs_n, where="attn probs"))
     return bk
+
+
+class AttentionPlan(NamedTuple):
+    """How ``flash_attention_quant`` launches on the card
+    (``plan_attention``)."""
+    kernel: str                 # attention_kernel | attention_prefill_kernel
+    positions: int              # query positions a block serves (BQ)
+    rows: int                   # rows of a block (prefill: padded to 64)
+    grid: tuple[int, int, int]  # (position tiles, KV heads, batch)
+    smem_bytes: int             # dynamic shared memory of one block
+
+
+def prefill_smem_bytes(T: int, D: int) -> int:
+    """Dynamic shared memory of an ``attention_prefill_kernel`` block, as
+    the kernel lays it out: q's 64 rows and one K tile in f32 (rows D + 4
+    apart), two stages of raw codes (rows D + 16 bytes apart), 64 score
+    rows (a row holds whole tiles, plus 8), kv_pos and both scales of
+    every key, then 16 bytes of counters, 64 q positions and two ints a
+    tile."""
+    tiles = -(-T // PREFILL_KEYS)
+    return (2 * PREFILL_ROWS * (D + 4) * 4 + 2 * PREFILL_KEYS * (D + 16)
+            + 4 * PREFILL_ROWS * (tiles * PREFILL_KEYS + 8)
+            + 12 * tiles * PREFILL_KEYS + 16 + 4 * PREFILL_ROWS + 8 * tiles)
+
+
+def _prefill_groups(probs_n: int) -> bool:
+    """Probability groups the prefill kernel takes: none, or groups that
+    tile its 64-key tiles (n divides 64) or are whole tiles (64 divides n)."""
+    return (probs_n == 0 or PREFILL_KEYS % probs_n == 0
+            or probs_n % PREFILL_KEYS == 0)
+
+
+def plan_attention_prefill(B: int, S: int, T: int, H: int, KV: int,
+                           D: int) -> AttentionPlan:
+    """``attention_prefill_kernel``'s plan: 64 rows a block, 64 // G
+    positions evened out over the chunk (S = 64, G = 7: 8 positions, 56
+    rows, 8 x KV x B blocks)."""
+    bq = min(S, PREFILL_ROWS // (H // KV))
+    tiles = -(-S // bq)
+    bq = -(-S // tiles)
+    return AttentionPlan("attention_prefill_kernel", bq, PREFILL_ROWS,
+                         (tiles, KV, B), prefill_smem_bytes(T, D))
+
+
+def plan_attention_kernel(B: int, S: int, H: int, KV: int, D: int,
+                          bk: int) -> AttentionPlan:
+    """``attention_kernel``'s plan: 16 // G positions, (R x bk) f32 scores
+    a block."""
+    bq = max(1, min(S, _ROWS_MAX // (H // KV)))
+    rows = bq * (H // KV)
+    smem = 4 * (rows * D + 4 * _ROWS_MAX + max(rows * bk, 8 * rows * D))
+    return AttentionPlan("attention_kernel", bq, rows, (-(-S // bq), KV, B),
+                         smem)
+
+
+def plan_attention(B: int, S: int, T: int, H: int, KV: int, D: int,
+                   bk: int, probs_n: int) -> AttentionPlan:
+    """The kernel, block and grid of one call: the exact body (bk == T) at
+    S >= ``PREFILL_MIN_S`` positions whose score rows fit the prefill
+    kernel's shared memory takes ``attention_prefill_kernel``; anything
+    else ``attention_kernel``."""
+    if (bk == T and S >= PREFILL_MIN_S and _prefill_groups(probs_n)
+            and prefill_smem_bytes(T, D) <= _SMEM_MAX):
+        return plan_attention_prefill(B, S, T, H, KV, D)
+    return plan_attention_kernel(B, S, H, KV, D, bk)
 
 
 def flash_attention_quant_plain(
@@ -137,7 +221,7 @@ def _bind(lib: ctypes.CDLL):
     fn = lib.repro_flash_attention_quant
     if not fn.argtypes:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 8 + [i] * 11 + [f, i, f, f, i, p]
+        fn.argtypes = [p] * 8 + [i] * 11 + [f, i, f, f, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -163,7 +247,8 @@ def flash_attention_quant(
 
     ``kernels.ops.flash_attention_quant_gqa`` is the front-end that owns
     padding and block selection; this entry enforces the tiling contract
-    and launches the kernel (or, for CPU tensors, runs the plain version).
+    and launches the kernel ``plan_attention`` picks (or, for CPU tensors,
+    runs the plain version).
     """
     args = (qh, k_codes, v_codes, k_scale, v_scale, q_pos, kv_pos)
     kw = dict(scale=scale, causal=causal, probs_n=probs_n,
@@ -173,6 +258,21 @@ def flash_attention_quant(
     if qh.device.type != "cuda":
         raise ValueError(
             f"flash_attention_quant: unsupported device {qh.device}")
+    B, S, H, D = qh.shape
+    T, KV = k_codes.shape[1], k_codes.shape[2]
+    plan = plan_attention(B, S, T, H, KV, D, _tiling(S, T, block_k, probs_n),
+                          probs_n)
+    return _flash_attention_quant(*args, int(window), plan=plan, **kw)
+
+
+def _flash_attention_quant(qh, k_codes, v_codes, k_scale, v_scale, q_pos,
+                           kv_pos, window: int, *, plan: AttentionPlan,
+                           scale: float, causal: bool, probs_n: int,
+                           probs_qmax: float, probs_qmin: float,
+                           block_k: int) -> torch.Tensor:
+    """``flash_attention_quant`` on CUDA tensors with the kernel of
+    ``plan`` (the one ``plan_attention`` returns, or ``attention_kernel``'s
+    plan for the same call: what ``chip_smoke.py`` compares them with)."""
     B, S, H, D = qh.shape
     T, KV = k_codes.shape[1], k_codes.shape[2]
     bk = _tiling(S, T, block_k, probs_n)
@@ -205,14 +305,24 @@ def flash_attention_quant(
         if not t.is_contiguous():
             raise ValueError(
                 f"flash_attention_quant: {name} must be contiguous")
-    bq = max(1, min(S, _ROWS_MAX // G))
-    rows = bq * G
-    smem = 4 * (rows * D + 4 * _ROWS_MAX + max(rows * bk, 8 * rows * D))
-    if smem > _SMEM_MAX:
+    prefill = plan.kernel == "attention_prefill_kernel"
+    if prefill:
+        if bk != T or not _prefill_groups(probs_n):
+            raise ValueError(
+                "attention_prefill_kernel runs the exact body (block_k = T) "
+                f"with probs groups dividing or divided by {PREFILL_KEYS}; "
+                f"got block_k={bk}, T={T}, probs_n={probs_n}")
+        # 16-byte code copies, 8-byte q loads
+        for name, t in (("qh", qh), ("k_codes", k_codes),
+                        ("v_codes", v_codes)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention_quant: {name} must be "
+                                 "16-byte aligned")
+    if plan.smem_bytes > _SMEM_MAX:
         raise ValueError(
-            f"flash_attention_quant: a ({rows} x {bk}) score tile needs "
-            f"{smem} bytes of shared memory (> {_SMEM_MAX}); use a smaller "
-            "block_k")
+            f"flash_attention_quant: a ({plan.rows} x {bk}) score tile needs "
+            f"{plan.smem_bytes} bytes of shared memory (> {_SMEM_MAX}); use "
+            "a smaller block_k")
     mode = 0 if bk == T else (2 if probs_n else 1)
     out = torch.empty((B, S, H, D), dtype=torch.float32, device=qh.device)
     if out.numel() == 0:
@@ -222,11 +332,13 @@ def flash_attention_quant(
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(qh.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(),
                  k_scale.data_ptr(), v_scale.data_ptr(), q_pos.data_ptr(),
-                 kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, KV, D, bq,
-                 bk, mode, int(window), int(causal), float(scale),
-                 int(probs_n), float(probs_qmax), float(probs_qmin),
-                 int(k_codes.dtype == torch.float8_e4m3fn), stream)
+                 kv_pos.data_ptr(), out.data_ptr(), B, S, T, H, KV, D,
+                 plan.positions, bk, mode, int(window), int(causal),
+                 float(scale), int(probs_n), float(probs_qmax),
+                 float(probs_qmin), int(k_codes.dtype == torch.float8_e4m3fn),
+                 int(prefill), stream)
     flash_attention_quant.launches += 1
+    flash_attention_quant.launches_by_kernel[plan.kernel] += 1
     if err != 0:
         raise RuntimeError(
             f"flash_attention_quant kernel launch failed: CUDA error {err}")
@@ -234,3 +346,6 @@ def flash_attention_quant(
 
 
 flash_attention_quant.launches = 0  # kernel launches through this wrapper
+# ... and of each of its two kernels
+flash_attention_quant.launches_by_kernel = {"attention_kernel": 0,
+                                            "attention_prefill_kernel": 0}
