@@ -30,16 +30,18 @@ Phases (each fatal on failure):
             zero-padded off the 16 grid); abfp_matmul on
             the bf16 tensor cores bit-equal to abfp_matmul_int8 for int
             formats; flash_attention_quant at each checked shape with the
-            kernel it launches read from the profiler (attention_kernel at
-            decode and on the long bodies, attention_prefill_kernel on the
-            exact body from 2 positions), the prefill kernel timed beside
-            attention_kernel forced onto the same call and SDPA (a
-            yardstick, not the same function), and both kernels at S = 1-64
+            kernel it launches read from the profiler
+            (attention_decode_kernel on the exact body at 1 position,
+            attention_prefill_kernel on the exact body from 2 positions,
+            attention_kernel on the long bodies), the decode and prefill
+            kernels timed beside attention_kernel forced onto the same call
+            (prefill also beside SDPA: a yardstick, not the same function),
+            and all three kernels at S = 1, two of them at S = 2-64
   serve     paged, full width, full depth: 6 greedy requests; launch counts
             per step asserted (197 quant_matmul + 28 flash_attention_quant:
-            attention_prefill_kernel on chunk steps, attention_kernel on
-            decode steps); profiles of decode steps and of prefill steps
-            (M = 256)
+            attention_prefill_kernel on chunk steps,
+            attention_decode_kernel on decode steps, attention_kernel on
+            none); profiles of decode steps and of prefill steps (M = 256)
   fixed     fixed-slot, full width, full depth, dense f32 weights: the same
             6 requests under P-int8 (abfp_matmul_int8 + flash_attention)
             and P-fp (abfp_matmul + flash_attention); 197 matmul launches
@@ -238,6 +240,7 @@ def attention_inputs(torch, gen, *, B, S, T, H, KV, D, fp8, q_starts):
 
 # the kernels of flash_attention_quant, as the profiler names them
 ATTENTION_KERNELS = {"attention_prefill_kernel": "attention_prefill_kernel",
+                     "attention_decode_kernel": "attention_decode_kernel",
                      "attention_kernel": "attention_kernel"}
 
 
@@ -260,8 +263,9 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
     """One ``flash_attention_quant`` call against its plain version; the
     kernel it launches, read from the profiler, must be ``want_kernel``.
     Timed: beside the plain version, the card's bound for the pairs this
-    call's mask keeps, and, at S > 1, ``attention_kernel`` forced onto the
-    same call and SDPA as a yardstick."""
+    call's mask keeps, ``attention_kernel`` forced onto the same call
+    (where another kernel is planned) and, at S > 1, SDPA as a
+    yardstick."""
     from repro_torch.kernels import flash_attention_quant as faq
 
     B, H, KV, D = 4, 28, 4, 128
@@ -301,8 +305,15 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
         score_pairs, pv_pairs = attention_pairs(torch, args[5], args[6],
                                                 window, causal)
         ops = 2.0 * H * D * (score_pairs + pv_pairs)
-        row.update(bound_fields(nbytes(*args) + nbytes(got), ops,
-                                PEAK_F32_FLOPS))
+        moved = nbytes(*args) + nbytes(got)
+        if S == 1:
+            # one position a row: a key's K code row and k scale are
+            # needed where it is seen, its V row and v scale where its
+            # probability is not 0 (every key of a dead row)
+            row["bytes_every_key_ms"] = moved / PEAK_BYTES_PER_S * 1e3
+            moved = (nbytes(args[0], args[5], args[6], got)
+                     + KV * (D + 4) * (score_pairs + pv_pairs))
+        row.update(bound_fields(moved, ops, PEAK_F32_FLOPS))
         # every (query, key) pair, as the bound counted before the skip;
         # the same operations as three bf16 products each (split terms)
         row["ops_every_pair_ms"] = (4.0 * B * H * S * T * D
@@ -312,11 +323,12 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
         row["plain_ms"] = timer(
             lambda: faq.flash_attention_quant_plain(*args, window, **kw),
             iters=3, warmup=1)
-        if S > 1:
+        if want_kernel != "attention_kernel":
             old = faq.plan_attention_kernel(B, S, H, KV, D, T)
             row["attention_kernel_ms"] = timer(
                 lambda: faq._flash_attention_quant(*args, window, plan=old,
                                                    **kw), iters=10)
+        if S > 1:
             # yardstick only, NOT the same function: SDPA, causal GQA f32
             # over K/V dequantized beforehand, no position masks beyond
             # causal, no probs QDQ
@@ -343,10 +355,10 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
 
 
 def attention_route_sweep(torch, timer, gen) -> None:
-    """Both kernels of ``flash_attention_quant`` on the exact body at
-    T = 512 (int8, probs QDQ) and S = 1-64 query positions: the times
-    ``PREFILL_MIN_S`` rests on, and the prefill kernel's error against the
-    plain version at each S."""
+    """The kernels of ``flash_attention_quant`` on the exact body at
+    T = 512 (int8, probs QDQ) and S = 1-64 query positions (the decode
+    kernel at S = 1 only): the times ``PREFILL_MIN_S`` and the decode
+    route rest on, and each kernel's error against the plain version."""
     from repro_torch.kernels import flash_attention_quant as faq
 
     B, T, H, KV, D = 4, 512, 28, 4, 128
@@ -360,12 +372,17 @@ def attention_route_sweep(torch, timer, gen) -> None:
                      B, S, H, KV, D, T),
                  "attention_prefill_kernel": faq.plan_attention_prefill(
                      B, S, T, H, KV, D)}
+        if S == 1:
+            plans["attention_decode_kernel"] = faq.plan_attention_decode(
+                B, T, H, KV, D, 64)
         want = faq.flash_attention_quant_plain(*args, 1 << 30, **kw)
-        got = faq._flash_attention_quant(
-            *args, 1 << 30, plan=plans["attention_prefill_kernel"], **kw)
+        errs = {}
+        for k, pl in plans.items():
+            got = faq._flash_attention_quant(*args, 1 << 30, plan=pl, **kw)
+            errs[f"{k}_max_abs_err"] = (got - want).abs().max().item()
         out[f"S={S}"] = {
             "planned": faq.plan_attention(B, S, T, H, KV, D, T, 64).kernel,
-            "prefill_max_abs_err": (got - want).abs().max().item(),
+            **errs,
             **{f"{k}_ms": timer(
                 lambda: faq._flash_attention_quant(*args, 1 << 30, plan=pl,
                                                    **kw), iters=10)
@@ -675,17 +692,23 @@ def device_launches(torch, call, names_of: dict) -> dict:
 
     call()  # warm: tickets, library
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
     names = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        hit = [v for k, v in names_of.items() if k in e.key]
-        key = hit[0] if hit else e.key[:90]
-        names[key] = names.get(key, 0) + e.count
+    # a capture that holds no device event at all saw nothing (the
+    # profiler now and then drops a whole capture): profile the call again
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            hit = [v for k, v in names_of.items() if k in e.key]
+            key = hit[0] if hit else e.key[:90]
+            names[key] = names.get(key, 0) + e.count
+        if names:
+            break
+        log(f"  (profiler capture {attempt + 1} held no device event)")
     return names
 
 
@@ -1070,67 +1093,84 @@ def phase_dense_kernels(torch, timer, gen) -> dict:
 
 def attention_checks(torch, timer, gen) -> list:
     """``flash_attention_quant`` against its plain version at each shape,
-    the kernel each call launches (profiler), the two timed main-path
-    shapes, and the route sweep."""
+    the kernel each call launches (profiler), the timed main-path shapes,
+    and the route sweep; returns every check's row."""
     general, prefill = "attention_kernel", "attention_prefill_kernel"
+    decode = "attention_decode_kernel"
     at = []
+
+    def check(**kw):
+        at.append(check_attention(torch, timer, gen, **kw))
+
     # main path: the exact body with the in-kernel probs QDQ (int8, n = 64)
-    at.append(check_attention(
-        torch, timer, gen, S=1, T=512, probs=True, fp8=False, block_k=0,
-        q_starts=[100, 510, 37, -1], label="decode S=1 T=512 int8 exact",
-        want_kernel=general))
-    at.append(check_attention(
-        torch, timer, gen, S=64, T=512, probs=True, fp8=False, block_k=0,
-        q_starts=[0, 448, 128, -1], label="prefill S=64 T=512 int8 exact",
-        want_kernel=prefill))
-    # off the main path: fp8 codes, no probs QDQ, and the two long bodies
-    check_attention(torch, timer, gen, S=1, T=512, probs=True, fp8=True,
-                    block_k=0, q_starts=[100, 510, 37, -1],
-                    label="decode S=1 T=512 fp8 exact", timed=False,
-                    want_kernel=general)
-    check_attention(torch, timer, gen, S=1, T=512, probs=False, fp8=False,
-                    block_k=0, q_starts=[100, 510, 37, -1],
-                    label="decode S=1 T=512 int8 exact no-qdq", timed=False,
-                    want_kernel=general)
-    check_attention(torch, timer, gen, S=1, T=512, probs=True, fp8=False,
-                    block_k=0, q_starts=[100, 510, 37, -1], window=100,
-                    label="decode S=1 T=512 int8 exact window=100",
-                    timed=False, want_kernel=general)
-    check_attention(torch, timer, gen, S=5, T=512, probs=False, fp8=False,
-                    block_k=0, q_starts=[100, 400, 37, -1], causal=False,
-                    label="chunk S=5 T=512 int8 exact non-causal",
-                    timed=False, want_kernel=prefill)
-    check_attention(torch, timer, gen, S=1, T=4096, probs=False, fp8=False,
-                    block_k=512, q_starts=[4000, 700, 37, -1],
-                    label="decode S=1 T=4096 int8 online", timed=False,
-                    want_kernel=general)
-    check_attention(torch, timer, gen, S=1, T=4096, probs=True, fp8=False,
-                    block_k=512, q_starts=[4000, 700, 37, -1],
-                    label="decode S=1 T=4096 int8 phased", timed=False,
-                    want_kernel=general)
-    check_attention(torch, timer, gen, S=5, T=4096, probs=True, fp8=True,
-                    block_k=512, q_starts=[4000, 700, 37, -1],
-                    label="chunk S=5 T=4096 fp8 phased", timed=False,
-                    want_kernel=general)
+    check(S=1, T=512, probs=True, fp8=False, block_k=0,
+          q_starts=[100, 510, 37, -1], label="decode S=1 T=512 int8 exact",
+          want_kernel=decode)
+    check(S=64, T=512, probs=True, fp8=False, block_k=0,
+          q_starts=[0, 448, 128, -1], label="prefill S=64 T=512 int8 exact",
+          want_kernel=prefill)
+    # the decode kernel at the main path's contexts (41-165 tokens: most
+    # ranges skipped), fp8 codes, no probs QDQ, a window, the front end's
+    # longest exact body, 128-key groups (ranges of 128 keys, clusters of
+    # 4), a ragged T (a last range of 8 keys)
+    check(S=1, T=512, probs=True, fp8=False, block_k=0,
+          q_starts=[160, 41, 100, -1],
+          label="main-path contexts S=1 T=512 int8 exact",
+          want_kernel=decode)
+    check(S=1, T=512, probs=True, fp8=True, block_k=0,
+          q_starts=[100, 510, 37, -1], label="decode S=1 T=512 fp8 exact",
+          timed=False, want_kernel=decode)
+    check(S=1, T=512, probs=False, fp8=False, block_k=0,
+          q_starts=[100, 510, 37, -1],
+          label="decode S=1 T=512 int8 exact no-qdq", timed=False,
+          want_kernel=decode)
+    check(S=1, T=512, probs=True, fp8=False, block_k=0,
+          q_starts=[100, 510, 37, -1], window=100,
+          label="decode S=1 T=512 int8 exact window=100", timed=False,
+          want_kernel=decode)
+    check(S=1, T=2048, probs=True, fp8=False, block_k=0,
+          q_starts=[2000, 700, 37, -1], label="decode S=1 T=2048 int8 exact",
+          timed=False, want_kernel=decode)
+    check(S=1, T=512, probs=True, fp8=False, block_k=0, probs_n=128,
+          q_starts=[100, 510, 300, -1],
+          label="decode S=1 T=512 int8 exact probs n=128", timed=False,
+          want_kernel=decode)
+    check(S=1, T=200, probs=False, fp8=False, block_k=0,
+          q_starts=[199, 41, 150, -1], label="decode S=1 T=200 int8 exact",
+          timed=False, want_kernel=decode)
+    # off the main path: a non-causal chunk and the two long bodies
+    check(S=5, T=512, probs=False, fp8=False, block_k=0,
+          q_starts=[100, 400, 37, -1], causal=False,
+          label="chunk S=5 T=512 int8 exact non-causal", timed=False,
+          want_kernel=prefill)
+    check(S=1, T=4096, probs=False, fp8=False, block_k=512,
+          q_starts=[4000, 700, 37, -1],
+          label="decode S=1 T=4096 int8 online", timed=False,
+          want_kernel=general)
+    check(S=1, T=4096, probs=True, fp8=False, block_k=512,
+          q_starts=[4000, 700, 37, -1],
+          label="decode S=1 T=4096 int8 phased", timed=False,
+          want_kernel=general)
+    check(S=5, T=4096, probs=True, fp8=True, block_k=512,
+          q_starts=[4000, 700, 37, -1], label="chunk S=5 T=4096 fp8 phased",
+          timed=False, want_kernel=general)
     # the prefill kernel beyond the main path: fp8, no probs QDQ, a window,
     # ragged T (a partial last tile), 32- and 128-key probs groups
-    check_attention(torch, timer, gen, S=64, T=512, probs=True, fp8=True,
-                    block_k=0, q_starts=[0, 448, 128, -1],
-                    label="prefill S=64 T=512 fp8 exact", timed=False,
-                    want_kernel=prefill)
-    check_attention(torch, timer, gen, S=64, T=512, probs=False, fp8=False,
-                    block_k=0, q_starts=[0, 448, 128, -1], window=100,
-                    label="prefill S=64 T=512 int8 exact no-qdq window=100",
-                    timed=False, want_kernel=prefill)
-    check_attention(torch, timer, gen, S=37, T=200, probs=False, fp8=False,
-                    block_k=0, q_starts=[0, 163, 90, -1],
-                    label="chunk S=37 T=200 int8 exact no-qdq", timed=False,
-                    want_kernel=prefill)
+    check(S=64, T=512, probs=True, fp8=True, block_k=0,
+          q_starts=[0, 448, 128, -1], label="prefill S=64 T=512 fp8 exact",
+          timed=False, want_kernel=prefill)
+    check(S=64, T=512, probs=False, fp8=False, block_k=0,
+          q_starts=[0, 448, 128, -1], window=100,
+          label="prefill S=64 T=512 int8 exact no-qdq window=100",
+          timed=False, want_kernel=prefill)
+    check(S=37, T=200, probs=False, fp8=False, block_k=0,
+          q_starts=[0, 163, 90, -1],
+          label="chunk S=37 T=200 int8 exact no-qdq", timed=False,
+          want_kernel=prefill)
     for n in (32, 128):
-        check_attention(torch, timer, gen, S=64, T=512, probs=True,
-                        fp8=False, block_k=0, q_starts=[0, 448, 128, -1],
-                        probs_n=n, want_kernel=prefill, timed=False,
-                        label=f"prefill S=64 T=512 int8 exact probs n={n}")
+        check(S=64, T=512, probs=True, fp8=False, block_k=0,
+              q_starts=[0, 448, 128, -1], probs_n=n, want_kernel=prefill,
+              timed=False, label=f"prefill S=64 T=512 int8 exact probs n={n}")
     attention_route_sweep(torch, timer, gen)
     return at
 
@@ -1238,7 +1278,8 @@ def read_counts() -> dict:
 
 def read_kernel_counts() -> dict:
     """Launches of each kernel of a wrapper that has several
-    (``flash_attention_quant``: attention_kernel, attention_prefill_kernel)."""
+    (``flash_attention_quant``: attention_kernel, attention_prefill_kernel,
+    attention_decode_kernel)."""
     return {k: v for fn in _wrappers().values()
             for k, v in getattr(fn, "launches_by_kernel", {}).items()}
 
@@ -1346,12 +1387,13 @@ def phase_serve(torch, seed: int) -> dict:
     stray = {k: v for k, v in counts.items() if k not in per_step and v}
     if stray:
         raise SystemExit(f"serve: kernels off this path launched: {stray}")
-    # attention: the prefill kernel on every chunk step, attention_kernel
-    # on every decode step
+    # attention: the prefill kernel on every chunk step, the decode kernel
+    # on every decode step, attention_kernel on none
     from repro_torch.kernels.flash_attention_quant import PREFILL_MIN_S
 
     chunks = sum(1 for s, _ in eng.step_ms if s >= PREFILL_MIN_S)
-    want = {"attention_kernel": cfg.n_layers * (eng.steps - chunks),
+    want = {"attention_kernel": 0,
+            "attention_decode_kernel": cfg.n_layers * (eng.steps - chunks),
             "attention_prefill_kernel": cfg.n_layers * chunks}
     if by_kernel != want or not chunks or chunks == eng.steps:
         raise SystemExit(f"serve: attention kernels launched {by_kernel} in "
@@ -2029,34 +2071,37 @@ def main() -> int:
             "timed_shape": head.get("shape"),
             "shapes": rows,
         })
-    # flash_attention_quant's prefill kernel: an entry of its own, timed at
-    # the main path's prefill shape, launched on the serve path's chunks
+    # flash_attention_quant's prefill and decode kernels: an entry each,
+    # timed at the main path's prefill / decode shape, launched on the
+    # serve path's chunk / decode steps
     rows = (kernel_rows or {}).get("flash_attention_quant", [])
-    head = next((r for r in rows
-                 if r["shape"].startswith("prefill S=64 T=512 int8")), {})
-    n_prefill = (serve or {}).get("launches_by_kernel", {}).get(
-        "attention_prefill_kernel", 0)
+    by_kernel = (serve or {}).get("launches_by_kernel") or {}
     kernels[[k["name"] for k in kernels].index("flash_attention_quant")][
         "launches_by_kernel"] = (serve or {}).get("launches_by_kernel")
-    kernels.append({
-        "name": "attention_prefill_kernel", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_quant.cu",
-        "replaces": "src/repro/kernels/flash_attention_quant.py:223 "
-                    "(_kernel_exact, :109)",
-        "launches": n_prefill,
-        "launches_by_path": {"serve": n_prefill} if n_prefill else {},
-        "on_main_path": True, "wrapper": "flash_attention_quant",
-        "max_abs_err": max((r["max_abs_err"] for r in rows
-                            if r.get("kernel") == {
-                                "attention_prefill_kernel": 1}),
-                           default=None),
-        "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
-        "bound_ms": head.get("bound_ms"), "bound_by": head.get("bound_by"),
-        "library_ms": head.get("library_ms"),
-        "library_is": head.get("library_is"),
-        "attention_kernel_ms": head.get("attention_kernel_ms"),
-        "timed_shape": head.get("shape"),
-    })
+    for kernel, timed_shape in (
+            ("attention_prefill_kernel", "prefill S=64 T=512 int8 exact"),
+            ("attention_decode_kernel", "decode S=1 T=512 int8 exact")):
+        head = next((r for r in rows if r["shape"] == timed_shape), {})
+        n = by_kernel.get(kernel, 0)
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_quant.cu",
+            "replaces": "src/repro/kernels/flash_attention_quant.py:223 "
+                        "(_kernel_exact, :109)",
+            "launches": n,
+            "launches_by_path": {"serve": n} if n else {},
+            "on_main_path": True, "wrapper": "flash_attention_quant",
+            "max_abs_err": max((r["max_abs_err"] for r in rows
+                                if r.get("kernel") == {kernel: 1}),
+                               default=None),
+            "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
+            "bound_ms": head.get("bound_ms"),
+            "bound_by": head.get("bound_by"),
+            "library_ms": head.get("library_ms"),
+            "library_is": head.get("library_is"),
+            "attention_kernel_ms": head.get("attention_kernel_ms"),
+            "timed_shape": head.get("shape"),
+        })
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

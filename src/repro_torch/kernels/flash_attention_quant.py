@@ -22,19 +22,29 @@ Layouts are the front-end's own — ``q (B, S, H, D)``, codes
 ``(B, T, KV, D)``, scales ``(B, T, KV)`` — so a gathered page list goes in
 without a transposed copy; query head ``h`` reads KV head ``h // (H // KV)``.
 
-On the card ``plan_attention`` picks one of two kernels a call
-(``csrc/flash_attention_quant.cu``; see the source for both designs).  The
-exact body at S >= ``PREFILL_MIN_S`` positions (the paged prefill chunk)
-takes ``attention_prefill_kernel``: 64 rows a block, scores as the plain
-version's own f32 multiply-add chain (bit for bit, so no probs-QDQ code
-flips against it), P.V on the bf16 tensor cores at f32 accuracy (the
-probabilities split into three bf16 terms, codes exact in bf16), key
-tiles no row can see skipped.  At B = 4, S = 64, T = 512 that call is
-bound by its operations, not its 9.4 MB.  Everything else — decode (S =
-1, bound by latency: 16 blocks at B = 4), the online and phased bodies,
-and score rows too long for the prefill kernel's shared memory — takes
-``attention_kernel`` (f32 on the CUDA cores, all query heads of a KV head
-a block, so codes are read once).
+On the card ``plan_attention`` picks one of three kernels a call
+(``csrc/flash_attention_quant.cu``; see the source for their designs):
+
+  attention_decode_kernel   the exact body at S = 1 (every paged decode
+      step): a cluster of up to 8 blocks a (batch, KV head), each owning a
+      range of whole 64-key tiles and probs groups, softmax statistics and
+      P.V partials exchanged through distributed shared memory and added
+      in block order, ranges no row can see neither loaded nor multiplied.
+      At B = 4, T = 512: 16 clusters x 8 blocks, one wave.
+  attention_prefill_kernel  the exact body at S >= ``PREFILL_MIN_S``
+      positions (the paged prefill chunk): 64 rows a block, P.V on the
+      bf16 tensor cores at f32 accuracy (the probabilities split into
+      three bf16 terms, codes exact in bf16), key tiles no row can see
+      skipped; bound by its operations at B = 4, S = 64, T = 512.
+  attention_kernel          the online and phased bodies, and any exact
+      call the two above cannot fit in shared memory (f32 on the CUDA
+      cores, one block a (batch, KV head, position tile), its key tiles
+      in order).
+
+The first two form each score as the plain version's own f32
+multiply-add chain (bit for bit, so no probs-QDQ code flips against it);
+every kernel serves all query heads of a KV head in one block, so codes
+are read once.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs
 ``flash_attention_quant_plain``.
@@ -43,6 +53,7 @@ A CUDA tensor launches the kernel or raises; a CPU tensor runs
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -66,6 +77,11 @@ _SMEM_MAX = 232448      # dynamic shared memory a block may use on sm_90
 PREFILL_ROWS = 64
 PREFILL_KEYS = 64
 PREFILL_MIN_S = 2
+
+# attention_decode_kernel: blocks a cluster may hold (the portable cluster
+# size) and the tile its ranges are whole multiples of.
+DECODE_CLUSTER = 8
+DECODE_TILE = 64
 
 
 def _probs_qdq(p: torch.Tensor, *, n: int, qmax: float, qmin: float):
@@ -92,11 +108,12 @@ def _tiling(S: int, T: int, block_k: int, probs_n: int) -> int:
 class AttentionPlan(NamedTuple):
     """How ``flash_attention_quant`` launches on the card
     (``plan_attention``)."""
-    kernel: str                 # attention_kernel | attention_prefill_kernel
+    kernel: str                 # attention_{decode,prefill,}_kernel
     positions: int              # query positions a block serves (BQ)
     rows: int                   # rows of a block (prefill: padded to 64)
-    grid: tuple[int, int, int]  # (position tiles, KV heads, batch)
+    grid: tuple[int, int, int]  # (position tiles | cluster, KV heads, batch)
     smem_bytes: int             # dynamic shared memory of one block
+    keys: int                   # keys a block owns (decode: its range)
 
 
 def prefill_smem_bytes(T: int, D: int) -> int:
@@ -128,7 +145,42 @@ def plan_attention_prefill(B: int, S: int, T: int, H: int, KV: int,
     tiles = -(-S // bq)
     bq = -(-S // tiles)
     return AttentionPlan("attention_prefill_kernel", bq, PREFILL_ROWS,
-                         (tiles, KV, B), prefill_smem_bytes(T, D))
+                         (tiles, KV, B), prefill_smem_bytes(T, D), T)
+
+
+def decode_range(T: int, probs_n: int) -> tuple[int, int]:
+    """(blocks of a cluster C, keys of a block's range L) of
+    ``attention_decode_kernel``: L the fewest whole units (64 keys, or the
+    least multiple of 64 and ``probs_n``) that cover T in at most
+    ``DECODE_CLUSTER`` ranges, C = ceil(T / L); the last range may be
+    short."""
+    unit = math.lcm(DECODE_TILE, probs_n) if probs_n else DECODE_TILE
+    units = -(-T // unit)
+    keys = unit * -(-units // DECODE_CLUSTER)
+    return -(-T // keys), keys
+
+
+def decode_smem_bytes(G: int, L: int, D: int) -> int:
+    """Dynamic shared memory of an ``attention_decode_kernel`` block, as
+    the kernel lays it out: q's G rows (f32), L rows of K codes (D + 16
+    bytes apart) and of V codes (D), G x L f32 scores, the C blocks' P.V
+    partials of its output columns (G x (D + 8) f32 at most), k scale, v
+    scale and kv_pos of each key, 16 row maxima and 16 partial sums of
+    each of 8 blocks, and the 8 warps' G x D f32 P.V partials."""
+    return (4 * G * D + L * (D + 16) + L * D + 4 * G * L
+            + 4 * G * (D + DECODE_CLUSTER) + 12 * L
+            + 8 * DECODE_CLUSTER * _ROWS_MAX + 32 * G * D)
+
+
+def plan_attention_decode(B: int, T: int, H: int, KV: int, D: int,
+                          probs_n: int) -> AttentionPlan:
+    """``attention_decode_kernel``'s plan: one cluster of C blocks a
+    (batch, KV head), grid (C, KV, B); a block serves the G query heads of
+    its KV head over its L keys (T = 512, n = 64: C = 8, L = 64)."""
+    C, L = decode_range(T, probs_n)
+    G = H // KV
+    return AttentionPlan("attention_decode_kernel", 1, G, (C, KV, B),
+                         decode_smem_bytes(G, L, D), L)
 
 
 def plan_attention_kernel(B: int, S: int, H: int, KV: int, D: int,
@@ -139,15 +191,20 @@ def plan_attention_kernel(B: int, S: int, H: int, KV: int, D: int,
     rows = bq * (H // KV)
     smem = 4 * (rows * D + 4 * _ROWS_MAX + max(rows * bk, 8 * rows * D))
     return AttentionPlan("attention_kernel", bq, rows, (-(-S // bq), KV, B),
-                         smem)
+                         smem, bk)
 
 
 def plan_attention(B: int, S: int, T: int, H: int, KV: int, D: int,
                    bk: int, probs_n: int) -> AttentionPlan:
-    """The kernel, block and grid of one call: the exact body (bk == T) at
-    S >= ``PREFILL_MIN_S`` positions whose score rows fit the prefill
-    kernel's shared memory takes ``attention_prefill_kernel``; anything
-    else ``attention_kernel``."""
+    """The kernel, block and grid of one call.  The exact body (bk == T)
+    takes ``attention_decode_kernel`` at S = 1 and
+    ``attention_prefill_kernel`` at S >= ``PREFILL_MIN_S`` positions,
+    where their shared memory holds it; anything else
+    ``attention_kernel``."""
+    if bk == T and S < PREFILL_MIN_S:
+        plan = plan_attention_decode(B, T, H, KV, D, probs_n)
+        if plan.smem_bytes <= _SMEM_MAX:
+            return plan
     if (bk == T and S >= PREFILL_MIN_S and _prefill_groups(probs_n)
             and prefill_smem_bytes(T, D) <= _SMEM_MAX):
         return plan_attention_prefill(B, S, T, H, KV, D)
@@ -217,11 +274,16 @@ def flash_attention_quant_plain(
     return acc.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(qh.dtype)
 
 
+# the C entry's kernel selector
+_KERNEL_IDS = {"attention_kernel": 0, "attention_prefill_kernel": 1,
+               "attention_decode_kernel": 2}
+
+
 def _bind(lib: ctypes.CDLL):
     fn = lib.repro_flash_attention_quant
     if not fn.argtypes:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 8 + [i] * 11 + [f, i, f, f, i, i, p]
+        fn.argtypes = [p] * 8 + [i] * 11 + [f, i, f, f, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -305,13 +367,23 @@ def _flash_attention_quant(qh, k_codes, v_codes, k_scale, v_scale, q_pos,
         if not t.is_contiguous():
             raise ValueError(
                 f"flash_attention_quant: {name} must be contiguous")
-    prefill = plan.kernel == "attention_prefill_kernel"
-    if prefill:
-        if bk != T or not _prefill_groups(probs_n):
-            raise ValueError(
-                "attention_prefill_kernel runs the exact body (block_k = T) "
-                f"with probs groups dividing or divided by {PREFILL_KEYS}; "
-                f"got block_k={bk}, T={T}, probs_n={probs_n}")
+    kernel = _KERNEL_IDS[plan.kernel]
+    if plan.kernel == "attention_prefill_kernel" and (
+            bk != T or not _prefill_groups(probs_n)):
+        raise ValueError(
+            "attention_prefill_kernel runs the exact body (block_k = T) "
+            f"with probs groups dividing or divided by {PREFILL_KEYS}; "
+            f"got block_k={bk}, T={T}, probs_n={probs_n}")
+    L = plan.keys
+    if plan.kernel == "attention_decode_kernel" and (
+            bk != T or S != 1 or L <= 0 or L % DECODE_TILE
+            or (probs_n and L % probs_n) or -(-T // L) > DECODE_CLUSTER):
+        raise ValueError(
+            "attention_decode_kernel runs the exact body (block_k = T) at "
+            f"S = 1 over at most {DECODE_CLUSTER} ranges of whole "
+            f"{DECODE_TILE}-key tiles and probs groups; got block_k={bk}, "
+            f"T={T}, S={S}, keys={L}, probs_n={probs_n}")
+    if kernel:
         # 16-byte code copies, 8-byte q loads
         for name, t in (("qh", qh), ("k_codes", k_codes),
                         ("v_codes", v_codes)):
@@ -336,7 +408,7 @@ def _flash_attention_quant(qh, k_codes, v_codes, k_scale, v_scale, q_pos,
                  plan.positions, bk, mode, int(window), int(causal),
                  float(scale), int(probs_n), float(probs_qmax),
                  float(probs_qmin), int(k_codes.dtype == torch.float8_e4m3fn),
-                 int(prefill), stream)
+                 kernel, L, stream)
     flash_attention_quant.launches += 1
     flash_attention_quant.launches_by_kernel[plan.kernel] += 1
     if err != 0:
@@ -346,6 +418,7 @@ def _flash_attention_quant(qh, k_codes, v_codes, k_scale, v_scale, q_pos,
 
 
 flash_attention_quant.launches = 0  # kernel launches through this wrapper
-# ... and of each of its two kernels
+# ... and of each of its three kernels
 flash_attention_quant.launches_by_kernel = {"attention_kernel": 0,
-                                            "attention_prefill_kernel": 0}
+                                            "attention_prefill_kernel": 0,
+                                            "attention_decode_kernel": 0}

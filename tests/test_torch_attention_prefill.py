@@ -325,44 +325,45 @@ def test_two_terms_do_not_carry_an_f32():
 # the planner
 # --------------------------------------------------------------------------
 # (B, S, T, H, KV, D, bk, probs_n) -> (kernel, positions, rows, grid,
-# shared memory): every shape chip_smoke.py checks, the main path's first
+# shared memory, keys a block owns): every shape chip_smoke.py checks, the
+# main path's first (the decode ranges: test_torch_attention_decode.py)
 @pytest.mark.parametrize("shape,want", [
     ((4, 64, 512, 28, 4, 128, 512, 64),
-     ("attention_prefill_kernel", 8, 64, (8, 4, 4), 225616)),
+     ("attention_prefill_kernel", 8, 64, (8, 4, 4), 225616, 512)),
     ((4, 1, 512, 28, 4, 128, 512, 64),
-     ("attention_kernel", 1, 7, (1, 4, 4), 32512)),
+     ("attention_decode_kernel", 1, 7, (8, 4, 4), 57056, 64)),
     ((4, 1, 512, 28, 4, 128, 512, 0),
-     ("attention_kernel", 1, 7, (1, 4, 4), 32512)),
+     ("attention_decode_kernel", 1, 7, (8, 4, 4), 57056, 64)),
     ((4, 5, 512, 28, 4, 128, 512, 0),
-     ("attention_prefill_kernel", 5, 64, (1, 4, 4), 225616)),
+     ("attention_prefill_kernel", 5, 64, (1, 4, 4), 225616, 512)),
     ((4, 37, 200, 28, 4, 128, 200, 0),
-     ("attention_prefill_kernel", 8, 64, (5, 4, 4), 156976)),
+     ("attention_prefill_kernel", 8, 64, (5, 4, 4), 156976, 200)),
     ((4, 64, 512, 28, 4, 128, 512, 32),
-     ("attention_prefill_kernel", 8, 64, (8, 4, 4), 225616)),
+     ("attention_prefill_kernel", 8, 64, (8, 4, 4), 225616, 512)),
     ((4, 64, 512, 28, 4, 128, 512, 128),
-     ("attention_prefill_kernel", 8, 64, (8, 4, 4), 225616)),
+     ("attention_prefill_kernel", 8, 64, (8, 4, 4), 225616, 512)),
     ((4, 1, 4096, 28, 4, 128, 512, 0),
-     ("attention_kernel", 1, 7, (1, 4, 4), 32512)),
+     ("attention_kernel", 1, 7, (1, 4, 4), 32512, 512)),
     ((4, 1, 4096, 28, 4, 128, 512, 64),
-     ("attention_kernel", 1, 7, (1, 4, 4), 32512)),
+     ("attention_kernel", 1, 7, (1, 4, 4), 32512, 512)),
     ((4, 5, 4096, 28, 4, 128, 512, 64),
-     ("attention_kernel", 2, 14, (3, 4, 4), 64768)),
+     ("attention_kernel", 2, 14, (3, 4, 4), 64768, 512)),
     # the route sweep's S = 2, 16; one tile more than the longest score
     # row that fits at D = 128 (T = 512): the exact body up to T = 2048
     # stays on attention_kernel; a probs group that straddles tiles
     # (n = 48); a shorter head dimension fits more keys (D = 64, T = 640)
     ((4, 2, 512, 28, 4, 128, 512, 64),
-     ("attention_prefill_kernel", 2, 64, (1, 4, 4), 225616)),
+     ("attention_prefill_kernel", 2, 64, (1, 4, 4), 225616, 512)),
     ((4, 16, 512, 28, 4, 128, 512, 64),
-     ("attention_prefill_kernel", 8, 64, (2, 4, 4), 225616)),
+     ("attention_prefill_kernel", 8, 64, (2, 4, 4), 225616, 512)),
     ((4, 64, 576, 28, 4, 128, 576, 64),
-     ("attention_kernel", 2, 14, (32, 4, 4), 64768)),
+     ("attention_kernel", 2, 14, (32, 4, 4), 64768, 576)),
     ((4, 64, 640, 28, 4, 64, 640, 64),
-     ("attention_prefill_kernel", 8, 64, (8, 4, 4), 218976)),
+     ("attention_prefill_kernel", 8, 64, (8, 4, 4), 218976, 640)),
     ((4, 64, 2048, 28, 4, 128, 2048, 64),
-     ("attention_kernel", 2, 14, (32, 4, 4), 122112)),
+     ("attention_kernel", 2, 14, (32, 4, 4), 122112, 2048)),
     ((1, 64, 480, 28, 4, 128, 480, 48),
-     ("attention_kernel", 2, 14, (32, 4, 1), 64768)),
+     ("attention_kernel", 2, 14, (32, 4, 1), 64768, 480)),
 ])
 def test_plan(shape, want):
     plan = faq.plan_attention(*shape)
@@ -371,6 +372,8 @@ def test_plan(shape, want):
     if plan.kernel == "attention_prefill_kernel":
         assert plan.smem_bytes == faq.prefill_smem_bytes(T, D) <= 232448
         assert plan.positions * (H // KV) <= plan.rows == 64
+    elif plan.kernel == "attention_decode_kernel":
+        assert plan == faq.plan_attention_decode(B, T, H, KV, D, shape[7])
     else:
         assert plan.smem_bytes == faq.plan_attention_kernel(
             B, S, H, KV, D, bk).smem_bytes
@@ -378,13 +381,13 @@ def test_plan(shape, want):
 
 def test_main_path_routes_pinned():
     """The paged prefill chunk (S = 64, T = 512) takes the prefill kernel
-    in one wave (128 blocks on 132 SMs); decode (S = 1) keeps
-    attention_kernel."""
+    in one wave (128 blocks on 132 SMs); decode (S = 1) takes the decode
+    kernel."""
     chunk = faq.plan_attention(4, 64, 512, 28, 4, 128, 512, 64)
     assert chunk.kernel == "attention_prefill_kernel"
     assert math.prod(chunk.grid) == 128
     assert faq.plan_attention(4, 1, 512, 28, 4, 128, 512, 64).kernel == \
-        "attention_kernel"
+        "attention_decode_kernel"
     assert faq.PREFILL_MIN_S >= 2
 
 
