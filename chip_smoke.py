@@ -36,7 +36,11 @@ Phases (each fatal on failure):
             attention_kernel on the long bodies), the decode and prefill
             kernels timed beside attention_kernel forced onto the same call
             (prefill also beside SDPA: a yardstick, not the same function),
-            and all three kernels at S = 1, two of them at S = 2-64
+            and all three kernels at S = 1, two of them at S = 2-64;
+            flash_attention at the fixed prefill's buckets (timed beside
+            SDPA, a yardstick) and ragged, suffix, non-causal, reduced and
+            odd head dimensions, the kernel it launches read from the
+            profiler (flash_mma_kernel, the only route of plan_flash)
   serve     paged, full width, full depth: 6 greedy requests; launch counts
             per step asserted (197 quant_matmul + 28 flash_attention_quant:
             attention_prefill_kernel on chunk steps,
@@ -46,7 +50,9 @@ Phases (each fatal on failure):
             6 requests under P-int8 (abfp_matmul_int8 + flash_attention)
             and P-fp (abfp_matmul + flash_attention); 197 matmul launches
             per forward pass and 28 flash_attention launches per prefill
-            asserted; profiles of decode ticks and of one 192-row prefill
+            (all of flash_mma_kernel) asserted; profiles of decode ticks
+            and of one 192-row prefill (28 flash_mma_kernel launches and
+            no flash_kernel, read from the profiler)
   reduced   reduced width: the kernel path on the card must emit the tokens
             of the plain path on the CPU (the path the CPU tests hold
             token-identical to the JAX reference), paged and fixed-slot
@@ -75,6 +81,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 
 PHASES = ("kernels", "serve", "fixed", "reduced", "identity")
@@ -495,11 +502,26 @@ def check_dense_matmul(torch, timer, gen, *, kind, M, K, N, n=64, label,
     return row
 
 
+# the kernels of flash_attention, as the profiler names them: the
+# tensor-core kernel plan_flash routes every call to, and the parent's
+# SIMT kernel, which no route takes any more
+FLASH_KERNELS = {"flash_mma_kernel": "flash_mma_kernel",
+                 "flash_kernel": "flash_kernel"}
+
+
 def check_flash(torch, timer, gen, *, B=1, S, T, H=28, KV=4, D=128,
                 causal=True, q_offset=None, label, timed=True) -> dict:
+    """One ``flash_attention`` call against its plain version; the kernel
+    it launches, read from the profiler, must be the planned one
+    (``flash_mma_kernel``).  Timed: beside the plain version, SDPA (a
+    yardstick) and the card's bound: the bytes moved once are the floor,
+    the products as the kernel issues them (three tf32 products a
+    product) take less, and the same products as f32 on the CUDA cores
+    (``ops_f32_simt_ms``) are a reference."""
     from repro_torch.kernels.ops import flash_attention_gqa
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     plan_flash)
 
     qh = torch.randn((B, S, H, D), generator=gen, device="cuda")
     kh = torch.randn((B, T, KV, D), generator=gen, device="cuda")
@@ -515,20 +537,28 @@ def check_flash(torch, timer, gen, *, B=1, S, T, H=28, KV=4, D=128,
     err = (got - want).abs().max().item()
     tol = 2e-5 * want.abs().max().item()  # f32, sums in another order
     ok = bool(torch.isfinite(got).all().item()) and err <= tol
+    if causal and q_offset is not None and q_offset < 0:
+        # rows that see no key are exactly 0
+        ok = ok and not bool(got[:, :-q_offset].any().item())
     # the GQA front-end (what the model calls) is the same function
     front = flash_attention_gqa(qh, kh, vh, **kw)
     ok = ok and torch.equal(front.transpose(1, 2).reshape(B * H, S, D), got)
+    plan = plan_flash(B, S, T, H, KV, D, causal)
+    launched = device_launches(
+        torch, lambda: flash_attention(q, k, v, **kw), FLASH_KERNELS)
     row = {"shape": label, "B": B, "S": S, "T": T, "H": H, "KV": KV,
-           "D": D, "causal": causal, "max_abs_err": err, "tol": tol,
-           "ok": ok}
+           "D": D, "causal": causal, "kernel": launched,
+           "plan": plan._asdict(), "max_abs_err": err, "tol": tol, "ok": ok}
     if timed:
         off = 0 if q_offset is None else q_offset
         # key/query pairs this call's mask keeps; 2 operations each for
         # q.k and for p.v per head_dim element
         pairs = sum(min(T, max(0, i + 1 + off)) for i in range(S)) \
             if causal else S * T
-        row.update(bound_fields(nbytes(q, k, v, got),
-                                4.0 * B * H * D * pairs, PEAK_F32_FLOPS))
+        ops = 4.0 * B * H * D * pairs
+        row.update(bound_fields(nbytes(q, k, v, got), 3 * ops,
+                                PEAK_TF32_FLOPS))
+        row["ops_f32_simt_ms"] = ops / PEAK_F32_FLOPS * 1e3
         row["ms"] = timer(lambda: flash_attention(q, k, v, **kw), iters=10)
         row["plain_ms"] = timer(lambda: flash_attention_plain(q, k, v, **kw),
                                 iters=3, warmup=1)
@@ -542,6 +572,9 @@ def check_flash(torch, timer, gen, *, B=1, S, T, H=28, KV=4, D=128,
     if not ok:
         raise SystemExit(f"flash_attention disagrees with its plain version "
                          f"at {label}: max_abs_err={err} > {tol}")
+    if launched != {plan.kernel: 1}:
+        raise SystemExit(f"flash_attention at {label} launched {launched}, "
+                         f"expected {plan.kernel}")
     return row
 
 
@@ -1086,6 +1119,10 @@ def phase_dense_kernels(torch, timer, gen) -> dict:
                 label="non-causal B=2 S=50 T=70", timed=False)
     check_flash(torch, timer, gen, S=16, T=16, H=4, KV=2, D=16,
                 label="reduced S=T=16 H=4 KV=2 D=16", timed=False)
+    # a head dimension off the 16-byte copies (4-byte copies, D padded to
+    # the 64-wide instantiation) with rows that see no key
+    check_flash(torch, timer, gen, S=12, T=20, H=4, KV=2, D=37, q_offset=-4,
+                label="odd D=37 q_offset=-4", timed=False)
     torch.cuda.empty_cache()
     return {"abfp_qdq": qdq, "abfp_matmul": dense["fp"],
             "abfp_matmul_int8": dense["int8"], "flash_attention": flash}
@@ -1276,12 +1313,11 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def read_kernel_counts() -> dict:
-    """Launches of each kernel of a wrapper that has several
-    (``flash_attention_quant``: attention_kernel, attention_prefill_kernel,
-    attention_decode_kernel)."""
-    return {k: v for fn in _wrappers().values()
-            for k, v in getattr(fn, "launches_by_kernel", {}).items()}
+def read_kernel_counts(name: str) -> dict:
+    """Launches of each kernel of wrapper ``name`` (``flash_attention_quant``:
+    attention_kernel, attention_prefill_kernel, attention_decode_kernel;
+    ``flash_attention``: flash_mma_kernel)."""
+    return dict(_wrappers()[name].launches_by_kernel)
 
 
 def build_engine(torch, cfg, seed: int, kernel_path: bool, trace=None,
@@ -1372,7 +1408,7 @@ def phase_serve(torch, seed: int) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    by_kernel = read_kernel_counts()
+    by_kernel = read_kernel_counts("flash_attention_quant")
     done = eng.done
     check_completions(cfg, eng, done, reqs)
     # every step runs 7 matmuls per layer + lm_head, and one attention
@@ -1465,7 +1501,8 @@ def profile_fixed_prefill(torch, cfg, eng, seed: int) -> dict:
     t0 = time.perf_counter()
     admit(2000)
     step_ms = (time.perf_counter() - t0) * 1e3
-    out = profile_steps(torch, lambda: admit(2001), 1, step_ms, "prefill")
+    out = profile_steps(torch, lambda: admit(2001), 1, step_ms, "prefill",
+                        watch=tuple(FLASH_KERNELS))
     eng.run_until_done(max_ticks=2000)
     log("  prefill profile: " + json.dumps(out))
     return out
@@ -1489,12 +1526,14 @@ def profile_decode(torch, cfg, eng, seed: int, step_ms: float) -> dict:
 
 
 def profile_steps(torch, step, n_steps: int, step_ms: float,
-                  kind: str = "decode") -> dict:
+                  kind: str = "decode", watch: tuple = ()) -> dict:
     """``n_steps`` calls of ``step`` (a ``kind`` step) under
     ``torch.profiler``: operator calls, device busy time and kernel
     launches per step, the device's idle share against ``step_ms`` (a
     step's wall time measured WITHOUT the profiler, whose own cost
-    stretches the host side), top kernels."""
+    stretches the host side), top kernels, and the device ms and
+    launches per step of each kernel whose name holds a ``watch`` entry
+    (0 where none ran)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1530,6 +1569,16 @@ def profile_steps(torch, step, n_steps: int, step_ms: float,
         out["top_device_kernels_ms_per_step"] = [
             {"name": k[:60], "ms": ms / n_steps, "launches": c / n_steps}
             for k, ms, c in dev[:12]]
+        watched = {w: [0.0, 0] for w in watch}
+        for k, ms, c in dev:
+            base = k.split("(")[0].split("<")[0]  # no arguments
+            for w in watch:
+                if base.endswith(w):
+                    watched[w][0] += ms
+                    watched[w][1] += c
+        out["watched_kernels_per_step"] = {
+            w: {"ms": ms / n_steps, "launches": c / n_steps}
+            for w, (ms, c) in watched.items()}
     return out
 
 
@@ -1664,6 +1713,12 @@ def phase_fixed(torch, seed: int) -> dict:
                     f"fixed {kind}: {name} launched {counts[name]} times in "
                     f"{eng.prefills} prefills + {eng.ticks} decode ticks, "
                     f"expected {n}")
+        # every prefill's attention: L launches of the tensor-core kernel
+        flash_by_kernel = read_kernel_counts("flash_attention")
+        if flash_by_kernel != {"flash_mma_kernel": L * eng.prefills}:
+            raise SystemExit(f"fixed {kind}: flash_attention's kernels "
+                             f"{flash_by_kernel} in {eng.prefills} prefills, "
+                             f"expected flash_mma_kernel x {L} each")
         stray = {k: v for k, v in counts.items() if k not in want and v}
         if stray:
             raise SystemExit(f"fixed {kind}: kernels off this path launched: "
@@ -1680,6 +1735,7 @@ def phase_fixed(torch, seed: int) -> dict:
             "prefill_ms": timed.prefill_ms,
             "decode_ms_median": statistics.median(eng.decode_ms),
             "launches": counts, "expected_launches": want,
+            "flash_attention_by_kernel": flash_by_kernel,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         }
         log("  " + json.dumps(report))
@@ -1687,6 +1743,14 @@ def phase_fixed(torch, seed: int) -> dict:
                                            report["decode_ms_median"])
         report["prefill_profile"] = profile_fixed_prefill(torch, cfg, eng,
                                                           seed)
+        # the profiled 192-row prefill's attention, read from the
+        # profiler: L launches of flash_mma_kernel, none of flash_kernel
+        seen = report["prefill_profile"].get("watched_kernels_per_step", {})
+        if (seen.get("flash_mma_kernel", {}).get("launches") != L
+                or seen.get("flash_kernel", {}).get("launches")):
+            raise SystemExit(f"fixed {kind}: the 192-row prefill launched "
+                             f"{seen}, expected flash_mma_kernel x {L} and "
+                             "no flash_kernel")
         # the 192-row prefill contracts on the tensor cores
         planned = {"p_int8": "Int8Codes>", "p_fp": "Bf16Codes>"}[kind]
         top = report["prefill_profile"].get("top_device_kernels_ms_per_step",
@@ -1811,9 +1875,20 @@ def phase_reduced(torch, seed: int) -> dict:
                "tokens_total": cmp["tokens_total"],
                "max_logit_gap_over_std": cmp["max_logit_gap_over_std"],
                "divergences": cmp["divergences"], "launches": counts}
+        if kind != "compress":
+            # the reduced config's prefill attention (D = 16, G = 2) takes
+            # the tensor-core kernel too, as plan_flash routes every call
+            row["flash_attention_by_kernel"] = read_kernel_counts(
+                "flash_attention")
         rows.append(row)
         log("  " + json.dumps(row))
         check_launched(f"fixed {kind}", counts, fixed_kernels[kind])
+        if kind != "compress" and row["flash_attention_by_kernel"] != {
+                "flash_mma_kernel": counts["flash_attention"]}:
+            raise SystemExit(f"reduced fixed {kind}: flash_attention's "
+                             f"kernels {row['flash_attention_by_kernel']}, "
+                             f"expected flash_mma_kernel x "
+                             f"{counts['flash_attention']}")
         for d in cmp["divergences"]:
             # a token can only turn where the margin is inside the drift
             if not d["top2_margin_over_std"] <= 2 * d["logit_gap_over_std"]:
@@ -2071,6 +2146,18 @@ def main() -> int:
             "timed_shape": head.get("shape"),
             "shapes": rows,
         })
+    # flash_attention: its one kernel, and the bytes floor beside the
+    # operations (as issued: three tf32 products a product; and as f32 on
+    # the CUDA cores, a reference)
+    fa = kernels[[k["name"] for k in kernels].index("flash_attention")]
+    fa_head = next((r for r in (kernel_rows or {}).get("flash_attention", [])
+                    if r["shape"].startswith(head_shape["flash_attention"])),
+                   {})
+    fa.update({"kernel": "flash_mma_kernel",
+               "launches_by_kernel": {"flash_mma_kernel": fa["launches"]},
+               "bytes_ms": fa_head.get("bytes_ms"),
+               "ops_tf32_split_ms": fa_head.get("ops_ms"),
+               "ops_f32_simt_ms": fa_head.get("ops_f32_simt_ms")})
     # flash_attention_quant's prefill and decode kernels: an entry each,
     # timed at the main path's prefill / decode shape, launched on the
     # serve path's chunk / decode steps

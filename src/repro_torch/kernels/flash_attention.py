@@ -13,15 +13,24 @@ The reference takes K/V with as many heads as q (its front-end repeats KV
 heads); here ``BHkv`` may be ``BH / G`` and query head ``bh`` reads key head
 ``bh // G`` — the same values, without the repeated copy.
 
-On an H100 at prefill lengths a call is bound by f32 multiply-adds; the
-kernel is ``csrc/flash_attention.cu``.  A CUDA tensor launches it or
-raises; a CPU tensor runs ``flash_attention_plain``, which walks the
-reference's key tiles (``block_k``) with its recurrence op for op.
+On the card ``plan_flash`` plans every call for ``flash_mma_kernel``
+(``csrc/flash_attention.cu``; see the source for its design): a block
+serves three m16 tiles of rows (position x G + head) of one KV head, an
+early, a middle and a late one, so K / V tiles are copied once for all G
+query heads and causal work is even across blocks; scores and P.V run on
+the tensor cores as three tf32 products a product (f32 accuracy), the
+softmax on the score fragments, the K / V tiles copied two deep by
+``cp.async``.  Head dimensions up to 128 take the kernel instantiated for
+the next of 16, 32, 64, 128 (zero-padded on chip).  A CUDA tensor
+launches it or raises; a CPU tensor runs ``flash_attention_plain``, which
+walks the reference's key tiles (``block_k``) with its recurrence op for
+op.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,7 +38,52 @@ from repro_torch.analysis.messages import flash_q_offset_message
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-_D_MAX = 128  # largest head_dim the kernel takes
+
+# flash_mma_kernel: rows a block serves (3 m16 tiles), keys a K / V tile
+# holds, the head dimensions it is instantiated for, and the shared memory
+# a block may use on sm_90 (every plan fits: 214,272 bytes at D = 128)
+FLASH_ROWS = 48
+FLASH_KEYS = 64
+FLASH_WIDTHS = (16, 32, 64, 128)
+_SMEM_MAX = 232448
+
+
+class FlashPlan(NamedTuple):
+    """How ``flash_attention`` launches on the card (``plan_flash``)."""
+    kernel: str       # flash_mma_kernel
+    head_dim: int     # the instantiation: D zero-padded to this width
+    rows: int         # rows (position x G + head) a block serves
+    grid: int         # blocks: row tiles x B*KV, 1-D
+    smem_bytes: int   # dynamic shared memory of one block
+
+
+def flash_smem_bytes(dp: int) -> int:
+    """Dynamic shared memory of a ``flash_mma_kernel`` block, as the kernel
+    lays it out: q's 48 rows split into big and small terms, two stages of
+    a 64-key K tile and V tile (rows ``dp + 4`` floats apart), p's big and
+    small terms (rows of 72 floats), and the four key parts' row maxima."""
+    return 4 * ((dp + 4) * (2 * FLASH_ROWS + 4 * FLASH_KEYS)
+                + 2 * FLASH_ROWS * (FLASH_KEYS + 8) + 4 * FLASH_ROWS)
+
+
+def plan_flash(B: int, S: int, T: int, H: int, KV: int, D: int,
+               causal: bool = True) -> FlashPlan:
+    """The kernel, instantiation and grid of one call: every call the
+    wrapper takes (D <= 128) fits ``flash_mma_kernel``'s shared memory, so
+    it is the only route.  A block serves 48 rows, three m16 tiles of
+    one KV head; the fixed-slot prefill's largest call (S = T = 192, H =
+    28, KV = 4) is 28 x 4 = 112 blocks, one wave.  ``causal`` changes no
+    number here (the kernel spreads each head's m16 tiles over its blocks
+    either way)."""
+    if not 1 <= D <= FLASH_WIDTHS[-1]:
+        raise ValueError(f"flash_attention kernel takes head_dim 1 .. "
+                         f"{FLASH_WIDTHS[-1]}; got D={D}")
+    dp = next(w for w in FLASH_WIDTHS if w >= D)
+    row_tiles = -(-S * (H // KV) // FLASH_ROWS)
+    plan = FlashPlan("flash_mma_kernel", dp, FLASH_ROWS, row_tiles * B * KV,
+                     flash_smem_bytes(dp))
+    assert plan.smem_bytes <= _SMEM_MAX
+    return plan
 
 
 def _shapes(q, k, v, causal: bool, q_offset):
@@ -95,7 +149,7 @@ def _bind(lib: ctypes.CDLL):
     fn = lib.repro_flash_attention
     if not fn.argtypes:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 4 + [i] * 5 + [f, i, i, p]
+        fn.argtypes = [p] * 4 + [i] * 5 + [f] + [i] * 4 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -115,9 +169,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     BH, S, D, BHkv, T, q_offset = _shapes(q, k, v, causal, q_offset)
-    if D > _D_MAX:
-        raise ValueError(f"flash_attention kernel takes head_dim <= "
-                         f"{_D_MAX}; got D={D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.float32:
             raise ValueError(f"flash_attention: {name} must be float32, got "
@@ -127,17 +178,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{q.device}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
-    scale = D ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    G = BH // BHkv
+    # the BHkv (batch, KV head) pairs as B x 1 KV head of G query heads
+    plan = plan_flash(BHkv, S, T, G, 1, D, causal)
+    scale = D ** -0.5 if scale is None else scale
+    # 16-byte copies where every row starts on a 16-byte boundary
+    vec = D % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
     fn = _bind(build.load("flash_attention"))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 BH, S, T, D, BH // BHkv, float(scale), int(causal),
-                 q_offset, stream)
+                 BHkv, S, T, D, G, float(scale), int(causal), q_offset,
+                 plan.head_dim, int(vec), stream)
     flash_attention.launches += 1
+    flash_attention.launches_by_kernel[plan.kernel] += 1
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err}")
@@ -145,3 +202,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0  # kernel launches made through this wrapper
+# ... by kernel (one kernel: plan_flash routes every call to it)
+flash_attention.launches_by_kernel = {"flash_mma_kernel": 0}

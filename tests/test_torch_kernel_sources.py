@@ -92,11 +92,12 @@ def test_headers_are_hashed_and_include_no_pytorch(name):
         for hdr in re.findall(r"#\s*include\s*[<\"]([^>\"]+)[>\"]", text):
             assert not hdr.startswith(("torch", "ATen", "c10", "cutlass",
                                        "cublas", "cudnn")), (path, hdr)
-    # quant_matmul and abfp_qdq share the group QDQ; quant_matmul and
-    # flash_attention_quant the PTX wrappers (cp.async, ldmatrix, mma.sync)
+    # quant_matmul and abfp_qdq share the group QDQ; quant_matmul and both
+    # attention sources the PTX wrappers (cp.async, ldmatrix, mma.sync)
     shared = {"quant_matmul": ["abfp_qdq.cuh", "ptx.cuh"],
               "abfp_qdq": ["abfp_qdq.cuh"],
-              "flash_attention_quant": ["ptx.cuh"], "flash_attention": []}
+              "flash_attention_quant": ["ptx.cuh"],
+              "flash_attention": ["ptx.cuh"]}
     assert [h.name for h in build.local_headers(src)] == shared[name]
 
 
