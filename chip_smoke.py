@@ -32,11 +32,17 @@ Phases (each fatal on failure):
             formats; flash_attention_quant at each checked shape with the
             kernel it launches read from the profiler
             (attention_decode_kernel on the exact body at 1 position,
-            attention_prefill_kernel on the exact body from 2 positions,
-            attention_kernel on the long bodies), the decode and prefill
-            kernels timed beside attention_kernel forced onto the same call
-            (prefill also beside SDPA: a yardstick, not the same function),
-            and all three kernels at S = 1, two of them at S = 2-64;
+            attention_prefill_kernel on the exact body from 2 positions
+            up to T = 512, attention_long_kernel on every other call from
+            2 positions: the long chunk at T = 1024-8192, exact, online
+            and phased; attention_kernel on the long bodies at 1
+            position, timed at the long path's decode call), the decode,
+            prefill and long kernels timed beside attention_kernel forced
+            onto the same call (prefill and long also beside SDPA: a
+            yardstick, not the same function; long also with pass 2
+            forming the scores again, held bit-equal, and the bytes of
+            the scores it stores), and
+            three kernels at S = 1, two of them at S = 2-64 (T = 512);
             flash_attention at the fixed prefill's buckets (timed beside
             SDPA, a yardstick) and ragged, suffix, non-causal, reduced and
             odd head dimensions, the kernel it launches read from the
@@ -44,8 +50,18 @@ Phases (each fatal on failure):
   serve     paged, full width, full depth: 6 greedy requests; launch counts
             per step asserted (197 quant_matmul + 28 flash_attention_quant:
             attention_prefill_kernel on chunk steps,
-            attention_decode_kernel on decode steps, attention_kernel on
-            none); profiles of decode steps and of prefill steps (M = 256)
+            attention_decode_kernel on decode steps, attention_kernel and
+            attention_long_kernel on none); profiles of decode steps and
+            of prefill steps (M = 256)
+  long      paged, full width, full depth, max_len 8192 (T = 8192 in every
+            attention call): 4 greedy requests of 6000 / 4100 / 2500 /
+            1100 prompt tokens, 8 new tokens each; asserted per step: 197
+            quant_matmul + 28 flash_attention_quant launches,
+            attention_long_kernel on every chunk step, attention_kernel on
+            every decode step (S = 1 past the decode kernel), neither
+            exact 64-row kernel; one long chunk step (a row past 4,000
+            keys) and one decode step replayed from a copy of their state,
+            timed, profiled and their peak memory read
   fixed     fixed-slot, full width, full depth, dense f32 weights: the same
             6 requests under P-int8 (abfp_matmul_int8 + flash_attention)
             and P-fp (abfp_matmul + flash_attention); 197 matmul launches
@@ -84,7 +100,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 
-PHASES = ("kernels", "serve", "fixed", "reduced", "identity")
+PHASES = ("kernels", "serve", "long", "fixed", "reduced", "identity")
 
 # every kernel: (wrapper module, TPU kernel it replaces)
 KERNELS = {
@@ -161,11 +177,14 @@ def nbytes(*tensors) -> int:
 # --------------------------------------------------------------------------
 # phase: kernels
 # --------------------------------------------------------------------------
-def bound_fields(moved_bytes: float, ops: float, peak_ops: float) -> dict:
+def bound_fields(moved_bytes: float, ops: float, peak_ops: float,
+                 *more: tuple) -> dict:
     """The least time the card could take: the larger of the bytes moved
-    once over the memory rate and the operations over their peak rate."""
+    once over the memory rate and the operations over their peak rate
+    (``more``: further (operations, peak rate) terms, added)."""
     row = {"bytes_ms": moved_bytes / PEAK_BYTES_PER_S * 1e3,
-           "ops_ms": ops / peak_ops * 1e3}
+           "ops_ms": sum(n / peak for n, peak in ((ops, peak_ops), *more))
+           * 1e3}
     row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
     row["bound_by"] = ("bytes" if row["bytes_ms"] >= row["ops_ms"]
                        else "operations")
@@ -248,6 +267,7 @@ def attention_inputs(torch, gen, *, B, S, T, H, KV, D, fp8, q_starts):
 # the kernels of flash_attention_quant, as the profiler names them
 ATTENTION_KERNELS = {"attention_prefill_kernel": "attention_prefill_kernel",
                      "attention_decode_kernel": "attention_decode_kernel",
+                     "attention_long_kernel": "attention_long_kernel",
                      "attention_kernel": "attention_kernel"}
 
 
@@ -270,15 +290,20 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
     """One ``flash_attention_quant`` call against its plain version; the
     kernel it launches, read from the profiler, must be ``want_kernel``.
     Timed: beside the plain version, the card's bound for the pairs this
-    call's mask keeps, ``attention_kernel`` forced onto the same call
-    (where another kernel is planned) and, at S > 1, SDPA as a
-    yardstick."""
+    call's mask keeps (scores as f32 multiply-adds, the plain version's
+    chain; P.V as three bf16 products, what f32 accuracy needs on the
+    tensor cores), ``attention_kernel`` forced onto the same call (where
+    another kernel is planned) and, at S > 1, SDPA as a yardstick.
+    ``attention_long_kernel`` is also called with the other score handling
+    (pass 2 forming the scores again, or reading back stored ones), which
+    must give the same bits; timed, with the bytes of the stored scores."""
     from repro_torch.kernels import flash_attention_quant as faq
 
     B, H, KV, D = 4, 28, 4, 128
     args = attention_inputs(torch, gen, B=B, S=S, T=T, H=H, KV=KV, D=D,
                             fp8=fp8, q_starts=q_starts)
-    kw = dict(scale=D ** -0.5, causal=causal, block_k=block_k)
+    kw = dict(scale=D ** -0.5, causal=causal, block_k=block_k, probs_n=0,
+              probs_qmax=0.0, probs_qmin=0.0)
     if probs:
         kw.update(probs_n=probs_n, probs_qmax=127.0, probs_qmin=-127.0)
 
@@ -306,12 +331,27 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
     launched = device_launches(torch, call, ATTENTION_KERNELS)
     row = {"shape": label, "S": S, "T": T, "probs_qdq": probs, "fp8": fp8,
            "kernel": launched, "max_abs_err": err, "tol": tol, "ok": ok}
+    if want_kernel == "attention_long_kernel":
+        # the planned score handling (stored, or formed again in pass 2)
+        # and the other one give the same bits
+        plan = faq.plan_attention(B, S, T, H, KV, D, block_k or T,
+                                  kw["probs_n"])
+        other = (plan._replace(slots=0) if plan.slots else
+                 faq.plan_attention_long(B, S, T, H, KV, D, kw["probs_n"],
+                                         store=True))
+
+        def call_other():
+            return faq._flash_attention_quant(*args, window, plan=other,
+                                              **kw)
+
+        row["stored_equals_recomputed"] = torch.equal(call_other(), got)
     if probs:
         row["within_2e-5"] = tight
     if timed:
         score_pairs, pv_pairs = attention_pairs(torch, args[5], args[6],
                                                 window, causal)
-        ops = 2.0 * H * D * (score_pairs + pv_pairs)
+        score_ops, pv_ops = 2.0 * H * D * score_pairs, 2.0 * H * D * pv_pairs
+        ops = score_ops + pv_ops
         moved = nbytes(*args) + nbytes(got)
         if S == 1:
             # one position a row: a key's K code row and k scale are
@@ -320,9 +360,12 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
             row["bytes_every_key_ms"] = moved / PEAK_BYTES_PER_S * 1e3
             moved = (nbytes(args[0], args[5], args[6], got)
                      + KV * (D + 4) * (score_pairs + pv_pairs))
-        row.update(bound_fields(moved, ops, PEAK_F32_FLOPS))
-        # every (query, key) pair, as the bound counted before the skip;
-        # the same operations as three bf16 products each (split terms)
+        row.update(bound_fields(moved, score_ops, PEAK_F32_FLOPS,
+                                (3 * pv_ops, PEAK_BF16_FLOPS)))
+        # both products as f32 multiply-adds; every (query, key) pair so,
+        # as the bound counted before the skip; both as three bf16
+        # products each (split terms)
+        row["ops_f32_ms"] = ops / PEAK_F32_FLOPS * 1e3
         row["ops_every_pair_ms"] = (4.0 * B * H * S * T * D
                                     / PEAK_F32_FLOPS * 1e3)
         row["ops_bf16_split_ms"] = 3 * ops / PEAK_BF16_FLOPS * 1e3
@@ -331,10 +374,14 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
             lambda: faq.flash_attention_quant_plain(*args, window, **kw),
             iters=3, warmup=1)
         if want_kernel != "attention_kernel":
-            old = faq.plan_attention_kernel(B, S, H, KV, D, T)
+            old = faq.plan_attention_kernel(B, S, H, KV, D, block_k or T)
             row["attention_kernel_ms"] = timer(
                 lambda: faq._flash_attention_quant(*args, window, plan=old,
                                                    **kw), iters=10)
+        if want_kernel == "attention_long_kernel":
+            row["scratch_bytes"] = faq.long_scratch_bytes(plan)
+            row["recompute_ms" if plan.slots else "store_ms"] = timer(
+                call_other, iters=10)
         if S > 1:
             # yardstick only, NOT the same function: SDPA, causal GQA f32
             # over K/V dequantized beforehand, no position masks beyond
@@ -355,6 +402,9 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
     if not ok:
         raise SystemExit(f"flash_attention_quant disagrees with its plain "
                          f"version at {label}: max_abs_err={err} > {tol}")
+    if row.get("stored_equals_recomputed") is False:
+        raise SystemExit(f"attention_long_kernel at {label}: stored and "
+                         "recomputed scores give other bits")
     if launched != {want_kernel: 1}:
         raise SystemExit(f"flash_attention_quant at {label} launched "
                          f"{launched}, expected {want_kernel}")
@@ -1133,7 +1183,7 @@ def attention_checks(torch, timer, gen) -> list:
     the kernel each call launches (profiler), the timed main-path shapes,
     and the route sweep; returns every check's row."""
     general, prefill = "attention_kernel", "attention_prefill_kernel"
-    decode = "attention_decode_kernel"
+    decode, long = "attention_decode_kernel", "attention_long_kernel"
     at = []
 
     def check(**kw):
@@ -1190,7 +1240,12 @@ def attention_checks(torch, timer, gen) -> list:
           want_kernel=general)
     check(S=5, T=4096, probs=True, fp8=True, block_k=512,
           q_starts=[4000, 700, 37, -1], label="chunk S=5 T=4096 fp8 phased",
-          timed=False, want_kernel=general)
+          timed=False, want_kernel=long)
+    # the long path's decode step: phased at T = 8192 (bk = 512), rows
+    # part-way through its prompts and a finished slot
+    check(S=1, T=8192, probs=True, fp8=False, block_k=512,
+          q_starts=[6007, 4107, 2507, -1],
+          label="long decode S=1 T=8192 int8 phased", want_kernel=general)
     # the prefill kernel beyond the main path: fp8, no probs QDQ, a window,
     # ragged T (a partial last tile), 32- and 128-key probs groups
     check(S=64, T=512, probs=True, fp8=True, block_k=0,
@@ -1208,6 +1263,41 @@ def attention_checks(torch, timer, gen) -> list:
         check(S=64, T=512, probs=True, fp8=False, block_k=0,
               q_starts=[0, 448, 128, -1], probs_n=n, want_kernel=prefill,
               timed=False, label=f"prefill S=64 T=512 int8 exact probs n={n}")
+    # the long-context chunk: the paged path's call at max_len 8192 (the
+    # phased body, bk = 512; rows at the end, middle and start of the
+    # context and a dead row), the same call with most units unseen, the
+    # exact body past the prefill kernel's score rows, the online body
+    check(S=64, T=8192, probs=True, fp8=False, block_k=512,
+          q_starts=[8128, 5000, 2000, -1],
+          label="long S=64 T=8192 int8 phased", want_kernel=long)
+    check(S=64, T=8192, probs=True, fp8=False, block_k=512,
+          q_starts=[4000, 700, 37, -1],
+          label="long S=64 T=8192 int8 phased early rows", want_kernel=long)
+    for T in (1024, 2048):
+        check(S=64, T=T, probs=True, fp8=False, block_k=0,
+              q_starts=[T - 64, T // 2, 37, -1],
+              label=f"long S=64 T={T} int8 exact", want_kernel=long)
+    check(S=64, T=4096, probs=False, fp8=False, block_k=512,
+          q_starts=[4032, 2000, 37, -1], label="long S=64 T=4096 int8 online",
+          want_kernel=long)
+    # ... and beyond it: fp8, a window (every row's first units masked),
+    # 32- and 128-key probs groups, a ragged chunk, a non-causal chunk
+    check(S=64, T=8192, probs=True, fp8=True, block_k=512,
+          q_starts=[8128, 5000, 2000, -1], timed=False,
+          label="long S=64 T=8192 fp8 phased", want_kernel=long)
+    check(S=64, T=8192, probs=True, fp8=False, block_k=512,
+          q_starts=[8128, 5000, 2000, -1], window=100, timed=False,
+          label="long S=64 T=8192 int8 phased window=100", want_kernel=long)
+    for n in (32, 128):
+        check(S=64, T=4096, probs=True, fp8=False, block_k=512, probs_n=n,
+              q_starts=[4032, 2000, 37, -1], timed=False, want_kernel=long,
+              label=f"long S=64 T=4096 int8 phased probs n={n}")
+    check(S=37, T=2048, probs=True, fp8=False, block_k=0,
+          q_starts=[2011, 700, 0, -1], timed=False, want_kernel=long,
+          label="long S=37 T=2048 int8 exact")
+    check(S=16, T=4096, probs=False, fp8=False, block_k=512, causal=False,
+          q_starts=[4000, 700, 37, -1], timed=False, want_kernel=long,
+          label="long S=16 T=4096 int8 online non-causal")
     attention_route_sweep(torch, timer, gen)
     return at
 
@@ -1321,7 +1411,7 @@ def read_kernel_counts(name: str) -> dict:
 
 
 def build_engine(torch, cfg, seed: int, kernel_path: bool, trace=None,
-                 perturb: bool = False):
+                 perturb: bool = False, max_len: int = 512):
     """Model with random weights from ``seed`` on the card -> engine with
     compressed weights and int8 pages; the dense tree is freed.  With a
     ``trace`` dict, the logits row behind every emitted token is kept on
@@ -1357,7 +1447,7 @@ def build_engine(torch, cfg, seed: int, kernel_path: bool, trace=None,
     params = model.init(make_generator(seed, "cuda"))
     if perturb:
         params["embed"]["table"] *= 1.0 + 2.0 ** -20
-    eng = Engine(model, params, n_slots=4, max_len=512, page_size=16,
+    eng = Engine(model, params, n_slots=4, max_len=max_len, page_size=16,
                  policy=slice_policy(kernel_path), compress=True, kv="int8")
     eng.step_ms = []  # (tokens per row, wall ms) of every paged step
     del params
@@ -1424,11 +1514,11 @@ def phase_serve(torch, seed: int) -> dict:
     if stray:
         raise SystemExit(f"serve: kernels off this path launched: {stray}")
     # attention: the prefill kernel on every chunk step, the decode kernel
-    # on every decode step, attention_kernel on none
+    # on every decode step, attention_kernel and the long kernel on none
     from repro_torch.kernels.flash_attention_quant import PREFILL_MIN_S
 
     chunks = sum(1 for s, _ in eng.step_ms if s >= PREFILL_MIN_S)
-    want = {"attention_kernel": 0,
+    want = {"attention_kernel": 0, "attention_long_kernel": 0,
             "attention_decode_kernel": cfg.n_layers * (eng.steps - chunks),
             "attention_prefill_kernel": cfg.n_layers * chunks}
     if by_kernel != want or not chunks or chunks == eng.steps:
@@ -1454,6 +1544,149 @@ def phase_serve(torch, seed: int) -> dict:
     report["profile"] = profile_decode(
         torch, cfg, eng, seed, report["step_ms_median"]["decode"])
     report["prefill_profile"] = profile_paged_prefill(torch, cfg, eng, seed)
+    return report
+
+
+# the long phase: prompt lengths (random ids from the seed), new tokens
+LONG_PROMPTS = (6000, 4100, 2500, 1100)
+LONG_NEW = 8
+LONG_MAX_LEN = 8192
+LONG_PROFILED_KEYS = 4000  # the profiled chunk step has a row past this
+
+
+def phase_long(torch, seed: int) -> dict:
+    """Paged serving of qwen2-7b at published width and depth with
+    max_len 8192 (so T = 8192 in every attention call): 4 greedy requests
+    of ``LONG_PROMPTS`` tokens.  Asserted: 28 ``flash_attention_quant``
+    launches a step, ``attention_long_kernel`` on every chunk step,
+    ``attention_kernel`` on every decode step (the phased body at S = 1),
+    neither 64-row exact kernel.  After the counted run, one long chunk
+    step (a row past 4,000 seen keys) and one decode step are replayed
+    from a copy of their state, timed and profiled (the parent's route on
+    the same chunk step: ``scripts/attention_long_times.py``)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention_quant as faq
+    from repro_torch.serve.engine import Request
+
+    log(f"== long: qwen2-7b, full width and depth, max_len {LONG_MAX_LEN}")
+    cfg = get_config("qwen2-7b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = build_engine(torch, cfg, seed, kernel_path=True,
+                       max_len=LONG_MAX_LEN)
+    rng = np.random.RandomState(seed + 5)
+    reqs = [Request(uid=3000 + i, max_new_tokens=LONG_NEW,
+                    prompt=rng.randint(0, cfg.vocab, size=n).astype(np.int32))
+            for i, n in enumerate(LONG_PROMPTS)]
+    for r in reqs:
+        eng.submit(r)
+
+    # the state before the first chunk step in which a row has seen more
+    # than 4,000 keys, and before the first decode step after it
+    snaps = {}
+    inner = eng._paged_step
+
+    def paged_step(params, tokens, state, n_valid):
+        kind = "chunk" if tokens.shape[1] > 1 else "decode"
+        if kind not in snaps and (kind == "decode") == ("chunk" in snaps):
+            ctx = [eng._pf_pos[s] + int(eng.prefilling[s]) * tokens.shape[1]
+                   if kind == "chunk" else eng._pf_pos[s]
+                   for s in range(eng.n_slots)]
+            if max(ctx) > LONG_PROFILED_KEYS:
+                snaps[kind] = (tokens, clone_state(state), n_valid, max(ctx))
+        return inner(params, tokens, state, n_valid)
+
+    eng._paged_step = paged_step
+    reset_counts()
+    t0 = time.perf_counter()
+    while eng._has_work():
+        eng.tick()
+        if eng.ticks > 2000:
+            raise SystemExit("long phase did not drain in 2000 ticks")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    by_kernel = read_kernel_counts("flash_attention_quant")
+    eng._paged_step = inner
+    done = eng.done
+    if sorted(c.uid for c in done) != [r.uid for r in reqs]:
+        raise SystemExit(f"long: not every request completed: "
+                         f"{sorted(c.uid for c in done)}")
+    for c in done:
+        if len(c.tokens) != LONG_NEW or c.finished_reason != "length" or \
+                not all(0 <= t < cfg.vocab for t in c.tokens):
+            raise SystemExit(f"long: request {c.uid}: {c.tokens}, reason "
+                             f"{c.finished_reason}")
+    st = eng.page_stats()
+    if st["page_allocs"] != st["page_frees"] or st["pages_in_use"]:
+        raise SystemExit(f"long: page accounting does not balance: {st}")
+    chunks = sum(1 for s, _ in eng.step_ms if s >= faq.PREFILL_MIN_S)
+    decodes = eng.steps - chunks
+    want_chunks = max(-(-n // 64) for n in LONG_PROMPTS)
+    per_step = {"quant_matmul": 7 * cfg.n_layers + 1,
+                "flash_attention_quant": cfg.n_layers}
+    for name, n in per_step.items():
+        if counts[name] != n * eng.steps:
+            raise SystemExit(f"long: {name}: {counts[name]} launches in "
+                             f"{eng.steps} steps, expected {n} per step")
+    stray = {k: v for k, v in counts.items() if k not in per_step and v}
+    want = {"attention_kernel": cfg.n_layers * decodes,
+            "attention_prefill_kernel": 0, "attention_decode_kernel": 0,
+            "attention_long_kernel": cfg.n_layers * chunks}
+    if stray or by_kernel != want or chunks != want_chunks or not decodes:
+        raise SystemExit(f"long: attention kernels launched {by_kernel} in "
+                         f"{chunks} chunk and {decodes} decode steps "
+                         f"(expected {want} in {want_chunks} chunk steps); "
+                         f"other kernels {stray}")
+    n_tok = sum(len(c.tokens) for c in done)
+    by_kind = {"decode": [ms for s, ms in eng.step_ms if s == 1],
+               "chunk": [ms for s, ms in eng.step_ms if s > 1]}
+    report = {
+        "requests": len(done), "prompt_lens": list(LONG_PROMPTS),
+        "generated_tokens": n_tok, "ticks": eng.ticks, "steps": eng.steps,
+        "step_counts": {k: len(v) for k, v in by_kind.items()},
+        "wall_s": wall, "tokens_per_s": n_tok / wall,
+        "prompt_tokens_per_s": sum(LONG_PROMPTS) / wall,
+        "step_ms_median": {k: statistics.median(v)
+                           for k, v in by_kind.items()},
+        "launches": counts, "launches_per_step": per_step,
+        "launches_by_kernel": by_kernel,
+        "kv_pool_bytes": sum(t.numel() * t.element_size()
+                             for c in eng.state.pages.cache for t in c
+                             if t is not None),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        # pass 1's stored scores, allocated by each chunk step's calls
+        "long_scratch_bytes_per_call": faq.long_scratch_bytes(
+            faq.plan_attention(eng.n_slots, 64, LONG_MAX_LEN, cfg.n_heads,
+                               cfg.n_kv, cfg.head_dim, 512, 64)),
+    }
+    log("  " + json.dumps(report))
+
+    # replays, outside the counted run: one chunk step, one decode step,
+    # each timed once warm, then profiled
+    profiles = {}
+    for kind, (tokens, state, n_valid, ctx) in snaps.items():
+        for _ in range(2):  # warm, then the timed run
+            fresh = clone_state(state)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            inner(eng.params, tokens, fresh, n_valid)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - start
+        fresh = clone_state(state)
+        out = profile_steps(
+            torch, lambda: inner(eng.params, tokens, fresh, n_valid), 1, ms,
+            kind, watch=tuple(ATTENTION_KERNELS))
+        out["max_keys_seen"] = ctx
+        out["peak_memory_above_start_bytes"] = peak
+        profiles[kind] = out
+        log(f"  {kind} step profile: " + json.dumps(out))
+    report["profiles"] = profiles
     return report
 
 
@@ -2099,11 +2332,13 @@ def main() -> int:
             + (" | ".join(used) if used else "already built"))
     log(f"  built in {time.perf_counter() - t0:.1f} s")
 
-    kernel_rows = serve = fixed = None
+    kernel_rows = serve = long_ctx = fixed = None
     if "kernels" in phases:
         kernel_rows = phase_kernels(torch, args.seed)
     if "serve" in phases:
         serve = phase_serve(torch, args.seed)
+    if "long" in phases:
+        long_ctx = phase_long(torch, args.seed)
     if "fixed" in phases:
         fixed = phase_fixed(torch, args.seed)
     if "reduced" in phases:
@@ -2112,8 +2347,10 @@ def main() -> int:
         phase_identity(torch, args.seed)
 
     # launches of each kernel on the main paths, each counted from 0 just
-    # before its run: the paged serve run, and the two fixed-slot runs
+    # before its run: the paged serve run, the long-context run, and the
+    # two fixed-slot runs
     paths = {"serve": (serve or {}).get("launches", {}),
+             "long": (long_ctx or {}).get("launches", {}),
              **{f"fixed_{k}": r["launches"] for k, r in (fixed or {}).items()}}
     # the shape whose numbers head a kernel's entry: the decode shape
     # launched most (matmuls), the longest prefill bucket (flash attention)
@@ -2158,25 +2395,33 @@ def main() -> int:
                "bytes_ms": fa_head.get("bytes_ms"),
                "ops_tf32_split_ms": fa_head.get("ops_ms"),
                "ops_f32_simt_ms": fa_head.get("ops_f32_simt_ms")})
-    # flash_attention_quant's prefill and decode kernels: an entry each,
-    # timed at the main path's prefill / decode shape, launched on the
-    # serve path's chunk / decode steps
+    # flash_attention_quant's prefill, decode and long kernels: an entry
+    # each, timed at the main paths' prefill / decode / long chunk shape,
+    # launched on the serve path's chunk / decode steps and the long path's
+    # chunk steps
     rows = (kernel_rows or {}).get("flash_attention_quant", [])
-    by_kernel = (serve or {}).get("launches_by_kernel") or {}
+    by_path = {p: (r or {}).get("launches_by_kernel") or {}
+               for p, r in (("serve", serve), ("long", long_ctx))}
     kernels[[k["name"] for k in kernels].index("flash_attention_quant")][
-        "launches_by_kernel"] = (serve or {}).get("launches_by_kernel")
-    for kernel, timed_shape in (
-            ("attention_prefill_kernel", "prefill S=64 T=512 int8 exact"),
-            ("attention_decode_kernel", "decode S=1 T=512 int8 exact")):
+        "launches_by_kernel"] = by_path
+    for kernel, timed_shape, replaces in (
+            ("attention_prefill_kernel", "prefill S=64 T=512 int8 exact",
+             "(_kernel_exact, :109)"),
+            ("attention_decode_kernel", "decode S=1 T=512 int8 exact",
+             "(_kernel_exact, :109)"),
+            ("attention_long_kernel", "long S=64 T=8192 int8 phased",
+             "(_kernel_phased, :167; _kernel_online, :128; _kernel_exact, "
+             ":109)")):
         head = next((r for r in rows if r["shape"] == timed_shape), {})
-        n = by_kernel.get(kernel, 0)
+        launched = {p: c.get(kernel, 0) for p, c in by_path.items()
+                    if c.get(kernel, 0)}
         kernels.append({
             "name": kernel, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_quant.cu",
             "replaces": "src/repro/kernels/flash_attention_quant.py:223 "
-                        "(_kernel_exact, :109)",
-            "launches": n,
-            "launches_by_path": {"serve": n} if n else {},
+                        + replaces,
+            "launches": sum(launched.values()),
+            "launches_by_path": launched,
             "on_main_path": True, "wrapper": "flash_attention_quant",
             "max_abs_err": max((r["max_abs_err"] for r in rows
                                 if r.get("kernel") == {kernel: 1}),
@@ -2189,6 +2434,9 @@ def main() -> int:
             "attention_kernel_ms": head.get("attention_kernel_ms"),
             "timed_shape": head.get("shape"),
         })
+        for key in ("recompute_ms", "store_ms", "scratch_bytes"):
+            if key in head:
+                kernels[-1][key] = head[key]
     log(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -22,7 +22,7 @@ Layouts are the front-end's own — ``q (B, S, H, D)``, codes
 ``(B, T, KV, D)``, scales ``(B, T, KV)`` — so a gathered page list goes in
 without a transposed copy; query head ``h`` reads KV head ``h // (H // KV)``.
 
-On the card ``plan_attention`` picks one of three kernels a call
+On the card ``plan_attention`` picks one of four kernels a call
 (``csrc/flash_attention_quant.cu``; see the source for their designs):
 
   attention_decode_kernel   the exact body at S = 1 (every paged decode
@@ -36,12 +36,21 @@ On the card ``plan_attention`` picks one of three kernels a call
       bf16 tensor cores at f32 accuracy (the probabilities split into
       three bf16 terms, codes exact in bf16), key tiles no row can see
       skipped; bound by its operations at B = 4, S = 64, T = 512.
-  attention_kernel          the online and phased bodies, and any exact
-      call the two above cannot fit in shared memory (f32 on the CUDA
-      cores, one block a (batch, KV head, position tile), its key tiles
-      in order).
+  attention_long_kernel     every other call at S >= ``PREFILL_MIN_S``
+      (the paged prefill chunk of a context past about 520 keys: exact,
+      online and phased bodies): 64 rows a tile, the tile's seen 64-key
+      units dealt out over a cluster of ``long_cluster(T)`` blocks, two
+      passes streaming K / V through shared memory (the scores and their
+      statistics, the scores kept in a scratch the wrapper allocates;
+      then the probabilities and P.V), statistics and P.V partials
+      exchanged through distributed shared memory; a tile where no
+      position sees a key sums V's columns once.
+  attention_kernel          S = 1 past the decode kernel (the online and
+      phased bodies), and probs groups neither 64-row kernel takes (f32
+      on the CUDA cores, one block a (batch, KV head, position tile), its
+      key tiles in order).
 
-The first two form each score as the plain version's own f32
+All but the last form each score as the plain version's own f32
 multiply-add chain (bit for bit, so no probs-QDQ code flips against it);
 every kernel serves all query heads of a KV head in one block, so codes
 are read once.
@@ -83,6 +92,18 @@ PREFILL_MIN_S = 2
 DECODE_CLUSTER = 8
 DECODE_TILE = 64
 
+# attention_long_kernel: blocks a 64-row tile may be split over (the
+# portable cluster size), and the fewest 64-key units each is dealt when
+# every unit is seen.
+LONG_CLUSTER = 8
+LONG_UNITS = 8
+# ... and the most device memory a call's stored scores may take: past it
+# pass 2 forms the scores again.  On the H100 (chip_smoke.py) the store
+# saves 19 % of the kernel at the paged chunk of max_len 8192 (1.165 against
+# 1.444 ms), which needs exactly this (1,024 blocks x 16 tiles of 16 KB);
+# the store grows with S x T, so longer contexts or more slots recompute.
+LONG_SCRATCH_MAX = 256 << 20
+
 
 def _probs_qdq(p: torch.Tensor, *, n: int, qmax: float, qmin: float):
     """ABFP QDQ of probabilities, groups of n along the last (kv) dim —
@@ -108,12 +129,15 @@ def _tiling(S: int, T: int, block_k: int, probs_n: int) -> int:
 class AttentionPlan(NamedTuple):
     """How ``flash_attention_quant`` launches on the card
     (``plan_attention``)."""
-    kernel: str                 # attention_{decode,prefill,}_kernel
+    kernel: str                 # attention_{decode,prefill,long,}_kernel
     positions: int              # query positions a block serves (BQ)
     rows: int                   # rows of a block (prefill: padded to 64)
     grid: tuple[int, int, int]  # (position tiles | cluster, KV heads, batch)
     smem_bytes: int             # dynamic shared memory of one block
     keys: int                   # keys a block owns (decode: its range)
+    cluster: int = 1            # long: blocks a 64-row tile is split over
+    slots: int = 0              # long: score tiles a block stores (0: the
+                                # scores are formed again in pass 2)
 
 
 def prefill_smem_bytes(T: int, D: int) -> int:
@@ -146,6 +170,72 @@ def plan_attention_prefill(B: int, S: int, T: int, H: int, KV: int,
     bq = -(-S // tiles)
     return AttentionPlan("attention_prefill_kernel", bq, PREFILL_ROWS,
                          (tiles, KV, B), prefill_smem_bytes(T, D), T)
+
+
+def long_cluster(T: int) -> int:
+    """Blocks of ``attention_long_kernel``'s cluster: doubled from 1 while
+    every block would still get ``LONG_UNITS`` 64-key units of T (T = 1024:
+    2, 2048: 4, from 4096: 8)."""
+    units = -(-T // PREFILL_KEYS)
+    c = 1
+    while c < LONG_CLUSTER and units >= 2 * c * LONG_UNITS:
+        c *= 2
+    return c
+
+
+def long_smem_bytes(T: int, D: int) -> int:
+    """Dynamic shared memory of an ``attention_long_kernel`` block, as the
+    kernel lays it out: q's 64 rows and one K tile in f32 (rows D + 4
+    apart), a bf16 V tile (rows D + 8 apart), one unit's 64 score rows (72
+    floats apart), two ring stages (16 KB for a unit's K codes, rows D + 16
+    bytes apart, or its stored scores; its V codes; 64 k scales, v scales
+    and kv_pos), the (m, l) of 64 rows from 8 blocks, l and q_pos a row, 16
+    bytes of counters, then two ints a unit."""
+    units = -(-T // PREFILL_KEYS)
+    stage = (4 * PREFILL_ROWS * PREFILL_KEYS + PREFILL_KEYS * (D + 16)
+             + 12 * PREFILL_KEYS)
+    return (2 * PREFILL_ROWS * (D + 4) * 4 + PREFILL_KEYS * (D + 8) * 2
+            + PREFILL_ROWS * (PREFILL_KEYS + 8) * 4 + 2 * stage
+            + LONG_CLUSTER * PREFILL_ROWS * 8 + 8 * PREFILL_ROWS + 16
+            + 8 * units)
+
+
+def long_slots(T: int, probs_n: int, cluster: int) -> int:
+    """Score tiles (64 rows x 64 keys, f32) an ``attention_long_kernel``
+    block may store in pass 1: its share of T's units over ``cluster``
+    blocks, whole groups of ``probs_n // 64`` units (T = 8192, n = 64, 8
+    blocks: 16)."""
+    span = probs_n // PREFILL_KEYS if probs_n > PREFILL_KEYS else 1
+    groups = -(-(-(-T // PREFILL_KEYS)) // span)
+    return -(-groups // cluster) * span
+
+
+def plan_attention_long(B: int, S: int, T: int, H: int, KV: int, D: int,
+                        probs_n: int, store: bool | None = None
+                        ) -> AttentionPlan:
+    """``attention_long_kernel``'s plan: the prefill kernel's 64-row tiles
+    (S = 64, G = 7: 8 positions), each split over a cluster of
+    ``long_cluster(T)`` blocks; grid (C x tiles, KV, B) (T = 8192: 64 x 4 x
+    4).  ``store``: pass 1 stores each unit's scores for pass 2 (``slots``
+    tiles a block), else pass 2 forms them again (the same bits); by
+    default it stores where that takes at most ``LONG_SCRATCH_MAX`` bytes."""
+    bq = min(S, PREFILL_ROWS // (H // KV))
+    tiles = -(-S // bq)
+    bq = -(-S // tiles)
+    C = long_cluster(T)
+    plan = AttentionPlan("attention_long_kernel", bq, PREFILL_ROWS,
+                         (C * tiles, KV, B), long_smem_bytes(T, D), T, C,
+                         long_slots(T, probs_n, C))
+    if store is None:
+        store = long_scratch_bytes(plan) <= LONG_SCRATCH_MAX
+    return plan if store else plan._replace(slots=0)
+
+
+def long_scratch_bytes(plan: AttentionPlan) -> int:
+    """Device memory a call under ``plan`` allocates for pass 1's stored
+    scores: ``slots`` tiles of 64 x 64 f32 a block (0 when pass 2 forms
+    the scores again)."""
+    return math.prod(plan.grid) * plan.slots * PREFILL_ROWS * PREFILL_KEYS * 4
 
 
 def decode_range(T: int, probs_n: int) -> tuple[int, int]:
@@ -199,15 +289,20 @@ def plan_attention(B: int, S: int, T: int, H: int, KV: int, D: int,
     """The kernel, block and grid of one call.  The exact body (bk == T)
     takes ``attention_decode_kernel`` at S = 1 and
     ``attention_prefill_kernel`` at S >= ``PREFILL_MIN_S`` positions,
-    where their shared memory holds it; anything else
-    ``attention_kernel``."""
+    where their shared memory holds it; every other call from
+    ``PREFILL_MIN_S`` positions (the exact body past the prefill kernel's
+    score rows, the online and phased bodies) ``attention_long_kernel``;
+    anything else ``attention_kernel``."""
     if bk == T and S < PREFILL_MIN_S:
         plan = plan_attention_decode(B, T, H, KV, D, probs_n)
         if plan.smem_bytes <= _SMEM_MAX:
             return plan
-    if (bk == T and S >= PREFILL_MIN_S and _prefill_groups(probs_n)
-            and prefill_smem_bytes(T, D) <= _SMEM_MAX):
-        return plan_attention_prefill(B, S, T, H, KV, D)
+    if S >= PREFILL_MIN_S and _prefill_groups(probs_n):
+        if bk == T and prefill_smem_bytes(T, D) <= _SMEM_MAX:
+            return plan_attention_prefill(B, S, T, H, KV, D)
+        plan = plan_attention_long(B, S, T, H, KV, D, probs_n)
+        if plan.smem_bytes <= _SMEM_MAX:
+            return plan
     return plan_attention_kernel(B, S, H, KV, D, bk)
 
 
@@ -276,14 +371,15 @@ def flash_attention_quant_plain(
 
 # the C entry's kernel selector
 _KERNEL_IDS = {"attention_kernel": 0, "attention_prefill_kernel": 1,
-               "attention_decode_kernel": 2}
+               "attention_decode_kernel": 2, "attention_long_kernel": 3}
 
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.repro_flash_attention_quant
     if not fn.argtypes:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 8 + [i] * 11 + [f, i, f, f, i, i, i, p]
+        fn.argtypes = [p] * 8 + [i] * 11 + [f, i, f, f, i, i, i, i, i, p,
+                                            i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -374,6 +470,19 @@ def _flash_attention_quant(qh, k_codes, v_codes, k_scale, v_scale, q_pos,
             "attention_prefill_kernel runs the exact body (block_k = T) "
             f"with probs groups dividing or divided by {PREFILL_KEYS}; "
             f"got block_k={bk}, T={T}, probs_n={probs_n}")
+    C = plan.cluster
+    if plan.kernel == "attention_long_kernel" and (
+            not _prefill_groups(probs_n) or plan.positions * G > PREFILL_ROWS
+            or not 1 <= C <= LONG_CLUSTER or D % (2 * C)
+            or plan.grid[0] != C * -(-S // plan.positions)
+            or (plan.slots and plan.slots < long_slots(T, probs_n, C))):
+        raise ValueError(
+            "attention_long_kernel takes 64-row tiles split over up to "
+            f"{LONG_CLUSTER} blocks (long_cluster(T)), slots for a block's share of the "
+            f"units (or none) and probs groups dividing or divided by "
+            f"{PREFILL_KEYS}; got probs_n={probs_n}, positions="
+            f"{plan.positions}, grid={plan.grid}, cluster={C}, "
+            f"slots={plan.slots}")
     L = plan.keys
     if plan.kernel == "attention_decode_kernel" and (
             bk != T or S != 1 or L <= 0 or L % DECODE_TILE
@@ -399,6 +508,13 @@ def _flash_attention_quant(qh, k_codes, v_codes, k_scale, v_scale, q_pos,
     out = torch.empty((B, S, H, D), dtype=torch.float32, device=qh.device)
     if out.numel() == 0:
         return out
+    # attention_long_kernel's pass-1 score tiles, per block (T = 8192, S =
+    # 64, B = 4: 1,024 blocks x 16 tiles of 16 KB = 256 MiB; none where the
+    # plan has pass 2 form the scores again)
+    scratch = None
+    if plan.kernel == "attention_long_kernel" and plan.slots:
+        scratch = torch.empty(long_scratch_bytes(plan) // 4,
+                              dtype=torch.float32, device=qh.device)
     fn = _bind(build.load("flash_attention_quant"))
     with torch.cuda.device(qh.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -408,7 +524,9 @@ def _flash_attention_quant(qh, k_codes, v_codes, k_scale, v_scale, q_pos,
                  plan.positions, bk, mode, int(window), int(causal),
                  float(scale), int(probs_n), float(probs_qmax),
                  float(probs_qmin), int(k_codes.dtype == torch.float8_e4m3fn),
-                 kernel, L, stream)
+                 kernel, L, C, plan.smem_bytes,
+                 None if scratch is None else scratch.data_ptr(), plan.slots,
+                 stream)
     flash_attention_quant.launches += 1
     flash_attention_quant.launches_by_kernel[plan.kernel] += 1
     if err != 0:
@@ -418,7 +536,8 @@ def _flash_attention_quant(qh, k_codes, v_codes, k_scale, v_scale, q_pos,
 
 
 flash_attention_quant.launches = 0  # kernel launches through this wrapper
-# ... and of each of its three kernels
+# ... and of each of its four kernels
 flash_attention_quant.launches_by_kernel = {"attention_kernel": 0,
                                             "attention_prefill_kernel": 0,
-                                            "attention_decode_kernel": 0}
+                                            "attention_decode_kernel": 0,
+                                            "attention_long_kernel": 0}

@@ -359,7 +359,7 @@ def test_main_path_decode_plan():
     ((4, 64, 512, 512, 64), "attention_prefill_kernel"),
     ((4, 1, 4096, 512, 0), "attention_kernel"),            # online
     ((4, 1, 4096, 512, 64), "attention_kernel"),           # phased
-    ((4, 5, 4096, 512, 64), "attention_kernel"),
+    ((4, 5, 4096, 512, 64), "attention_long_kernel"),
     ((4, 1, 8192, 8192, 64), "attention_kernel"),  # ranges past 227 KB
 ])
 def test_routes(shape, kernel):

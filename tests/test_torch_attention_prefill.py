@@ -347,33 +347,40 @@ def test_two_terms_do_not_carry_an_f32():
     ((4, 1, 4096, 28, 4, 128, 512, 64),
      ("attention_kernel", 1, 7, (1, 4, 4), 32512, 512)),
     ((4, 5, 4096, 28, 4, 128, 512, 64),
-     ("attention_kernel", 2, 14, (3, 4, 4), 64768, 512)),
+     ("attention_long_kernel", 5, 64, (8, 4, 4), 161296, 4096)),
     # the route sweep's S = 2, 16; one tile more than the longest score
     # row that fits at D = 128 (T = 512): the exact body up to T = 2048
-    # stays on attention_kernel; a probs group that straddles tiles
-    # (n = 48); a shorter head dimension fits more keys (D = 64, T = 640)
+    # takes attention_long_kernel; a probs group that straddles tiles
+    # (n = 48) stays on attention_kernel; a shorter head dimension fits
+    # more keys (D = 64, T = 640)
     ((4, 2, 512, 28, 4, 128, 512, 64),
      ("attention_prefill_kernel", 2, 64, (1, 4, 4), 225616, 512)),
     ((4, 16, 512, 28, 4, 128, 512, 64),
      ("attention_prefill_kernel", 8, 64, (2, 4, 4), 225616, 512)),
     ((4, 64, 576, 28, 4, 128, 576, 64),
-     ("attention_kernel", 2, 14, (32, 4, 4), 64768, 576)),
+     ("attention_long_kernel", 8, 64, (8, 4, 4), 160856, 576)),
     ((4, 64, 640, 28, 4, 64, 640, 64),
      ("attention_prefill_kernel", 8, 64, (8, 4, 4), 218976, 640)),
     ((4, 64, 2048, 28, 4, 128, 2048, 64),
-     ("attention_kernel", 2, 14, (32, 4, 4), 122112, 2048)),
+     ("attention_long_kernel", 8, 64, (32, 4, 4), 161040, 2048)),
     ((1, 64, 480, 28, 4, 128, 480, 48),
      ("attention_kernel", 2, 14, (32, 4, 1), 64768, 480)),
 ])
 def test_plan(shape, want):
     plan = faq.plan_attention(*shape)
-    assert tuple(plan) == want
-    B, S, T, H, KV, D, bk, _ = shape
+    assert tuple(plan)[:6] == want
+    B, S, T, H, KV, D, bk, probs_n = shape
+    if plan.kernel != "attention_long_kernel":
+        assert (plan.cluster, plan.slots) == (1, 0)
     if plan.kernel == "attention_prefill_kernel":
         assert plan.smem_bytes == faq.prefill_smem_bytes(T, D) <= 232448
         assert plan.positions * (H // KV) <= plan.rows == 64
     elif plan.kernel == "attention_decode_kernel":
         assert plan == faq.plan_attention_decode(B, T, H, KV, D, shape[7])
+    elif plan.kernel == "attention_long_kernel":
+        assert plan == faq.plan_attention_long(B, S, T, H, KV, D, probs_n)
+        assert plan.smem_bytes == faq.long_smem_bytes(T, D) <= 232448
+        assert plan.cluster == faq.long_cluster(T)
     else:
         assert plan.smem_bytes == faq.plan_attention_kernel(
             B, S, H, KV, D, bk).smem_bytes

@@ -6,6 +6,7 @@ versions on the card by ``chip_smoke.py``.)"""
 
 import pathlib
 import re
+import types
 
 import pytest
 
@@ -127,3 +128,40 @@ def test_flags_are_the_hopper_build_for_every_source():
     i = flags.index("-gencode")
     assert flags[i + 1] == "arch=compute_90a,code=sm_90a"
     assert "--use_fast_math" not in flags and "-ftz=true" not in flags
+
+
+def test_attention_kernels_are_defined_and_dispatched():
+    """Every kernel ``plan_attention`` can name (attention_long_kernel
+    among them) is a ``__global__`` of flash_attention_quant.cu that the C
+    entry dispatches by its id and the wrapper counts; the long kernel's
+    ring uses the planner's constants, and its cluster, shared memory and
+    score slots come from the plan (no second copy of those rules in the
+    source); the C entry takes the arguments the wrapper binds."""
+    from repro_torch.kernels import flash_attention_quant as faq
+
+    source = (build.CSRC_DIR /
+              build.SOURCES["flash_attention_quant"]).read_text()
+    assert set(faq._KERNEL_IDS) == set(
+        faq.flash_attention_quant.launches_by_kernel)
+    assert "attention_long_kernel" in faq._KERNEL_IDS
+    for name, kid in faq._KERNEL_IDS.items():
+        assert re.search(r"__global__ void __launch_bounds__\([^)]*\)\s*"
+                         rf"{name}\(const Params p\)", source), name
+        if kid:
+            assert f"if (kernel == {kid})" in source, name
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", source))
+    assert int(consts["kLClusterMax"]) == faq.LONG_CLUSTER
+    assert int(consts["kPKeys"]) == faq.PREFILL_KEYS
+    assert int(consts["kPRows"]) == faq.PREFILL_ROWS
+    # a cluster launch (cudaLaunchKernelEx) for each cluster kernel
+    assert source.count("cudaLaunchKernelEx(&cfg, attention_long_kernel") \
+        == 1
+    for rule in ("long_cluster", "long_slots", "long_smem_bytes"):
+        assert not re.search(rf"\b{rule}\(", source), rule
+    assert "const int C = p.cluster;" in source
+    assert "const size_t bytes = p.smem;" in source
+    entry = re.search(r'extern "C" int repro_flash_attention_quant\(([^)]*)\)',
+                      source).group(1)
+    lib = types.SimpleNamespace(repro_flash_attention_quant=(
+        types.SimpleNamespace(argtypes=None, restype=None)))
+    assert len(faq._bind(lib).argtypes) == entry.count(",") + 1
