@@ -31,14 +31,16 @@ Phases (each fatal on failure):
             the bf16 tensor cores bit-equal to abfp_matmul_int8 for int
             formats; flash_attention_quant at each checked shape with the
             kernel it launches read from the profiler
-            (attention_decode_kernel on the exact body at 1 position,
+            (attention_decode_kernel on the exact body at 1 position
+            up to T = 2048, attention_decode_long_kernel on every other
+            call at 1 position: the long path's decode call at T = 8192,
+            exact, online and phased, up to T = 32,768;
             attention_prefill_kernel on the exact body from 2 positions
             up to T = 512, attention_long_kernel on every other call from
             2 positions: the long chunk at T = 1024-8192, exact, online
-            and phased; attention_kernel on the long bodies at 1
-            position, timed at the long path's decode call), the decode,
-            prefill and long kernels timed beside attention_kernel forced
-            onto the same call (prefill and long also beside SDPA: a
+            and phased), the decode, decode-long, prefill and long
+            kernels timed beside attention_kernel forced onto the same
+            call (prefill and long also beside SDPA: a
             yardstick, not the same function; long also with pass 2
             forming the scores again, held bit-equal, and the bytes of
             the scores it stores), and
@@ -50,18 +52,21 @@ Phases (each fatal on failure):
   serve     paged, full width, full depth: 6 greedy requests; launch counts
             per step asserted (197 quant_matmul + 28 flash_attention_quant:
             attention_prefill_kernel on chunk steps,
-            attention_decode_kernel on decode steps, attention_kernel and
-            attention_long_kernel on none); profiles of decode steps and
+            attention_decode_kernel on decode steps, attention_kernel,
+            attention_long_kernel and attention_decode_long_kernel on
+            none); profiles of decode steps and
             of prefill steps (M = 256)
   long      paged, full width, full depth, max_len 8192 (T = 8192 in every
             attention call): 4 greedy requests of 6000 / 4100 / 2500 /
             1100 prompt tokens, 8 new tokens each; asserted per step: 197
             quant_matmul + 28 flash_attention_quant launches,
-            attention_long_kernel on every chunk step, attention_kernel on
-            every decode step (S = 1 past the decode kernel), neither
-            exact 64-row kernel; one long chunk step (a row past 4,000
-            keys) and one decode step replayed from a copy of their state,
-            timed, profiled and their peak memory read
+            attention_long_kernel on every chunk step,
+            attention_decode_long_kernel on every decode step (S = 1 past
+            the decode kernel), attention_kernel on none, neither exact
+            kernel; one long chunk step (a row past 4,000 keys) and one
+            decode step replayed from a copy of their state, timed,
+            profiled (attention and device-busy ms) and their peak memory
+            read
   fixed     fixed-slot, full width, full depth, dense f32 weights: the same
             6 requests under P-int8 (abfp_matmul_int8 + flash_attention)
             and P-fp (abfp_matmul + flash_attention); 197 matmul launches
@@ -265,10 +270,12 @@ def attention_inputs(torch, gen, *, B, S, T, H, KV, D, fp8, q_starts):
 
 
 # the kernels of flash_attention_quant, as the profiler names them
-ATTENTION_KERNELS = {"attention_prefill_kernel": "attention_prefill_kernel",
-                     "attention_decode_kernel": "attention_decode_kernel",
-                     "attention_long_kernel": "attention_long_kernel",
-                     "attention_kernel": "attention_kernel"}
+ATTENTION_KERNELS = {
+    "attention_prefill_kernel": "attention_prefill_kernel",
+    "attention_decode_kernel": "attention_decode_kernel",
+    "attention_long_kernel": "attention_long_kernel",
+    "attention_decode_long_kernel": "attention_decode_long_kernel",
+    "attention_kernel": "attention_kernel"}
 
 
 def attention_pairs(torch, q_pos, kv_pos, window: int, causal: bool):
@@ -328,7 +335,8 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
     else:
         tol = 2e-5 * vmax  # f32 products, sums in another order
         ok = finite and err <= tol
-    launched = device_launches(torch, call, ATTENTION_KERNELS)
+    launched = device_launches(torch, call, ATTENTION_KERNELS,
+                               {want_kernel: 1}, label)
     row = {"shape": label, "S": S, "T": T, "probs_qdq": probs, "fp8": fp8,
            "kernel": launched, "max_abs_err": err, "tol": tol, "ok": ok}
     if want_kernel == "attention_long_kernel":
@@ -373,11 +381,36 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
         row["plain_ms"] = timer(
             lambda: faq.flash_attention_quant_plain(*args, window, **kw),
             iters=3, warmup=1)
-        if want_kernel != "attention_kernel":
-            old = faq.plan_attention_kernel(B, S, H, KV, D, block_k or T)
+        old = faq.plan_attention_kernel(B, S, H, KV, D, block_k or T)
+        if want_kernel == "attention_kernel":
+            pass
+        elif old.smem_bytes > faq._SMEM_MAX:
+            row["attention_kernel_ms"] = None
+            row["attention_kernel_is"] = (
+                "not measured: its score tile of the whole row exceeds "
+                "shared memory")
+        else:
             row["attention_kernel_ms"] = timer(
                 lambda: faq._flash_attention_quant(*args, window, plan=old,
                                                    **kw), iters=10)
+        if want_kernel == "attention_decode_kernel":
+            # the long-context decode kernel forced onto the same call: is
+            # a second kernel at S = 1 worth its keep here?
+            dl = faq.plan_attention_decode_long(B, T, H, KV, D, block_k or T,
+                                                kw["probs_n"])
+
+            def call_dl():
+                return faq._flash_attention_quant(*args, window, plan=dl,
+                                                  **kw)
+
+            d_dl = (call_dl() - want).abs()
+            row["decode_long_max_abs_err"] = d_dl.max().item()
+            row["decode_long_within_2e-5"] = (
+                d_dl <= 2e-5 * vmax).float().mean().item()
+            ok = ok and row["decode_long_max_abs_err"] <= tol and (
+                not probs or row["decode_long_within_2e-5"] > 0.99)
+            row["ok"] = ok
+            row["decode_long_ms"] = timer(call_dl, iters=10)
         if want_kernel == "attention_long_kernel":
             row["scratch_bytes"] = faq.long_scratch_bytes(plan)
             row["recompute_ms" if plan.slots else "store_ms"] = timer(
@@ -401,7 +434,12 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
     log(f"  flash_attention_quant {label}: " + json.dumps(row))
     if not ok:
         raise SystemExit(f"flash_attention_quant disagrees with its plain "
-                         f"version at {label}: max_abs_err={err} > {tol}")
+                         f"version at {label}: max_abs_err={err}, tol {tol}"
+                         + (f", {tight} within 2e-5" if probs else "")
+                         + (f"; the decode-long kernel forced onto it: "
+                            f"{row['decode_long_max_abs_err']}, "
+                            f"{row['decode_long_within_2e-5']} within 2e-5"
+                            if "decode_long_max_abs_err" in row else ""))
     if row.get("stored_equals_recomputed") is False:
         raise SystemExit(f"attention_long_kernel at {label}: stored and "
                          "recomputed scores give other bits")
@@ -595,7 +633,8 @@ def check_flash(torch, timer, gen, *, B=1, S, T, H=28, KV=4, D=128,
     ok = ok and torch.equal(front.transpose(1, 2).reshape(B * H, S, D), got)
     plan = plan_flash(B, S, T, H, KV, D, causal)
     launched = device_launches(
-        torch, lambda: flash_attention(q, k, v, **kw), FLASH_KERNELS)
+        torch, lambda: flash_attention(q, k, v, **kw), FLASH_KERNELS,
+        {plan.kernel: 1}, label)
     row = {"shape": label, "B": B, "S": S, "T": T, "H": H, "KV": KV,
            "D": D, "causal": causal, "kernel": launched,
            "plan": plan._asdict(), "max_abs_err": err, "tol": tol, "ok": ok}
@@ -765,34 +804,45 @@ def regime_want(kind: str, M: int, n: int, wide: bool = False) -> dict:
     return {**pad, "x_codes": 1, "mma": 1}
 
 
-def device_launches(torch, call, names_of: dict) -> dict:
+# profiler captures taken again, with what each read (the kernels phase
+# reports them)
+PROFILER_RETRIES = []
+
+
+def device_launches(torch, call, names_of: dict, want=None,
+                    label: str = "a call") -> dict:
     """Kernel launches of one ``call`` (after a warm call), read from the
     profiler: {role: count}, a kernel named by the first key of
     ``names_of`` its name contains, else by its name's first 90
-    characters."""
+    characters.  A capture that reads other than ``want`` (without it: no
+    device event at all; the profiler now and then drops an event, or a
+    whole capture) is taken once more and recorded in
+    ``PROFILER_RETRIES``; a second one that reads otherwise fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     call()  # warm: tickets, library
     torch.cuda.synchronize()
-    names = {}
-    # a capture that holds no device event at all saw nothing (the
-    # profiler now and then drops a whole capture): profile the call again
-    for attempt in range(3):
+    for attempt in range(2):
+        names = {}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             call()
             torch.cuda.synchronize()
         for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
+            if e.device_type != DeviceType.CUDA or not e.count:
                 continue
             hit = [v for k, v in names_of.items() if k in e.key]
             key = hit[0] if hit else e.key[:90]
             names[key] = names.get(key, 0) + e.count
-        if names:
-            break
-        log(f"  (profiler capture {attempt + 1} held no device event)")
-    return names
+        if names and (want is None or names == want):
+            return names
+        PROFILER_RETRIES.append({"call": label, "capture": attempt + 1,
+                                 "read": names, "expected": want})
+        log(f"  (profiler capture {attempt + 1} of {label} read {names}, "
+            f"expected {want})")
+    raise SystemExit(f"{label}: two profiler captures read other launches "
+                     f"than {want}: {PROFILER_RETRIES[-2:]}")
 
 
 def check_regimes(torch, gen, kind: str) -> None:
@@ -827,10 +877,11 @@ def check_regimes(torch, gen, kind: str) -> None:
 
             def call():
                 return fn(x, w, fx, fw, n=n)
-        names = device_launches(torch, call, REGIME_KERNELS[kind])
-        case = f"M={M} n={n}" + (f" {wide[0]}" if wide else "")
-        seen[case] = names
         want = regime_want(kind, M, n, bool(wide))
+        case = f"M={M} n={n}" + (f" {wide[0]}" if wide else "")
+        names = device_launches(torch, call, REGIME_KERNELS[kind], want,
+                                f"{name} at {case}")
+        seen[case] = names
         if names != want:
             raise SystemExit(f"{name} at {case} launched {names}, "
                              f"expected {want}")
@@ -1182,8 +1233,9 @@ def attention_checks(torch, timer, gen) -> list:
     """``flash_attention_quant`` against its plain version at each shape,
     the kernel each call launches (profiler), the timed main-path shapes,
     and the route sweep; returns every check's row."""
-    general, prefill = "attention_kernel", "attention_prefill_kernel"
+    prefill = "attention_prefill_kernel"
     decode, long = "attention_decode_kernel", "attention_long_kernel"
+    decode_long = "attention_decode_long_kernel"
     at = []
 
     def check(**kw):
@@ -1233,19 +1285,55 @@ def attention_checks(torch, timer, gen) -> list:
     check(S=1, T=4096, probs=False, fp8=False, block_k=512,
           q_starts=[4000, 700, 37, -1],
           label="decode S=1 T=4096 int8 online", timed=False,
-          want_kernel=general)
+          want_kernel=decode_long)
     check(S=1, T=4096, probs=True, fp8=False, block_k=512,
           q_starts=[4000, 700, 37, -1],
           label="decode S=1 T=4096 int8 phased", timed=False,
-          want_kernel=general)
+          want_kernel=decode_long)
     check(S=5, T=4096, probs=True, fp8=True, block_k=512,
           q_starts=[4000, 700, 37, -1], label="chunk S=5 T=4096 fp8 phased",
           timed=False, want_kernel=long)
     # the long path's decode step: phased at T = 8192 (bk = 512), rows
-    # part-way through its prompts and a finished slot
+    # part-way through its prompts and a finished slot; timed beside
+    # attention_kernel forced onto the same call
     check(S=1, T=8192, probs=True, fp8=False, block_k=512,
           q_starts=[6007, 4107, 2507, -1],
-          label="long decode S=1 T=8192 int8 phased", want_kernel=general)
+          label="long decode S=1 T=8192 int8 phased", want_kernel=decode_long)
+    # ... and beyond it: early rows (most units unseen), fp8, a window
+    # (every row's first units masked), 32-, 128- and 48-key probs groups
+    # (units of 128 and 192 keys; T = 8160 a ragged last tile), the
+    # online body, the exact body at T = 8192 (bk = T), and Qwen2-7B's
+    # whole context (T = 32,768)
+    check(S=1, T=8192, probs=True, fp8=False, block_k=512,
+          q_starts=[4000, 700, 37, -1],
+          label="long decode S=1 T=8192 int8 phased early rows",
+          want_kernel=decode_long)
+    check(S=1, T=8192, probs=True, fp8=True, block_k=512,
+          q_starts=[6007, 4107, 2507, -1], timed=False,
+          label="long decode S=1 T=8192 fp8 phased", want_kernel=decode_long)
+    check(S=1, T=8192, probs=True, fp8=False, block_k=512,
+          q_starts=[6007, 4107, 2507, -1], window=100, timed=False,
+          label="long decode S=1 T=8192 int8 phased window=100",
+          want_kernel=decode_long)
+    for n in (32, 128):
+        check(S=1, T=8192, probs=True, fp8=False, block_k=512, probs_n=n,
+              q_starts=[6007, 4107, 2507, -1], timed=False,
+              want_kernel=decode_long,
+              label=f"long decode S=1 T=8192 int8 phased probs n={n}")
+    check(S=1, T=8160, probs=True, fp8=False, block_k=480, probs_n=48,
+          q_starts=[6007, 4107, 2507, -1], timed=False,
+          want_kernel=decode_long,
+          label="long decode S=1 T=8160 int8 phased probs n=48")
+    check(S=1, T=8192, probs=False, fp8=False, block_k=512,
+          q_starts=[6007, 4107, 2507, -1],
+          label="long decode S=1 T=8192 int8 online", want_kernel=decode_long)
+    check(S=1, T=8192, probs=True, fp8=False, block_k=0,
+          q_starts=[6007, 4107, 2507, -1],
+          label="long decode S=1 T=8192 int8 exact", want_kernel=decode_long)
+    check(S=1, T=32768, probs=True, fp8=False, block_k=512,
+          q_starts=[30000, 16000, 2507, -1],
+          label="long decode S=1 T=32768 int8 phased",
+          want_kernel=decode_long)
     # the prefill kernel beyond the main path: fp8, no probs QDQ, a window,
     # ragged T (a partial last tile), 32- and 128-key probs groups
     check(S=64, T=512, probs=True, fp8=True, block_k=0,
@@ -1350,8 +1438,13 @@ def phase_kernels(torch, seed: int) -> dict:
 
     at = attention_checks(torch, timer, gen)
     torch.cuda.empty_cache()
-    return {"quant_matmul": mm, "flash_attention_quant": at,
-            **phase_dense_kernels(torch, timer, gen)}
+    report = {"quant_matmul": mm, "flash_attention_quant": at,
+              **phase_dense_kernels(torch, timer, gen),
+              "profiler_retries": {"count": len(PROFILER_RETRIES),
+                                   "captures": list(PROFILER_RETRIES)}}
+    log("  profiler captures taken again: "
+        + json.dumps(report["profiler_retries"]))
+    return report
 
 
 # --------------------------------------------------------------------------
@@ -1405,9 +1498,19 @@ def read_counts() -> dict:
 
 def read_kernel_counts(name: str) -> dict:
     """Launches of each kernel of wrapper ``name`` (``flash_attention_quant``:
-    attention_kernel, attention_prefill_kernel, attention_decode_kernel;
+    attention_kernel, attention_prefill_kernel, attention_decode_kernel,
+    attention_long_kernel, attention_decode_long_kernel;
     ``flash_attention``: flash_mma_kernel)."""
     return dict(_wrappers()[name].launches_by_kernel)
+
+
+def no_attention_kernel(label: str) -> None:
+    """Fails if the run counted since ``reset_counts`` launched PR 11's
+    ``attention_kernel``: every call of a model path has a redesigned
+    kernel."""
+    n = read_kernel_counts("flash_attention_quant")["attention_kernel"]
+    if n:
+        raise SystemExit(f"{label}: attention_kernel launched {n} times")
 
 
 def build_engine(torch, cfg, seed: int, kernel_path: bool, trace=None,
@@ -1514,11 +1617,12 @@ def phase_serve(torch, seed: int) -> dict:
     if stray:
         raise SystemExit(f"serve: kernels off this path launched: {stray}")
     # attention: the prefill kernel on every chunk step, the decode kernel
-    # on every decode step, attention_kernel and the long kernel on none
+    # on every decode step, attention_kernel and the long kernels on none
     from repro_torch.kernels.flash_attention_quant import PREFILL_MIN_S
 
     chunks = sum(1 for s, _ in eng.step_ms if s >= PREFILL_MIN_S)
     want = {"attention_kernel": 0, "attention_long_kernel": 0,
+            "attention_decode_long_kernel": 0,
             "attention_decode_kernel": cfg.n_layers * (eng.steps - chunks),
             "attention_prefill_kernel": cfg.n_layers * chunks}
     if by_kernel != want or not chunks or chunks == eng.steps:
@@ -1559,11 +1663,12 @@ def phase_long(torch, seed: int) -> dict:
     max_len 8192 (so T = 8192 in every attention call): 4 greedy requests
     of ``LONG_PROMPTS`` tokens.  Asserted: 28 ``flash_attention_quant``
     launches a step, ``attention_long_kernel`` on every chunk step,
-    ``attention_kernel`` on every decode step (the phased body at S = 1),
-    neither 64-row exact kernel.  After the counted run, one long chunk
-    step (a row past 4,000 seen keys) and one decode step are replayed
-    from a copy of their state, timed and profiled (the parent's route on
-    the same chunk step: ``scripts/attention_long_times.py``)."""
+    ``attention_decode_long_kernel`` on every decode step (the phased body
+    at S = 1), ``attention_kernel`` and both exact kernels on none.  After
+    the counted run, one long chunk step (a row past 4,000 seen keys) and
+    one decode step are replayed from a copy of their state, timed and
+    profiled (the parent's route on the same chunk step:
+    ``scripts/attention_long_times.py``)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1632,8 +1737,9 @@ def phase_long(torch, seed: int) -> dict:
             raise SystemExit(f"long: {name}: {counts[name]} launches in "
                              f"{eng.steps} steps, expected {n} per step")
     stray = {k: v for k, v in counts.items() if k not in per_step and v}
-    want = {"attention_kernel": cfg.n_layers * decodes,
-            "attention_prefill_kernel": 0, "attention_decode_kernel": 0,
+    want = {"attention_kernel": 0, "attention_prefill_kernel": 0,
+            "attention_decode_kernel": 0,
+            "attention_decode_long_kernel": cfg.n_layers * decodes,
             "attention_long_kernel": cfg.n_layers * chunks}
     if stray or by_kernel != want or chunks != want_chunks or not decodes:
         raise SystemExit(f"long: attention kernels launched {by_kernel} in "
@@ -1687,6 +1793,15 @@ def phase_long(torch, seed: int) -> dict:
         profiles[kind] = out
         log(f"  {kind} step profile: " + json.dumps(out))
     report["profiles"] = profiles
+    # the replayed decode step: its attention (28 launches of the decode
+    # kernel for long contexts) and its device time
+    dec = profiles.get("decode", {})
+    report["decode_step"] = {
+        "attention_ms": dec.get("watched_kernels_per_step", {}).get(
+            "attention_decode_long_kernel", {}).get("ms", "not measured"),
+        "busy_ms": dec.get("device_busy_ms_per_step", "not measured"),
+        "wall_ms_unprofiled": dec.get("decode_step_ms_unprofiled")}
+    log("  replayed decode step: " + json.dumps(report["decode_step"]))
     return report
 
 
@@ -2078,6 +2193,7 @@ def phase_reduced(torch, seed: int) -> dict:
         log("  " + json.dumps(row))
         check_launched(f"paged group {n} {kv}", counts,
                        ("quant_matmul", "flash_attention_quant"))
+        no_attention_kernel(f"reduced paged group {n} {kv}")
         if len(turned) > 1:
             raise SystemExit(
                 f"reduced (group {n}, {kv} pages): requests {turned} differ "
@@ -2116,6 +2232,7 @@ def phase_reduced(torch, seed: int) -> dict:
         rows.append(row)
         log("  " + json.dumps(row))
         check_launched(f"fixed {kind}", counts, fixed_kernels[kind])
+        no_attention_kernel(f"reduced fixed {kind}")
         if kind != "compress" and row["flash_attention_by_kernel"] != {
                 "flash_mma_kernel": counts["flash_attention"]}:
             raise SystemExit(f"reduced fixed {kind}: flash_attention's "
@@ -2256,6 +2373,7 @@ def phase_identity(torch, seed: int) -> dict:
                 kernel_path != (counts["flash_attention_quant"] > 0):
             raise SystemExit(f"{name}: kernel_path={kernel_path} but launch "
                              f"counts are {counts}")
+        no_attention_kernel(f"identity {name}")
         runs[name] = ({c.uid: c.tokens for c in done}, trace)
         engines[name] = eng
     step = single_step_check(torch, cfg, engines["kernel"],
@@ -2395,10 +2513,10 @@ def main() -> int:
                "bytes_ms": fa_head.get("bytes_ms"),
                "ops_tf32_split_ms": fa_head.get("ops_ms"),
                "ops_f32_simt_ms": fa_head.get("ops_f32_simt_ms")})
-    # flash_attention_quant's prefill, decode and long kernels: an entry
-    # each, timed at the main paths' prefill / decode / long chunk shape,
-    # launched on the serve path's chunk / decode steps and the long path's
-    # chunk steps
+    # flash_attention_quant's prefill, decode, long and decode-long
+    # kernels: an entry each, timed at the main paths' prefill / decode /
+    # long chunk / long decode shape, launched on the serve path's chunk /
+    # decode steps and the long path's chunk / decode steps
     rows = (kernel_rows or {}).get("flash_attention_quant", [])
     by_path = {p: (r or {}).get("launches_by_kernel") or {}
                for p, r in (("serve", serve), ("long", long_ctx))}
@@ -2410,6 +2528,10 @@ def main() -> int:
             ("attention_decode_kernel", "decode S=1 T=512 int8 exact",
              "(_kernel_exact, :109)"),
             ("attention_long_kernel", "long S=64 T=8192 int8 phased",
+             "(_kernel_phased, :167; _kernel_online, :128; _kernel_exact, "
+             ":109)"),
+            ("attention_decode_long_kernel",
+             "long decode S=1 T=8192 int8 phased",
              "(_kernel_phased, :167; _kernel_online, :128; _kernel_exact, "
              ":109)")):
         head = next((r for r in rows if r["shape"] == timed_shape), {})

@@ -22,7 +22,7 @@ Layouts are the front-end's own — ``q (B, S, H, D)``, codes
 ``(B, T, KV, D)``, scales ``(B, T, KV)`` — so a gathered page list goes in
 without a transposed copy; query head ``h`` reads KV head ``h // (H // KV)``.
 
-On the card ``plan_attention`` picks one of four kernels a call
+On the card ``plan_attention`` picks one of five kernels a call
 (``csrc/flash_attention_quant.cu``; see the source for their designs):
 
   attention_decode_kernel   the exact body at S = 1 (every paged decode
@@ -31,6 +31,16 @@ On the card ``plan_attention`` picks one of four kernels a call
       P.V partials exchanged through distributed shared memory and added
       in block order, ranges no row can see neither loaded nor multiplied.
       At B = 4, T = 512: 16 clusters x 8 blocks, one wave.
+  attention_decode_long_kernel  every other call at S = 1 (the decode step
+      of a long context: the exact body past the decode kernel's shared
+      memory, the online and phased bodies): the same clusters, the seen
+      units (64 keys, or lcm(64, n)) dealt out as contiguous ranges, K
+      then V streamed through a ring of 64-key stages, the range's scores
+      kept in shared memory between the two passes, each bk tile's
+      maximum and f64 sum exchanged through distributed shared memory and
+      m, l formed by the reference's recurrence over the tiles, P.V on
+      the bf16 tensor cores at f32 accuracy; a dead row loads V alone and
+      sums its columns once.
   attention_prefill_kernel  the exact body at S >= ``PREFILL_MIN_S``
       positions (the paged prefill chunk): 64 rows a block, P.V on the
       bf16 tensor cores at f32 accuracy (the probabilities split into
@@ -45,8 +55,8 @@ On the card ``plan_attention`` picks one of four kernels a call
       then the probabilities and P.V), statistics and P.V partials
       exchanged through distributed shared memory; a tile where no
       position sees a key sums V's columns once.
-  attention_kernel          S = 1 past the decode kernel (the online and
-      phased bodies), and probs groups neither 64-row kernel takes (f32
+  attention_kernel          S >= 2 with probs groups neither 64-row
+      kernel takes, and S = 1 past both decode kernels' shared memory (f32
       on the CUDA cores, one block a (batch, KV head, position tile), its
       key tiles in order).
 
@@ -91,6 +101,9 @@ PREFILL_MIN_S = 2
 # size) and the tile its ranges are whole multiples of.
 DECODE_CLUSTER = 8
 DECODE_TILE = 64
+# attention_decode_long_kernel: stages of its copy ring (the kernel's
+# kDLStages: pass 1 holds two tiles while two more arrive).
+DECODE_LONG_STAGES = 4
 
 # attention_long_kernel: blocks a 64-row tile may be split over (the
 # portable cluster size), and the fewest 64-key units each is dealt when
@@ -129,13 +142,15 @@ def _tiling(S: int, T: int, block_k: int, probs_n: int) -> int:
 class AttentionPlan(NamedTuple):
     """How ``flash_attention_quant`` launches on the card
     (``plan_attention``)."""
-    kernel: str                 # attention_{decode,prefill,long,}_kernel
+    kernel: str                 # attention_{decode,decode_long,prefill,
+                                # long,}_kernel
     positions: int              # query positions a block serves (BQ)
     rows: int                   # rows of a block (prefill: padded to 64)
     grid: tuple[int, int, int]  # (position tiles | cluster, KV heads, batch)
     smem_bytes: int             # dynamic shared memory of one block
     keys: int                   # keys a block owns (decode: its range)
     cluster: int = 1            # long: blocks a 64-row tile is split over
+                                # (decode_long: blocks a (batch, KV head))
     slots: int = 0              # long: score tiles a block stores (0: the
                                 # scores are formed again in pass 2)
 
@@ -238,13 +253,18 @@ def long_scratch_bytes(plan: AttentionPlan) -> int:
     return math.prod(plan.grid) * plan.slots * PREFILL_ROWS * PREFILL_KEYS * 4
 
 
+def decode_unit(probs_n: int) -> int:
+    """Keys of the units the decode kernels deal out: 64, or the least
+    multiple of 64 and ``probs_n`` (whole probs groups)."""
+    return math.lcm(DECODE_TILE, probs_n) if probs_n else DECODE_TILE
+
+
 def decode_range(T: int, probs_n: int) -> tuple[int, int]:
     """(blocks of a cluster C, keys of a block's range L) of
-    ``attention_decode_kernel``: L the fewest whole units (64 keys, or the
-    least multiple of 64 and ``probs_n``) that cover T in at most
-    ``DECODE_CLUSTER`` ranges, C = ceil(T / L); the last range may be
-    short."""
-    unit = math.lcm(DECODE_TILE, probs_n) if probs_n else DECODE_TILE
+    ``attention_decode_kernel``: L the fewest whole units
+    (``decode_unit``) that cover T in at most ``DECODE_CLUSTER`` ranges,
+    C = ceil(T / L); the last range may be short."""
+    unit = decode_unit(probs_n)
     units = -(-T // unit)
     keys = unit * -(-units // DECODE_CLUSTER)
     return -(-T // keys), keys
@@ -273,6 +293,49 @@ def plan_attention_decode(B: int, T: int, H: int, KV: int, D: int,
                          decode_smem_bytes(G, L, D), L)
 
 
+def decode_long_smem_bytes(G: int, L: int, T: int, D: int, unit: int,
+                           bk: int) -> int:
+    """Dynamic shared memory of an ``attention_decode_long_kernel`` block,
+    as the kernel lays it out: q's G rows and G score rows of L keys (f32,
+    rows L + 8 apart), the ring (``DECODE_LONG_STAGES`` stages of a 64-key
+    tile's codes, rows D + 16 bytes apart, its scales and kv_pos) and a
+    bf16 V tile (rows D + 8 apart), or, during the statistics, the
+    maximum, sum and factor (f32) of each of G rows in each of the T / bk
+    tiles, whichever is larger; the C blocks' P.V partials of its output
+    columns (G x (D + 8) f32 at most), two sums (f64) and a maximum (f32)
+    of 16 rows from 8 blocks, l of 16 rows, an int a 64-key tile of T, a
+    unit of T, two a tile of L and two a block, then 16 bytes of
+    counters."""
+    tiles = -(-T // DECODE_TILE)
+    units = -(-tiles // (unit // DECODE_TILE))
+    stage = DECODE_TILE * (D + 16) + 8 * DECODE_TILE
+    ring = DECODE_LONG_STAGES * stage + 2 * DECODE_TILE * (D + 8)
+    return (4 * G * D + 4 * G * (L + 8) + max(ring, 12 * G * (T // bk))
+            + 4 * G * (D + DECODE_CLUSTER) + 20 * DECODE_CLUSTER * _ROWS_MAX
+            + 4 * _ROWS_MAX
+            + 4 * (tiles + units + 2 * (L // DECODE_TILE)
+                   + 2 * DECODE_CLUSTER) + 16)
+
+
+def plan_attention_decode_long(B: int, T: int, H: int, KV: int, D: int,
+                               bk: int, probs_n: int) -> AttentionPlan:
+    """``attention_decode_long_kernel``'s plan: one cluster of C = min(8,
+    units of T) blocks a (batch, KV head), grid (C, KV, B); a block holds
+    up to ``keys`` = its share of every unit of T (the most a dead row or
+    a row that sees them all deals it) and the statistics of every bk
+    tile (T = 8192, bk = 512, n = 64: C = 8, 1,024 keys, 96,464 bytes;
+    past T = 45,056 at G = 7, D = 128, bk = 512 the block outgrows shared
+    memory)."""
+    G = H // KV
+    unit = decode_unit(probs_n)
+    units = -(-T // unit)
+    C = min(DECODE_CLUSTER, units)
+    L = -(-units // C) * unit
+    return AttentionPlan(
+        "attention_decode_long_kernel", 1, G, (C, KV, B),
+        decode_long_smem_bytes(G, L, T, D, unit, bk), L, C)
+
+
 def plan_attention_kernel(B: int, S: int, H: int, KV: int, D: int,
                           bk: int) -> AttentionPlan:
     """``attention_kernel``'s plan: 16 // G positions, (R x bk) f32 scores
@@ -289,12 +352,17 @@ def plan_attention(B: int, S: int, T: int, H: int, KV: int, D: int,
     """The kernel, block and grid of one call.  The exact body (bk == T)
     takes ``attention_decode_kernel`` at S = 1 and
     ``attention_prefill_kernel`` at S >= ``PREFILL_MIN_S`` positions,
-    where their shared memory holds it; every other call from
-    ``PREFILL_MIN_S`` positions (the exact body past the prefill kernel's
-    score rows, the online and phased bodies) ``attention_long_kernel``;
-    anything else ``attention_kernel``."""
-    if bk == T and S < PREFILL_MIN_S:
-        plan = plan_attention_decode(B, T, H, KV, D, probs_n)
+    where their shared memory holds it; every other call at S = 1 (the
+    exact body past the decode kernel's ranges, the online and phased
+    bodies, any probs group) ``attention_decode_long_kernel``, and from
+    ``PREFILL_MIN_S`` positions ``attention_long_kernel``, where theirs
+    holds it; anything else ``attention_kernel``."""
+    if S < PREFILL_MIN_S:
+        if bk == T:
+            plan = plan_attention_decode(B, T, H, KV, D, probs_n)
+            if plan.smem_bytes <= _SMEM_MAX:
+                return plan
+        plan = plan_attention_decode_long(B, T, H, KV, D, bk, probs_n)
         if plan.smem_bytes <= _SMEM_MAX:
             return plan
     if S >= PREFILL_MIN_S and _prefill_groups(probs_n):
@@ -327,10 +395,25 @@ def flash_attention_quant_plain(
         mask = mask & (kp <= qp)
     mask = mask & (kp > qp - window)  # (B, S, T)
 
+    # a tile's scores (B, KV, G, S, bk) as the kernels' own f32 chain, fmaf
+    # over d = 0 .. D - 1 from 0: the product exact in f64, the sum rounded
+    # to f64 then f32 (an fmaf up to a double-rounding tie).  A library
+    # product sums in its own order, which depends on the shape (at S = 1
+    # on an H100 most scores differ from the chain in the last bit), and a
+    # last bit moves a probability across a probs-QDQ boundary now and then.
+    q_d = qg.permute(0, 2, 3, 1, 4)[..., None, :].double()
+    k_d = k.permute(0, 2, 1, 3)[:, :, None, None].double()
+
     def scores(t0):
-        s = torch.einsum("bskgd,btkd->bkgst", qg, k[:, t0:t0 + bk]) * scale
-        return torch.where(mask[:, None, None, :, t0:t0 + bk], s,
-                           torch.full_like(s, NEG_INF))
+        kt = k_d[..., t0:t0 + bk, :]
+        s32 = torch.zeros((B, KV, G, S, kt.shape[-2]), dtype=torch.float32,
+                          device=qh.device)
+        s64 = torch.empty(s32.shape, dtype=torch.float64, device=qh.device)
+        for d in range(D):
+            s64.copy_(s32).addcmul_(q_d[..., d], kt[..., d])
+            s32.copy_(s64)
+        return torch.where(mask[:, None, None, :, t0:t0 + bk], s32 * scale,
+                           torch.full_like(s32, NEG_INF))
 
     def pv(p, t0):
         return torch.einsum("bkgst,btkd->bkgsd", p.to(v.dtype),
@@ -356,7 +439,11 @@ def flash_attention_quant_plain(
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = torch.exp(s - m_new)
             corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1, keepdim=True)
+            # a tile's sum as the f32 nearest the exact one (taken in f64):
+            # a reduction's own order is the library's, and its last bits
+            # move a probability across a probs-QDQ boundary now and then
+            l = l * corr + p.double().sum(dim=-1, keepdim=True).to(
+                torch.float32)
             if not probs_n:
                 acc = acc * corr + pv(p, t0)
             m = m_new
@@ -371,7 +458,8 @@ def flash_attention_quant_plain(
 
 # the C entry's kernel selector
 _KERNEL_IDS = {"attention_kernel": 0, "attention_prefill_kernel": 1,
-               "attention_decode_kernel": 2, "attention_long_kernel": 3}
+               "attention_decode_kernel": 2, "attention_long_kernel": 3,
+               "attention_decode_long_kernel": 4}
 
 
 def _bind(lib: ctypes.CDLL):
@@ -492,6 +580,16 @@ def _flash_attention_quant(qh, k_codes, v_codes, k_scale, v_scale, q_pos,
             f"S = 1 over at most {DECODE_CLUSTER} ranges of whole "
             f"{DECODE_TILE}-key tiles and probs groups; got block_k={bk}, "
             f"T={T}, S={S}, keys={L}, probs_n={probs_n}")
+    if plan.kernel == "attention_decode_long_kernel" and (
+            S != 1 or not 1 <= C <= DECODE_CLUSTER or plan.grid[0] != C
+            or L % decode_unit(probs_n)
+            or L < -(-(-(-T // decode_unit(probs_n))) // C)
+            * decode_unit(probs_n)):
+        raise ValueError(
+            "attention_decode_long_kernel takes S = 1 over clusters of up "
+            f"to {DECODE_CLUSTER} blocks, each holding its share of T's "
+            f"units (decode_unit(probs_n) keys each); got S={S}, T={T}, "
+            f"grid={plan.grid}, cluster={C}, keys={L}, probs_n={probs_n}")
     if kernel:
         # 16-byte code copies, 8-byte q loads
         for name, t in (("qh", qh), ("k_codes", k_codes),
@@ -536,8 +634,8 @@ def _flash_attention_quant(qh, k_codes, v_codes, k_scale, v_scale, q_pos,
 
 
 flash_attention_quant.launches = 0  # kernel launches through this wrapper
-# ... and of each of its four kernels
-flash_attention_quant.launches_by_kernel = {"attention_kernel": 0,
-                                            "attention_prefill_kernel": 0,
-                                            "attention_decode_kernel": 0,
-                                            "attention_long_kernel": 0}
+# ... and of each of its five kernels
+flash_attention_quant.launches_by_kernel = {
+    "attention_kernel": 0, "attention_prefill_kernel": 0,
+    "attention_decode_kernel": 0, "attention_long_kernel": 0,
+    "attention_decode_long_kernel": 0}

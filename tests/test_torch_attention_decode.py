@@ -357,10 +357,13 @@ def test_main_path_decode_plan():
     ((1, 1, 2048, 2048, 128), "attention_decode_kernel"),
     ((4, 2, 512, 512, 64), "attention_prefill_kernel"),    # exact, S >= 2
     ((4, 64, 512, 512, 64), "attention_prefill_kernel"),
-    ((4, 1, 4096, 512, 0), "attention_kernel"),            # online
-    ((4, 1, 4096, 512, 64), "attention_kernel"),           # phased
+    ((4, 1, 4096, 512, 0), "attention_decode_long_kernel"),    # online
+    ((4, 1, 4096, 512, 64), "attention_decode_long_kernel"),   # phased
     ((4, 5, 4096, 512, 64), "attention_long_kernel"),
-    ((4, 1, 8192, 8192, 64), "attention_kernel"),  # ranges past 227 KB
+    # ranges past 227 KB
+    ((4, 1, 8192, 8192, 64), "attention_decode_long_kernel"),
+    # a probs group off the 64 grid: units of lcm(64, 48) = 192 keys
+    ((4, 1, 8160, 480, 48), "attention_decode_long_kernel"),
 ])
 def test_routes(shape, kernel):
     B, S, T, bk, probs_n = shape

@@ -380,8 +380,9 @@ def test_plain_long_bodies_match_reference(probs_n):
     ((64, 960, 960, 48), "attention_kernel"),  # groups off the 64-key units
     ((1, 512, 512, 64), "attention_decode_kernel"),      # decode
     ((1, 2048, 2048, 64), "attention_decode_kernel"),
-    ((1, 8192, 512, 64), "attention_kernel"),  # decode past single_block_max
-    ((1, 4096, 512, 0), "attention_kernel"),
+    # decode past single_block_max
+    ((1, 8192, 512, 64), "attention_decode_long_kernel"),
+    ((1, 4096, 512, 0), "attention_decode_long_kernel"),
 ])
 def test_routes(shape, kernel):
     S, T, bk, probs_n = shape
@@ -522,10 +523,11 @@ def test_long_max_len_serves_the_exact_bodys_tokens(reduced_engine_parts,
     """``max_len`` 2112 makes every attention call T = 2112, past the front
     end's ``single_block_max``: prefill chunks and decode steps take the
     phased body (the probs QDQ is on), which ``attention_long_kernel`` and
-    ``attention_kernel`` run on the card.  With contexts far shorter than
-    either max_len, the engine serves the tokens of the same engine at
-    max_len 256, whose calls take the exact body, and of the reference's
-    engine at max_len 2112 (its Pallas kernel in interpret mode)."""
+    ``attention_decode_long_kernel`` run on the card.  With contexts far
+    shorter than either max_len, the engine serves the tokens of the same
+    engine at max_len 256, whose calls take the exact body, and of the
+    reference's engine at max_len 2112 (its Pallas kernel in interpret
+    mode)."""
     from repro.serve import engine as jeng
     from repro_torch.serve import engine as teng
 

@@ -343,9 +343,9 @@ def test_two_terms_do_not_carry_an_f32():
     ((4, 64, 512, 28, 4, 128, 512, 128),
      ("attention_prefill_kernel", 8, 64, (8, 4, 4), 225616, 512)),
     ((4, 1, 4096, 28, 4, 128, 512, 0),
-     ("attention_kernel", 1, 7, (1, 4, 4), 32512, 512)),
+     ("attention_decode_long_kernel", 1, 7, (8, 4, 4), 81552, 512)),
     ((4, 1, 4096, 28, 4, 128, 512, 64),
-     ("attention_kernel", 1, 7, (1, 4, 4), 32512, 512)),
+     ("attention_decode_long_kernel", 1, 7, (8, 4, 4), 81552, 512)),
     ((4, 5, 4096, 28, 4, 128, 512, 64),
      ("attention_long_kernel", 5, 64, (8, 4, 4), 161296, 4096)),
     # the route sweep's S = 2, 16; one tile more than the longest score
@@ -370,7 +370,8 @@ def test_plan(shape, want):
     plan = faq.plan_attention(*shape)
     assert tuple(plan)[:6] == want
     B, S, T, H, KV, D, bk, probs_n = shape
-    if plan.kernel != "attention_long_kernel":
+    if plan.kernel not in ("attention_long_kernel",
+                           "attention_decode_long_kernel"):
         assert (plan.cluster, plan.slots) == (1, 0)
     if plan.kernel == "attention_prefill_kernel":
         assert plan.smem_bytes == faq.prefill_smem_bytes(T, D) <= 232448
@@ -381,6 +382,10 @@ def test_plan(shape, want):
         assert plan == faq.plan_attention_long(B, S, T, H, KV, D, probs_n)
         assert plan.smem_bytes == faq.long_smem_bytes(T, D) <= 232448
         assert plan.cluster == faq.long_cluster(T)
+    elif plan.kernel == "attention_decode_long_kernel":
+        assert plan == faq.plan_attention_decode_long(B, T, H, KV, D, bk,
+                                                      probs_n)
+        assert plan.cluster == plan.grid[0]
     else:
         assert plan.smem_bytes == faq.plan_attention_kernel(
             B, S, H, KV, D, bk).smem_bytes
