@@ -48,7 +48,13 @@ Phases (each fatal on failure):
             flash_attention at the fixed prefill's buckets (timed beside
             SDPA, a yardstick) and ragged, suffix, non-causal, reduced and
             odd head dimensions, the kernel it launches read from the
-            profiler (flash_mma_kernel, the only route of plan_flash)
+            profiler (flash_mma_kernel, the only route of plan_flash);
+            abfp_qdq bit-exact in every format at n = 16-128 in f32, bf16
+            and f16, a base 4 bytes off the 16-byte grid, the edge cases
+            of qdq_extremes and groups too long for a set's registers
+            (the kernel plan_qdq names read from the profiler), timed at
+            M = 256, a whole wi weight and abfp_matmul's pre-pass shapes
+            beside y.copy_(x) on the same bytes
   serve     paged, full width, full depth: 6 greedy requests; launch counts
             per step asserted (197 quant_matmul + 28 flash_attention_quant:
             attention_prefill_kernel on chunk steps,
@@ -71,7 +77,10 @@ Phases (each fatal on failure):
             6 requests under P-int8 (abfp_matmul_int8 + flash_attention)
             and P-fp (abfp_matmul + flash_attention); 197 matmul launches
             per forward pass and 28 flash_attention launches per prefill
-            (all of flash_mma_kernel) asserted; profiles of decode ticks
+            (all of flash_mma_kernel) asserted, and P-fp's x pre-pass:
+            qdq_stream_kernel before every abfp_matmul call of up to 16
+            rows (counted; 197 a decode tick in the profile, none for
+            P-int8); profiles of decode ticks
             and of one 192-row prefill (28 flash_mma_kernel launches and
             no flash_kernel, read from the profiler)
   reduced   reduced width: the kernel path on the card must emit the tokens
@@ -496,35 +505,209 @@ def activations(torch, gen, shape):
     return x
 
 
-def check_abfp_qdq(torch, timer, gen, *, M, K, n, fmt_name, label,
-                   timed=True) -> dict:
-    from repro_torch.core.formats import get_format
-    from repro_torch.kernels.abfp_qdq import abfp_qdq, abfp_qdq_plain
+QDQ_KERNELS = {"qdq_stream_kernel": "qdq_stream_kernel",
+               "qdq_rows_kernel": "qdq_rows_kernel"}
+
+
+def qdq_extremes(fmt_name: str, n: int, dtype: str = "float32",
+                 seed: int = 0):
+    """Groups that pin the QDQ's edges, one kind a row of 4 groups of n
+    (a (7, 4 n) f32 numpy array; ``dtype`` says what x will be converted
+    to): zeros and -0; values under the 1e-12 scale floor; f32 subnormals;
+    a max of 1 among subnormals, tiny normals and zeros; exact ties (the
+    group max qmax 2^-3, so the scale is 2^-3 exactly, and every other
+    value k + 0.5 steps of the format's grid); maxima near 3e38 (f16: near
+    its 65504) among values spread over every exponent; activation-like
+    values."""
+    import numpy as np
+
+    from repro_torch.core.formats import (IntFormat, get_format,
+                                          representable_values)
 
     fmt = get_format(fmt_name)
-    x = activations(torch, gen, (M, K))
-    got = abfp_qdq(x, fmt, n=n)
+    rng = np.random.RandomState(seed)
+    shape = (4, n)
+
+    def signs():
+        return np.where(rng.rand(*shape) < 0.5, -1.0, 1.0)
+
+    zeros = np.zeros(shape)
+    zeros[:, ::3] = -0.0
+    floor = rng.uniform(-1.0, 1.0, shape) * 1e-13
+    subnormal = rng.uniform(-1.0, 1.0, shape) * 1e-39
+    mixed = rng.randn(*shape) * 1e-2
+    mixed[:, 1::4] = signs()[:, 1::4] * 1e-40
+    mixed[:, 2::4] = signs()[:, 2::4] * 1e-30
+    mixed[:, 3::8] = -0.0
+    mixed[:, 7::8] = 0.0
+    mixed[:, 0] = 1.0
+    qmax = fmt.qmax_pos
+    if isinstance(fmt, IntFormat):
+        grid = np.arange(-qmax, qmax) + 0.5
+    else:
+        vals = representable_values(fmt)
+        grid = (vals[:-1] + vals[1:]) / 2.0
+    ties = rng.choice(grid, shape) * signs()
+    ties[:, 0] = qmax
+    ties *= 2.0 ** -3
+    top = 6.0e4 if dtype == "float16" else 3.0e38
+    low = -8.0 if dtype == "float16" else -45.0
+    huge = signs() * 10.0 ** rng.uniform(low, np.log10(top), shape)
+    huge[:, 0] = top
+    act = rng.randn(*shape)
+    act[:, ::13] *= 8.0
+    rows = (zeros, floor, subnormal, mixed, ties, huge, act)
+    return np.stack([r.reshape(-1) for r in rows]).astype(np.float32)
+
+
+def qdq_operand(torch, x32, dtype, offset: int = 0):
+    """``x32`` converted to ``dtype``, contiguous, its base ``offset``
+    elements past the start of its allocation (which is 256-byte
+    aligned)."""
+    M, K = x32.shape
+    buf = torch.zeros(M * K + offset, dtype=dtype, device="cuda")
+    x = buf[offset:].view(M, K)
+    x.copy_(x32)
+    return x
+
+
+def check_abfp_qdq(torch, timer, gen, *, M, K, n, fmt_name, label,
+                   dtype="float32", offset=0, x32=None, timed=True) -> dict:
+    """``abfp_qdq`` at (M, K) in ``dtype`` (``x32``: f32 values on the
+    card, else activation-like ones) with its base ``offset`` elements off
+    its allocation, against the plain version (``torch.equal``), and the
+    kernel one call launches (profiler: the planned one, once); timed:
+    beside the bound, the plain version and ``y.copy_(x)`` on the same
+    bytes (a yardstick of what the card moves at that size)."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels import abfp_qdq as aq
+
+    fmt = get_format(fmt_name) if isinstance(fmt_name, str) else fmt_name
+    if x32 is None:
+        x32 = activations(torch, gen, (M, K))
+    x = qdq_operand(torch, x32, getattr(torch, dtype), offset)
+    plan = aq.plan_qdq(M * (K // n), n, x.element_size(),
+                       x.data_ptr() % 16 == 0, fmt)  # y: a new allocation
+    before = aq.abfp_qdq.launches
+    got = aq.abfp_qdq(x, fmt, n=n)
     torch.cuda.synchronize()
-    want = abfp_qdq_plain(x, fmt, n=n)
+    counted = aq.abfp_qdq.launches - before
+    want = aq.abfp_qdq_plain(x, fmt, n=n)
     torch.cuda.synchronize()
     # every operation is correctly rounded on both sides: bit-exact
-    err = (got - want).abs().max().item()
-    ok = bool(torch.equal(got, want))
-    row = {"shape": label, "M": M, "K": K, "n": n, "fmt": fmt_name,
-           "max_abs_err": err, "tol": 0.0, "ok": ok}
+    ok = bool(torch.equal(got, want)) and got.dtype == x.dtype
+    same = got == want  # where both are inf the difference is NaN
+    err = torch.where(same, 0.0, (got.float() - want.float()).abs()
+                      ).max().item()
+    bits = {1: torch.int8, 2: torch.int16, 4: torch.int32}[x.element_size()]
+    seen = device_launches(torch, lambda: aq.abfp_qdq(x, fmt, n=n),
+                           QDQ_KERNELS, {plan.kernel: 1},
+                           f"abfp_qdq {label}")
+    row = {"shape": label, "M": M, "K": K, "n": n, "fmt": fmt.name,
+           "dtype": dtype, "offset_bytes": offset * x.element_size(),
+           "kernel": plan.kernel, "vec": plan.vec, "lanes": plan.lanes,
+           "vpl": plan.vpl, "mode": plan.mode, "threads": plan.threads,
+           "blocks": plan.blocks, "launched": seen, "counted": counted,
+           "max_abs_err": err, "tol": 0.0, "ok": ok and counted == 1,
+           "bit_equal": bool(torch.equal(got.view(bits), want.view(bits)))}
     if timed:
         # per element: |x|, max, divide, round, clamp (2), multiply
         row.update(bound_fields(nbytes(x, got), 7.0 * M * K,
                                 PEAK_F32_FLOPS))
-        row["ms"] = timer(lambda: abfp_qdq(x, fmt, n=n), iters=10)
-        row["plain_ms"] = timer(lambda: abfp_qdq_plain(x, fmt, n=n),
+        row["ms"] = timer(lambda: aq.abfp_qdq(x, fmt, n=n), iters=10)
+        row["plain_ms"] = timer(lambda: aq.abfp_qdq_plain(x, fmt, n=n),
                                 iters=3, warmup=1)
+        y = torch.empty_like(x)
+        row["copy_ms"] = timer(lambda: y.copy_(x), iters=10)
         row["library_ms"] = None  # no single PyTorch call computes it
     log(f"  abfp_qdq {label}: " + json.dumps(row))
-    if not ok:
+    if not row["ok"]:
         raise SystemExit(f"abfp_qdq is not bit-exact against its plain "
-                         f"version at {label}: max_abs_err={err}")
+                         f"version at {label} (max_abs_err={err}), or was "
+                         f"counted {counted} times")
     return row
+
+
+def abfp_qdq_checks(torch, timer, gen) -> list:
+    """``abfp_qdq`` timed at the head shape (M = 256, K = 3584: f32 in
+    four formats, bf16), a whole wi weight (the simulator's weight QDQ)
+    and ``abfp_matmul``'s pre-pass shapes (M = 4, K = 3584 and 18944);
+    held against the plain version in every format at n = 16, 32, 48, 64,
+    128 in f32, bf16 and f16, with a base 4 bytes off the 16-byte grid, at
+    K = 640 with n = 32, 40 and 64, on the edge cases of ``qdq_extremes``,
+    and on groups too long for a set's registers and a minifloat with
+    subnormal quanta (qdq_rows_kernel).
+    Returns the timed rows."""
+    from repro_torch.core.formats import BY_NAME, FloatFormat
+
+    t0 = time.perf_counter()
+    rows = []
+    for fmt in ("int8", "int4", "e2m1", "e4m3"):
+        rows.append(check_abfp_qdq(torch, timer, gen, M=256, K=3584, n=64,
+                                   fmt_name=fmt, label=f"M=256 K=3584 {fmt}"))
+    for fmt in ("int8", "e4m3"):
+        rows.append(check_abfp_qdq(torch, timer, gen, M=256, K=3584, n=64,
+                                   fmt_name=fmt, dtype="bfloat16",
+                                   label=f"M=256 K=3584 bf16 {fmt}"))
+    for fmt in ("int4", "e4m3"):
+        rows.append(check_abfp_qdq(
+            torch, timer, gen, M=18944, K=3584, n=64, fmt_name=fmt,
+            label=f"weight N=18944 K=3584 {fmt}"))
+        torch.cuda.empty_cache()
+    for K in (3584, 18944):
+        for fmt in ("int8", "int4", "e2m1", "e4m3"):
+            rows.append(check_abfp_qdq(torch, timer, gen, M=4, K=K, n=64,
+                                       fmt_name=fmt,
+                                       label=f"M=4 K={K} {fmt}"))
+    checks = 0
+    for dtype in ("float32", "bfloat16", "float16"):
+        for fmt in sorted(BY_NAME):
+            for n in (16, 32, 48, 64, 128):
+                check_abfp_qdq(torch, timer, gen, M=13, K=3840, n=n,
+                               fmt_name=fmt, dtype=dtype, timed=False,
+                               label=f"M=13 K=3840 n={n} {dtype} {fmt}")
+                checks += 1
+            for n in (48, 64):
+                x32 = torch.from_numpy(qdq_extremes(fmt, n, dtype)).cuda()
+                check_abfp_qdq(torch, timer, gen, M=7, K=4 * n, n=n,
+                               fmt_name=fmt, dtype=dtype, x32=x32,
+                               timed=False,
+                               label=f"extremes n={n} {dtype} {fmt}")
+                checks += 1
+        for fmt in ("int8", "e4m3"):
+            check_abfp_qdq(torch, timer, gen, M=13, K=3840, n=64,
+                           fmt_name=fmt, dtype=dtype, timed=False,
+                           offset=4 // getattr(torch, dtype).itemsize,
+                           label=f"base 4 bytes off M=13 K=3840 {dtype} "
+                                 f"{fmt}")
+            checks += 1
+    for fmt in sorted(BY_NAME):
+        for n in (64, 40, 32):
+            check_abfp_qdq(torch, timer, gen, M=13, K=640, n=n, fmt_name=fmt,
+                           label=f"ragged M=13 K=640 n={n} {fmt}",
+                           timed=False)
+            checks += 1
+    for dtype in ("bfloat16", "float16"):
+        check_abfp_qdq(torch, timer, gen, M=13, K=640, n=40, fmt_name="e4m3",
+                       dtype=dtype, label=f"ragged M=13 K=640 n=40 {dtype}",
+                       timed=False)
+        checks += 1
+    for M, K, n in ((5, 720, 36), (3, 4096, 2048)):
+        check_abfp_qdq(torch, timer, gen, M=M, K=K, n=n, fmt_name="int8",
+                       label=f"rows kernel M={M} K={K} n={n}", timed=False)
+        checks += 1
+    # a minifloat whose smallest quanta are subnormal keeps qdq_unit's
+    # frexpf / ldexpf arithmetic (qdq_rows_kernel)
+    wide = FloatFormat(exp_bits=8, man_bits=3, max_value=448.0)
+    for dtype in ("float32", "bfloat16"):
+        check_abfp_qdq(torch, timer, gen, M=13, K=3840, n=64, fmt_name=wide,
+                       dtype=dtype, label=f"rows kernel e8m3 {dtype}",
+                       timed=False)
+        checks += 1
+    log(f"  abfp_qdq: {checks} untimed checks, all bit-exact; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    torch.cuda.empty_cache()
+    return rows
 
 
 def check_dense_matmul(torch, timer, gen, *, kind, M, K, N, n=64, label,
@@ -752,7 +935,7 @@ def forward_pass_ms(rows, at: str) -> dict:
 # type of mma_contract_kernel names its variant)
 REGIME_KERNELS = {
     "fp": {"fp_decode_kernel": "decode", "fp_contract_kernel": "simt",
-           "qdq_rows_kernel": "x_qdq",
+           "qdq_stream_kernel": "x_qdq",
            "quantize_rows_kernel<__nv_bfloat16": "x_codes",
            "quantize_cols_kernel<__nv_bfloat16": "w_codes",
            "Bf16Codes>": "mma"},
@@ -1160,19 +1343,7 @@ def check_pad_copy(torch, timer, gen) -> dict:
 def phase_dense_kernels(torch, timer, gen) -> dict:
     """The fixed-slot path's kernels (abfp_matmul, abfp_matmul_int8,
     flash_attention) and abfp_qdq, at that path's shapes and ragged ones."""
-    qdq = []
-    for M, K in ((256, 3584), (4, 18944)):
-        for fmt in ("int4", "int8", "e2m1", "e4m3"):
-            qdq.append(check_abfp_qdq(torch, timer, gen, M=M, K=K, n=64,
-                                      fmt_name=fmt,
-                                      label=f"M={M} K={K} {fmt}"))
-    for fmt in ("int2", "int3", "int4", "int6", "int8", "e2m1", "e1m2",
-                "e4m3", "e5m2"):
-        for n in (64, 32):
-            check_abfp_qdq(torch, timer, gen, M=13, K=640, n=n, fmt_name=fmt,
-                           label=f"ragged M=13 K=640 n={n} {fmt}",
-                           timed=False)
-    torch.cuda.empty_cache()
+    qdq = abfp_qdq_checks(torch, timer, gen)
 
     dense = {"fp": [], "int8": []}
     for kind in ("fp", "int8"):
@@ -1856,10 +2027,12 @@ def profile_fixed_prefill(torch, cfg, eng, seed: int) -> dict:
     return out
 
 
-def profile_decode(torch, cfg, eng, seed: int, step_ms: float) -> dict:
+def profile_decode(torch, cfg, eng, seed: int, step_ms: float,
+                   watch: tuple = ()) -> dict:
     """Where a decode step's time goes: a few steady decode steps of the
     engine under ``torch.profiler`` (after the counted run; its launches
-    are not part of the reported counts)."""
+    are not part of the reported counts); ``watch`` as for
+    ``profile_steps``."""
     for r in make_requests(cfg, seed + 1)[:4]:
         eng.submit(r)
     busy = (lambda: eng.prefilling.any()) if hasattr(eng, "prefilling") \
@@ -1867,7 +2040,7 @@ def profile_decode(torch, cfg, eng, seed: int, step_ms: float) -> dict:
     while busy() or eng.queue or not eng.active.any():
         eng.tick()  # prompts in, every slot decoding
     step = getattr(eng, "_decode_tick", eng.tick)
-    out = profile_steps(torch, step, 4, step_ms)
+    out = profile_steps(torch, step, 4, step_ms, watch=watch)
     eng.run_until_done(max_ticks=2000)
     log("  profile: " + json.dumps(out))
     return out
@@ -2071,6 +2244,17 @@ def phase_fixed(torch, seed: int) -> dict:
         if stray:
             raise SystemExit(f"fixed {kind}: kernels off this path launched: "
                              f"{stray}")
+        # P-fp: abfp_matmul QDQs x with abfp_qdq's kernel before every
+        # call of up to 16 rows: each decode tick's 7 L + 1 and each
+        # prefill's lm_head (its last row)
+        x_qdq = read_kernel_counts("abfp_matmul")
+        want_qdq = {"qdq_stream_kernel": ((7 * L + 1) * eng.ticks
+                                          + eng.prefills
+                                          if kind == "p_fp" else 0),
+                    "qdq_rows_kernel": 0}
+        if x_qdq != want_qdq:
+            raise SystemExit(f"fixed {kind}: abfp_matmul's x pre-pass "
+                             f"launched {x_qdq}, expected {want_qdq}")
         n_tok = sum(len(c.tokens) for c in done)
         report = {
             "policy": kind, "requests": len(done),
@@ -2084,11 +2268,22 @@ def phase_fixed(torch, seed: int) -> dict:
             "decode_ms_median": statistics.median(eng.decode_ms),
             "launches": counts, "expected_launches": want,
             "flash_attention_by_kernel": flash_by_kernel,
+            "x_qdq_launches": x_qdq,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         }
         log("  " + json.dumps(report))
-        report["profile"] = profile_decode(torch, cfg, eng, seed,
-                                           report["decode_ms_median"])
+        report["profile"] = profile_decode(
+            torch, cfg, eng, seed, report["decode_ms_median"],
+            watch=tuple(QDQ_KERNELS))
+        # a decode tick's x pre-pass, read from the profiler: P-fp 7 L + 1
+        # launches of qdq_stream_kernel, P-int8 none
+        seen = report["profile"].get("watched_kernels_per_step", {})
+        tick_qdq = {k: seen.get(k, {}).get("launches") for k in QDQ_KERNELS}
+        if tick_qdq != {"qdq_stream_kernel": (7 * L + 1 if kind == "p_fp"
+                                              else 0),
+                        "qdq_rows_kernel": 0}:
+            raise SystemExit(f"fixed {kind}: a profiled decode tick's x "
+                             f"pre-pass launched {tick_qdq}")
         report["prefill_profile"] = profile_fixed_prefill(torch, cfg, eng,
                                                           seed)
         # the profiled 192-row prefill's attention, read from the
@@ -2482,14 +2677,20 @@ def main() -> int:
         head = next((r for r in rows
                      if r["shape"].startswith(head_shape.get(name, ""))), {})
         by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
+        if name == "abfp_qdq":
+            # its kernel is abfp_matmul's x pre-pass on the P-fp path
+            by_path.update({f"fixed_{k}": r["x_qdq_launches"][
+                "qdq_stream_kernel"] for k, r in (fixed or {}).items()
+                if r["x_qdq_launches"]["qdq_stream_kernel"]})
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{build.SOURCES[mod]}",
             "replaces": replaces,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            # abfp_qdq is on no model path, in the reference as here
-            "on_main_path": name != "abfp_qdq",
+            # abfp_qdq's own wrapper is on no model path, in the reference
+            # as here; its kernel is, as abfp_matmul's x pre-pass
+            "on_main_path": bool(by_path) or name != "abfp_qdq",
             "max_abs_err": max((r["max_abs_err"] for r in rows),
                                default=None),
             "ms": head.get("ms"), "plain_ms": head.get("plain_ms"),
@@ -2501,6 +2702,17 @@ def main() -> int:
             "timed_shape": head.get("shape"),
             "shapes": rows,
         })
+    # abfp_qdq: the kernel and the x pre-pass of a profiled P-fp decode
+    # tick, and the copy yardstick at the head shape
+    qdq = kernels[[k["name"] for k in kernels].index("abfp_qdq")]
+    qdq_head = next((r for r in (kernel_rows or {}).get("abfp_qdq", [])
+                     if r["shape"].startswith(head_shape["abfp_qdq"])), {})
+    tick = ((fixed or {}).get("p_fp", {}).get("profile", {})
+            .get("watched_kernels_per_step", {}).get("qdq_stream_kernel"))
+    qdq.update({"kernel": "qdq_stream_kernel",
+                "via": "abfp_matmul's x pre-pass (decode and simt regimes)",
+                "copy_ms": qdq_head.get("copy_ms"),
+                "p_fp_decode_tick": tick})
     # flash_attention: its one kernel, and the bytes floor beside the
     # operations (as issued: three tf32 products a product; and as f32 on
     # the CUDA cores, a reference)

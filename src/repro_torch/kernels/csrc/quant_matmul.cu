@@ -1250,9 +1250,9 @@ extern "C" int repro_quant_matmul(const void* x, const void* wc,
 //
 // abfp_matmul.  The wrapper's plan_abfp_matmul chooses the regime:
 //
-//   decode (M <= 16, n = 32 or 64: qdq_rows_kernel, fp_decode_kernel).
-//   qdq_rows_kernel QDQs x once into scratch (x is read by every column
-//   block).  A block owns 64 columns and one K split of whole groups; the
+//   decode (M <= 16, n = 32 or 64: qdq_stream_kernel, fp_decode_kernel).
+//   qdq_stream_kernel (abfp_qdq's kernel, planned by plan_qdq) QDQs x
+//   once into scratch (x is read by every column block).  A block owns 64 columns and one K split of whole groups; the
 //   grid is (column tiles) x (splits), with enough splits for two waves of
 //   blocks on the 132 SMs and, while a split keeps two groups, for up to
 //   eight (k,v: 8 tiles x 33 splits; q,o and wo: 56 x 19; wi,wg: 296 x 4);
@@ -1290,7 +1290,7 @@ extern "C" int repro_quant_matmul(const void* x, const void* wc,
 //
 //   simt (a format whose unit codes bf16 cannot hold: an int format of
 //   more than 9 bits, a minifloat with more than 7 mantissa bits:
-//   qdq_rows_kernel, fp_contract_kernel).  An f32 SIMT tiled contraction:
+//   qdq_stream_kernel, fp_contract_kernel).  An f32 SIMT tiled contraction:
 //   per group a block loads a (BM, n) QDQ'd x tile and an (n, 64) w tile
 //   into shared memory, QDQs the 64 column groups of the w tile in place
 //   (a column's max reduced over 4 threads through shared memory), then
@@ -2088,6 +2088,8 @@ int launch_int8_decode_rows(const int8_t* xc, const float* sx, const float* w,
 //      mma_contract_kernel.
 //   2  simt (fp_contract_kernel with ``block_rows`` = 64 or 32 rows a
 //      block): x_scratch M*K floats.
+// x_qdq_plan (regimes 0 and 2): the repro::QdqPlan of x's QDQ into
+// x_scratch (plan_qdq's, for M*K/n groups of n f32).
 // Returns a CUDA error.
 extern "C" int repro_abfp_matmul(const void* x, const void* w,
                                  void* x_scratch, void* sx_scratch,
@@ -2099,7 +2101,8 @@ extern "C" int repro_abfp_matmul(const void* x, const void* w,
                                  float x_qmin, int x_man, int x_emin,
                                  int x_emax, int w_int, float w_qmax,
                                  float w_qmin, int w_man, int w_emin,
-                                 int w_emax, void* stream_ptr) {
+                                 int w_emax, const void* x_qdq_plan,
+                                 void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const repro::QdqFormat fx{x_int, x_qmax, x_qmin, x_man, x_emin, x_emax};
   const repro::QdqFormat fw{w_int, w_qmax, w_qmin, w_man, w_emin, w_emax};
@@ -2129,12 +2132,12 @@ extern "C" int repro_abfp_matmul(const void* x, const void* w,
                                  G * n_pad, n_pad, splits, stream);
   }
   float* xq = static_cast<float*>(x_scratch);
-  const long long x_groups = (long long)M * G;
-  if (x_groups > 0) {
-    repro::launch_qdq_rows(xf, xq, x_groups, n, fx, stream);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
+  if (x_qdq_plan == nullptr) return (int)cudaErrorInvalidValue;
+  int err = repro::launch_qdq(
+      xf, xq, (long long)M * G, n, fx,
+      *static_cast<const repro::QdqPlan*>(x_qdq_plan), stream);
+  if (err == (int)cudaSuccess) err = (int)cudaGetLastError();
+  if (err != (int)cudaSuccess) return err;
   if (regime == 2)
     return block_rows == 64
                ? launch_fp_contract<64, 64, 4, 4>(xq, wf, out, M, N, K, n, fw,

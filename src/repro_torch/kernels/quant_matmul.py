@@ -49,7 +49,8 @@ from repro_torch.core import abfp as abfp_mod
 from repro_torch.core.formats import Format, IntFormat
 from repro_torch.core.quantize import unpack_int4_codes
 from repro_torch.kernels import build
-from repro_torch.kernels.abfp_qdq import format_args, qdq_groups
+from repro_torch.kernels.abfp_qdq import (SMS, format_args, plan_qdq,
+                                         plan_struct, qdq_groups)
 
 
 def group_contract(xc: torch.Tensor, xs: torch.Tensor, wc: torch.Tensor,
@@ -117,7 +118,6 @@ def quant_matmul_plain(x: torch.Tensor, w_codes: torch.Tensor,
 
 
 _SMEM_MAX = 232448  # dynamic shared memory a block may use on sm_90
-SMS = 132  # streaming multiprocessors of an H100 SXM
 MMA_BM = 64  # output rows of an mma_contract_kernel block (kMmaBM)
 MMA_BN = 128  # output columns of an mma_contract_kernel block (kMmaBN)
 MMA_STAGES = 4  # its shared-memory ring depth (kMmaStages)
@@ -517,7 +517,7 @@ def _bind_fp(lib: ctypes.CDLL):
     if not fn.argtypes:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fmt = [i, f, f, i, i, i]  # format_args
-        fn.argtypes = [p] * 9 + [i] * 9 + fmt + fmt + [p]
+        fn.argtypes = [p] * 9 + [i] * 9 + fmt + fmt + [p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -701,8 +701,11 @@ def abfp_matmul(x: torch.Tensor, w: torch.Tensor, fmt_x: Format,
         wc = torch.empty((N, G * plan.n_pad), dtype=torch.bfloat16,
                          device=dev)
         sw = torch.empty((N, G), dtype=torch.float32, device=dev)
-    else:  # QDQ'd f32 x
+        x_qdq = None
+    else:  # QDQ'd f32 x, by abfp_qdq's kernel
         xs = torch.empty_like(x)
+        x_qdq = plan_qdq(M * G, n, 4, x.data_ptr() % 16 == 0
+                         and xs.data_ptr() % 16 == 0, fmt_x)
     vec = N % 4 == 0 and w.data_ptr() % 16 == 0  # 16-byte weight copies
     fn = _bind_fp(build.load("quant_matmul"))
     with torch.cuda.device(dev):
@@ -716,8 +719,12 @@ def abfp_matmul(x: torch.Tensor, w: torch.Tensor, fmt_x: Format,
                  y.data_ptr(), M, N, K, n, plan.n_pad,
                  _FP_REGIMES.index(plan.regime), plan.splits,
                  plan.block_rows, int(vec), *format_args(fmt_x),
-                 *format_args(fmt_w), stream)
+                 *format_args(fmt_w),
+                 None if x_qdq is None else ctypes.byref(plan_struct(x_qdq)),
+                 stream)
     abfp_matmul.launches += 1
+    if x_qdq is not None:
+        abfp_matmul.launches_by_kernel[x_qdq.kernel] += 1
     if err != 0:
         raise RuntimeError(f"abfp_matmul kernel launch failed: CUDA error "
                            f"{err}")
@@ -725,6 +732,9 @@ def abfp_matmul(x: torch.Tensor, w: torch.Tensor, fmt_x: Format,
 
 
 abfp_matmul.launches = 0  # kernel launches made through this wrapper
+# launches of its x pre-pass (the decode and simt regimes), by kernel
+abfp_matmul.launches_by_kernel = {"qdq_stream_kernel": 0,
+                                  "qdq_rows_kernel": 0}
 
 
 def abfp_matmul_int8(x: torch.Tensor, w: torch.Tensor, fmt_x: IntFormat,
