@@ -89,6 +89,20 @@ Phases (each fatal on failure):
   identity  full width, 2 layers: the paged kernel path against the
             non-kernel path (fused=False, attn_backend="ref"), with a
             last-bit-noise control run as the yardstick
+  ptq       opt-125m at full width and depth: its fused path's kernels held
+            to their plain versions and timed at its shapes (both dense
+            matmuls at M = 512 up to the 50432-column tied head,
+            flash_mma_kernel at D = 64 with one query head a KV head); the
+            methods table's five PTQ
+            recipes (calibration, SmoothQuant, GPTQ, RPTQ, static MSE) at
+            w4a8_mse on the card, their losses and calibration counts; the
+            fp32 weights evaluated under P-fp and P-int8 (73 dense matmuls
+            and 12 flash_mma_kernel a forward, read from the profiler),
+            their logits held to the ref backend's within GAP_FACTOR times
+            a last-bit control (and apart from the fp32 weights with no
+            QDQ); GPTQ and mse_alpha on the card held
+            to the same code on the CPU (ties counted); the launcher's
+            ``--recipe sq_gptq_w4a8`` serving a few requests
 
 The last lines of standard output are: one JSON object {"kernels": [...]},
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -114,7 +128,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 
-PHASES = ("kernels", "serve", "long", "fixed", "reduced", "identity")
+PHASES = ("kernels", "serve", "long", "fixed", "reduced", "identity", "ptq")
 
 # every kernel: (wrapper module, TPU kernel it replaces)
 KERNELS = {
@@ -781,9 +795,11 @@ FLASH_KERNELS = {"flash_mma_kernel": "flash_mma_kernel",
 
 
 def check_flash(torch, timer, gen, *, B=1, S, T, H=28, KV=4, D=128,
-                causal=True, q_offset=None, label, timed=True) -> dict:
+                causal=True, q_offset=None, label, timed=True,
+                profiled=True) -> dict:
     """One ``flash_attention`` call against its plain version; the kernel
-    it launches, read from the profiler, must be the planned one
+    it launches, read from the profiler (``profiled=False``: from the
+    wrapper's count by kernel), must be the planned one
     (``flash_mma_kernel``).  Timed: beside the plain version, SDPA (a
     yardstick) and the card's bound: the bytes moved once are the floor,
     the products as the kernel issues them (three tf32 products a
@@ -815,9 +831,16 @@ def check_flash(torch, timer, gen, *, B=1, S, T, H=28, KV=4, D=128,
     front = flash_attention_gqa(qh, kh, vh, **kw)
     ok = ok and torch.equal(front.transpose(1, 2).reshape(B * H, S, D), got)
     plan = plan_flash(B, S, T, H, KV, D, causal)
-    launched = device_launches(
-        torch, lambda: flash_attention(q, k, v, **kw), FLASH_KERNELS,
-        {plan.kernel: 1}, label)
+    if profiled:
+        launched = device_launches(
+            torch, lambda: flash_attention(q, k, v, **kw), FLASH_KERNELS,
+            {plan.kernel: 1}, label)
+    else:
+        before = dict(flash_attention.launches_by_kernel)
+        flash_attention(q, k, v, **kw)
+        launched = {k: n - before[k] for k, n in
+                    flash_attention.launches_by_kernel.items()
+                    if n != before[k]}
     row = {"shape": label, "B": B, "S": S, "T": T, "H": H, "KV": KV,
            "D": D, "causal": causal, "kernel": launched,
            "plan": plan._asdict(), "max_abs_err": err, "tol": tol, "ok": ok}
@@ -987,26 +1010,37 @@ def regime_want(kind: str, M: int, n: int, wide: bool = False) -> dict:
     return {**pad, "x_codes": 1, "mma": 1}
 
 
-# profiler captures taken again, with what each read (the kernels phase
-# reports them)
+# profiler captures taken again, with the phase and what each read (the
+# kernels phase reports its own; the run ends with a count by phase)
 PROFILER_RETRIES = []
+PHASE = {"name": "build"}  # the phase running now
+
+
+# captures of one call that may read no device event at all before the
+# call fails (the profiler drops a whole capture now and then, at times a
+# few in a row); a capture that reads events other than the expected ones
+# is taken once more only
+PROFILER_EMPTY_CAPTURES = 5
 
 
 def device_launches(torch, call, names_of: dict, want=None,
-                    label: str = "a call") -> dict:
+                    label: str = "a call", roles_only: bool = False) -> dict:
     """Kernel launches of one ``call`` (after a warm call), read from the
     profiler: {role: count}, a kernel named by the first key of
     ``names_of`` its name contains, else by its name's first 90
-    characters.  A capture that reads other than ``want`` (without it: no
-    device event at all; the profiler now and then drops an event, or a
-    whole capture) is taken once more and recorded in
-    ``PROFILER_RETRIES``; a second one that reads otherwise fails."""
+    characters.  A capture that reads other than ``want`` (with
+    ``roles_only``: other counts of ``want``'s roles, whatever else it
+    reads; without ``want``: no device event at all; the profiler now and
+    then drops an event, or a whole capture) is taken again and recorded
+    in ``PROFILER_RETRIES``: a second one that reads other events fails,
+    and so does the ``PROFILER_EMPTY_CAPTURES``-th that reads none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     call()  # warm: tickets, library
     torch.cuda.synchronize()
-    for attempt in range(2):
+    wrong = empty = 0
+    while True:
         names = {}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1018,14 +1052,22 @@ def device_launches(torch, call, names_of: dict, want=None,
             hit = [v for k, v in names_of.items() if k in e.key]
             key = hit[0] if hit else e.key[:90]
             names[key] = names.get(key, 0) + e.count
-        if names and (want is None or names == want):
+        seen = ({k: names.get(k, 0) for k in want} if roles_only and want
+                else names)
+        if names and (want is None or seen == want):
             return names
-        PROFILER_RETRIES.append({"call": label, "capture": attempt + 1,
+        wrong, empty = wrong + bool(names), empty + (not names)
+        PROFILER_RETRIES.append({"phase": PHASE["name"], "call": label,
+                                 "capture": wrong + empty,
                                  "read": names, "expected": want})
-        log(f"  (profiler capture {attempt + 1} of {label} read {names}, "
+        log(f"  (profiler capture {wrong + empty} of {label} read {names}, "
             f"expected {want})")
-    raise SystemExit(f"{label}: two profiler captures read other launches "
-                     f"than {want}: {PROFILER_RETRIES[-2:]}")
+        if wrong >= 2 or empty >= PROFILER_EMPTY_CAPTURES or (
+                wrong and empty):
+            raise SystemExit(f"{label}: profiler captures read other "
+                             f"launches than {want}: "
+                             f"{PROFILER_RETRIES[-(wrong + empty):]}")
+        time.sleep(0.2)  # let a dropped capture's buffers settle
 
 
 def check_regimes(torch, gen, kind: str) -> None:
@@ -2606,6 +2648,427 @@ def phase_identity(torch, seed: int) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase: ptq
+# --------------------------------------------------------------------------
+# the methods table's variants (benchmarks/tables.py methods_table, plus
+# RPTQ) and the calibrations the recipe engine runs for each
+PTQ_RECIPES = (("static_mse", 1), ("smoothquant+static_mse", 2),
+               ("gptq+static_mse", 2), ("smoothquant+gptq+static_mse", 3),
+               ("rptq_w4a8", 1))
+PTQ_BATCHES = 4  # calibration batches, and held-out evaluation batches
+PTQ_SHAPE = (4, 128)  # the benchmarks' calibration batch (common.py:333)
+PTQ_TIE = 1e-9  # a GPTQ code may differ only this close to a boundary
+
+
+def ptq_dense(cfg) -> int:
+    """Dense matmuls of one opt forward: q, k, v, o, wi, wo a layer, and
+    the tied head."""
+    return 6 * cfg.n_layers + 1
+
+
+def ptq_batches(cfg, seed: int):
+    """Calibration and held-out batches of random tokens from
+    ``RandomState(seed + 1)``; labels are the next token (-1 at the end)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed + 1)
+    calib = [{"tokens": rng.randint(0, cfg.vocab, PTQ_SHAPE).astype(
+        np.int32)} for _ in range(PTQ_BATCHES)]
+    evals = []
+    for _ in range(PTQ_BATCHES):
+        t = rng.randint(0, cfg.vocab, PTQ_SHAPE).astype(np.int32)
+        labels = np.roll(t, -1, axis=1)
+        labels[:, -1] = -1
+        evals.append({"tokens": t, "labels": labels})
+    return calib, evals
+
+
+def ptq_eval(torch, model, params, evals, policy, q=None):
+    """(mean loss over the held-out batches, wall ms of each batch)."""
+    losses, ms = [], []
+    with torch.no_grad():
+        for b in evals:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = model.loss(params, b, policy, q)
+            losses.append(float(loss))  # synchronizes
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.fmean(losses), ms
+
+
+def ptq_logits(torch, model, params, batch, policy):
+    """One batch's logits over the real vocabulary (the padded columns
+    cut)."""
+    with torch.no_grad():
+        logits, _ = model.apply(params, batch, policy)
+    return logits[..., :model.cfg.vocab]
+
+
+class PTQTimers:
+    """Wraps ``quant_transforms.calibrate`` and ``gptq_quantize`` (the
+    names the recipe passes call) to time each call between two
+    synchronizations and keep each calibrator and its Hessian bytes."""
+
+    def __init__(self, torch):
+        from repro_torch.models import quant_transforms as qt
+
+        self.torch, self.qt = torch, qt
+        self.orig = (qt.calibrate, qt.gptq_quantize)
+        self.calib_s, self.gptq_s, self.calibs = [], [], []
+        self.hessian_bytes = 0
+
+    def _timed(self, fn, into):
+        torch = self.torch
+
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def __enter__(self):
+        cal = self._timed(self.orig[0], self.calib_s)
+
+        def calibrate(*a, **kw):
+            c = cal(*a, **kw)
+            self.calibs.append(c)
+            self.hessian_bytes = max(self.hessian_bytes, sum(
+                nbytes(st.outer) for st in c.stats.values()
+                if st.outer is not None))
+            return c
+        self.qt.calibrate = calibrate
+        self.qt.gptq_quantize = self._timed(self.orig[1], self.gptq_s)
+        return self
+
+    def __exit__(self, *exc):
+        self.qt.calibrate, self.qt.gptq_quantize = self.orig
+        return False
+
+
+def gptq_card_vs_cpu(torch, params, calib) -> dict:
+    """GPTQ of blocks.0/attn/q (K = 768) and blocks.0/ffn/wo (K = 3072)
+    with the card's Hessians, on the card and on the CPU in float64.  The
+    outputs must be equal but in columns whose first differing row the CPU
+    rounded from within ``PTQ_TIE`` of a boundary (a tie: float64 inverse
+    and Cholesky factors differ in their last bits between cuSOLVER and
+    LAPACK); the elements and columns that differ are counted."""
+    import numpy as np
+
+    from repro_torch.core import gptq as tg
+    from repro_torch.core.formats import INT4
+
+    out = {}
+    for group, name, site in (("attn", "q", "blocks.0/attn/q/in"),
+                              ("ffn", "wo", "blocks.0/ffn/wo/in")):
+        w = params["blocks"][0][group][name]["kernel"]
+        H = calib.stats[site].outer
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card, _ = tg.gptq_quantize(w, H, INT4)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        units, orig = [], tg._quant_col
+
+        def rec(row, scale, fmt, out=None):
+            units.append((row / scale).numpy())
+            return orig(row, scale, fmt, out=out)
+
+        tg._quant_col = rec
+        try:
+            t0 = time.perf_counter()
+            cpu, _ = tg.gptq_quantize(w.cpu(), H.cpu(), INT4)
+            cpu_s = time.perf_counter() - t0
+        finally:
+            tg._quant_col = orig
+        diff = (card.cpu() != cpu).numpy()
+        u = np.stack(units)
+        dist = np.abs(np.abs(u - np.floor(u)) - 0.5)
+        cols = np.nonzero(diff.any(axis=0))[0]
+        for n in cols:
+            first = int(np.argmax(diff[:, n]))
+            if not dist[first, n] <= PTQ_TIE:
+                raise SystemExit(
+                    f"ptq: GPTQ of blocks.0/{group}/{name} differs between "
+                    f"the card and the CPU at row {first}, column {n}, "
+                    f"{dist[first, n]} quanta from a rounding boundary")
+        out[f"blocks.0/{group}/{name}"] = {
+            "K": int(w.shape[0]), "N": int(w.shape[1]),
+            "elements_differing": int(diff.sum()),
+            "tie_columns": int(cols.size), "card_s": card_s,
+            "cpu_s": cpu_s}
+    return out
+
+
+def mse_card_vs_cpu(torch, calib) -> dict:
+    """``mse_alpha`` (int8, per tensor) of every layer-0 site on the card
+    and on the CPU over the same reservoir rows.  Equal but at near-ties:
+    a chosen candidate that differs must have a float64 mean error within
+    the float64 summation bound of the other's; counted."""
+    from repro_torch.core import calibration as tc
+    from repro_torch.core.formats import INT8
+
+    sites = ties = 0
+    for site, st in calib.stats.items():
+        if not site.startswith("blocks.0/"):
+            continue
+        sites += 1
+        host = tc.RunningStats(absmax=st.absmax.cpu(),
+                               ch_absmax=st.ch_absmax.cpu(),
+                               samples=[x.cpu() for x in st.samples])
+        card = float(tc.mse_alpha(st, INT8))
+        cpu = float(tc.mse_alpha(host, INT8))
+        if card == cpu:
+            continue
+        x = torch.cat(host.samples)
+        amax = tc.max_alpha(host)
+        fr = tc.linspace_fracs(100)
+        errs = tc._grid_errors(x, amax, fr, INT8, False)
+        i_card = int(torch.argmin((amax * fr - card).abs()))
+        i_cpu = int(torch.argmin((amax * fr - cpu).abs()))
+        ea, eb = float(errs[i_card]), float(errs[i_cpu])
+        if not abs(ea - eb) <= x.numel() * 2.0 ** -53 * (ea + eb):
+            raise SystemExit(f"ptq: mse_alpha at {site}: card {card} vs "
+                             f"CPU {cpu} is not a near-tie ({ea} vs {eb})")
+        ties += 1
+    return {"sites": sites, "near_ties": ties}
+
+
+def ptq_forward_launches(torch, model, params, batch, policy, roles: dict,
+                         label: str) -> dict:
+    """Kernel launches of one forward, read from the profiler: the dense
+    matmul's three kernels and flash_mma_kernel must each launch as often
+    as the path has matmuls and attention layers (the norms, residual adds
+    and layout copies launch PyTorch's own kernels beside them)."""
+    dense = ptq_dense(model.cfg)
+    want = {"x_codes": dense, "w_codes": dense, "mma": dense,
+            "flash": model.cfg.n_layers}
+
+    def call():
+        with torch.no_grad():
+            model.apply(params, batch, policy)
+
+    return device_launches(torch, call, roles, want, label, roles_only=True)
+
+
+# the dense matmuls of an opt-125m forward at the phase's 512 rows: (label,
+# K, N); and its attention call (4 x 128 positions, 12 heads of 64)
+PTQ_MATMULS = (("q,k,v,o", 768, 768), ("wi", 768, 3072), ("wo", 3072, 768),
+               ("tied head", 768, 50432))
+
+
+def ptq_kernel_checks(torch, seed: int) -> dict:
+    """Each kernel of the phase's fused evaluation against its plain
+    version at the shapes that path gives it, timed beside the plain
+    version and the card's bound: both dense matmuls at M = 512 for every
+    (K, N) of the model, flash_attention at D = 64 with one query head a KV
+    head."""
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 7)
+    rows = {"abfp_matmul": [], "abfp_matmul_int8": [], "flash_attention": []}
+    M = PTQ_SHAPE[0] * PTQ_SHAPE[1]
+    for kind, name in (("fp", "abfp_matmul"), ("int8", "abfp_matmul_int8")):
+        for label, K, N in PTQ_MATMULS:
+            rows[name].append(check_dense_matmul(
+                torch, timer, gen, kind=kind, M=M, K=K, N=N,
+                label=f"opt {label} M={M} K={K} N={N}"))
+    # the kernel is read from the wrapper's count here: after the earlier
+    # phases the profiler drops this lone launch's device record (the
+    # capture holds its cudaLaunchKernel and nothing on the card, five
+    # captures in a row), while a capture of a whole forward reads every
+    # launch (ptq_forward_launches: 12 flash_mma_kernel a forward)
+    rows["flash_attention"].append(check_flash(
+        torch, timer, gen, B=PTQ_SHAPE[0], S=PTQ_SHAPE[1], T=PTQ_SHAPE[1],
+        H=12, KV=12, D=64, label=f"opt B={PTQ_SHAPE[0]} S=T={PTQ_SHAPE[1]} "
+        "H=KV=12 D=64", profiled=False))
+    del timer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ptq(torch, seed: int, smi: str) -> dict:
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import (map_policies, preset,
+                                         replace_enabled, with_attn_backend)
+    from repro_torch.core.recipe import apply_recipe, quantizes_weights_offline
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+
+    log("== ptq: opt-125m, full width and depth, PTQ recipes at w4a8_mse")
+    t_phase = time.perf_counter()
+    kernel_rows = ptq_kernel_checks(torch, seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("opt-125m")
+    model = build_model(cfg)
+    params = model.init(make_generator(seed, "cuda"))
+    calib, evals = ptq_batches(cfg, seed)
+    pol = preset("w4a8_mse", n_layers=cfg.n_layers)
+    prequant = replace_enabled(pol, weight=None)
+    fp32, _ = ptq_eval(torch, model, params, evals, preset("fp32"))
+    report = {"model": cfg.name, "calib_batches": [PTQ_BATCHES, *PTQ_SHAPE],
+              "fp32_loss": fp32, "recipes": {}, "kernel_rows": kernel_rows}
+    hessian_calib = mse_calib = None
+    for name, n_cal in PTQ_RECIPES:
+        with PTQTimers(torch) as tm:
+            t0 = time.perf_counter()
+            res = apply_recipe(name, model, params, calib, pol)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if res.n_calibrations != n_cal or len(tm.calib_s) != n_cal:
+            raise SystemExit(f"ptq: {name} ran {res.n_calibrations} "
+                             f"calibrations, expected {n_cal}")
+        if res.dropped_sites != ("embed/attend/in",):
+            raise SystemExit(f"ptq: {name} dropped {res.dropped_sites}")
+        off = quantizes_weights_offline(name)
+        loss, ms = ptq_eval(torch, model, res.params, evals,
+                            prequant if off else pol, q=res.qtree)
+        if name == "static_mse":
+            mse_calib = tm.calibs[0]
+        if name == "gptq+static_mse":
+            hessian_calib = next(c for c in tm.calibs if c.collect_outer)
+        row = {"loss": loss, "calibrations": res.n_calibrations,
+               "steps": [s for s, _ in res.steps], "wall_s": wall,
+               "calibration_s": tm.calib_s, "eval_ms": ms,
+               "hessian_bytes": tm.hessian_bytes}
+        if tm.gptq_s:
+            row.update(gptq_kernels=len(tm.gptq_s),
+                       gptq_total_s=sum(tm.gptq_s),
+                       gptq_median_s=statistics.median(tm.gptq_s))
+            if len(tm.gptq_s) != 6 * cfg.n_layers:
+                raise SystemExit(f"ptq: {name} ran GPTQ on "
+                                 f"{len(tm.gptq_s)} kernels")
+        report["recipes"][name] = row
+        log(f"  {name}: loss {loss:.6f} (fp32 {fp32:.6f}), "
+            f"{res.n_calibrations} calibrations, {wall:.2f} s")
+        del res
+
+    # the fused kernels on the fp32 weights, against the ref backend
+    roles = {**REGIME_KERNELS["fp"], **REGIME_KERNELS["int8"],
+             "flash_mma_kernel": "flash"}
+    reset_counts()
+    fused = {}
+    for kind in FIXED_PATHS:
+        kp = fixed_policy(kind)
+        rp = with_attn_backend(map_policies(
+            kp, lambda q: q.replace(fused=False, compute="fp")), "ref")
+        lk, ms_k = ptq_eval(torch, model, params, evals, kp)
+        lr, ms_r = ptq_eval(torch, model, params, evals, rp)
+        # one held-out batch's logits against the ref backend's, in units
+        # of their std, held as the identity phase holds its paths: at most
+        # GAP_FACTOR times as far as the ref backend moves from itself when
+        # its embedding table is scaled by 1 + 2**-20 (the kernels add the
+        # same f32 terms in other orders, and a last bit can move a value
+        # across a rounding boundary), and at most GAP_MAX; the fp32
+        # weights with no QDQ at all must lie beyond that limit
+        ref = ptq_logits(torch, model, params, evals[0], rp)
+        gap = logit_gap(torch, ptq_logits(torch, model, params, evals[0],
+                                          kp), ref)
+        nudged = dict(params, embed=dict(
+            params["embed"], table=params["embed"]["table"]
+            * (1 + 2.0 ** -20)))
+        last_bit = logit_gap(torch, ptq_logits(torch, model, nudged,
+                                               evals[0], rp), ref)
+        no_qdq = logit_gap(torch, ptq_logits(torch, model, params, evals[0],
+                                             preset("fp32")), ref)
+        del ref, nudged
+        limit = min(GAP_MAX, GAP_FACTOR * last_bit)
+        fused[kind] = {"loss": lk, "ref_backend_loss": lr,
+                       "relative_loss_gap": abs(lk - lr) / abs(lr),
+                       "logit_gap_over_std": gap,
+                       "last_bit_control_over_std": last_bit,
+                       "no_qdq_control_over_std": no_qdq,
+                       "logit_gap_limit": limit,
+                       "eval_ms": ms_k, "ref_eval_ms": ms_r}
+        log(f"  {kind} fused: loss {lk:.6f}, ref backend {lr:.6f}; logits "
+            f"{gap:.3g} std from the ref backend's (limit {limit:.3g}; "
+            f"last-bit control {last_bit:.3g}, fp32 with no QDQ "
+            f"{no_qdq:.3g})")
+        if not gap <= limit < no_qdq:
+            raise SystemExit(f"ptq: {kind} fused logits are {gap} std from "
+                             f"the ref backend's; limit {limit}, no-QDQ "
+                             f"control {no_qdq}")
+    counts = read_counts()
+    # each kind: the held-out batches and the logits' forward
+    runs = PTQ_BATCHES + 1
+    want = {"abfp_matmul": ptq_dense(cfg) * runs,
+            "abfp_matmul_int8": ptq_dense(cfg) * runs,
+            "flash_attention": 2 * cfg.n_layers * runs}
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise SystemExit(f"ptq: the fused evaluations launched {got}, "
+                         f"expected {want}")
+    for kind in FIXED_PATHS:
+        fused[kind]["forward_launches"] = ptq_forward_launches(
+            torch, model, params, evals[0], fixed_policy(kind), roles,
+            f"opt-125m {kind} forward")
+    report["fused"] = fused
+    report["launches"] = counts
+
+    report["gptq_card_vs_cpu"] = gptq_card_vs_cpu(torch, params,
+                                                  hessian_calib)
+    report["mse_alpha_card_vs_cpu"] = mse_card_vs_cpu(torch, mse_calib)
+    del hessian_calib, mse_calib
+    log("  card vs CPU: " + json.dumps({
+        "gptq": report["gptq_card_vs_cpu"],
+        "mse_alpha": report["mse_alpha_card_vs_cpu"]}))
+
+    # the launcher, as a user runs it
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = tserve.main(["--arch", "opt-125m", "--full", "--recipe",
+                          "sq_gptq_w4a8", "--n-requests", "4",
+                          "--max-new-tokens", "8", "--max-len", "256",
+                          "--seed", str(seed)])
+    served = json.loads(out.getvalue().strip().splitlines()[-1])
+    if (rc != 0 or served["recipe"] != "sq_gptq_w4a8"
+            or served["recipe_calibrations"] != 3
+            or served["requests"] != 4
+            or not served["device"].startswith("cuda")):
+        raise SystemExit(f"ptq: the launcher reported {served}")
+    report["launcher"] = served
+    log("  launcher: " + json.dumps(served))
+
+    rows = report["recipes"]
+    cal_s = [t for r in rows.values() for t in r["calibration_s"]]
+    gq = [r for r in rows.values() if "gptq_total_s" in r]
+    eval_ms = [t for r in rows.values() for t in r["eval_ms"]]
+    report["summary"] = {
+        "calibration_s_median": statistics.median(cal_s),
+        "gptq_total_s": [r["gptq_total_s"] for r in gq],
+        "gptq_median_s_per_kernel": [r["gptq_median_s"] for r in gq],
+        "eval_ms_per_batch_median": statistics.median(eval_ms),
+        "fused_eval_ms_per_batch": {k: statistics.median(v["eval_ms"])
+                                    for k, v in fused.items()},
+        "hessian_bytes": max(r["hessian_bytes"] for r in rows.values()),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "phase_s": time.perf_counter() - t_phase}
+    sm = report["summary"]
+    log(f"  seconds per calibration (median of {len(cal_s)}): "
+        f"{sm['calibration_s_median']:.3f} [{smi}]")
+    log(f"  GPTQ: {sm['gptq_total_s']} s in all, median "
+        f"{sm['gptq_median_s_per_kernel']} s per kernel "
+        f"({6 * cfg.n_layers} kernels) [{smi}]")
+    log(f"  evaluation ms per batch (median): "
+        f"{sm['eval_ms_per_batch_median']:.2f}; fused "
+        f"{sm['fused_eval_ms_per_batch']} [{smi}]")
+    log(f"  Hessian bytes: {sm['hessian_bytes']} [{smi}]")
+    log(f"  peak memory: {sm['peak_memory_bytes']} bytes [{smi}]")
+    log("  " + json.dumps({k: v for k, v in report.items()
+                           if k not in ("launcher", "kernel_rows")}))
+    del params, model
+    torch.cuda.empty_cache()
+    return report
+
+
+# --------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2645,26 +3108,37 @@ def main() -> int:
             + (" | ".join(used) if used else "already built"))
     log(f"  built in {time.perf_counter() - t0:.1f} s")
 
-    kernel_rows = serve = long_ctx = fixed = None
-    if "kernels" in phases:
-        kernel_rows = phase_kernels(torch, args.seed)
-    if "serve" in phases:
-        serve = phase_serve(torch, args.seed)
-    if "long" in phases:
-        long_ctx = phase_long(torch, args.seed)
-    if "fixed" in phases:
-        fixed = phase_fixed(torch, args.seed)
-    if "reduced" in phases:
-        phase_reduced(torch, args.seed)
-    if "identity" in phases:
-        phase_identity(torch, args.seed)
+    runs = {"kernels": lambda: phase_kernels(torch, args.seed),
+            "serve": lambda: phase_serve(torch, args.seed),
+            "long": lambda: phase_long(torch, args.seed),
+            "fixed": lambda: phase_fixed(torch, args.seed),
+            "reduced": lambda: phase_reduced(torch, args.seed),
+            "identity": lambda: phase_identity(torch, args.seed),
+            "ptq": lambda: phase_ptq(torch, args.seed, smi)}
+    done = {}
+    for name in PHASES:
+        if name in phases:
+            PHASE["name"] = name
+            done[name] = runs[name]()
+    kernel_rows, serve, long_ctx, fixed, ptq = (
+        done.get(p) for p in ("kernels", "serve", "long", "fixed", "ptq"))
+    retakes = {p: {"empty": 0, "other": 0} for p in phases}
+    for r in PROFILER_RETRIES:
+        retakes.setdefault(r["phase"], {"empty": 0, "other": 0})[
+            "other" if r["read"] else "empty"] += 1
+    log("== profiler captures taken again, by phase: " + json.dumps(retakes))
 
     # launches of each kernel on the main paths, each counted from 0 just
-    # before its run: the paged serve run, the long-context run, and the
-    # two fixed-slot runs
+    # before its run: the paged serve run, the long-context run, the two
+    # fixed-slot runs and the PTQ phase's fused evaluations
     paths = {"serve": (serve or {}).get("launches", {}),
              "long": (long_ctx or {}).get("launches", {}),
-             **{f"fixed_{k}": r["launches"] for k, r in (fixed or {}).items()}}
+             **{f"fixed_{k}": r["launches"] for k, r in (fixed or {}).items()},
+             "ptq": (ptq or {}).get("launches", {})}
+    # the ptq path's shapes join their kernels' rows
+    kernel_rows = dict(kernel_rows or {})
+    for name, rows in (ptq or {}).get("kernel_rows", {}).items():
+        kernel_rows[name] = kernel_rows.get(name, []) + rows
     # the shape whose numbers head a kernel's entry: the decode shape
     # launched most (matmuls), the longest prefill bucket (flash attention)
     head_shape = {"quant_matmul": "wi,wg M=4", "abfp_matmul": "wi,wg M=4",

@@ -1,5 +1,7 @@
 """Weights carried across: the reference package's parameter tree, as numpy
-arrays, becomes the port's tree of tensors.
+arrays, becomes the port's tree of tensors — and so do its PTQ artifacts:
+a static-scale q tree (``from_repro_qtree``) and a calibrator's running
+statistics (``from_repro_calibrator``).
 
 ``from_repro_params`` takes the reference's *unboxed* parameter tree after a
 host transfer (nested dicts of numpy arrays; the caller does the
@@ -19,7 +21,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.nn.module import require_device
 
 _LEAF = None
-_DENSE = {"kernel": _LEAF, "bias": _LEAF}
+_DENSE = {"kernel": _LEAF, "bias": _LEAF, "smooth": _LEAF}
 _NORM = {"scale": _LEAF, "bias": _LEAF}
 _BLOCK = {
     "ln1": _NORM, "ln2": _NORM, "ln1_post": _NORM, "ln2_post": _NORM,
@@ -95,4 +97,50 @@ def from_repro_params(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
     missing = sorted(need - set(out))
     if missing:
         raise KeyError(f"params lack {missing} required by {cfg.name}")
+    return out
+
+
+def from_repro_qtree(tree: dict, device="cuda") -> dict:
+    """The reference's static-scale q tree (``{"blocks": [{group: {leaf:
+    {"in_alpha": alpha}}}]}``, alphas as numpy after a host transfer) as the
+    port's: the same nesting, every alpha a float32 tensor on ``device``."""
+    device = require_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        return torch.from_numpy(
+            np.array(node, dtype=np.float32)).to(device)
+
+    return conv(tree)
+
+
+def from_repro_calibrator(calib, device="cuda"):
+    """A reference ``Calibrator`` (its ``stats`` hold numpy arrays and
+    Python floats) as the port's, every statistic a tensor on ``device``:
+    absmax a 0-d float32 tensor, the per-channel vectors and reservoir rows
+    float32, the X^T X outer products float64."""
+    from repro_torch.core.calibration import Calibrator, RunningStats
+
+    device = require_device(device)
+
+    def t(x, dtype):
+        return None if x is None else torch.from_numpy(
+            np.array(x, dtype=dtype)).to(device)
+
+    out = Calibrator(collect_outer=calib.collect_outer)
+    for site, st in calib.stats.items():
+        out.stats[site] = RunningStats(
+            absmax=t(st.absmax, np.float32),
+            ch_absmax=t(st.ch_absmax, np.float32),
+            ch_min=t(st.ch_min, np.float32),
+            ch_max=t(st.ch_max, np.float32),
+            count=int(st.count),
+            samples=[t(x, np.float32) for x in st.samples],
+            max_samples=st.max_samples,
+            collect_outer=st.collect_outer,
+            outer=t(st.outer, np.float64),
+        )
     return out

@@ -30,8 +30,11 @@ takes the ``compressed`` backend (the representation decides); otherwise
 ``policy.fused`` -> fused, ``policy.compute == 'int8'`` with an eligible
 int-ABFP policy -> int8, everything else -> ref.
 
-The calibration observer hook of the reference is left out until the PTQ
-slice of the port.
+Calibration taps in at ``qdq_activation``: while a ``Calibrator`` is
+active (``Calibrator.observing()``) every activation quantizer hands its
+input to the observer under its site name before QDQ.  The ``fused``
+backend QDQs inside its kernels and never reaches ``qdq_activation``, so it
+observes nothing — as in the reference.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core import abfp as abfp_mod
+from repro_torch.core.calibration import Calibrator
 from repro_torch.core.formats import IntFormat
 from repro_torch.core.policy import (Policy, QuantPolicy, TensorQuant,
                                      resolve_policy)
@@ -66,11 +70,15 @@ def qdq_activation(
 ) -> torch.Tensor:
     """Apply an activation quantizer along the contraction ``axis``.
 
-    ``alpha`` supplies the calibrated scale when ``tq.scaler == 'static'``.
-    ``site`` names the call for calibration observers (none are ported yet).
+    ``alpha`` supplies the calibrated scale when ``tq.scaler == 'static'``
+    (threaded from the q tree by the owning layer: a tensor on ``x``'s
+    device, so the static branch uploads nothing per call).
     """
     if tq is None:
         return x
+    calib = Calibrator.active()
+    if calib is not None and site:
+        calib.observe(site, x)
     if tq.scaler == "abfp":
         return abfp_mod.abfp_qdq(
             x, tq.fmt, axis=axis, n=tq.group, ste=tq.ste,

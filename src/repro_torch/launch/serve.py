@@ -8,11 +8,13 @@ attention through the dense flash-attention kernel); with ``--paged
 --compress --kv int8 --attn-backend compressed`` through
 ``PagedServeEngine``.  It reports throughput (and page accounting when
 paged) with the JSON keys of the reference launcher, and runs on the card
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given.  ``--recipe`` runs a PTQ recipe
+(``repro_torch.core.recipe``) over the random weights first, calibrating on
+synthetic prompts on the same device, as the reference launcher does.
 
 Flags of the reference launcher whose features are not ported yet
-(``--recipe``, ``--speculate``, ``--expert-cache``, ``--expert-precision
-auto``) exit with a message naming the ROADMAP item that will bring them.
+(``--speculate``, ``--expert-cache``, ``--expert-precision auto``) exit
+with a message naming the ROADMAP item that will bring them.
 There is no lint gate yet: the static analyzer is a late slice of the
 port, and the launcher says so.  Like the reference launcher it has no flag
 that sets ``fused`` on the policy, so its matmuls take the non-kernel
@@ -42,8 +44,12 @@ def main(argv=None) -> int:
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--policy", default=None,
-                    help="policy preset (default fp32)")
-    ap.add_argument("--recipe", default=None, help="not ported yet")
+                    help="policy preset (default fp32, or the --recipe's "
+                    "paired policy)")
+    ap.add_argument("--recipe", default=None,
+                    help="QuantRecipe name applied to the weights before "
+                    "serving (e.g. smoothquant+gptq); calibrates on "
+                    "synthetic prompts")
     ap.add_argument("--compress", action="store_true",
                     help="compressed-domain serving: store each kernel per "
                     "its resolved site rule (int codes + group scales; "
@@ -97,8 +103,6 @@ def main(argv=None) -> int:
                     "card; 'cpu' must be asked for)")
     args = ap.parse_args(argv)
 
-    if args.recipe:
-        raise _not_ported("--recipe", "PTQ methods")
     if args.speculate:
         raise _not_ported("--speculate", "Speculative + MoE serving")
     if args.expert_cache is not None or args.expert_precision != "flat":
@@ -106,7 +110,8 @@ def main(argv=None) -> int:
                           "Speculative + MoE serving")
 
     from repro_torch.configs import get_config
-    from repro_torch.core.policy import preset, with_attn_backend
+    from repro_torch.core.policy import (preset, replace_enabled,
+                                         with_attn_backend)
     from repro_torch.models import build_model
     from repro_torch.models.serving_transforms import weight_bytes_summary
     from repro_torch.nn.module import make_generator
@@ -116,7 +121,13 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    policy_name = args.policy or "fp32"
+    rec = None
+    if args.recipe:
+        from repro_torch.core.recipe import get_recipe
+
+        rec = get_recipe(args.recipe)
+    # an explicit --policy wins; otherwise the recipe's paired policy
+    policy_name = args.policy or (rec.policy_preset if rec else None) or "fp32"
     policy = preset(policy_name, n_layers=cfg.n_layers)
     if args.attn_backend != "auto":
         policy = with_attn_backend(policy, args.attn_backend)
@@ -125,6 +136,35 @@ def main(argv=None) -> int:
 
     model = build_model(cfg, device=args.device)
     params = model.init(make_generator(args.seed, args.device))
+    recipe_info = {}
+    if rec is not None:
+        from repro_torch.core.recipe import (apply_recipe,
+                                             quantizes_weights_offline)
+
+        crng = np.random.RandomState(args.seed + 1)
+        batches = [
+            {"tokens": crng.randint(0, cfg.vocab, (2, 32)).astype(np.int32)}
+            for _ in range(2)
+        ]
+        # observers only fire at quantized matmuls: calibrate under an
+        # enabled policy even when serving fp32
+        obs = policy if policy.enabled else preset("w4a8_mse")
+        res = apply_recipe(rec, model, params, batches, policy,
+                           calib_policy=obs)
+        params = res.params
+        if quantizes_weights_offline(rec):
+            # GPTQ left pre-quantized kernels: drop runtime weight QDQ
+            # (the prequant serving convention — re-quantization adds
+            # pure double-quantization noise)
+            policy = replace_enabled(policy, weight=None)
+        recipe_info = {"recipe": rec.name,
+                       "recipe_calibrations": res.n_calibrations}
+        if res.qtree is not None:
+            # the serving path has no static-q plumbing: static scalers
+            # fall back to dynamic-max at prefill/decode
+            print(f"note: recipe {rec.name!r} produced a static q tree; "
+                  "serving ignores it (dynamic-max fallback)",
+                  file=sys.stderr)
     if args.paged:
         engine = PagedServeEngine(
             model, params, n_slots=args.n_slots, max_len=args.max_len,
@@ -193,6 +233,7 @@ def main(argv=None) -> int:
                 "wall_s": round(dt, 3),
                 "tokens_per_s": round(total_tokens / dt, 1),
                 "completions": completions,
+                **recipe_info,
                 **compress_info,
                 "attention": {"backend": engine.attn_backend,
                               "engine": "paged" if args.paged else "fixed"},

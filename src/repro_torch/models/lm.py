@@ -4,7 +4,9 @@ threaded through every matmul.
 Ported so far, for the dense attention family: parameter init, the
 embedding front, the LM head, full-sequence ``apply``, ``prefill`` into
 ring-buffer caches, the fixed-slot ``decode_step``, and the paged serving
-step (``init_paged_state`` / ``paged_step``).  Layers are always a Python
+step (``init_paged_state`` / ``paged_step``), and the next-token losses
+(``cross_entropy``, ``chunked_lm_loss``).  Every forward takes the
+static-scale q tree (``q=``) of the PTQ passes.  Layers are always a Python
 list of per-layer dicts with sites ``blocks.{i}/...`` — there is no scan —
 so layer-indexed PolicyMap rules always resolve.  ``chunk_step`` (the
 speculative verify pass) and the MoE/SSM blocks wait for their slices.
@@ -183,30 +185,37 @@ class TransformerLM:
         return logits
 
     # --------------------------------------------------------------- blocks
-    def _block_apply(self, bparams, x, policy, name: str, attend):
-        """One decoder block.  ``attend(attn, attn_params, h)`` runs the
-        attention half — full sequence, ring-buffer decode or paged — and
-        returns its output; the rest of the block is the same for all."""
+    def _block_apply(self, bparams, x, policy, name: str, attend, q=None):
+        """One decoder block.  ``attend(attn, attn_params, h, q_attn)`` runs
+        the attention half — full sequence, ring-buffer decode or paged —
+        and returns its output; the rest of the block is the same for all.
+        ``q``: this block's slice of the static-scale q tree, or None."""
         c = self.cfg
+        getq = (lambda k: None) if q is None else q.get
         h = _norm(c).apply(bparams["ln1"], x)
-        h = attend(self._attention(f"{name}/attn"), bparams["attn"], h)
+        h = attend(self._attention(f"{name}/attn"), bparams["attn"], h,
+                   getq("attn"))
         if c.post_norms:
             h = _norm(c).apply(bparams["ln1_post"], h)
         x = x + h
         h = _norm(c).apply(bparams["ln2"], x)
-        h = self._mlp(f"{name}/ffn").apply(bparams["ffn"], h, policy)
+        h = self._mlp(f"{name}/ffn").apply(bparams["ffn"], h, policy,
+                                           q=getq("ffn"))
         if c.post_norms:
             h = _norm(c).apply(bparams["ln2_post"], h)
         return x + h
 
-    def _run_blocks(self, params, x, policy, attend):
-        """Every block in order; ``attend(i, window, attn, attn_params, h)``
-        as in ``_block_apply`` with the layer index and window."""
+    def _run_blocks(self, params, x, policy, attend, q=None):
+        """Every block in order; ``attend(i, window, attn, attn_params, h,
+        q_attn)`` as in ``_block_apply`` with the layer index and window.
+        ``q``: the static-scale q tree ``{"blocks": [per-layer dict]}``."""
         wl = self.layer_windows_py()
         for i, bp in enumerate(params["blocks"]):
+            qi = None if q is None else q["blocks"][i]
             x = self._block_apply(
                 bp, x, policy, f"blocks.{i}",
-                lambda attn, ap, h, i=i: attend(i, int(wl[i]), attn, ap, h))
+                lambda attn, ap, h, qa, i=i: attend(i, int(wl[i]), attn, ap,
+                                                    h, qa), q=qi)
         return x
 
     def _last_valid(self, x, n_valid):
@@ -216,14 +225,16 @@ class TransformerLM:
         return torch.gather(x, 1, sel.expand(B, 1, x.shape[-1]))
 
     # ---------------------------------------------------------------- apply
-    def apply(self, params, tokens, *, policy=QuantPolicy(),
+    def apply(self, params, tokens, *, policy=QuantPolicy(), q=None,
               return_hidden: bool = False):
-        """Full-sequence forward: (logits (B, S, vocab_padded), aux loss)."""
+        """Full-sequence forward: (logits (B, S, vocab_padded), aux loss).
+        ``q``: static-scale q tree (calibrated activation alphas)."""
         x, positions = self._embed_in(params, tokens)
         x = self._run_blocks(
             params, x, policy,
-            lambda i, w, attn, ap, h: attn.apply(
-                ap, h, positions=positions, policy=policy, window=w))
+            lambda i, w, attn, ap, h, qa: attn.apply(
+                ap, h, positions=positions, policy=policy, window=w, q=qa),
+            q)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         x = _norm(self.cfg).apply(params["final_norm"], x)
         if return_hidden:
@@ -259,7 +270,7 @@ class TransformerLM:
             else min(max_len, eff_window)
         caches = []
 
-        def attend(i, w, attn, ap, h):
+        def attend(i, w, attn, ap, h, qa):
             h, (kf, vf) = attn.apply(ap, h, positions=positions,
                                      policy=policy, window=w,
                                      return_kv=True, n_valid=n_valid)
@@ -300,20 +311,20 @@ class TransformerLM:
 
     @torch.no_grad()
     def decode_step(self, params, token, state: DecodeState, *,
-                    policy=QuantPolicy()):
+                    policy=QuantPolicy(), q=None):
         """token: (B, 1) -> (logits (B, vocab_padded), new state).  The ring
         caches are updated in place; ``position`` advances by one."""
         pos = state.position
         x, _ = self._embed_in(params, token, pos_offset=pos)
         caches = []
 
-        def attend(i, w, attn, ap, h):
+        def attend(i, w, attn, ap, h, qa):
             h, cache = attn.decode_step(ap, h, state.kv[i], position=pos,
-                                        policy=policy, window=w)
+                                        policy=policy, window=w, q=qa)
             caches.append(cache)
             return h
 
-        x = self._run_blocks(params, x, policy, attend)
+        x = self._run_blocks(params, x, policy, attend, q)
         new_state = DecodeState(kv=caches, ssm=None, position=pos + 1)
         x = _norm(self.cfg).apply(params["final_norm"], x)
         logits = self.head_logits(params, x, policy)
@@ -346,7 +357,8 @@ class TransformerLM:
 
     @torch.no_grad()
     def paged_step(self, params, tokens, state: DecodeState, *,
-                   n_valid, policy=QuantPolicy(), all_logits: bool = False):
+                   n_valid, policy=QuantPolicy(), q=None,
+                   all_logits: bool = False):
         """One paged serving step over a (B, S) token chunk.
 
         S = 1 is a decode tick over every slot; S = chunk is one chunked-
@@ -370,14 +382,14 @@ class TransformerLM:
         x, _ = self._embed_in(params, tokens, pos_offset=pos)
         caches = []
 
-        def attend(i, w, attn, ap, h):
+        def attend(i, w, attn, ap, h, qa):
             h, cache = attn.paged_step(
                 ap, h, state.pages.cache[i], page_table=table, position=pos,
-                n_valid=n_valid, policy=policy, window=w)
+                n_valid=n_valid, policy=policy, window=w, q=qa)
             caches.append(cache)
             return h
 
-        x = self._run_blocks(params, x, policy, attend)
+        x = self._run_blocks(params, x, policy, attend, q)
         new_state = DecodeState(
             kv=None, ssm=None, position=pos + n_valid,
             pages=PagedState(cache=caches, table=table),
@@ -401,3 +413,37 @@ def _sinusoid_at(positions: torch.Tensor, d: int) -> torch.Tensor:
     out[..., 0::2] = torch.sin(angle)
     out[..., 1::2] = torch.cos(angle)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def _nll_sum(logits, labels):
+    """(summed NLL over the labels >= 0, their count)."""
+    mask = labels >= 0
+    lab = torch.clamp_min(labels, 0).long()
+    lf = logits.to(torch.float32)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, lab[..., None])[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits, labels, vocab: int):
+    """Mean CE over tokens; labels == -1 are masked."""
+    nll, cnt = _nll_sum(logits, labels)
+    return nll / torch.clamp_min(cnt, 1)
+
+
+def chunked_lm_loss(model: TransformerLM, params, hidden, labels, policy,
+                    chunk: int):
+    """CE over seq chunks so (S, vocab) logits never materialize."""
+    B, S, D = hidden.shape
+    chunk = min(chunk, S)
+    assert S % chunk == 0
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        logits = model.head_logits(params, hidden[:, c0:c0 + chunk], policy)
+        n, k = _nll_sum(logits, labels[:, c0:c0 + chunk])
+        nll, cnt = nll + n, cnt + k
+    return nll / torch.clamp_min(cnt, 1)

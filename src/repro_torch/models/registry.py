@@ -2,7 +2,8 @@
 
     model = build_model(cfg, device="cuda")
     params = model.init(gen)                     # nested dict of tensors
-    logits, aux = model.apply(params, batch, policy)
+    logits, aux = model.apply(params, batch, policy, q)
+    loss, metrics = model.loss(params, batch, policy, q)
     logits, state = model.prefill(params, batch, policy, max_len, n_valid)
     logits, state = model.decode_step(params, token, state, policy)
     state = model.init_paged_state(n_slots, ...)
@@ -21,7 +22,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import QuantPolicy
-from repro_torch.models.lm import TransformerLM
+from repro_torch.models.lm import (TransformerLM, chunked_lm_loss,
+                                   cross_entropy)
 from repro_torch.nn.module import require_device
 
 
@@ -38,14 +40,34 @@ class Model:
     def is_moe(self) -> bool:
         return False
 
-    def apply(self, params, batch, policy=QuantPolicy(),
+    def _tokens(self, batch):
+        """``batch["tokens"]`` as an int tensor on the model's device (the
+        PTQ drivers hand numpy batches in)."""
+        return torch.as_tensor(batch["tokens"], device=self.device)
+
+    def apply(self, params, batch, policy=QuantPolicy(), q=None,
               return_hidden: bool = False):
-        return self.inner.apply(params, batch["tokens"], policy=policy,
-                                return_hidden=return_hidden)
+        return self.inner.apply(params, self._tokens(batch), policy=policy,
+                                q=q, return_hidden=return_hidden)
+
+    def loss(self, params, batch, policy=QuantPolicy(), q=None):
+        """Next-token CE (+ 0.01 aux, zero for the dense family).  Labels:
+        ``batch['labels']``, -1 masked."""
+        c = self.cfg
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        if c.logits_chunk > 0:
+            hidden, aux = self.apply(params, batch, policy, q,
+                                     return_hidden=True)
+            ce = chunked_lm_loss(self.inner, params, hidden, labels, policy,
+                                 c.logits_chunk)
+        else:
+            logits, aux = self.apply(params, batch, policy, q)
+            ce = cross_entropy(logits, labels, c.vocab)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params, batch, policy=QuantPolicy(),
                 max_len: int | None = None, n_valid=None):
-        return self.inner.prefill(params, batch["tokens"], policy=policy,
+        return self.inner.prefill(params, self._tokens(batch), policy=policy,
                                   max_len=max_len, n_valid=n_valid)
 
     def init_decode_state(self, batch: int, max_len: int, **kw):

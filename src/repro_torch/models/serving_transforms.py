@@ -1,9 +1,11 @@
-"""Serving-mode weight transforms: compressed weight storage.
+"""Serving-mode weight transforms: prequantized and compressed weights.
 
 The paper's simulator QDQs weights *inside every forward pass* — right for
 QAT/research, but at serving time weights are frozen, so
 ``compress_weights`` stores kernels as int CODES + per-group unit scales
-(the paper's storage story made real).  The ``compressed`` execution
+(the paper's storage story made real), and ``prequantize_weights`` QDQs
+them offline once (dense, exactly what the runtime QDQ would produce).
+The ``compressed`` execution
 backend (``core.simulate``) contracts the codes directly — integer group
 sums, per-group rescale — so device memory never sees a dequantized
 kernel.  INT4 codes pack two-per-byte, so resident weight bytes track the
@@ -144,6 +146,24 @@ def serving_policy(policy: Policy) -> Policy:
         rules = (PolicyRule("embed/attend", keep),) + rules
     return PolicyMap(name=pm.name + "_served", rules=rules,
                      default=drop_weight(pm.default))
+
+
+def prequantize_weights(params, policy: Policy):
+    """QDQ every kernel offline per its site's resolved weight rule.
+
+    fp32-rule sites are left untouched; all scalers ``qdq_weight`` supports
+    (abfp / channel_max / dynamic_max) round-trip exactly at serving time.
+    Layers are always a list of per-layer dicts here, so every kernel
+    resolves at its own site (the reference's stacked-layout check has
+    nothing to reject).
+    """
+    def one(site, w):
+        tq = _site_weight(policy, site)
+        if tq is None or isinstance(w, CompressedKernel):
+            return w
+        return qdq_weight(w, tq, contract_axis=w.ndim - 2).to(w.dtype)
+
+    return _walk_kernels(params, one)
 
 
 # ---------------------------------------------------------------------------

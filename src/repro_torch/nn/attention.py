@@ -117,6 +117,11 @@ def _kv_quantize(x4: torch.Tensor):
     return codes, scale
 
 
+def _static_alpha(q: dict | None, key: str):
+    """The calibrated ``in_alpha`` of one BMM operand in a q-tree slice."""
+    return None if q is None else (q.get(key) or {}).get("in_alpha")
+
+
 def _kv_dequantize(codes_flat, scale, n_kv: int, head_dim: int, dtype):
     """int8 flat codes + (…, n_kv) scales -> (…, n_kv, D) values."""
     c4 = codes_flat.reshape(*codes_flat.shape[:-1], n_kv, head_dim)
@@ -165,14 +170,14 @@ class Attention:
             name=f"{self.name}/{which}",
         )
 
-    def _project_qkv(self, params, x, positions, policy):
+    def _project_qkv(self, params, x, positions, policy, q=None):
         B, S, _ = x.shape
         qh = self._dense("q", self.n_heads * self.head_dim).apply(
-            params["q"], x, policy)
+            params["q"], x, policy, q=None if q is None else q.get("q"))
         kh = self._dense("k", self.n_kv * self.head_dim).apply(
-            params["k"], x, policy)
+            params["k"], x, policy, q=None if q is None else q.get("k"))
         vh = self._dense("v", self.n_kv * self.head_dim).apply(
-            params["v"], x, policy)
+            params["v"], x, policy, q=None if q is None else q.get("v"))
         qh = qh.reshape(B, S, self.n_heads, self.head_dim)
         kh = kh.reshape(B, S, self.n_kv, self.head_dim)
         vh = vh.reshape(B, S, self.n_kv, self.head_dim)
@@ -189,9 +194,10 @@ class Attention:
         )
 
     def _maybe_quant_qkv(self, policy: Policy, qh, kh, vh,
-                         skip_kv: bool = False):
+                         q: dict | None = None, skip_kv: bool = False):
         """QDQ attention-BMM operands along their contraction dims:
         q,k along head_dim (QK^T); v along its seq axis (probs@V).
+        ``q``: optional static alphas {'bmm_q': {'in_alpha': ...}, ...}.
         ``skip_kv``: cache entries were quantized at write time — only q
         needs QDQ here.  BMM operands resolve the policy at the block site
         (``self.name``)."""
@@ -199,10 +205,13 @@ class Attention:
         if not (policy.enabled and policy.attn_bmm and policy.input):
             return qh, kh, vh
         tq = policy.input
-        qh = qdq_activation(qh, tq, axis=-1, site=self.name + "/bmm_q")
+        qh = qdq_activation(qh, tq, axis=-1, site=self.name + "/bmm_q",
+                            alpha=_static_alpha(q, "bmm_q"))
         if not skip_kv:
-            kh = qdq_activation(kh, tq, axis=-1, site=self.name + "/bmm_k")
-            vh = qdq_activation(vh, tq, axis=1, site=self.name + "/bmm_v")
+            kh = qdq_activation(kh, tq, axis=-1, site=self.name + "/bmm_k",
+                                alpha=_static_alpha(q, "bmm_k"))
+            vh = qdq_activation(vh, tq, axis=1, site=self.name + "/bmm_v",
+                                alpha=_static_alpha(q, "bmm_v"))
         return qh, kh, vh
 
     # ------------------------------------------- attention-backend dispatch
@@ -228,13 +237,14 @@ class Attention:
                 and isinstance(tq.fmt, IntFormat)
                 and tq.scale_dtype == "bfloat16")
 
-    def _quant_q(self, pol, qh):
+    def _quant_q(self, pol, qh, q=None):
         """The q-operand half of ``_maybe_quant_qkv`` (kernel callers QDQ
         q outside the kernel; K/V arrive pre-quantized as cache codes)."""
         tq = self._attn_probs_tq(pol)
         if tq is None:
             return qh
-        return qdq_activation(qh, tq, axis=-1, site=self.name + "/bmm_q")
+        return qdq_activation(qh, tq, axis=-1, site=self.name + "/bmm_q",
+                              alpha=_static_alpha(q, "bmm_q"))
 
     def _use_compressed(self, pol, *, mode: str, where: str) -> bool:
         """Decode-path dispatch: contract cache codes in-kernel?
@@ -252,11 +262,11 @@ class Attention:
 
     # -------------------------------------------------- reference attention
     def _reference(self, qh, kh, vh, q_pos, kv_pos, window, policy,
-                   kv_prequant: bool = False):
+                   q=None, kv_prequant: bool = False):
         policy = resolve_policy(policy, self.name)
         G = self.n_heads // self.n_kv
         B, S, H, D = qh.shape
-        qh, kh, vh = self._maybe_quant_qkv(policy, qh, kh, vh,
+        qh, kh, vh = self._maybe_quant_qkv(policy, qh, kh, vh, q,
                                            skip_kv=kv_prequant)
         qg = qh.reshape(B, S, self.n_kv, G, D)
         torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
@@ -271,7 +281,8 @@ class Attention:
         probs = e / e.sum(dim=-1, keepdim=True)
         if policy.enabled and policy.attn_bmm and policy.input is not None:
             probs = qdq_activation(probs, policy.input, axis=-1,
-                                   site=self.name + "/probs")
+                                   site=self.name + "/probs",
+                                   alpha=_static_alpha(q, "probs"))
         out = torch.einsum("bkgst,btkd->bskgd", probs.to(vh.dtype), vh)
         return out.reshape(B, S, H, D).to(getattr(torch, self.dtype))
 
@@ -286,7 +297,8 @@ class Attention:
         return m & (kp > qp - window)
 
     # -------------------------------------------------- blockwise attention
-    def _blockwise(self, qh, kh, vh, q_pos, kv_pos, window, policy):
+    def _blockwise(self, qh, kh, vh, q_pos, kv_pos, window, policy,
+                   q=None):
         """Running-softmax loop over KV blocks (the reference's recurrence,
         with its finite ``NEG_INF`` and no masked-row guard); the (S, T)
         score matrix never exists whole."""
@@ -300,8 +312,9 @@ class Attention:
         KV = self.n_kv
         G = self.n_heads // KV
         scale = self._scale()
-        qh, kh, vh = self._maybe_quant_qkv(policy, qh, kh, vh)
+        qh, kh, vh = self._maybe_quant_qkv(policy, qh, kh, vh, q)
         tq = policy.input if (policy.enabled and policy.attn_bmm) else None
+        palpha = _static_alpha(q, "probs")
         torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
         qs = qh.reshape(B, nq, qb, KV, G, D)
         qp = q_pos.reshape(B, nq, qb)
@@ -331,7 +344,8 @@ class Attention:
                 p = torch.exp(s - m_new[..., None])
                 if tq is not None:
                     p = qdq_activation(p, tq, axis=-1,
-                                       site=self.name + "/probs")
+                                       site=self.name + "/probs",
+                                       alpha=palpha)
                 corr = torch.exp(m_run - m_new)
                 l_run = l_run * corr + p.sum(dim=-1)
                 pv = torch.einsum("bkgst,btkd->bkgsd", p.to(vc.dtype), vc)
@@ -351,6 +365,7 @@ class Attention:
         positions: torch.Tensor,
         policy: Policy,
         window: int | None = None,
+        q: dict | None = None,
         kv_override: tuple | None = None,  # (k, v, kv_positions) for cross
         return_kv: bool = False,
         n_valid: torch.Tensor | None = None,  # (B,) valid prefix lengths
@@ -373,7 +388,7 @@ class Attention:
         """
         pol = resolve_policy(policy, self.name)
         B, S, _ = x.shape
-        qh, kh, vh = self._project_qkv(params, x, positions, policy)
+        qh, kh, vh = self._project_qkv(params, x, positions, policy, q)
         if n_valid is not None:
             steps = torch.arange(S, dtype=torch.int32, device=x.device)
             keep = (steps[None, :] < n_valid[:, None])[..., None, None]
@@ -413,10 +428,11 @@ class Attention:
             )
         else:
             fn = self._blockwise if use_block else self._reference
-            out = fn(qh, kh, vh, positions, kv_pos, window, policy)
+            out = fn(qh, kh, vh, positions, kv_pos, window, policy, q=q)
         y = self._dense("o", self.d_model,
                         self.n_heads * self.head_dim).apply(
-            params["o"], out.reshape(B, S, -1), policy)
+            params["o"], out.reshape(B, S, -1), policy,
+            q=None if q is None else q.get("o"))
         if return_kv:
             return y, (kh.reshape(B, T, -1), vh.reshape(B, T, -1))
         return y
@@ -496,6 +512,7 @@ class Attention:
         position,  # int32 scalar (aligned) or (B,) per-slot
         policy: Policy,
         window: int | None = None,
+        q: dict | None = None,
     ) -> tuple[torch.Tensor, KVCache]:
         """One token per row against the ring buffer: write this token's
         K/V (in place) at ``position % size``, then attend over the slots
@@ -505,7 +522,8 @@ class Attention:
         dev = x.device
         position = torch.as_tensor(position, dtype=torch.int32, device=dev)
         pos_vec = torch.broadcast_to(torch.atleast_1d(position), (B,))
-        qh, kh, vh = self._project_qkv(params, x, pos_vec[:, None], policy)
+        qh, kh, vh = self._project_qkv(params, x, pos_vec[:, None], policy,
+                                       q)
         int8_cache = cache.k_scale is not None
         kv_on_write = (pol.enabled and pol.attn_bmm
                        and pol.input is not None
@@ -553,7 +571,7 @@ class Attention:
                                 where="the ring-buffer cache"):
             # codes go straight to the kernel: reads stay 1 byte/element
             out = attn_backends()["compressed"].fn(
-                self._quant_q(pol, qh),
+                self._quant_q(pol, qh, q),
                 cache.k.reshape(B, size, self.n_kv, self.head_dim),
                 cache.v.reshape(B, size, self.n_kv, self.head_dim),
                 cache.k_scale, cache.v_scale, qp, kp, window,
@@ -569,11 +587,12 @@ class Attention:
             else:
                 kv = cache.k.reshape(B, size, self.n_kv, self.head_dim)
                 vv = cache.v.reshape(B, size, self.n_kv, self.head_dim)
-            out = self._reference(qh, kv, vv, qp, kp, window, policy,
+            out = self._reference(qh, kv, vv, qp, kp, window, policy, q=q,
                                   kv_prequant=kv_on_write or int8_cache)
         y = self._dense("o", self.d_model,
                         self.n_heads * self.head_dim).apply(
-            params["o"], out.reshape(B, 1, -1), policy)
+            params["o"], out.reshape(B, 1, -1), policy,
+            q=None if q is None else q.get("o"))
         return y, cache
 
     # ------------------------------------------------------- paged decoding
@@ -697,6 +716,7 @@ class Attention:
         n_valid: torch.Tensor,  # (B,) valid tokens in x (0 masks the row)
         policy: Policy,
         window: int | None = None,
+        q: dict | None = None,
     ) -> tuple[torch.Tensor, PagedKVCache]:
         """Unified paged write-then-attend over a token chunk.
 
@@ -721,7 +741,7 @@ class Attention:
         n_valid = n_valid.to(torch.int32)
         steps = torch.arange(S, dtype=torch.int32, device=dev)[None]
         positions = position[:, None] + steps
-        qh, kh, vh = self._project_qkv(params, x, positions, policy)
+        qh, kh, vh = self._project_qkv(params, x, positions, policy, q)
         keep = steps < n_valid[:, None]
         kh = kh * keep[..., None, None].to(kh.dtype)
         vh = vh * keep[..., None, None].to(vh.dtype)
@@ -766,7 +786,7 @@ class Attention:
             sk = cache.k_scale[phys_tab].repeat_interleave(ps, dim=1)
             sv = cache.v_scale[phys_tab].repeat_interleave(ps, dim=1)
             out = attn_backends()["compressed"].fn(
-                self._quant_q(pol, qh), gk, gv, sk, sv,
+                self._quant_q(pol, qh, q), gk, gv, sk, sv,
                 positions, kv_pos, window,
                 scale=self._scale(), causal=self.causal,
                 probs_tq=self._attn_probs_tq(pol),
@@ -787,9 +807,10 @@ class Attention:
             gk = gk * valid[..., None, None].to(gk.dtype)
             gv = gv * valid[..., None, None].to(gv.dtype)
             out = self._reference(qh, gk, gv, positions, kv_pos, window,
-                                  policy,
+                                  policy, q=q,
                                   kv_prequant=kv_on_write or mode != "fp")
         y = self._dense("o", self.d_model,
                         self.n_heads * self.head_dim).apply(
-            params["o"], out.reshape(B, S, -1), policy)
+            params["o"], out.reshape(B, S, -1), policy,
+            q=None if q is None else q.get("o"))
         return y, cache

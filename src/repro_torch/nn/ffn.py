@@ -50,12 +50,13 @@ class MLP:
             p["wg"] = self._wi().init(gen, device)
         return p
 
-    def apply(self, params: dict, x: torch.Tensor,
-              policy: Policy) -> torch.Tensor:
-        h = self._wi().apply(params["wi"], x, policy)
+    def apply(self, params: dict, x: torch.Tensor, policy: Policy,
+              q: dict | None = None) -> torch.Tensor:
+        getq = (lambda k: None) if q is None else q.get
+        h = self._wi().apply(params["wi"], x, policy, q=getq("wi"))
         if self.gated:
-            g = self._wi().apply(params["wg"], x, policy)
+            g = self._wi().apply(params["wg"], x, policy, q=getq("wg"))
             h = _ACTS[GATED[self.act]](g) * h
         else:
             h = _ACTS[self.act](h)
-        return self._wo().apply(params["wo"], h, policy)
+        return self._wo().apply(params["wo"], h, policy, q=getq("wo"))

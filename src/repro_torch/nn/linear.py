@@ -3,6 +3,10 @@
 Kernels are stored flat (K, N) — multi-dim heads are reshaped by callers —
 so the quant simulator and the kernels all see one canonical contraction
 layout.
+
+Supports the SmoothQuant folded form: if params carry a 'smooth' vector the
+input is divided by it (the kernel has been pre-multiplied), eqns in
+core/smoothquant.py.
 """
 
 from __future__ import annotations
@@ -37,15 +41,20 @@ class Dense:
             p["bias"] = torch.zeros((self.out_dim,), dtype=pdt, device=device)
         return p
 
-    def apply(self, params: dict, x: torch.Tensor,
-              policy: Policy) -> torch.Tensor:
-        """``policy`` may be a site-addressed PolicyMap — qmatmul resolves
+    def apply(self, params: dict, x: torch.Tensor, policy: Policy, *,
+              q: dict | None = None) -> torch.Tensor:
+        """q: optional quant-state slice {'in_alpha': ...} for static scales.
+
+        ``policy`` may be a site-addressed PolicyMap — qmatmul resolves
         it against this layer's site address (``self.name``).  The kernel
         may be dense or a ``CompressedKernel`` (int codes + group scales):
         qmatmul's execution-backend dispatch consumes the codes directly."""
         dt = getattr(torch, self.dtype)
+        if "smooth" in params:  # SmoothQuant runtime-divide form
+            x = x / params["smooth"].to(x.dtype)
+        in_alpha = None if q is None else q.get("in_alpha")
         y = qmatmul(x, params["kernel"], policy, site=self.name,
-                    compute_dtype=dt)
+                    in_alpha=in_alpha, compute_dtype=dt)
         y = y.to(dt)
         if self.use_bias:
             y = y + params["bias"].to(y.dtype)
