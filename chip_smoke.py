@@ -103,6 +103,21 @@ Phases (each fatal on failure):
             QDQ); GPTQ and mse_alpha on the card held
             to the same code on the CPU (ties counted); the launcher's
             ``--recipe sq_gptq_w4a8`` serving a few requests
+  vit       vit-b16 (and deit-s16) at full width and depth, random weights,
+            224 x 224 synthetic images: the encoder's kernels held to their
+            plain versions and timed at its shapes (both dense matmuls at
+            M = 197 x 64 and the head at M = 64 and 16, flash_mma_kernel
+            non-causal at S = T = 197 beside SDPA); the vision table's five
+            policies through the QDQ-sim; fused P-fp (w4a4_abfp, w4a8_abfp,
+            w4a4_e2m1) and P-int8 forwards of 64 images held to the ref
+            backend (logit gap within GAP_FACTOR times a last-bit control,
+            apart from fp32 with no QDQ), 74 dense matmuls and 12
+            flash_mma_kernel a forward asserted from the counts and the
+            profiler, the head of a 16-image forward in the decode regime;
+            wall ms, images/s, device busy ms and idle share of a forward;
+            PTQ over the encoder (a w4a8_mse calibration, static_mse at
+            w4a4_mse, smoothquant+gptq+static_mse): seconds, Hessian bytes,
+            dropped sites, peak memory
 
 The last lines of standard output are: one JSON object {"kernels": [...]},
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -128,7 +143,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 
-PHASES = ("kernels", "serve", "long", "fixed", "reduced", "identity", "ptq")
+PHASES = ("kernels", "serve", "long", "fixed", "reduced", "identity", "ptq",
+          "vit")
 
 # every kernel: (wrapper module, TPU kernel it replaces)
 KERNELS = {
@@ -1431,6 +1447,11 @@ def phase_dense_kernels(torch, timer, gen) -> dict:
                 label="suffix S=20 T=100 q_offset=80", timed=False)
     check_flash(torch, timer, gen, B=2, S=50, T=70, causal=False,
                 label="non-causal B=2 S=50 T=70", timed=False)
+    # the vision encoder's call: three 64-key tiles and a ragged fourth of
+    # 5 keys, every row walks them all
+    check_flash(torch, timer, gen, B=2, S=197, T=197, H=12, KV=12, D=64,
+                causal=False, label="vit non-causal B=2 S=T=197 H=KV=12 "
+                "D=64", timed=False)
     check_flash(torch, timer, gen, S=16, T=16, H=4, KV=2, D=16,
                 label="reduced S=T=16 H=4 KV=2 D=16", timed=False)
     # a head dimension off the 16-byte copies (4-byte copies, D padded to
@@ -2088,21 +2109,35 @@ def profile_decode(torch, cfg, eng, seed: int, step_ms: float,
     return out
 
 
+def lead_spins(torch, n: int = 64) -> None:
+    """``n`` one-cycle spin kernels: late in a whole run of this script the
+    profiler has dropped the first launches of a capture (on an H100: the
+    first 12 of a 614-launch ViT forward, in two captures in a row), so a
+    capture that must read every launch starts with these (``spin_kernel``,
+    no role's name)."""
+    for _ in range(n):
+        torch.cuda._sleep(1)
+
+
 def profile_steps(torch, step, n_steps: int, step_ms: float,
-                  kind: str = "decode", watch: tuple = ()) -> dict:
+                  kind: str = "decode", watch: tuple = (),
+                  lead: bool = False) -> dict:
     """``n_steps`` calls of ``step`` (a ``kind`` step) under
     ``torch.profiler``: operator calls, device busy time and kernel
     launches per step, the device's idle share against ``step_ms`` (a
     step's wall time measured WITHOUT the profiler, whose own cost
     stretches the host side), top kernels, and the device ms and
     launches per step of each kernel whose name holds a ``watch`` entry
-    (0 where none ran)."""
+    (0 where none ran).  ``lead``: ``lead_spins`` first, left out of
+    every figure."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if lead:
+            lead_spins(torch)
         for _ in range(n_steps):
             step()
         torch.cuda.synchronize()
@@ -2115,7 +2150,9 @@ def profile_steps(torch, step, n_steps: int, step_ms: float,
                    e.self_device_time_total / 1e3, e.count)
                   for e in events
                   if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0), key=lambda d: -d[1])
+                  and e.self_device_time_total > 0
+                  and not (lead and "spin_kernel" in e.key)),
+                 key=lambda d: -d[1])
     busy_ms = sum(d[1] for d in dev) / n_steps
     out = {f"{kind}_steps_profiled": n_steps,
            "aten_ops_per_step": sum(
@@ -2152,10 +2189,10 @@ def profile_steps(torch, step, n_steps: int, step_ms: float,
 FIXED_PATHS = {"p_int8": "abfp_matmul_int8", "p_fp": "abfp_matmul"}
 
 
-def fixed_policy(kind: str, n: int = 64):
-    """P-int8: w4a8_int8_native; P-fp: w4a8_abfp without attention-BMM
-    QDQ; both with ``fused`` on every entry and the ``fused`` attention
-    backend.  'compress': w4a8_abfp with an int8 ring cache, ``fused`` and
+def fixed_policy(kind: str, n: int = 64, base: str = "w4a8_abfp"):
+    """P-int8: w4a8_int8_native; P-fp: ``base`` (w4a8_abfp) without
+    attention-BMM QDQ; both with ``fused`` on every entry and the ``fused``
+    attention backend.  'compress': w4a8_abfp with an int8 ring cache, ``fused`` and
     the ``compressed`` attention backend (served with compressed weights)."""
     from repro_torch.core.policy import (map_policies, preset,
                                          with_attn_backend, with_kv_cache)
@@ -2167,7 +2204,7 @@ def fixed_policy(kind: str, n: int = 64):
     if kind == "p_int8":
         pol = preset("w4a8_int8_native", n=n)
     else:
-        pol = map_policies(preset("w4a8_abfp", n=n),
+        pol = map_policies(preset(base, n=n),
                            lambda q: q.replace(attn_bmm=False))
     return with_attn_backend(fused(pol), "fused")
 
@@ -2894,8 +2931,7 @@ def phase_ptq(torch, seed: int, smi: str) -> dict:
     import io
 
     from repro_torch.configs import get_config
-    from repro_torch.core.policy import (map_policies, preset,
-                                         replace_enabled, with_attn_backend)
+    from repro_torch.core.policy import preset, replace_enabled
     from repro_torch.core.recipe import apply_recipe, quantizes_weights_offline
     from repro_torch.launch import serve as tserve
     from repro_torch.models import build_model
@@ -2957,8 +2993,7 @@ def phase_ptq(torch, seed: int, smi: str) -> dict:
     fused = {}
     for kind in FIXED_PATHS:
         kp = fixed_policy(kind)
-        rp = with_attn_backend(map_policies(
-            kp, lambda q: q.replace(fused=False, compute="fp")), "ref")
+        rp = ref_backend(kp)
         lk, ms_k = ptq_eval(torch, model, params, evals, kp)
         lr, ms_r = ptq_eval(torch, model, params, evals, rp)
         # one held-out batch's logits against the ref backend's, in units
@@ -3069,6 +3104,515 @@ def phase_ptq(torch, seed: int, smi: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase: vit
+# --------------------------------------------------------------------------
+VIT_BATCH = 64  # the reference's evaluation batch (benchmarks/common.py)
+VIT_SMALL = 16  # its calibration batch: the head (M = 16) takes the decode
+VIT_CALIB = 4   # calibration batches of VIT_SMALL images
+# the vision table's QDQ-sim policies (benchmarks/tables.py vit_table)
+VIT_SIM = ("fp32", "w4a4_abfp", "w4a8_abfp", "w4a4_e2m1", "w4a4_e1m2")
+# the fused runs: (label, path, the vision policy it runs)
+VIT_FUSED = (("p_fp w4a4_abfp", "p_fp", "w4a4_abfp"),
+             ("p_fp w4a8_abfp", "p_fp", "w4a8_abfp"),
+             ("p_fp w4a4_e2m1", "p_fp", "w4a4_e2m1"),
+             ("p_int8", "p_int8", "w4a8_int8_native"))
+# (label, K, N) of ViT-B/16's dense matmuls; the patch projection's K is
+# 16 x 16 x 3 = 768, its N d_model; the head's N 1000 classes padded to 1024
+VIT_MATMULS = (("q,k,v,o,patch", 768, 768), ("wi", 768, 3072),
+               ("wo", 3072, 768))
+VIT_HEAD_N = 1024
+VIT_PTQ = (("static_mse", 0), ("smoothquant+gptq+static_mse", 2))
+VIT_DROPPED = ("head/in", "patch_embed/in")
+
+
+def vit_dense(cfg) -> int:
+    """Dense matmuls of one encoder forward: the patch projection, q, k, v,
+    o, wi and wo a layer, and the head."""
+    return 6 * cfg.n_layers + 2
+
+
+def ref_backend(policy):
+    """The same policy through the plain paths: the ref matmul backend, f32
+    contraction, the ref attention backend."""
+    from repro_torch.core.policy import map_policies, with_attn_backend
+
+    return with_attn_backend(map_policies(policy, lambda q: q.replace(
+        fused=False, compute="fp")), "ref")
+
+
+def vit_images(cfg, n: int, seed: int):
+    """``n`` synthetic images of ``cfg``'s size (224 x 224 x 3) and 10
+    classes from ``seed + 1`` (the class count only sets the labels; 1000
+    classes would build 1.2 GB of float64 templates)."""
+    from repro_torch.data import synthetic_images
+
+    return synthetic_images(n, image_size=cfg.image_size,
+                            n_channels=cfg.n_channels, n_classes=10,
+                            seed=seed + 1)
+
+
+def vit_logits(torch, model, params, batch, policy):
+    """One batch's logits over the real classes (the padded columns cut)."""
+    with torch.no_grad():
+        logits, _ = model.apply(params, batch, policy)
+    return logits[:, :model.cfg.n_classes]
+
+
+def vit_eval(torch, model, params, batch, policy, q=None) -> dict:
+    """CE and top-1 of one batch through ``model.loss`` and its wall ms
+    (between two synchronizations)."""
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ce, m = model.loss(params, batch, policy, q)
+        out = {"loss": float(ce), "top1": float(m["acc"])}  # synchronizes
+    out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def vit_gap(torch, model, params, batch, kp, no_qdq) -> dict:
+    """The fused policy ``kp``'s logits against its ref backend's, in units
+    of their std, held as the ptq phase holds opt's: at most GAP_FACTOR
+    times as far as the ref backend moves from itself when every token's
+    embedding is scaled by 1 + 2**-20, and at most GAP_MAX; the fp32
+    weights with no QDQ (``no_qdq``, their logits) must lie beyond that
+    limit.  The embedding is the patch projection plus ``pos_embed`` (and
+    the cls token), so all three are scaled: ``pos_embed`` alone (entries
+    near 0.02) moves the sum by less than its last bit."""
+    rp = ref_backend(kp)
+    ref = vit_logits(torch, model, params, batch, rp)
+    gap = logit_gap(torch, vit_logits(torch, model, params, batch, kp), ref)
+    e = 1 + 2.0 ** -20
+    nudged = dict(params, pos_embed=params["pos_embed"] * e,
+                  patch_embed={k: v * e
+                               for k, v in params["patch_embed"].items()})
+    if "cls" in params:
+        nudged["cls"] = params["cls"] * e
+    last_bit = logit_gap(torch, vit_logits(torch, model, nudged, batch, rp),
+                         ref)
+    out = {"logit_gap_over_std": gap, "last_bit_control_over_std": last_bit,
+           "no_qdq_control_over_std": logit_gap(torch, no_qdq, ref),
+           "logit_gap_limit": min(GAP_MAX, GAP_FACTOR * last_bit)}
+    # the controls, read from the ref backend alone, say whether this
+    # check can tell the fused path from one without QDQ: not where the
+    # ref backend's own last-bit spread, GAP_FACTOR times, reaches it
+    out["held"] = GAP_FACTOR * last_bit < out["no_qdq_control_over_std"]
+    return out
+
+
+def vit_block_gaps(torch, model, params, batch, kp) -> dict:
+    """Each block of the fused policy ``kp`` fed the ref backend's input of
+    that block (captured from one ref-backend forward), against the ref
+    backend's output of the block: the root mean square of the difference
+    (and its largest element) in units of the std of the block's update
+    (its output less its input); beside it two controls on the same
+    input: the ref backend's block with every matmul's f32 sum split into
+    two halves of K (the same terms added in another order, as the kernels
+    add them), and the fp32 block with no QDQ.  A code flipped at a
+    rounding boundary moves a few elements; quantization moves all of
+    them, so the mean square tells the two apart where a largest element
+    cannot."""
+    from repro_torch.core import simulate as sim
+    from repro_torch.core.policy import preset
+
+    inner = model.inner
+    block_apply = type(inner)._block_apply
+    rp = ref_backend(kp)
+    inputs = []
+
+    def capture(self, bp, x, positions, policy, q=None, name="block"):
+        inputs.append((x, positions, name))
+        return block_apply(self, bp, x, positions, policy, q, name)
+
+    def split_k(x, w, compute_dtype):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        h = w.shape[0] // 2
+        xc, wc = x.to(compute_dtype), w.to(compute_dtype)
+        y = torch.matmul(xc[..., :h], wc[:h]) + torch.matmul(xc[..., h:],
+                                                             wc[h:])
+        return y.to(torch.float32)
+
+    type(inner)._block_apply = capture
+    try:
+        with torch.no_grad():
+            model.apply(params, batch, rp)
+    finally:
+        type(inner)._block_apply = block_apply
+    fp_matmul = sim._fp_matmul
+    rows = []
+    with torch.no_grad():
+        for bp, (x, pos, name) in zip(params["blocks"], inputs):
+            ref = inner._block_apply(bp, x, pos, rp, name=name)
+            fused = inner._block_apply(bp, x, pos, kp, name=name)
+            sim._fp_matmul = split_k
+            try:
+                reordered = inner._block_apply(bp, x, pos, rp, name=name)
+            finally:
+                sim._fp_matmul = fp_matmul
+            plain = inner._block_apply(bp, x, pos, preset("fp32"), name=name)
+            unit = (ref - x).std()
+            rows.append({
+                "rms": [((y - ref).square().mean().sqrt() / unit).item()
+                        for y in (fused, reordered, plain)],
+                "max": [((y - ref).abs().max() / unit).item()
+                        for y in (fused, reordered, plain)]})
+    gap, reordered = (max(r["rms"][i] for r in rows) for i in range(2))
+    return {"block_gap_rms": gap, "block_reordered_control_rms": reordered,
+            "block_no_qdq_control_rms": min(r["rms"][2] for r in rows),
+            "block_gap_limit": min(GAP_MAX, GAP_FACTOR * reordered),
+            "blocks": rows}
+
+
+def vit_counted(torch, fn) -> tuple:
+    """``fn()`` and the launches it made, read from the wrappers' counts:
+    {wrapper: n} and {kernel: n} of flash_attention's and of abfp_matmul's
+    x pre-pass."""
+    from repro_torch.kernels import quant_matmul as qm
+
+    def read():
+        return (read_counts(), read_kernel_counts("flash_attention"),
+                dict(qm.abfp_matmul.launches_by_kernel))
+
+    before = read()
+    out = fn()
+    torch.cuda.synchronize()
+    after = read()
+    diff = [{k: a[k] - b[k] for k in a if a[k] != b[k]}
+            for a, b in zip(after, before)]
+    return out, {**diff[0], "by_kernel": {**diff[1], **diff[2]}}
+
+
+def vit_want(cfg, mm: str, M: int) -> dict:
+    """One fused forward's launches: every dense matmul through ``mm``,
+    one flash_mma_kernel a layer; abfp_matmul's x pre-pass
+    (qdq_stream_kernel) once where the head takes the decode regime."""
+    n = vit_dense(cfg)
+    by_kernel = {"flash_mma_kernel": cfg.n_layers}
+    if mm == "abfp_matmul" and M <= 16:
+        by_kernel["qdq_stream_kernel"] = 1
+    return {mm: n, "flash_attention": cfg.n_layers, "by_kernel": by_kernel}
+
+
+def vit_roles(cfg, kind: str, M: int) -> dict:
+    """One fused forward's kernels by role, read from the profiler: every
+    matmul but the head at 197 M rows (the prefill regime: x's codes, w's
+    codes, the tensor-core contraction), the head at M rows (the decode
+    regime up to 16), one flash_mma_kernel a layer."""
+    n = vit_dense(cfg)
+    head_decode = M <= 16
+    want = {"x_codes": n - head_decode, "w_codes": n - head_decode,
+            "mma": n - head_decode, "decode": int(head_decode),
+            "flash": cfg.n_layers}
+    if kind == "p_fp":
+        want["x_qdq"] = int(head_decode)
+    else:
+        want["x_codes"] += int(head_decode)  # int8 decode: x's codes first
+    return want
+
+
+def vit_forward_report(torch, model, params, batch, policy, kind, label,
+                       smi) -> dict:
+    """A fused forward's wall ms (median of 5, between synchronizations),
+    images/s, its kernels by role from one profiled forward (asserted),
+    and device busy ms, idle share and top kernels of two more."""
+    def forward():
+        with torch.no_grad():
+            model.apply(params, batch, policy)
+
+    ms = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(ms[1:])
+    M = len(batch["labels"])
+    roles = {**REGIME_KERNELS["fp"], **REGIME_KERNELS["int8"],
+             "flash_mma_kernel": "flash"}
+    launched = device_launches(
+        torch, lambda: (lead_spins(torch), forward()), roles,
+        vit_roles(model.cfg, kind, M), label, roles_only=True)
+    prof = profile_steps(torch, forward, 2, wall, "forward", lead=True)
+    out = {"images": M, "wall_ms": wall, "wall_ms_each": ms,
+           "images_per_s": M / wall * 1e3, "kernels_by_role": launched,
+           **{k: v for k, v in prof.items()
+              if k != "watched_kernels_per_step"}}
+    log(f"  {label}: {wall:.2f} ms a forward, "
+        f"{out['images_per_s']:.1f} images/s, device busy "
+        f"{prof.get('device_busy_ms_per_step', 'not measured')} ms, idle "
+        f"{prof.get('device_idle_share', 'not measured')} [{smi}]")
+    return out
+
+
+def vit_kernel_checks(torch, seed: int) -> dict:
+    """Each kernel of the encoder's fused path against its plain version
+    at the shapes that path gives it, timed beside the plain version and
+    the card's bound: both dense matmuls at M = 197 x 64 for every (K, N)
+    of ViT-B/16 and at the head (M = 64 and 16); flash_attention
+    non-causal at 64 images, S = T = 197, 12 heads of 64 (SDPA, is_causal
+    False, the yardstick)."""
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 11)
+    rows = {"abfp_matmul": [], "abfp_matmul_int8": [], "flash_attention": []}
+    M = 197 * VIT_BATCH
+    for kind, name in (("fp", "abfp_matmul"), ("int8", "abfp_matmul_int8")):
+        for label, K, N in VIT_MATMULS:
+            rows[name].append(check_dense_matmul(
+                torch, timer, gen, kind=kind, M=M, K=K, N=N,
+                label=f"vit {label} M={M} K={K} N={N}"))
+        for m in (VIT_BATCH, VIT_SMALL):
+            rows[name].append(check_dense_matmul(
+                torch, timer, gen, kind=kind, M=m, K=768, N=VIT_HEAD_N,
+                label=f"vit head M={m} K=768 N={VIT_HEAD_N}"))
+        torch.cuda.empty_cache()
+    # read from the wrapper's count, as the ptq phase's check is
+    rows["flash_attention"].append(check_flash(
+        torch, timer, gen, B=VIT_BATCH, S=197, T=197, H=12, KV=12, D=64,
+        causal=False, label=f"vit non-causal B={VIT_BATCH} S=T=197 "
+        "H=KV=12 D=64", profiled=False))
+    del timer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def vit_fused_runs(torch, model, params, batch, runs, no_qdq, label
+                   ) -> dict:
+    """Each fused run of ``runs`` ((label, path, vision policy)): its
+    loss / top-1 beside the ref backend's, its logits' gap (``vit_gap``,
+    asserted), and one forward's launches (asserted, ``vit_want``)."""
+    out = {}
+    M = len(batch["labels"])
+    for name, kind, base in runs:
+        kp = fixed_policy(kind, base=base)
+        ev, got = vit_counted(torch, lambda: vit_eval(
+            torch, model, params, batch, kp))
+        want = vit_want(model.cfg, FIXED_PATHS[kind], M)
+        if got != want:
+            raise SystemExit(f"vit: {label} {name} forward launched {got}, "
+                             f"expected {want}")
+        gap, fused_logits = vit_counted(torch, lambda: vit_gap(
+            torch, model, params, batch, kp, no_qdq))
+        if fused_logits != want:  # the gap's one fused forward
+            raise SystemExit(f"vit: {label} {name} logits' forward launched "
+                             f"{fused_logits}, expected {want}")
+        ev["ref_backend"] = vit_eval(torch, model, params, batch,
+                                     ref_backend(kp))
+        out[name] = {**ev, **gap, "launches": got}
+        log(f"  {label} {name} fused: loss {ev['loss']:.6f} (ref backend "
+            f"{ev['ref_backend']['loss']:.6f}); logits "
+            f"{gap['logit_gap_over_std']:.3g} std from the ref backend's "
+            f"(limit {gap['logit_gap_limit']:.3g}; last-bit control "
+            f"{gap['last_bit_control_over_std']:.3g}, fp32 with no QDQ "
+            f"{gap['no_qdq_control_over_std']:.3g}"
+            + ("" if gap["held"] else "; void: the controls are as far "
+               "apart as no QDQ, the blocks below are held instead") + ")")
+        if gap["held"] and not gap["logit_gap_over_std"] <= gap[
+                "logit_gap_limit"]:
+            raise SystemExit(f"vit: {label} {name} fused logits: {gap}")
+    return out
+
+
+def vit_block_checks(torch, model, params, batch, runs, label, out) -> None:
+    """``vit_block_gaps`` of each fused run of ``runs`` into its row of
+    ``out``, held: the largest block gap at most GAP_FACTOR times the
+    largest reordered-sum control and at most GAP_MAX, which must lie
+    below the smallest no-QDQ control."""
+    for name, kind, base in runs:
+        blocks = vit_block_gaps(torch, model, params, batch,
+                                fixed_policy(kind, base=base))
+        out[name].update(blocks)
+        log(f"  {label} {name} blocks on the ref backend's inputs: rms "
+            f"{blocks['block_gap_rms']:.3g} of the update's std from the "
+            f"ref backend's (limit {blocks['block_gap_limit']:.3g}; sums "
+            f"reordered {blocks['block_reordered_control_rms']:.3g}, no QDQ "
+            f"{blocks['block_no_qdq_control_rms']:.3g}); "
+            + json.dumps(blocks["blocks"]))
+        if not (blocks["block_gap_rms"] <= blocks["block_gap_limit"]
+                < blocks["block_no_qdq_control_rms"]):
+            raise SystemExit(f"vit: {label} {name} fused blocks: " + str(
+                {k: v for k, v in blocks.items() if k != "blocks"}))
+
+
+def vit_ptq(torch, cfg, seed: int, calib, evb, smi) -> dict:
+    """PTQ over the encoder (``cfg`` with ``scan_layers=False``): one
+    calibration over VIT_CALIB x VIT_SMALL images under w4a8_mse, then
+    ``static_mse`` at w4a4_mse (the vision table's recipe) and
+    ``smoothquant+gptq+static_mse`` from it, each q tree evaluated through
+    the ref backend; seconds, Hessian bytes, dropped sites, peak memory."""
+    from repro_torch.core.policy import preset, replace_enabled
+    from repro_torch.core.recipe import apply_recipe, quantizes_weights_offline
+    from repro_torch.models import build_model
+    from repro_torch.models import quant_transforms as qt
+    from repro_torch.nn.module import make_generator
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cfg.replace(scan_layers=False)
+    model = build_model(cfg)
+    params = model.init(make_generator(seed, "cuda"))
+    obs, pol = preset("w4a8_mse"), preset("w4a4_mse")
+    report = {"model": cfg.name, "calib_batches": [VIT_CALIB, VIT_SMALL],
+              "recipes": {}}
+    with PTQTimers(torch) as tm:
+        cal = qt.calibrate(model, params, calib, obs)
+    report.update(calibration_s=tm.calib_s[0], sites=len(cal.stats))
+    for name, n_cal in VIT_PTQ:
+        with PTQTimers(torch) as tm:
+            t0 = time.perf_counter()
+            res = apply_recipe(name, model, params, calib, pol, calib=cal,
+                               calib_policy=obs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if res.n_calibrations != n_cal or len(tm.calib_s) != n_cal:
+            raise SystemExit(f"vit: {name} ran {res.n_calibrations} "
+                             f"calibrations, expected {n_cal}")
+        if res.dropped_sites != VIT_DROPPED:
+            raise SystemExit(f"vit: {name} dropped {res.dropped_sites}")
+        off = quantizes_weights_offline(name)
+        ev = vit_eval(torch, model, res.params, evb,
+                      replace_enabled(pol, weight=None) if off else pol,
+                      q=res.qtree)
+        row = {**ev, "calibrations": res.n_calibrations,
+               "steps": [s for s, _ in res.steps], "wall_s": wall,
+               "calibration_s": tm.calib_s,
+               "hessian_bytes": tm.hessian_bytes,
+               "dropped_sites": list(res.dropped_sites)}
+        if tm.gptq_s:
+            if len(tm.gptq_s) != 6 * cfg.n_layers:
+                raise SystemExit(f"vit: {name} ran GPTQ on "
+                                 f"{len(tm.gptq_s)} kernels")
+            row.update(gptq_kernels=len(tm.gptq_s),
+                       gptq_total_s=sum(tm.gptq_s),
+                       gptq_median_s=statistics.median(tm.gptq_s))
+        report["recipes"][name] = row
+        log(f"  ptq {name}: loss {ev['loss']:.6f}, top-1 {ev['top1']:.4f}, "
+            f"{res.n_calibrations} calibrations, {wall:.2f} s [{smi}]")
+        del res
+    report["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del params, model, cal
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_vit(torch, seed: int, smi: str) -> dict:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import preset, with_attn_backend
+    from repro_torch.data import ImageLoader
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+
+    log("== vit: vit-b16 and deit-s16 at full width and depth, 224 x 224 "
+        "images")
+    t_phase = time.perf_counter()
+    kernel_rows = vit_kernel_checks(torch, seed)
+    cfg = get_config("vit-b16")
+    x, y = vit_images(cfg, VIT_CALIB * VIT_SMALL + VIT_BATCH, seed)
+    loader = ImageLoader(x[:VIT_CALIB * VIT_SMALL], y[:VIT_CALIB * VIT_SMALL],
+                         global_batch=VIT_SMALL, seed=77)
+    calib = [loader.batch_at(i) for i in range(VIT_CALIB)]
+    ev = {"images": torch.from_numpy(np.ascontiguousarray(
+              x[VIT_CALIB * VIT_SMALL:])).cuda(),
+          "labels": torch.from_numpy(y[VIT_CALIB * VIT_SMALL:]).cuda()}
+    small = {k: v[:VIT_SMALL] for k, v in ev.items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    report = {"kernel_rows": kernel_rows, "images": VIT_BATCH}
+    model = build_model(cfg)
+    params = model.init(make_generator(seed, "cuda"))
+
+    # the vision table's policies through the QDQ-sim (plain PyTorch)
+    report["qdq_sim"] = {}
+    for name in VIT_SIM:
+        pol = with_attn_backend(preset(name), "ref")
+        r, got = vit_counted(torch, lambda: vit_eval(
+            torch, model, params, ev, pol))
+        if got != {"by_kernel": {}}:
+            raise SystemExit(f"vit: the QDQ-sim under {name} launched {got}")
+        report["qdq_sim"][name] = r
+        log(f"  {name} (ref backend): loss {r['loss']:.6f}, top-1 "
+            f"{r['top1']:.4f}, {r['wall_ms']:.1f} ms")
+    no_qdq = vit_logits(torch, model, params, ev, preset("fp32"))
+
+    # the fused kernels: every count from 0 before the path, read after
+    reset_counts()
+    report["fused"] = vit_fused_runs(torch, model, params, ev, VIT_FUSED,
+                                     no_qdq, cfg.name)
+    small_kp = fixed_policy("p_fp")
+    _, got = vit_counted(torch, lambda: vit_logits(
+        torch, model, params, small, small_kp))
+    want = vit_want(cfg, "abfp_matmul", VIT_SMALL)
+    if got != want:
+        raise SystemExit(f"vit: the {VIT_SMALL}-image P-fp forward launched "
+                         f"{got}, expected {want}")
+    deit_cfg = get_config("deit-s16")
+    deit = build_model(deit_cfg)
+    deit_params = deit.init(make_generator(seed, "cuda"))
+    deit_no_qdq = vit_logits(torch, deit, deit_params, ev, preset("fp32"))
+    report["deit"] = {"fused": vit_fused_runs(
+        torch, deit, deit_params, ev, VIT_FUSED[1:2], deit_no_qdq,
+        deit_cfg.name)}
+    counts = read_counts()
+    report["launches"] = counts
+    report["launches_by_kernel"] = {
+        "flash_attention": read_kernel_counts("flash_attention"),
+        "abfp_matmul": read_kernel_counts("abfp_matmul")}
+    # 3 P-fp and 1 P-int8 run of ViT-B, 1 P-fp of DeiT-S, 2 forwards each
+    # (loss, logits), and the 16-image P-fp forward
+    n, L = vit_dense(cfg), cfg.n_layers
+    want = {"abfp_matmul": n * (2 * 4 + 1), "abfp_matmul_int8": n * 2,
+            "flash_attention": L * (2 * 5 + 1)}
+    got = {k: v for k, v in counts.items() if v}
+    if got != want or report["launches_by_kernel"]["flash_attention"] != {
+            "flash_mma_kernel": want["flash_attention"]}:
+        raise SystemExit(f"vit: the fused runs launched {got} "
+                         f"({report['launches_by_kernel']}), expected {want}")
+    log("  launches: " + json.dumps(report["launches_by_kernel"]))
+    vit_block_checks(torch, model, params, ev, VIT_FUSED, cfg.name,
+                     report["fused"])
+    vit_block_checks(torch, deit, deit_params, ev, VIT_FUSED[1:2],
+                     deit_cfg.name, report["deit"]["fused"])
+
+    # wall time, kernels by role and device time of single forwards
+    report["forwards"] = {
+        "vit-b16 p_fp w4a8_abfp": vit_forward_report(
+            torch, model, params, ev, fixed_policy("p_fp"),
+            "p_fp", f"vit-b16 P-fp forward, {VIT_BATCH} images", smi),
+        "vit-b16 p_int8": vit_forward_report(
+            torch, model, params, ev, fixed_policy("p_int8"),
+            "p_int8", f"vit-b16 P-int8 forward, {VIT_BATCH} images", smi),
+        f"vit-b16 p_fp w4a8_abfp {VIT_SMALL} images": vit_forward_report(
+            torch, model, params, small, small_kp, "p_fp",
+            f"vit-b16 P-fp forward, {VIT_SMALL} images", smi),
+        "deit-s16 p_fp w4a8_abfp": vit_forward_report(
+            torch, deit, deit_params, ev,
+            fixed_policy("p_fp"), "p_fp",
+            f"deit-s16 P-fp forward, {VIT_BATCH} images", smi)}
+    report["forward_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del params, model, deit_params, deit, no_qdq, deit_no_qdq
+    torch.cuda.empty_cache()
+
+    report["ptq"] = vit_ptq(torch, cfg, seed, calib, ev, smi)
+    pq = report["ptq"]
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"  ptq: calibration {pq['calibration_s']:.3f} s ({pq['sites']} "
+        f"sites), GPTQ "
+        + json.dumps({k: [r.get("gptq_total_s"), r.get("gptq_median_s")]
+                      for k, r in pq["recipes"].items()})
+        + f" s, Hessian bytes "
+        f"{max(r['hessian_bytes'] for r in pq['recipes'].values())}, "
+        f"peak {pq['peak_memory_bytes']} bytes [{smi}]")
+    log(f"  forward peak memory {report['forward_peak_memory_bytes']} "
+        f"bytes; phase {report['phase_s']:.1f} s [{smi}]")
+    log("  " + json.dumps({k: v for k, v in report.items()
+                           if k != "kernel_rows"}))
+    return report
+
+
+# --------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3114,14 +3658,16 @@ def main() -> int:
             "fixed": lambda: phase_fixed(torch, args.seed),
             "reduced": lambda: phase_reduced(torch, args.seed),
             "identity": lambda: phase_identity(torch, args.seed),
-            "ptq": lambda: phase_ptq(torch, args.seed, smi)}
+            "ptq": lambda: phase_ptq(torch, args.seed, smi),
+            "vit": lambda: phase_vit(torch, args.seed, smi)}
     done = {}
     for name in PHASES:
         if name in phases:
             PHASE["name"] = name
             done[name] = runs[name]()
-    kernel_rows, serve, long_ctx, fixed, ptq = (
-        done.get(p) for p in ("kernels", "serve", "long", "fixed", "ptq"))
+    kernel_rows, serve, long_ctx, fixed, ptq, vit = (
+        done.get(p) for p in ("kernels", "serve", "long", "fixed", "ptq",
+                              "vit"))
     retakes = {p: {"empty": 0, "other": 0} for p in phases}
     for r in PROFILER_RETRIES:
         retakes.setdefault(r["phase"], {"empty": 0, "other": 0})[
@@ -3130,15 +3676,18 @@ def main() -> int:
 
     # launches of each kernel on the main paths, each counted from 0 just
     # before its run: the paged serve run, the long-context run, the two
-    # fixed-slot runs and the PTQ phase's fused evaluations
+    # fixed-slot runs, the PTQ phase's fused evaluations and the vision
+    # phase's fused forwards
     paths = {"serve": (serve or {}).get("launches", {}),
              "long": (long_ctx or {}).get("launches", {}),
              **{f"fixed_{k}": r["launches"] for k, r in (fixed or {}).items()},
-             "ptq": (ptq or {}).get("launches", {})}
-    # the ptq path's shapes join their kernels' rows
+             "ptq": (ptq or {}).get("launches", {}),
+             "vit": (vit or {}).get("launches", {})}
+    # the ptq and vit paths' shapes join their kernels' rows
     kernel_rows = dict(kernel_rows or {})
-    for name, rows in (ptq or {}).get("kernel_rows", {}).items():
-        kernel_rows[name] = kernel_rows.get(name, []) + rows
+    for extra in (ptq, vit):
+        for name, rows in (extra or {}).get("kernel_rows", {}).items():
+            kernel_rows[name] = kernel_rows.get(name, []) + rows
     # the shape whose numbers head a kernel's entry: the decode shape
     # launched most (matmuls), the longest prefill bucket (flash attention)
     head_shape = {"quant_matmul": "wi,wg M=4", "abfp_matmul": "wi,wg M=4",
@@ -3156,6 +3705,11 @@ def main() -> int:
             by_path.update({f"fixed_{k}": r["x_qdq_launches"][
                 "qdq_stream_kernel"] for k, r in (fixed or {}).items()
                 if r["x_qdq_launches"]["qdq_stream_kernel"]})
+            # and before the vision path's 16-image head
+            vit_qdq = ((vit or {}).get("launches_by_kernel", {})
+                       .get("abfp_matmul", {}).get("qdq_stream_kernel"))
+            if vit_qdq:
+                by_path["vit"] = vit_qdq
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{build.SOURCES[mod]}",

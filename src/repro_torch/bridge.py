@@ -3,7 +3,9 @@ arrays, becomes the port's tree of tensors — and so do its PTQ artifacts:
 a static-scale q tree (``from_repro_qtree``) and a calibrator's running
 statistics (``from_repro_calibrator``).
 
-``from_repro_params`` takes the reference's *unboxed* parameter tree after a
+``from_repro_params`` takes the reference's *unboxed* parameter tree (a
+decoder LM's, or a ViT's: ``patch_embed``, ``pos_embed``, ``cls``,
+``final_norm``, ``head`` and the blocks) after a
 host transfer (nested dicts of numpy arrays; the caller does the
 ``device_get``), so this module imports nothing of the reference.  Layers
 stacked along a leading ``(L, ...)`` axis (the reference's
@@ -34,6 +36,10 @@ _TOP = {
     "lm_head": _DENSE,
     "pos_embed": _LEAF,
     "blocks": _BLOCK,
+    # the vision family's front and head
+    "patch_embed": _DENSE,
+    "cls": _LEAF,
+    "head": _DENSE,
 }
 
 
@@ -69,7 +75,7 @@ def _first_leaf(node):
 
 def from_repro_params(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
     """The reference's parameter tree (numpy) as the port's (tensors on
-    ``device``), for a dense-family ``cfg``."""
+    ``device``), for a dense- or vit-family ``cfg``."""
     device = require_device(device)
     unknown = sorted(set(tree) - set(_TOP))
     if unknown:
@@ -92,8 +98,12 @@ def from_repro_params(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
         raise ValueError(
             f"params hold {len(out['blocks'])} layers but {cfg.name} has "
             f"n_layers={cfg.n_layers}")
-    need = {"embed", "final_norm", "blocks"} | (
-        set() if cfg.tied_embeddings else {"lm_head"})
+    if cfg.family == "vit":
+        need = {"patch_embed", "pos_embed", "final_norm", "head",
+                "blocks"} | ({"cls"} if cfg.pool == "cls" else set())
+    else:
+        need = {"embed", "final_norm", "blocks"} | (
+            set() if cfg.tied_embeddings else {"lm_head"})
     missing = sorted(need - set(out))
     if missing:
         raise KeyError(f"params lack {missing} required by {cfg.name}")

@@ -12,6 +12,9 @@ from repro_torch.configs.base import ArchConfig
 
 _ARCHS = {
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    # the paper's vision-transformer family (§III ViT/DeiT tables)
+    "vit-b16": "repro_torch.configs.vit_b16",
+    "deit-s16": "repro_torch.configs.deit_s16",
     # the paper's own model family (PTQ methods table)
     "opt-125m": "repro_torch.configs.opt",
     "opt-tiny": "repro_torch.configs.opt",

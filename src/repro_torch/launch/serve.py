@@ -12,7 +12,9 @@ unless ``--device cpu`` is given.  ``--recipe`` runs a PTQ recipe
 (``repro_torch.core.recipe``) over the random weights first, calibrating on
 synthetic prompts on the same device, as the reference launcher does.
 
-Flags of the reference launcher whose features are not ported yet
+An encoder-only classifier (``--arch vit-b16`` / ``deit-s16``) has nothing
+to decode: the launcher exits before building anything, as the reference's
+does.  Flags of the reference launcher whose features are not ported yet
 (``--speculate``, ``--expert-cache``, ``--expert-precision auto``) exit
 with a message naming the ROADMAP item that will bring them.
 There is no lint gate yet: the static analyzer is a late slice of the
@@ -119,6 +121,11 @@ def main(argv=None) -> int:
                                           ServeEngine)
 
     cfg = get_config(args.arch)
+    if cfg.family == "vit":
+        raise SystemExit(
+            f"{args.arch} is an encoder-only classifier: nothing to decode. "
+            "Its forward, fused kernels and PTQ run on the card through "
+            "`python3 chip_smoke.py --phases vit`.")
     if args.reduced:
         cfg = cfg.reduced()
     rec = None

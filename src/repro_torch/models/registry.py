@@ -9,8 +9,9 @@
     state = model.init_paged_state(n_slots, ...)
     logits, state = model.paged_step(params, tokens, state, n_valid=...)
 
-Only the dense decoder family is ported; the other families raise with the
-ROADMAP item that will bring them.
+The dense decoder family and the vision family (``VitModel``: ``init``,
+``apply``, ``loss`` over image batches) are ported; the other families
+raise with the ROADMAP item that will bring them.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import QuantPolicy
 from repro_torch.models.lm import (TransformerLM, chunked_lm_loss,
                                    cross_entropy)
+from repro_torch.models.vit import VisionTransformer, VitModel
 from repro_torch.nn.module import require_device
 
 
@@ -89,12 +91,15 @@ class Model:
                                      all_logits=all_logits)
 
 
-def build_model(cfg: ArchConfig, device="cuda") -> Model:
+def build_model(cfg: ArchConfig, device="cuda") -> Model | VitModel:
     """The model facade for ``cfg`` on ``device`` (default: the card; with
     no card that default raises — pass ``device="cpu"`` to ask for the CPU).
     """
+    if cfg.family == "vit":
+        return VitModel(cfg, VisionTransformer(cfg), require_device(device))
     if cfg.family != "dense":
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported yet — "
-            "ROADMAP.md Queue A lists it; the dense decoder family is")
+            "ROADMAP.md Queue A lists it; the dense decoder and vision "
+            "families are")
     return Model(cfg, TransformerLM(cfg), require_device(device))

@@ -227,7 +227,9 @@ def _within_bar(got, want):
 # (causal, BHkv, G, S, T, D, q_offset): the main path's shape at a few
 # positions (G = 7, D = 128), the reduced config (G = 2, D = 16), G = 1,
 # ragged S and T past one tile, a suffix, positive and negative offsets,
-# non-causal with two batches' KV heads, an odd head_dim
+# non-causal with two batches' KV heads, an odd head_dim, and one (batch,
+# head) of the ViT's encoder call (non-causal, G = 1, D = 64, S = T = 197:
+# three 64-key tiles and a ragged fourth of 5 keys, every row walks all)
 CASES = [
     (True, 1, 7, 10, 10, 128, None),
     (True, 2, 2, 16, 16, 16, None),
@@ -239,6 +241,7 @@ CASES = [
     (False, 4, 2, 9, 70, 16, None),
     (False, 1, 1, 5, 37, 128, None),
     (True, 1, 2, 13, 13, 37, None),
+    (False, 1, 1, 197, 197, 64, None),
 ]
 
 
@@ -364,6 +367,10 @@ def test_main_path_plan(S, blocks):
     ((3, 5, 9, 6, 1, 1, True), (16, 3, 56576)),
     ((1, 8, 8, 2, 2, 32, False), (32, 2, 79104)),
     ((1, 200, 200, 64, 1, 128, True), (128, 267, 214272)),
+    # the ViT-B/16 and DeiT-S/16 encoders at 64 images: 5 row tiles of
+    # 197 rows for each of 768 / 384 (image, head) pairs
+    ((64, 197, 197, 12, 12, 64, False), (64, 3840, 124160)),
+    ((64, 197, 197, 6, 6, 64, False), (64, 1920, 124160)),
 ])
 def test_plan_routes_pinned(shape, want):
     plan = t_fa.plan_flash(*shape)

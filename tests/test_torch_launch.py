@@ -70,6 +70,6 @@ def test_recipe_report_matches_reference_launcher(capsys, engine):
 
 
 def test_unknown_arch_lists_the_registry():
-    with pytest.raises(ValueError, match="known: \\['opt-125m', 'opt-tiny', "
-                       "'qwen2-7b'\\]"):
+    with pytest.raises(ValueError, match="known: \\['deit-s16', 'opt-125m', "
+                       "'opt-tiny', 'qwen2-7b', 'vit-b16'\\]"):
         tserve.main(["--paged", "--device", "cpu", "--arch", "gemma2-9b"])

@@ -45,10 +45,10 @@ from repro_torch.core import recipe as tr
 from repro_torch.models import build_model as t_build_model
 from repro_torch.models import quant_transforms as tqt
 from repro_torch.models import serving_transforms as tst
-from torch_ptq_helpers import (STATS_BAR, assert_equal_but_near_ties,
-                               assert_pinned_calls_match, assert_stats_match,
-                               port_quantizer_calls,
-                               reference_quantizer_calls)
+from torch_ptq_helpers import (assert_pinned_calls_match,
+                               assert_qtrees_match, assert_stats_match,
+                               leaf_at, params_off, port_quantizer_calls,
+                               qtree_leaves, reference_quantizer_calls)
 
 L = 2
 METHODS = ("static_mse", "smoothquant+static_mse", "gptq+static_mse",
@@ -210,57 +210,12 @@ def test_step_log_and_calibrations_match_reference(method_runs, name):
     assert isinstance(leaf, torch.Tensor) and leaf.device.type == "cpu"
 
 
-def _qtree_leaves(tree):
-    for i, b in enumerate(tree["blocks"]):
-        for g, leaves in b.items():
-            for k, v in leaves.items():
-                yield f"blocks.{i}/{g}/{k}", v["in_alpha"]
-
-
-def _site_of(key):
-    """q-tree key -> the calibration site its alpha was solved from."""
-    i_g, leaf = key.rsplit("/", 1)
-    if leaf == "wg":
-        leaf = "wi"
-    return f"{i_g}/{leaf}" + ("" if leaf.startswith("bmm_")
-                              or leaf == "probs" else "/in")
-
-
-def _assert_qtrees_match(tq, jq, jcal, fmt, per_channel=False):
-    """Alphas equal (1e-5 relative) except near-ties; returns the count."""
-    jleaves = dict(_qtree_leaves(jax.device_get(jq)))
-    tleaves = dict(_qtree_leaves(tq))
-    assert sorted(tleaves) == sorted(jleaves)
-    ties = 0
-    for key, want in jleaves.items():
-        got = tleaves[key].numpy()
-        want = np.asarray(want)
-        close = np.abs(got - want) <= 1e-5 * np.abs(want)
-        if close.all():
-            continue
-        st = jcal.stats[_site_of(key)]
-        amax = jc.max_alpha(st, per_channel=per_channel)
-        ties += assert_equal_but_near_ties(
-            np.where(close, want, got), want, amax,
-            np.concatenate(st.samples), fmt, per_channel)
-    return ties
-
-
-def _leaf(tree, path):
-    """The leaf at a jax key path of a port (torch) or reference tree, as
-    numpy."""
-    for k in path:
-        tree = tree[k.key if hasattr(k, "key") else k.idx]
-    return tree.numpy() if isinstance(tree, torch.Tensor) else np.asarray(
-        tree)
-
-
 def _assert_params_match(tparams, jparams, exact=False):
     """Kernels / norms equal; returns (elements that differ, total)."""
     jflat = jax.tree_util.tree_leaves_with_path(jax.device_get(jparams))
     n_diff = n_all = 0
     for path, want in jflat:
-        got = _leaf(tparams, path)
+        got = leaf_at(tparams, path)
         d = got != np.asarray(want)
         n_diff += int(d.sum())
         n_all += d.size
@@ -287,7 +242,7 @@ def test_single_pass_on_bridged_calibrator(stacks, name):
                                          exact=name != "gptq")
     assert n_diff <= n_all // 1000, (n_diff, n_all)
     if jres.qtree is not None:
-        ties = _assert_qtrees_match(tres.qtree, jres.qtree, jcal, "int8",
+        ties = assert_qtrees_match(tres.qtree, jres.qtree, jcal, "int8",
                                     per_channel=name == "rptq")
         print(f"{name}: {ties} near-tie alphas")
     if name == "rptq":
@@ -299,37 +254,13 @@ def test_single_pass_on_bridged_calibrator(stacks, name):
         print(f"gptq: {n_diff} of {n_all} elements past rounding ties")
 
 
-def _params_off(params, jparams, others=STATS_BAR):
-    """Params from statistics that agree within f32 noise.  A kernel
-    element counts as a quantum off when it is more than 1e-4 of its
-    column's largest magnitude from the reference's (an int4 quantum is at
-    least 1/8 of it; a GPTQ scale taken from a column max that differs in
-    its last bit moves the column by about 1e-7); every other leaf within
-    ``others`` of its largest magnitude (SmoothQuant's factors from such
-    statistics differ in their last bits; None: not held).  Returns (kernel
-    elements a quantum off, kernel elements)."""
-    n_off = n_all = 0
-    for path, want in jax.tree_util.tree_leaves_with_path(
-            jax.device_get(jparams)):
-        got, want = _leaf(params, path), np.asarray(want)
-        if "kernel" in str(path[-1]):
-            col = np.abs(want).max(axis=0, keepdims=True)
-            n_off += int((np.abs(got - want) > 1e-4 * col).sum())
-            n_all += want.size
-        elif others is not None:
-            np.testing.assert_allclose(
-                got, want, rtol=0,
-                atol=others * float(np.abs(want).max()), err_msg=str(path))
-    return n_off, n_all
-
-
 def _pipeline_spread(res, jres, ev, model, jmodel, pol, jpol):
     """(share of GPTQ kernel elements a quantum off; the largest alpha
     difference over its leaf's largest alpha; the eval loss gap over the
     reference's loss) of a run of one recipe against the reference's."""
-    n_off, n_all = _params_off(res.params, jres.params, others=None)
-    jleaves = dict(_qtree_leaves(jax.device_get(jres.qtree)))
-    leaves = dict(_qtree_leaves(res.qtree))
+    n_off, n_all = params_off(res.params, jres.params, others=None)
+    jleaves = dict(qtree_leaves(jax.device_get(jres.qtree)))
+    leaves = dict(qtree_leaves(res.qtree))
     alpha = max(float(np.abs(np.asarray(leaves[k]) - np.asarray(v)).max()
                       / np.abs(np.asarray(v)).max())
                 for k, v in jleaves.items())
@@ -400,10 +331,10 @@ def test_pipeline_on_the_ports_calibration_matches_reference(stacks):
     assert tres.steps == jres.steps and tres.n_calibrations == 3
     assert tres.dropped_sites == jres.dropped_sites
     for own, (jparams, _, _) in zip(own_params, stages):
-        n_off, n_all = _params_off(own, jparams)
+        n_off, n_all = params_off(own, jparams)
         assert n_off <= n_all // 1000
-    n_off, n_all = _params_off(tres.params, jres.params)
-    ties = _assert_qtrees_match(tres.qtree, jres.qtree, stages[-1][2],
+    n_off, n_all = params_off(tres.params, jres.params)
+    ties = assert_qtrees_match(tres.qtree, jres.qtree, stages[-1][2],
                                 "int8")
     jl = _loss(s["jmodel"], jres, s["eval"], jpol)
     tl = _loss(s["tmodel"], tres, s["eval"], tpol)

@@ -16,6 +16,7 @@ import repro.core.simulate as j_sim
 import repro.nn.attention as j_attn
 import repro_torch.core.simulate as t_sim
 import repro_torch.nn.attention as t_attn
+from repro.core import calibration as jc
 from repro.core import gptq as jg
 from repro.core.formats import IntFormat
 from repro.core.formats import get_format as j_fmt
@@ -283,3 +284,75 @@ def assert_stats_match(tcal, jcal, bar=STATS_BAR):
                 host(got.outer), want.outer, rtol=0,
                 atol=bar * float(np.abs(want.outer).max()),
                 err_msg=f"{site} outer")
+
+
+# ------------------------------------------------------------------------
+# Recipe results: q trees and params against the reference's
+# ------------------------------------------------------------------------
+def qtree_leaves(tree):
+    for i, b in enumerate(tree["blocks"]):
+        for g, leaves in b.items():
+            for k, v in leaves.items():
+                yield f"blocks.{i}/{g}/{k}", v["in_alpha"]
+
+
+def site_of(key):
+    """q-tree key -> the calibration site its alpha was solved from."""
+    i_g, leaf = key.rsplit("/", 1)
+    if leaf == "wg":
+        leaf = "wi"
+    return f"{i_g}/{leaf}" + ("" if leaf.startswith("bmm_")
+                              or leaf == "probs" else "/in")
+
+
+def assert_qtrees_match(tq, jq, jcal, fmt, per_channel=False):
+    """Alphas equal (1e-5 relative) except near-ties; returns the count."""
+    jleaves = dict(qtree_leaves(jax.device_get(jq)))
+    tleaves = dict(qtree_leaves(tq))
+    assert sorted(tleaves) == sorted(jleaves)
+    ties = 0
+    for key, want in jleaves.items():
+        got = tleaves[key].numpy()
+        want = np.asarray(want)
+        close = np.abs(got - want) <= 1e-5 * np.abs(want)
+        if close.all():
+            continue
+        st = jcal.stats[site_of(key)]
+        amax = jc.max_alpha(st, per_channel=per_channel)
+        ties += assert_equal_but_near_ties(
+            np.where(close, want, got), want, amax,
+            np.concatenate(st.samples), fmt, per_channel)
+    return ties
+
+
+def leaf_at(tree, path):
+    """The leaf at a jax key path of a port (torch) or reference tree, as
+    numpy."""
+    for k in path:
+        tree = tree[k.key if hasattr(k, "key") else k.idx]
+    return tree.numpy() if isinstance(tree, torch.Tensor) else np.asarray(
+        tree)
+
+
+def params_off(params, jparams, others=STATS_BAR):
+    """Params from statistics that agree within f32 noise.  A kernel
+    element counts as a quantum off when it is more than 1e-4 of its
+    column's largest magnitude from the reference's (an int4 quantum is at
+    least 1/8 of it; a GPTQ scale taken from a column max that differs in
+    its last bit moves the column by about 1e-7); every other leaf within
+    ``others`` of its largest magnitude (SmoothQuant's factors from such
+    statistics differ in their last bits; None: not held).  Returns (kernel
+    elements a quantum off, kernel elements)."""
+    n_off = n_all = 0
+    for path, want in jax.tree_util.tree_leaves_with_path(
+            jax.device_get(jparams)):
+        got, want = leaf_at(params, path), np.asarray(want)
+        if "kernel" in str(path[-1]):
+            col = np.abs(want).max(axis=0, keepdims=True)
+            n_off += int((np.abs(got - want) > 1e-4 * col).sum())
+            n_all += want.size
+        elif others is not None:
+            np.testing.assert_allclose(
+                got, want, rtol=0,
+                atol=others * float(np.abs(want).max()), err_msg=str(path))
+    return n_off, n_all
