@@ -118,6 +118,22 @@ Phases (each fatal on failure):
             PTQ over the encoder (a w4a8_mse calibration, static_mse at
             w4a4_mse, smoothquant+gptq+static_mse): seconds, Hessian bytes,
             dropped sites, peak memory
+  ssm       mamba2-130m and zamba2-7b at published width and depth, random
+            weights: the kernels at their shapes (ragged N = 3,352 and
+            14,576, K up to 14,336; abfp_qdq at the pre-pass shapes and the
+            ViT's 16-image head); mamba2-130m served by the fixed-slot
+            engine (4 slots, max_len 2048, prompts of 41-1,500 tokens,
+            exact-length prefills) under P-fp, P-int8 and P-C, every
+            prefill's and tick's launches asserted (49 a forward; P-C 48
+            quant_matmul + 1 abfp_matmul) and read by role from the
+            profiler, device busy ms / idle split into the SSD scan, the
+            conv and the kernels; zamba2-7b through Model under P-fp (a
+            loss, a 300-token prefill, 16 decode steps; 298 launches a
+            forward) and P-C raising the reference's ValueError; fused
+            logits and every block held to the ref backend against a
+            reordered-sum control; prefill + decode against a longer
+            prefill at full width; the reduced mamba2 on the card against
+            the CPU
 
 The last lines of standard output are: one JSON object {"kernels": [...]},
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -144,7 +160,7 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 
 PHASES = ("kernels", "serve", "long", "fixed", "reduced", "identity", "ptq",
-          "vit")
+          "vit", "ssm")
 
 # every kernel: (wrapper module, TPU kernel it replaces)
 KERNELS = {
@@ -602,11 +618,15 @@ def qdq_operand(torch, x32, dtype, offset: int = 0):
 
 
 def check_abfp_qdq(torch, timer, gen, *, M, K, n, fmt_name, label,
-                   dtype="float32", offset=0, x32=None, timed=True) -> dict:
+                   dtype="float32", offset=0, x32=None, timed=True,
+                   profiled=True) -> dict:
     """``abfp_qdq`` at (M, K) in ``dtype`` (``x32``: f32 values on the
     card, else activation-like ones) with its base ``offset`` elements off
     its allocation, against the plain version (``torch.equal``), and the
-    kernel one call launches (profiler: the planned one, once); timed:
+    kernel one call launches (profiler: the planned one, once; without
+    ``profiled`` the wrapper's count alone, as late in a whole run the
+    profiler has dropped a lone launch's record five captures in a row);
+    timed:
     beside the bound, the plain version and ``y.copy_(x)`` on the same
     bytes (a yardstick of what the card moves at that size)."""
     from repro_torch.core.formats import get_format
@@ -630,9 +650,10 @@ def check_abfp_qdq(torch, timer, gen, *, M, K, n, fmt_name, label,
     err = torch.where(same, 0.0, (got.float() - want.float()).abs()
                       ).max().item()
     bits = {1: torch.int8, 2: torch.int16, 4: torch.int32}[x.element_size()]
-    seen = device_launches(torch, lambda: aq.abfp_qdq(x, fmt, n=n),
-                           QDQ_KERNELS, {plan.kernel: 1},
-                           f"abfp_qdq {label}")
+    seen = (device_launches(torch, lambda: aq.abfp_qdq(x, fmt, n=n),
+                            QDQ_KERNELS, {plan.kernel: 1},
+                            f"abfp_qdq {label}") if profiled
+            else "not read (the wrapper's count)")
     row = {"shape": label, "M": M, "K": K, "n": n, "fmt": fmt.name,
            "dtype": dtype, "offset_bytes": offset * x.element_size(),
            "kernel": plan.kernel, "vec": plan.vec, "lanes": plan.lanes,
@@ -3212,7 +3233,6 @@ def vit_block_gaps(torch, model, params, batch, kp) -> dict:
     rounding boundary moves a few elements; quantization moves all of
     them, so the mean square tells the two apart where a largest element
     cannot."""
-    from repro_torch.core import simulate as sim
     from repro_torch.core.policy import preset
 
     inner = model.inner
@@ -3224,31 +3244,19 @@ def vit_block_gaps(torch, model, params, batch, kp) -> dict:
         inputs.append((x, positions, name))
         return block_apply(self, bp, x, positions, policy, q, name)
 
-    def split_k(x, w, compute_dtype):
-        torch.backends.cuda.matmul.allow_tf32 = False
-        h = w.shape[0] // 2
-        xc, wc = x.to(compute_dtype), w.to(compute_dtype)
-        y = torch.matmul(xc[..., :h], wc[:h]) + torch.matmul(xc[..., h:],
-                                                             wc[h:])
-        return y.to(torch.float32)
-
     type(inner)._block_apply = capture
     try:
         with torch.no_grad():
             model.apply(params, batch, rp)
     finally:
         type(inner)._block_apply = block_apply
-    fp_matmul = sim._fp_matmul
     rows = []
     with torch.no_grad():
         for bp, (x, pos, name) in zip(params["blocks"], inputs):
             ref = inner._block_apply(bp, x, pos, rp, name=name)
             fused = inner._block_apply(bp, x, pos, kp, name=name)
-            sim._fp_matmul = split_k
-            try:
+            with split_contractions(torch):
                 reordered = inner._block_apply(bp, x, pos, rp, name=name)
-            finally:
-                sim._fp_matmul = fp_matmul
             plain = inner._block_apply(bp, x, pos, preset("fp32"), name=name)
             unit = (ref - x).std()
             rows.append({
@@ -3613,6 +3621,858 @@ def phase_vit(torch, seed: int, smi: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase: ssm
+# --------------------------------------------------------------------------
+# mamba2-130m served by the fixed-slot engine: one prompt below, one at and
+# the rest past the chunk of 256; 1,500 tokens span 6 chunks, the last one
+# padded
+SSM_PROMPTS = (41, 77, 149, 256, 300, 1500)
+SSM_NEW = 16
+SSM_MAX_LEN = 2048
+# the engine's policies -> the wrapper of the Mamba2 projections (P-C: the
+# tied head stays dense, through abfp_matmul)
+SSM_MM = {"p_fp": "abfp_matmul", "p_int8": "abfp_matmul_int8",
+          "p_c": "quant_matmul"}
+SSM_GAP_TOKENS = (2, 300)  # the logits checks' batch: across the chunk
+ZAMBA_LOSS = (2, 256)
+ZAMBA_PREFILL = (2, 300)
+ZAMBA_MAX_LEN = 332
+ZAMBA_STEPS = 16
+# the profiler's names of the time a profiled step spends in the SSD scan
+# and the causal conv (record_function ranges around Mamba2's methods)
+SSM_RANGES = {"_ssd": "ssm._ssd", "_conv": "ssm._conv",
+              "_conv_step": "ssm._conv", "_state_step": "ssm._ssd"}
+
+
+def ssm_policy(kind: str):
+    """P-fp and P-C: w4a8_abfp, ``fused``; P-int8: w4a8_int8_native (the
+    fixed phase's policies; the SSM family has no attention to route)."""
+    return fixed_policy("p_int8" if kind == "p_int8" else "p_fp")
+
+
+def ssm_matmuls(cfg) -> list:
+    """(label, K, N, calls a forward, part) of an SSM or hybrid forward's
+    dense matmuls; part "head" for the tied head, else "body"."""
+    di = cfg.ssm_expand * cfg.d_model
+    proj = (2 * di + 2 * cfg.ssm_groups * cfg.ssm_state
+            + di // cfg.ssm_head_dim)
+    d, head = cfg.d_model, ("head", cfg.d_model, cfg.vocab_padded, 1, "head")
+    if cfg.family == "ssm":
+        L = cfg.n_layers
+        return [("in_proj", d, proj, L, "body"),
+                ("out_proj", di, d, L, "body"), head]
+    G = cfg.n_layers // cfg.shared_attn_every
+    M = G * (cfg.shared_attn_every - 1)
+    hd = cfg.n_heads * cfg.head_dim_
+    kv = cfg.n_kv * cfg.head_dim_
+    return [("in_proj", d, proj, M, "body"), ("out_proj", di, d, M, "body"),
+            ("q", 2 * d, hd, G, "body"), ("k,v", 2 * d, kv, 2 * G, "body"),
+            ("o", hd, d, G, "body"), ("wi,wg", d, cfg.d_ff, 2 * G, "body"),
+            ("wo", cfg.d_ff, d, G, "body"), head]
+
+
+def ssm_forward_calls(cfg, kind: str) -> dict:
+    """Wrapper calls of one fused forward: every matmul through the
+    policy's kernel, but under P-C the body through quant_matmul and the
+    tied head through abfp_matmul."""
+    calls = {name: 0 for name in KERNELS}
+    for _, _, _, n, part in ssm_matmuls(cfg):
+        mm = "abfp_matmul" if kind == "p_c" and part == "head" else \
+            SSM_MM[kind]
+        calls[mm] += n
+    return calls
+
+
+def ssm_prepass(cfg, kind: str, M: int, M_head: int) -> int:
+    """abfp_matmul's x pre-pass (qdq_stream_kernel) in one forward: each of
+    its calls of up to 16 rows."""
+    if kind == "p_int8":
+        return 0
+    return sum(n for _, _, _, n, part in ssm_matmuls(cfg)
+               if (part == "head" or kind == "p_fp")
+               and (M_head if part == "head" else M) <= 16)
+
+
+def ssm_role_names(kind: str) -> dict:
+    """Kernel-name substring -> role, for the kernels of ``kind``'s path
+    (P-C: quant_matmul's and abfp_matmul's), and both attention wrappers'
+    kernels, which no SSM path launches."""
+    kinds = {"p_fp": ("fp",), "p_int8": ("int8",), "p_c": ("quant", "fp")}
+    names = {k: f"{mk} {role}" for mk in kinds[kind]
+             for k, role in REGIME_KERNELS[mk].items()
+             if k != "at::native::"}
+    names.update({"flash_mma_kernel": "flash", "attention_": "flash_quant"})
+    return names
+
+
+def ssm_roles(cfg, kind: str, M: int, M_head: int) -> dict:
+    """One fused forward's kernels by role (``regime_want`` of each matmul
+    at its rows: M in the body, M_head at the head), every other role of
+    the path's kernels and the attention kernels 0."""
+    from repro_torch.kernels import quant_matmul as qm
+
+    want = dict.fromkeys(ssm_role_names(kind).values(), 0)
+    for _, K, N, n, part in ssm_matmuls(cfg):
+        rows = M_head if part == "head" else M
+        mk = ("fp" if part == "head" and kind == "p_c" else
+              {"p_fp": "fp", "p_int8": "int8", "p_c": "quant"}[kind])
+        wide = mk == "quant" and N >= qm.CONTRACT_MIN_N
+        for role, c in regime_want(mk, rows, 64, wide).items():
+            want[f"{mk} {role}"] += c * n
+    return want
+
+
+class CountingModel(TimedModel):
+    """A model facade that keeps, for every prefill and decode step, its
+    wall ms (between two synchronizations), its rows and the wrappers'
+    launches and abfp_matmul's x pre-pass it made."""
+
+    def __init__(self, model, torch):
+        super().__init__(model, torch)
+        self.prefills = []
+        self.ticks = []
+
+    def _counted(self, fn, out, rows, *args, **kw):
+        from repro_torch.kernels import quant_matmul as qm
+
+        before = (read_counts(), qm.abfp_matmul.launches_by_kernel[
+            "qdq_stream_kernel"])
+        self._torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        self._torch.cuda.synchronize()
+        after = (read_counts(), qm.abfp_matmul.launches_by_kernel[
+            "qdq_stream_kernel"])
+        out.append({"rows": rows, "ms": (time.perf_counter() - t0) * 1e3,
+                    "launches": {k: v - before[0][k]
+                                 for k, v in after[0].items()},
+                    "prepass": after[1] - before[1]})
+        return res
+
+    def prefill(self, params, batch, *args, **kw):
+        return self._counted(self._model.prefill, self.prefills,
+                             batch["tokens"].shape[1], params, batch,
+                             *args, **kw)
+
+    def decode_step(self, params, token, *args, **kw):
+        return self._counted(self._model.decode_step, self.ticks,
+                             token.shape[0], params, token, *args, **kw)
+
+
+def ssm_ranges(torch):
+    """A context that wraps Mamba2's ``_ssd``, ``_conv``, ``_conv_step``
+    and ``_state_step`` in ``record_function`` ranges (``SSM_RANGES``), so a
+    profile can tell their device time apart."""
+    import contextlib
+
+    from repro_torch.nn.ssm import Mamba2
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = {name: getattr(Mamba2, name) for name in SSM_RANGES}
+
+        def wrap(name, fn):
+            def call(*a, **kw):
+                with torch.profiler.record_function(SSM_RANGES[name]):
+                    return fn(*a, **kw)
+            return call
+
+        for name, fn in saved.items():
+            setattr(Mamba2, name, wrap(name, fn))
+        try:
+            yield
+        finally:
+            for name, fn in saved.items():
+                setattr(Mamba2, name, fn)
+
+    return ctx()
+
+
+def ssm_profile(torch, step, n_steps: int, step_ms: float, kind: str,
+                roles: dict) -> dict:
+    """``n_steps`` calls of ``step`` under the profiler, with the SSD scan
+    and the conv in ranges: device busy ms a step and idle share against
+    ``step_ms`` (wall, unprofiled), launches a step, top kernels, and the
+    device ms a step split into the SSD scan (its einsums, cumsum and
+    exps), the conv, the port's matmul kernels (by ``roles``: kernel-name
+    substrings) and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    labels = set(SSM_RANGES.values())
+    torch.cuda.synchronize()
+    with ssm_ranges(torch), profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as p:
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+    events = p.key_averages()
+    dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
+           if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0 and e.key not in labels]
+    busy = sum(ms for _, ms, _ in dev) / n_steps
+    out = {f"{kind}_steps_profiled": n_steps,
+           f"{kind}_step_ms_unprofiled": step_ms,
+           "aten_ops_per_step": sum(e.count for e in events
+                                    if e.key.startswith("aten::")) / n_steps}
+    if busy <= 0:
+        out["device_time"] = "not measured (the profiler saw no device time)"
+        return out
+    split = {label: sum(e.device_time_total for e in events
+                        if e.key == label and e.device_type == DeviceType.CPU)
+             / 1e3 / n_steps for label in sorted(labels)}
+    split["matmul kernels"] = sum(
+        ms for k, ms, _ in dev if any(r in k for r in roles)) / n_steps
+    split["rest"] = busy - sum(split.values())
+    out.update({"device_busy_ms_per_step": busy,
+                "device_idle_share": max(0.0, 1.0 - busy / step_ms),
+                "device_kernel_launches_per_step":
+                    sum(c for _, _, c in dev) / n_steps,
+                "device_ms_split_per_step": split,
+                "top_device_kernels_ms_per_step": [
+                    {"name": k.replace("void ", "")[:60], "ms": ms / n_steps,
+                     "launches": c / n_steps}
+                    for k, ms, c in sorted(dev, key=lambda d: -d[1])[:10]]})
+    return out
+
+
+def ssm_kernel_checks(torch, seed: int) -> dict:
+    """The kernels at the SSM slice's shapes, held against their plain
+    versions and timed beside them and the bound: mamba2-130m's in_proj
+    (768 x 3,352: N ragged), out_proj and tied head under both dense
+    matmuls at a tick (M = 4) and the 1,500-token prefill, its Mamba2
+    projections under quant_matmul (P-C); zamba2-7b's matmuls under
+    abfp_matmul at a decode step (M = 2) and the prefill (M = 600): in_proj
+    (N = 14,576), out_proj and the shared q, k, v (K = 7,168), o, wi / wg,
+    wo (K = 14,336) and the head; abfp_qdq at the pre-pass shapes of a
+    P-fp tick and decode step, and at the ViT's 16-image head (M = 16,
+    K = 768)."""
+    from repro_torch.configs import get_config
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 13)
+    rows = {"abfp_matmul": [], "abfp_matmul_int8": [], "quant_matmul": [],
+            "abfp_qdq": []}
+    mamba, zamba = get_config("mamba2-130m"), get_config("zamba2-7b")
+    for label, K, N, _, part in ssm_matmuls(mamba):
+        for M in ((4,) if part == "head" else (4, 1500)):
+            for kind, name in (("fp", "abfp_matmul"),
+                               ("int8", "abfp_matmul_int8")):
+                rows[name].append(check_dense_matmul(
+                    torch, timer, gen, kind=kind, M=M, K=K, N=N,
+                    label=f"mamba2 {label} M={M} K={K} N={N}"))
+            if part == "body":
+                rows["quant_matmul"].append(check_quant_matmul(
+                    torch, timer, gen, M=M, K=K, N=N, packed=True,
+                    label=f"mamba2 {label} M={M} K={K} N={N} int4"))
+    seen = set()
+    for label, K, N, _, _ in ssm_matmuls(zamba):
+        if (K, N) in seen:  # out_proj and q, k, v share (7168, 3584)
+            continue
+        seen.add((K, N))
+        for M in (2, 600):
+            rows["abfp_matmul"].append(check_dense_matmul(
+                torch, timer, gen, kind="fp", M=M, K=K, N=N,
+                label=f"zamba2 {label} M={M} K={K} N={N}"))
+        torch.cuda.empty_cache()
+    for M, K, where in ((16, 768, "vit head"), (4, 768, "mamba2 tick"),
+                        (4, 1536, "mamba2 tick"), (2, 3584, "zamba2 step"),
+                        (2, 7168, "zamba2 step"), (2, 14336, "zamba2 step")):
+        rows["abfp_qdq"].append(check_abfp_qdq(
+            torch, timer, gen, M=M, K=K, n=64, fmt_name="int8",
+            label=f"{where} pre-pass M={M} K={K} int8", profiled=False))
+    del timer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ssm_requests(cfg, seed: int):
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.RandomState(seed + 5)
+    return [Request(uid=uid,
+                    prompt=rng.randint(0, cfg.vocab, size=n).astype(np.int32),
+                    max_new_tokens=SSM_NEW)
+            for uid, n in enumerate(SSM_PROMPTS)]
+
+
+def ssm_state_bytes(state, n_slots: int) -> float:
+    return sum(t.numel() * t.element_size() for t in _leaves(state.ssm)
+               if hasattr(t, "numel")) / n_slots
+
+
+def ssm_serve(torch, model, params, kind: str, seed: int, smi: str
+              ) -> dict:
+    """mamba2-130m through the fixed-slot engine under ``kind``: the six
+    requests drained, every prefill's and tick's launches asserted from the
+    wrappers' counts (each forward ``ssm_forward_calls``, the x pre-pass
+    ``ssm_prepass``; no other kernel), then one tick (4 slots decoding)
+    and the 1,500-token prefill read by role from the profiler (asserted:
+    ``ssm_roles``) and profiled."""
+    cfg = model.cfg
+    counted = CountingModel(model, torch)
+    eng = fixed_engine(counted, params, ssm_policy(kind), n_slots=4,
+                       max_len=SSM_MAX_LEN, compress=(kind == "p_c"))
+    reqs = ssm_requests(cfg, seed)
+    for r in reqs:
+        eng.submit(r)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    while eng._has_work():
+        eng.tick()
+        if eng.ticks > 500:
+            raise SystemExit(f"ssm {kind}: the engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_completions(cfg, eng, eng.done, reqs)
+    label = f"ssm {cfg.name} {kind}"
+    want = ssm_forward_calls(cfg, kind)
+    for what, log_ in (("prefill", counted.prefills),
+                       ("tick", counted.ticks)):
+        for call in log_:
+            # a prefill's head takes its last row, a tick every slot's
+            pre = (ssm_prepass(cfg, kind, call["rows"], 1)
+                   if what == "prefill" else ssm_prepass(cfg, kind, 4, 4))
+            if call["launches"] != want or call["prepass"] != pre:
+                raise SystemExit(
+                    f"{label}: a {what} of {call['rows']} rows launched "
+                    f"{call['launches']} and {call['prepass']} x pre-passes,"
+                    f" expected {want} and {pre}")
+    passes = len(counted.prefills) + len(counted.ticks)
+    if passes != eng.prefills + eng.ticks:
+        raise SystemExit(f"{label}: {passes} forwards counted")
+    n_tok = sum(len(c.tokens) for c in eng.done)
+    long_ms = [c["ms"] for c in counted.prefills
+               if c["rows"] == max(SSM_PROMPTS)]
+    report = {
+        "policy": kind, "requests": len(eng.done),
+        "prompt_lens": list(SSM_PROMPTS), "generated_tokens": n_tok,
+        "prefills": eng.prefills, "ticks": eng.ticks, "wall_s": wall,
+        "tokens_per_s": n_tok / wall,
+        "prefill_ms": {c["rows"]: c["ms"] for c in counted.prefills},
+        "prefill_1500_ms": long_ms[0],
+        "tick_ms_median": statistics.median(c["ms"] for c in counted.ticks),
+        "launches": counts,
+        "prepass_launches": sum(c["prepass"]
+                                for c in counted.prefills + counted.ticks),
+        "slot_state_bytes": ssm_state_bytes(eng.state, eng.n_slots),
+        "weight_bytes": (None if eng.weight_bytes is None else {
+            k: eng.weight_bytes[k] for k in ("dense_kernel_bytes",
+                                             "resident_kernel_bytes",
+                                             "compressed_sites")}),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
+    log(f"  {label}: {n_tok} tokens in {wall:.2f} s "
+        f"({report['tokens_per_s']:.1f} tokens/s), tick "
+        f"{report['tick_ms_median']:.2f} ms, 1500-token prefill "
+        f"{report['prefill_1500_ms']:.2f} ms [{smi}]")
+    # one tick with every slot decoding, and the 1500-token prefill: their
+    # kernels by role from the profiler, then a profile of each
+    names = ssm_role_names(kind)
+    for r in make_requests(cfg, seed + 1)[:4]:
+        eng.submit(r)
+    while eng.queue or not eng.active.all():
+        eng.tick()
+    # each capture starts with spin kernels: late in a whole run the
+    # profiler has dropped a capture's first launches (see lead_spins)
+    report["tick_roles"] = device_launches(
+        torch, lambda: (lead_spins(torch), eng._decode()), names,
+        ssm_roles(cfg, kind, 4, 4), f"{label} tick", roles_only=True)
+    tick_ms = statistics.median(eng.decode_ms[-8:])  # tick and sampling
+    report["tick_profile"] = ssm_profile(torch, eng._decode, 4, tick_ms,
+                                         "tick", names)
+    eng.run_until_done(max_ticks=500)
+    toks = torch.as_tensor(reqs[-1].prompt[None], device="cuda")
+
+    def prefill():
+        return model.prefill(eng.params, {"tokens": toks}, eng.policy,
+                             max_len=SSM_MAX_LEN)
+
+    report["prefill_roles"] = device_launches(
+        torch, lambda: (lead_spins(torch), prefill()), names,
+        ssm_roles(cfg, kind, toks.shape[1], 1),
+        f"{label} 1500-token prefill", roles_only=True)
+    report["prefill_profile"] = ssm_profile(
+        torch, prefill, 1, report["prefill_1500_ms"], "prefill", names)
+    for what in ("tick", "prefill"):
+        prof = report[f"{what}_profile"]
+        log(f"  {label} {what}: device busy "
+            f"{prof.get('device_busy_ms_per_step', 'not measured')} ms, idle "
+            f"{prof.get('device_idle_share', 'not measured')}; split "
+            + json.dumps(prof.get("device_ms_split_per_step")) + f" [{smi}]")
+        log(f"  {label} {what} profile: " + json.dumps(prof))
+    log(f"  {label}: " + json.dumps({k: v for k, v in report.items()
+                                     if not k.endswith("_profile")}))
+    del eng
+    torch.cuda.empty_cache()
+    return report
+
+
+def split_contractions(torch):
+    """A context in which the plain paths add each contraction's terms in
+    another order: every f32 matmul as the sum of its two halves of K, and
+    every group sum of codes as the sum of its two halves of the groups —
+    the last-bit control of the logits and block checks."""
+    import contextlib
+
+    from repro_torch.core import simulate as sim
+
+    fp_matmul, contract = sim._fp_matmul, sim.group_contract
+
+    def split_k(x, w, compute_dtype):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        h = w.shape[0] // 2
+        xc, wc = x.to(compute_dtype), w.to(compute_dtype)
+        y = torch.matmul(xc[..., :h], wc[:h]) + torch.matmul(xc[..., h:],
+                                                             wc[h:])
+        return y.to(torch.float32)
+
+    def split_groups(xc, xs, wc, ws, *, max_abs_product):
+        h = xc.shape[-2] // 2
+        if h == 0:
+            return contract(xc, xs, wc, ws, max_abs_product=max_abs_product)
+        return (contract(xc[..., :h, :], xs[..., :h], wc[:, :h], ws[:, :h],
+                         max_abs_product=max_abs_product)
+                + contract(xc[..., h:, :], xs[..., h:], wc[:, h:],
+                           ws[:, h:], max_abs_product=max_abs_product))
+
+    @contextlib.contextmanager
+    def ctx():
+        sim._fp_matmul, sim.group_contract = split_k, split_groups
+        try:
+            yield
+        finally:
+            sim._fp_matmul, sim.group_contract = fp_matmul, contract
+
+    return ctx()
+
+
+def lm_logits(torch, model, params, toks, policy):
+    with torch.no_grad():
+        return model.apply(params, {"tokens": toks}, policy)[0][
+            ..., :model.cfg.vocab]
+
+
+def lm_gap(torch, model, params, toks, kp, no_qdq) -> dict:
+    """The fused policy ``kp``'s logits against its ref backend's, in units
+    of their std, beside the ref backend moved by a last bit (its sums
+    reordered: ``split_contractions``) and the fp32 weights with no QDQ
+    (``no_qdq``, their logits).  Held (at most GAP_FACTOR times the control
+    and GAP_MAX) only where GAP_FACTOR times the control lies below the
+    no-QDQ control: on random weights a deep recurrence may carry a last
+    bit as far as no QDQ."""
+    rp = ref_backend(kp)
+    ref = lm_logits(torch, model, params, toks, rp)
+    fused = lm_logits(torch, model, params, toks, kp)
+    with split_contractions(torch):
+        moved = lm_logits(torch, model, params, toks, rp)
+    out = {"logit_gap_over_std": logit_gap(torch, fused, ref),
+           "reordered_control_over_std": logit_gap(torch, moved, ref),
+           "no_qdq_control_over_std": logit_gap(torch, no_qdq, ref)}
+    out["logit_gap_limit"] = min(GAP_MAX, GAP_FACTOR
+                                 * out["reordered_control_over_std"])
+    out["held"] = (GAP_FACTOR * out["reordered_control_over_std"]
+                   < out["no_qdq_control_over_std"])
+    out["ok"] = (not out["held"]
+                 or out["logit_gap_over_std"] <= out["logit_gap_limit"])
+    return out
+
+
+def ssm_block_gaps(torch, model, params, toks, kp) -> dict:
+    """Every Mamba2 block (and shared-attention invocation) of the fused
+    policy ``kp`` fed the ref backend's input of that block (captured from
+    one ref-backend forward) against the ref backend's output: the rms of
+    the difference over the std of the block's update, beside the ref
+    backend with its sums reordered and the fp32 block with no QDQ, as the
+    vit phase holds its blocks."""
+    from repro_torch.core.policy import preset
+    from repro_torch.models.hybrid import HybridLM
+
+    inner = model.inner
+    cls = type(inner)
+    hybrid = isinstance(inner, HybridLM)
+    names = ("_mamba_block", "_shared_block") if hybrid else (
+        "_block_apply",)
+    saved = {n: getattr(cls, n) for n in names}
+    calls = []
+
+    def capture(name):
+        def call(self, *a, **kw):
+            calls.append((name, a, kw))
+            return saved[name](self, *a, **kw)
+        return call
+
+    rp = ref_backend(kp)
+    for n in names:
+        setattr(cls, n, capture(n))
+    try:
+        with torch.no_grad():
+            model.apply(params, {"tokens": toks}, rp)
+    finally:
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+
+    def run(name, a, kw, policy):
+        a = list(a)
+        if name == "_block_apply":  # (bp, x, policy, name, attend, q)
+            a[2] = policy
+            return saved[name](inner, *a, **kw)
+        if name == "_mamba_block":  # (bp, x, policy)
+            a[2] = policy
+            return saved[name](inner, *a, **kw)
+        a[5] = policy  # (sparams, lora, x, x0, positions, policy)
+        return saved[name](inner, *a, **kw)[0]
+
+    rows = []
+    with torch.no_grad():
+        for name, a, kw in calls:
+            x = a[2] if name == "_shared_block" else a[1]
+            ref = run(name, a, kw, rp)
+            fused = run(name, a, kw, kp)
+            with split_contractions(torch):
+                moved = run(name, a, kw, rp)
+            plain = run(name, a, kw, preset("fp32"))
+            unit = (ref - x).std()
+            rows.append({"block": name.strip("_"), "rms": [
+                ((y - ref).square().mean().sqrt() / unit).item()
+                for y in (fused, moved, plain)]})
+    gap, moved = (max(r["rms"][i] for r in rows) for i in range(2))
+    out = {"blocks": len(rows), "block_gap_rms": gap,
+           "block_reordered_control_rms": moved,
+           "block_no_qdq_control_rms": min(r["rms"][2] for r in rows),
+           "block_gap_limit": min(GAP_MAX, GAP_FACTOR * moved),
+           "worst": max(rows, key=lambda r: r["rms"][0])}
+    out["ok"] = (out["block_gap_rms"] <= out["block_gap_limit"]
+                 < out["block_no_qdq_control_rms"])
+    return out
+
+
+def ssm_numerics(torch, model, params, kp, label, smi, served=None) -> dict:
+    """``lm_gap`` and ``ssm_block_gaps`` of one fused policy on
+    SSM_GAP_TOKENS (``served``: the compressed tree and its serving
+    policy, held against the same tree through the plain paths), asserted.
+    """
+    import numpy as np
+
+    from repro_torch.core.policy import preset
+
+    cfg = model.cfg
+    rng = np.random.RandomState(17)
+    shape = SSM_GAP_TOKENS if cfg.family == "ssm" else ZAMBA_LOSS
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab, shape), device="cuda")
+    no_qdq = lm_logits(torch, model, params, toks, preset("fp32"))
+    tree, pol = (params, kp) if served is None else served
+    out = lm_gap(torch, model, tree, toks, pol, no_qdq)
+    out.update(ssm_block_gaps(torch, model, tree, toks, pol))
+    log(f"  {label}: logits {out['logit_gap_over_std']:.6g} std from the "
+        f"ref backend's (limit {out['logit_gap_limit']:.6g}; sums reordered "
+        f"{out['reordered_control_over_std']:.6g}, no QDQ "
+        f"{out['no_qdq_control_over_std']:.6g}"
+        + ("" if out["held"] else "; void: a last bit moves them as far as "
+           "no QDQ, the blocks are held instead") + "); "
+        f"{out['blocks']} blocks on the ref backend's inputs: rms "
+        f"{out['block_gap_rms']:.6g} (limit {out['block_gap_limit']:.6g}; "
+        f"reordered {out['block_reordered_control_rms']:.6g}, no QDQ "
+        f"{out['block_no_qdq_control_rms']:.6g}; worst "
+        + json.dumps(out["worst"]) + f") [{smi}]")
+    if not out["ok"]:
+        raise SystemExit(f"{label}: " + json.dumps(out))
+    return out
+
+
+def recurrence_check(torch, model, params, toks, n: int, label: str,
+                     max_len: int | None = None) -> dict:
+    """fp32, no kernels: ``prefill`` of the first n tokens then decode
+    steps to the end give the logits a ``prefill`` of all of them gives at
+    the last position, within rtol 5e-3 / atol 5e-4."""
+    from repro_torch.core.policy import preset
+
+    pol = preset("fp32")
+    before = read_counts()
+    with torch.no_grad():
+        want, _ = model.prefill(params, {"tokens": toks}, pol,
+                                max_len=max_len)
+        got, st = model.prefill(params, {"tokens": toks[:, :n]}, pol,
+                                max_len=max_len)
+        for t in range(n, toks.shape[1]):
+            got, st = model.decode_step(params, toks[:, t:t + 1], st, pol)
+    if read_counts() != before:
+        raise SystemExit(f"{label}: the fp32 recurrence launched a kernel")
+    err = (got - want).abs()
+    excess = (err - (5e-4 + 5e-3 * want.abs())).max().item()
+    out = {"prefix": n, "tokens": toks.shape[1],
+           "max_abs_err": err.max().item(), "ok": excess <= 0}
+    log(f"  {label} recurrence {n} -> {toks.shape[1]}: " + json.dumps(out))
+    if not out["ok"]:
+        raise SystemExit(f"{label}: prefill + decode disagrees with the "
+                         f"longer prefill: {out}")
+    return out
+
+
+def ssm_reduced(torch, seed: int) -> dict:
+    """mamba2-130m ``.reduced()`` served on the card through the kernels
+    against the CPU's plain path (the arithmetic the CPU tests hold
+    token-identical to the JAX reference), as phase ``reduced`` holds the
+    fixed-slot engine: P-fp, P-int8 and P-C at group 32, every turned token
+    judged by the margin rule."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+    from repro_torch.serve.engine import Request
+
+    cfg = get_config("mamba2-130m").reduced()
+    models = {"cpu": build_model(cfg, device="cpu"), "cuda": build_model(cfg)}
+    params = models["cpu"].init(make_generator(seed, "cpu"))
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    rows = []
+    for kind in SSM_MM:
+        pol = fixed_policy("p_int8" if kind == "p_int8" else "p_fp", n=32)
+        runs = {}
+        reset_counts()
+        for dev, model in models.items():
+            trace = {}
+            eng = fixed_engine(model, to(params, dev), pol, trace=trace,
+                               n_slots=3, max_len=96, device=dev,
+                               compress=(kind == "p_c"))
+            rng = np.random.RandomState(seed + 3)
+            for uid, size in enumerate((5, 11, 3, 70, 8, 2)):
+                eng.submit(Request(
+                    uid=uid, max_new_tokens=6,
+                    prompt=rng.randint(0, cfg.vocab, size).astype(np.int32)))
+            toks = {c.uid: c.tokens for c in eng.run_until_done()}
+            runs[dev] = (toks, {u: [t.cpu() for t in r]
+                                for u, r in trace.items()})
+        counts = read_counts()
+        cmp = compare_runs(torch, *runs["cuda"], *runs["cpu"])
+        row = {"policy": kind, "requests_equal": 6 - len(cmp["divergences"]),
+               "tokens_equal": cmp["tokens_equal"],
+               "tokens_total": cmp["tokens_total"],
+               "max_logit_gap_over_std": cmp["max_logit_gap_over_std"],
+               "divergences": cmp["divergences"], "launches": counts}
+        rows.append(row)
+        log("  reduced mamba2 " + json.dumps(row))
+        if not counts[SSM_MM[kind]] or any(
+                counts[k] for k in ("flash_attention",
+                                    "flash_attention_quant")):
+            raise SystemExit(f"ssm reduced {kind}: launched {counts}")
+        for d in cmp["divergences"]:
+            if not d["top2_margin_over_std"] <= 2 * d["logit_gap_over_std"]:
+                raise SystemExit(f"ssm reduced {kind}: a token turned away "
+                                 f"from a near-tie: {d}")
+    return {"configs": rows}
+
+
+def zamba_run(torch, model, params, seed: int, smi: str) -> dict:
+    """zamba2-7b under P-fp through ``Model``: one ``loss`` on ZAMBA_LOSS
+    tokens, a ``prefill`` of ZAMBA_PREFILL into a ring of ZAMBA_MAX_LEN and
+    ZAMBA_STEPS decode steps, every call's launches asserted (each forward
+    ``ssm_forward_calls``; the x pre-pass at the head of the prefill and at
+    every matmul of a step), one step read by role from the profiler and
+    profiled."""
+    import numpy as np
+
+    cfg = model.cfg
+    kp = ssm_policy("p_fp")
+    rng = np.random.RandomState(seed + 7)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab, ZAMBA_LOSS),
+                           device="cuda")
+    labels = torch.roll(toks, -1, dims=1)
+    labels[:, -1] = -1
+    ptoks = torch.as_tensor(rng.randint(0, cfg.vocab, ZAMBA_PREFILL),
+                            device="cuda")
+    want = ssm_forward_calls(cfg, "p_fp")
+    report = {}
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    calls = []
+    counted = CountingModel(model, torch)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        before = read_counts()
+        loss, _ = model.loss(params, {"tokens": toks, "labels": labels}, kp)
+        torch.cuda.synchronize()
+        report["loss_ms"] = (time.perf_counter() - t0) * 1e3
+        report["loss"] = float(loss)
+        calls.append(("loss", {k: v - before[k]
+                               for k, v in read_counts().items()}))
+        logits, st = counted.prefill(params, {"tokens": ptoks}, kp,
+                                     max_len=ZAMBA_MAX_LEN)
+        for _ in range(ZAMBA_STEPS):
+            tok = torch.argmax(logits[:, :cfg.vocab], dim=-1)[:, None]
+            logits, st = counted.decode_step(params, tok.to(torch.int32),
+                                             st, kp)
+    counts = read_counts()
+    calls += [("prefill", c["launches"]) for c in counted.prefills]
+    calls += [("step", c["launches"]) for c in counted.ticks]
+    for what, got in calls:
+        if got != want:
+            raise SystemExit(f"zamba2 {what}: launched {got}, expected "
+                             f"{want}")
+    pre = [c["prepass"] for c in counted.prefills + counted.ticks]
+    want_pre = [1] + [sum(n for *_, n, _ in ssm_matmuls(cfg))] * ZAMBA_STEPS
+    if pre != want_pre:
+        raise SystemExit(f"zamba2: x pre-passes {pre}, expected {want_pre}")
+    if not torch.isfinite(logits[:, :cfg.vocab]).all():
+        raise SystemExit("zamba2: non-finite logits")
+    report.update({
+        "launches": counts, "forward_calls": want,
+        "prefill_ms": counted.prefills[0]["ms"],
+        "step_ms_median": statistics.median(c["ms"] for c in counted.ticks),
+        "slot_state_bytes": ssm_state_bytes(st, ZAMBA_PREFILL[0]),
+        "slot_kv_bytes": sum(t.numel() * t.element_size()
+                             for c in st.kv for t in (c.k, c.v))
+        / ZAMBA_PREFILL[0],
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    names = ssm_role_names("p_fp")
+
+    def step():
+        with torch.no_grad():
+            return model.decode_step(params, tok.to(torch.int32), st, kp)
+
+    report["step_roles"] = device_launches(
+        torch, lambda: (lead_spins(torch), step()), names,
+        ssm_roles(cfg, "p_fp", 2, 2), "zamba2 decode step", roles_only=True)
+    report["step_profile"] = ssm_profile(torch, step, 2,
+                                         report["step_ms_median"], "step",
+                                         names)
+    prof = report["step_profile"]
+    log(f"  zamba2-7b P-fp: loss {report['loss']:.6f} "
+        f"({report['loss_ms']:.1f} ms), prefill {report['prefill_ms']:.1f} "
+        f"ms, step {report['step_ms_median']:.1f} ms (busy "
+        f"{prof.get('device_busy_ms_per_step', 'not measured')}, idle "
+        f"{prof.get('device_idle_share', 'not measured')}; split "
+        + json.dumps(prof.get("device_ms_split_per_step")) + f") [{smi}]")
+    log("  zamba2-7b P-fp: " + json.dumps(report))
+    return report
+
+
+def zamba_compressed(torch, model, params) -> dict:
+    """P-C on the hybrid: compressed weights under the fused policy raise
+    the reference's ValueError at the first shared q (``serving_policy``
+    drops the weight quantizer; the decompressed kernel then meets the
+    fused backend, which needs both), after the first group's Mamba2
+    projections ran through quant_matmul."""
+    from repro_torch.models import serving_transforms as st
+
+    kp = ssm_policy("p_c")
+    served = st.compress_weights(params, kp)
+    toks = torch.zeros((1, 8), dtype=torch.int32, device="cuda")
+    reset_counts()
+    try:
+        with torch.no_grad():
+            model.apply(served, {"tokens": toks}, st.serving_policy(kp))
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise SystemExit("zamba2 P-C: compressed weights under a fused "
+                         "policy did not raise")
+    counts = {k: v for k, v in read_counts().items() if v}
+    want = {"quant_matmul": 2 * (model.cfg.shared_attn_every - 1)}
+    if "needs both" not in msg or counts != want:
+        raise SystemExit(f"zamba2 P-C: raised {msg!r} after {counts}, "
+                         f"expected the fused backend's ValueError after "
+                         f"{want}")
+    del served
+    torch.cuda.empty_cache()
+    log(f"  zamba2-7b P-C: raised the reference's ValueError after {counts}: "
+        f"{msg}")
+    return {"raised": msg, "launches_before": counts}
+
+
+def phase_ssm(torch, seed: int, smi: str) -> dict:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import serving_transforms as st
+    from repro_torch.nn.module import make_generator
+
+    log("== ssm: mamba2-130m through the fixed-slot engine, zamba2-7b "
+        "through Model, full width and depth")
+    t_phase = time.perf_counter()
+    report = {"kernel_rows": ssm_kernel_checks(torch, seed)}
+    totals = {name: 0 for name in KERNELS}
+    prepass = 0
+
+    # mamba2-130m: the engine under the three policies
+    cfg = get_config("mamba2-130m")
+    model = build_model(cfg)
+    params = model.init(make_generator(seed, "cuda"))
+    report["mamba2"] = {}
+    for kind in SSM_MM:
+        r = ssm_serve(torch, model, params, kind, seed, smi)
+        report["mamba2"][kind] = r
+        for k, v in r["launches"].items():
+            totals[k] += v
+        prepass += r["prepass_launches"]
+    report["mamba2_numerics"] = {}
+    for kind in SSM_MM:
+        kp = ssm_policy(kind)
+        served = None
+        if kind == "p_c":
+            served = (st.compress_weights(params, kp),
+                      st.serving_policy(kp))
+        report["mamba2_numerics"][kind] = ssm_numerics(
+            torch, model, params, kp, f"mamba2 {kind}", smi, served)
+    rng = np.random.RandomState(seed + 9)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab, (2, 260)),
+                           device="cuda")
+    report["mamba2_recurrence"] = recurrence_check(
+        torch, model, params, toks, 250, "mamba2")
+    del params, model
+    torch.cuda.empty_cache()
+
+    # zamba2-7b: Model under P-fp, and P-C's raise
+    cfg = get_config("zamba2-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(make_generator(seed, "cuda"))
+    torch.cuda.synchronize()
+    report["zamba2_init_s"] = time.perf_counter() - t0
+    report["zamba2_param_bytes"] = sum(t.numel() * t.element_size()
+                                       for t in _leaves(params))
+    log(f"  zamba2-7b built in {report['zamba2_init_s']:.1f} s: "
+        f"{report['zamba2_param_bytes']} bytes of f32 parameters")
+    z = zamba_run(torch, model, params, seed, smi)
+    report["zamba2"] = z
+    for k, v in z["launches"].items():
+        totals[k] += v
+    prepass += 1 + ZAMBA_STEPS * sum(n for *_, n, _ in ssm_matmuls(cfg))
+    report["zamba2_numerics"] = ssm_numerics(
+        torch, model, params, ssm_policy("p_fp"), "zamba2 p_fp", smi)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab, (2, 304)),
+                           device="cuda")
+    report["zamba2_recurrence"] = recurrence_check(
+        torch, model, params, toks, 300, "zamba2", max_len=ZAMBA_MAX_LEN)
+    report["zamba2_p_c"] = zamba_compressed(torch, model, params)
+    del params, model
+    torch.cuda.empty_cache()
+
+    report["reduced"] = ssm_reduced(torch, seed)
+    report["launches"] = totals
+    report["prepass_launches"] = prepass
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"  ssm launches on the main paths: {json.dumps(totals)}, x "
+        f"pre-pass {prepass}; phase {report['phase_s']:.1f} s [{smi}]")
+    return report
+
+
+# --------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3659,15 +4519,16 @@ def main() -> int:
             "reduced": lambda: phase_reduced(torch, args.seed),
             "identity": lambda: phase_identity(torch, args.seed),
             "ptq": lambda: phase_ptq(torch, args.seed, smi),
-            "vit": lambda: phase_vit(torch, args.seed, smi)}
+            "vit": lambda: phase_vit(torch, args.seed, smi),
+            "ssm": lambda: phase_ssm(torch, args.seed, smi)}
     done = {}
     for name in PHASES:
         if name in phases:
             PHASE["name"] = name
             done[name] = runs[name]()
-    kernel_rows, serve, long_ctx, fixed, ptq, vit = (
+    kernel_rows, serve, long_ctx, fixed, ptq, vit, ssm = (
         done.get(p) for p in ("kernels", "serve", "long", "fixed", "ptq",
-                              "vit"))
+                              "vit", "ssm"))
     retakes = {p: {"empty": 0, "other": 0} for p in phases}
     for r in PROFILER_RETRIES:
         retakes.setdefault(r["phase"], {"empty": 0, "other": 0})[
@@ -3676,16 +4537,17 @@ def main() -> int:
 
     # launches of each kernel on the main paths, each counted from 0 just
     # before its run: the paged serve run, the long-context run, the two
-    # fixed-slot runs, the PTQ phase's fused evaluations and the vision
-    # phase's fused forwards
+    # fixed-slot runs, the PTQ phase's fused evaluations, the vision
+    # phase's fused forwards and the SSM phase's served and Model runs
     paths = {"serve": (serve or {}).get("launches", {}),
              "long": (long_ctx or {}).get("launches", {}),
              **{f"fixed_{k}": r["launches"] for k, r in (fixed or {}).items()},
              "ptq": (ptq or {}).get("launches", {}),
-             "vit": (vit or {}).get("launches", {})}
-    # the ptq and vit paths' shapes join their kernels' rows
+             "vit": (vit or {}).get("launches", {}),
+             "ssm": (ssm or {}).get("launches", {})}
+    # the ptq, vit and ssm paths' shapes join their kernels' rows
     kernel_rows = dict(kernel_rows or {})
-    for extra in (ptq, vit):
+    for extra in (ptq, vit, ssm):
         for name, rows in (extra or {}).get("kernel_rows", {}).items():
             kernel_rows[name] = kernel_rows.get(name, []) + rows
     # the shape whose numbers head a kernel's entry: the decode shape
@@ -3710,6 +4572,9 @@ def main() -> int:
                        .get("abfp_matmul", {}).get("qdq_stream_kernel"))
             if vit_qdq:
                 by_path["vit"] = vit_qdq
+            # and on the SSM paths' P-fp and P-C matmuls of up to 16 rows
+            if (ssm or {}).get("prepass_launches"):
+                by_path["ssm"] = ssm["prepass_launches"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{build.SOURCES[mod]}",

@@ -105,3 +105,16 @@ def kv_mode_message(policy_name: str, modes: list) -> str:
         "storage is engine-global — set it on every entry with "
         "with_kv_cache(policy, mode)"
     )
+
+
+def non_contract_layout_message(what: str, top_keys) -> str:
+    """A site-rule map over a param tree whose paths are not the runtime
+    site addresses (hybrid, encdec): the serving transforms would resolve
+    its rules at the wrong sites."""
+    return (
+        f"{what} with a site-rule PolicyMap supports the "
+        "TransformerLM/ViT param layout only: this tree's param paths "
+        f"(top-level keys {sorted(top_keys)}) do not match the runtime "
+        "site addresses, so per-site rules would silently mis-resolve "
+        "— use a flat policy for hybrid/encdec families"
+    )

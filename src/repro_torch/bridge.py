@@ -4,14 +4,17 @@ a static-scale q tree (``from_repro_qtree``) and a calibrator's running
 statistics (``from_repro_calibrator``).
 
 ``from_repro_params`` takes the reference's *unboxed* parameter tree (a
-decoder LM's, or a ViT's: ``patch_embed``, ``pos_embed``, ``cls``,
-``final_norm``, ``head`` and the blocks) after a
-host transfer (nested dicts of numpy arrays; the caller does the
-``device_get``), so this module imports nothing of the reference.  Layers
-stacked along a leading ``(L, ...)`` axis (the reference's
-``scan_layers=True`` form) are unstacked into the port's list of per-layer
-dicts; a list stays a list.  A key the port does not know is an error, not
-a silent drop.
+decoder LM's, an SSM LM's (``blocks`` of ``{ln, mamba}``), a ViT's:
+``patch_embed``, ``pos_embed``, ``cls``, ``final_norm``, ``head`` and the
+blocks; or the Zamba2 hybrid's: ``embed``, ``mamba_groups``, ``shared``,
+``lora``, ``final_norm``) after a host transfer (nested dicts of numpy
+arrays; the caller does the ``device_get``), so this module imports nothing
+of the reference.  Layers stacked along a leading ``(L, ...)`` axis (the
+reference's ``scan_layers=True`` form) are unstacked into the port's list of
+per-layer dicts; a list stays a list.  The hybrid's ``mamba_groups`` (G,
+k-1, ...) become a list of G lists of k-1 block dicts and its ``lora`` (G,
+...) a list of G dicts.  A key the port does not know is an error, not a
+silent drop.
 """
 
 from __future__ import annotations
@@ -25,11 +28,18 @@ from repro_torch.nn.module import require_device
 _LEAF = None
 _DENSE = {"kernel": _LEAF, "bias": _LEAF, "smooth": _LEAF}
 _NORM = {"scale": _LEAF, "bias": _LEAF}
+_ATTN = {"q": _DENSE, "k": _DENSE, "v": _DENSE, "o": _DENSE}
+_MLP = {"wi": _DENSE, "wg": _DENSE, "wo": _DENSE}
+_MAMBA = {"in_proj": _DENSE, "out_proj": _DENSE, "conv_w": _LEAF,
+          "conv_b": _LEAF, "A_log": _LEAF, "D": _LEAF, "dt_bias": _LEAF,
+          "norm": _NORM}
 _BLOCK = {
     "ln1": _NORM, "ln2": _NORM, "ln1_post": _NORM, "ln2_post": _NORM,
-    "attn": {"q": _DENSE, "k": _DENSE, "v": _DENSE, "o": _DENSE},
-    "ffn": {"wi": _DENSE, "wg": _DENSE, "wo": _DENSE},
+    "attn": _ATTN, "ffn": _MLP,
+    # the SSM family's block: a pre-norm Mamba2 mixer
+    "ln": _NORM, "mamba": _MAMBA,
 }
+_LORA = {nm: {"A": _LEAF, "B": _LEAF} for nm in ("q", "k", "v")}
 _TOP = {
     "embed": {"table": _LEAF},
     "final_norm": _NORM,
@@ -40,6 +50,10 @@ _TOP = {
     "patch_embed": _DENSE,
     "cls": _LEAF,
     "head": _DENSE,
+    # the hybrid's Mamba2 groups, shared attention block and its LoRAs
+    "mamba_groups": {"ln": _NORM, "mamba": _MAMBA},
+    "shared": {"ln1": _NORM, "attn": _ATTN, "ln2": _NORM, "mlp": _MLP},
+    "lora": _LORA,
 }
 
 
@@ -75,14 +89,19 @@ def _first_leaf(node):
 
 def from_repro_params(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
     """The reference's parameter tree (numpy) as the port's (tensors on
-    ``device``), for a dense- or vit-family ``cfg``."""
+    ``device``), for a dense-, ssm-, hybrid- or vit-family ``cfg``."""
     device = require_device(device)
     unknown = sorted(set(tree) - set(_TOP))
     if unknown:
         raise KeyError(f"params: unknown top-level key(s) {unknown}; the "
                        f"port knows {sorted(_TOP)}")
+    if cfg.family == "hybrid":
+        return _hybrid_params(tree, cfg, device)
     out = {}
     for key, node in tree.items():  # key order is kept: reports walk it
+        if key in ("mamba_groups", "shared", "lora"):
+            raise KeyError(f"params: {key!r} belongs to the hybrid family, "
+                           f"not {cfg.name} ({cfg.family})")
         if key != "blocks":
             out[key] = _convert(node, _TOP[key], key, device)
         elif isinstance(node, dict):  # stacked (L, ...) leaves: unstack
@@ -107,6 +126,35 @@ def from_repro_params(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
     missing = sorted(need - set(out))
     if missing:
         raise KeyError(f"params lack {missing} required by {cfg.name}")
+    return out
+
+
+def _hybrid_params(tree: dict, cfg: ArchConfig, device) -> dict:
+    """The hybrid's tree: ``mamba_groups`` stacked (G, k-1, ...) and
+    ``lora`` stacked (G, ...) unstacked into lists."""
+    need = ("embed", "mamba_groups", "shared", "lora", "final_norm")
+    wrong = sorted(set(tree) - set(need))
+    missing = sorted(set(need) - set(tree))
+    if wrong or missing:
+        raise KeyError(f"params of {cfg.name}: unexpected {wrong}, missing "
+                       f"{missing}; the hybrid's tree holds {list(need)}")
+    G, k1 = _first_leaf(tree["mamba_groups"]).shape[:2]
+    if G * (k1 + 1) != cfg.n_layers or k1 + 1 != cfg.shared_attn_every:
+        raise ValueError(
+            f"params hold {G} groups of {k1} Mamba2 blocks but {cfg.name} "
+            f"has n_layers={cfg.n_layers}, shared_attn_every="
+            f"{cfg.shared_attn_every}")
+    out = {}
+    for key, node in tree.items():
+        if key == "mamba_groups":
+            out[key] = [[_convert(node, _TOP[key], f"{key}.{g}.{j}", device,
+                                  (g, j)) for j in range(k1)]
+                        for g in range(G)]
+        elif key == "lora":
+            out[key] = [_convert(node, _LORA, f"lora.{g}", device, g)
+                        for g in range(G)]
+        else:
+            out[key] = _convert(node, _TOP[key], key, device)
     return out
 
 

@@ -18,6 +18,9 @@ _ARCHS = {
     # the paper's own model family (PTQ methods table)
     "opt-125m": "repro_torch.configs.opt",
     "opt-tiny": "repro_torch.configs.opt",
+    # the state-space family and the Mamba2 / shared-attention hybrid
+    "mamba2-130m": "repro_torch.configs.mamba2_130m",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 

@@ -14,7 +14,11 @@ synthetic prompts on the same device, as the reference launcher does.
 
 An encoder-only classifier (``--arch vit-b16`` / ``deit-s16``) has nothing
 to decode: the launcher exits before building anything, as the reference's
-does.  Flags of the reference launcher whose features are not ported yet
+does.  ``--arch mamba2-130m`` serves through the fixed-slot engine
+(exact-length prefills, a recurrent state a slot); with ``--paged`` it
+raises ``init_paged_state``'s ``TypeError``, and ``--arch zamba2-7b``
+raises the engine's ``TypeError`` (a ``HybridState``), as the reference's
+launcher does.  Flags of the reference launcher whose features are not ported yet
 (``--speculate``, ``--expert-cache``, ``--expert-precision auto``) exit
 with a message naming the ROADMAP item that will bring them.
 There is no lint gate yet: the static analyzer is a late slice of the

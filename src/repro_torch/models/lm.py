@@ -5,11 +5,15 @@ Ported so far, for the dense attention family: parameter init, the
 embedding front, the LM head, full-sequence ``apply``, ``prefill`` into
 ring-buffer caches, the fixed-slot ``decode_step``, and the paged serving
 step (``init_paged_state`` / ``paged_step``), and the next-token losses
-(``cross_entropy``, ``chunked_lm_loss``).  Every forward takes the
+(``cross_entropy``, ``chunked_lm_loss``).  The state-space family
+(``ssm_state > 0``: every block a pre-norm Mamba2 mixer) has ``apply``,
+an exact-length ``prefill`` and ``decode_step`` over per-layer
+``SSMCache``s; it has no paged state.  Every forward takes the
 static-scale q tree (``q=``) of the PTQ passes.  Layers are always a Python
 list of per-layer dicts with sites ``blocks.{i}/...`` — there is no scan —
 so layer-indexed PolicyMap rules always resolve.  ``chunk_step`` (the
-speculative verify pass) and the MoE/SSM blocks wait for their slices.
+speculative verify pass) and the MoE block wait for ROADMAP.md Queue A
+item 4.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from repro_torch.nn.ffn import MLP
 from repro_torch.nn.linear import Dense, Embed
 from repro_torch.nn.module import require_device, truncated_normal
 from repro_torch.nn.norms import LayerNorm, RMSNorm
+from repro_torch.nn.ssm import mamba_from_config
 
 GLOBAL_WINDOW = 1 << 30
 NEG_INF = -1e9
@@ -50,13 +55,14 @@ class PagedState(NamedTuple):
 class DecodeState(NamedTuple):
     """Per-layer caches + absolute position.
 
-    Exactly one of kv / pages is populated: the fixed-slot ring buffer (a
-    list with one ``KVCache`` per layer) or the paged KV pool.  ``ssm``
-    keeps the reference's field layout for the SSM slice.
+    Exactly one of kv / ssm / pages is populated: the fixed-slot ring
+    buffer (a list with one ``KVCache`` per layer), the SSM family's
+    recurrent state (a list with one ``SSMCache`` per layer) or the paged
+    KV pool.
     """
 
     kv: Any  # list[KVCache], or None
-    ssm: Any
+    ssm: Any  # list[SSMCache], or None
     position: torch.Tensor  # int32 scalar (aligned) or (B,) per-slot
     pages: Any = None  # PagedState, or None
 
@@ -75,10 +81,18 @@ class TransformerLM:
 
     def __post_init__(self):
         c = self.cfg
-        if c.ssm_state > 0 or (c.family == "moe" and c.n_experts > 0):
+        if self.is_moe:
             raise NotImplementedError(
-                f"{c.name}: SSM and MoE blocks are not ported yet "
-                "(ROADMAP.md Queue A); the dense attention family is")
+                f"{c.name}: the MoE block is not ported yet (ROADMAP.md "
+                "Queue A item 4); the dense and SSM families are")
+
+    @property
+    def is_ssm(self) -> bool:
+        return self.cfg.ssm_state > 0
+
+    @property
+    def is_moe(self) -> bool:
+        return self.cfg.family == "moe" and self.cfg.n_experts > 0
 
     # ------------------------------------------------------ layer factories
     def _attention(self, name: str = "attn") -> Attention:
@@ -106,9 +120,15 @@ class TransformerLM:
         return Embed(c.vocab_padded, c.d_model, param_dtype=c.param_dtype,
                      dtype=c.dtype)
 
+    def _mamba(self, name: str = "mamba"):
+        return mamba_from_config(self.cfg, name)
+
     # ----------------------------------------------------------------- init
     def _block_init(self, gen, device) -> dict:
         c = self.cfg
+        if self.is_ssm:
+            return {"ln": _norm(c).init(gen, device),
+                    "mamba": self._mamba().init(gen, device)}
         p = {
             "ln1": _norm(c).init(gen, device),
             "attn": self._attention().init(gen, device),
@@ -192,6 +212,10 @@ class TransformerLM:
         ``q``: this block's slice of the static-scale q tree, or None."""
         c = self.cfg
         getq = (lambda k: None) if q is None else q.get
+        if self.is_ssm:  # a pre-norm Mamba2 mixer; ``attend`` is not used
+            h = _norm(c).apply(bparams["ln"], x)
+            return x + self._mamba(f"{name}/mamba").apply(
+                bparams["mamba"], h, policy, q=getq("mamba"))
         h = _norm(c).apply(bparams["ln1"], x)
         h = attend(self._attention(f"{name}/attn"), bparams["attn"], h,
                    getq("attn"))
@@ -253,11 +277,20 @@ class TransformerLM:
         right-padded to a bucket length, K/V cache rows past each row's
         valid length are zeroed (see ``Attention.apply``) and the logits
         are taken at position ``n_valid - 1`` — token-identical to an
-        exact-length prefill.
+        exact-length prefill.  Attention family only: an SSM's recurrence
+        would integrate the padded tail into its state, so SSM models
+        prefill at exact length and ``n_valid`` raises there.
         """
         c = self.cfg
         kv_cache_mode(policy)  # cache storage is engine-global: reject
         # maps whose rules disagree on it here, with a clear error
+        if self.is_ssm:
+            if n_valid is not None:
+                raise ValueError(
+                    "bucketed prefill (n_valid) is attention-family only: "
+                    "SSM recurrence integrates the padded tail into the "
+                    "state; prefill SSM models at exact length")
+            return self._ssm_prefill(params, tokens, policy)
         x, positions = self._embed_in(params, tokens)
         B, S = x.shape[0], x.shape[1]
         if n_valid is not None:
@@ -290,14 +323,36 @@ class TransformerLM:
         logits = self.head_logits(params, x, policy)
         return logits[:, 0], state
 
+    def _ssm_prefill(self, params, tokens, policy):
+        """The SSM family's prefill: every block's cache after the prompt."""
+        x, _ = self._embed_in(params, tokens)
+        caches = []
+        for i, bp in enumerate(params["blocks"]):
+            h = _norm(self.cfg).apply(bp["ln"], x)
+            h, cache = self._mamba(f"blocks.{i}/mamba").apply(
+                bp["mamba"], h, policy, return_cache=True)
+            x = x + h
+            caches.append(cache)
+        state = DecodeState(kv=None, ssm=caches, position=torch.tensor(
+            tokens.shape[1], dtype=torch.int32, device=x.device))
+        x = _norm(self.cfg).apply(params["final_norm"], x[:, -1:, :])
+        return self.head_logits(params, x, policy)[:, 0], state
+
     # --------------------------------------------------------------- decode
     def init_decode_state(self, batch: int, max_len: int,
                           kv_quant: bool = False,
                           device="cuda") -> DecodeState:
         """Ring-buffer caches (one per layer, all sized by the config's
-        window policy: SWA truncates) and an aligned position 0."""
+        window policy: SWA truncates), or for the SSM family one zero
+        ``SSMCache`` per layer, and an aligned position 0."""
         c = self.cfg
         device = require_device(device)
+        if self.is_ssm:
+            m, dt = self._mamba(), getattr(torch, c.dtype)
+            return DecodeState(
+                kv=None, ssm=[m.init_cache(batch, dtype=dt, device=device)
+                              for _ in range(c.n_layers)],
+                position=torch.zeros((), dtype=torch.int32, device=device))
         eff_window = c.window if (c.window and not c.alt_local_global) \
             else None
         attn = self._attention()
@@ -313,9 +368,22 @@ class TransformerLM:
     def decode_step(self, params, token, state: DecodeState, *,
                     policy=QuantPolicy(), q=None):
         """token: (B, 1) -> (logits (B, vocab_padded), new state).  The ring
-        caches are updated in place; ``position`` advances by one."""
+        caches are updated in place (an SSM's caches are replaced);
+        ``position`` advances by one."""
         pos = state.position
         x, _ = self._embed_in(params, token, pos_offset=pos)
+        if self.is_ssm:
+            ssm = []
+            for i, bp in enumerate(params["blocks"]):
+                qi = None if q is None else q["blocks"][i].get("mamba")
+                h = _norm(self.cfg).apply(bp["ln"], x)
+                h, cache = self._mamba(f"blocks.{i}/mamba").decode_step(
+                    bp["mamba"], h, state.ssm[i], policy=policy, q=qi)
+                x = x + h
+                ssm.append(cache)
+            x = _norm(self.cfg).apply(params["final_norm"], x)
+            return self.head_logits(params, x, policy)[:, 0], DecodeState(
+                kv=None, ssm=ssm, position=pos + 1)
         caches = []
 
         def attend(i, w, attn, ap, h, qa):
@@ -338,9 +406,13 @@ class TransformerLM:
         per-slot page table (all -1 = nothing mapped), per-row positions.
 
         ``kv``: page storage — 'fp' (native dtype), 'int8' or 'fp8' codes
-        with per-(page, head) scales.
+        with per-(page, head) scales.  Attention family only.
         """
         c = self.cfg
+        if self.is_ssm:
+            raise TypeError(
+                "paged KV serving is attention-family only; SSM state is "
+                f"O(1) per sequence and needs no pages ({c.name})")
         device = require_device(device)
         attn = self._attention()
         cache = [attn.init_paged_cache(n_pages, page_size,

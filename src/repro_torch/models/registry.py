@@ -9,9 +9,12 @@
     state = model.init_paged_state(n_slots, ...)
     logits, state = model.paged_step(params, tokens, state, n_valid=...)
 
-The dense decoder family and the vision family (``VitModel``: ``init``,
-``apply``, ``loss`` over image batches) are ported; the other families
-raise with the ROADMAP item that will bring them.
+The dense decoder family, the state-space family (``TransformerLM`` with
+Mamba2 blocks), the Zamba2 hybrid (``HybridLM``: no paged state, and a
+``HybridState`` the engines do not take) and the vision family
+(``VitModel``: ``init``, ``apply``, ``loss`` over image batches) are
+ported.  MoE (ROADMAP.md Queue A item 4) and the encoder-decoder and VLM
+families (item 3) raise with the item that will bring them.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.lm import (TransformerLM, chunked_lm_loss,
                                    cross_entropy)
 from repro_torch.models.vit import VisionTransformer, VitModel
@@ -40,7 +44,7 @@ class Model:
 
     @property
     def is_moe(self) -> bool:
-        return False
+        return getattr(self.inner, "is_moe", False)
 
     def _tokens(self, batch):
         """``batch["tokens"]`` as an int tensor on the model's device (the
@@ -53,11 +57,11 @@ class Model:
                                 q=q, return_hidden=return_hidden)
 
     def loss(self, params, batch, policy=QuantPolicy(), q=None):
-        """Next-token CE (+ 0.01 aux, zero for the dense family).  Labels:
-        ``batch['labels']``, -1 masked."""
+        """Next-token CE (+ 0.01 aux, zero for the ported families).
+        Labels: ``batch['labels']``, -1 masked."""
         c = self.cfg
         labels = torch.as_tensor(batch["labels"], device=self.device)
-        if c.logits_chunk > 0:
+        if c.logits_chunk > 0 and isinstance(self.inner, TransformerLM):
             hidden, aux = self.apply(params, batch, policy, q,
                                      return_hidden=True)
             ce = chunked_lm_loss(self.inner, params, hidden, labels, policy,
@@ -69,11 +73,14 @@ class Model:
 
     def prefill(self, params, batch, policy=QuantPolicy(),
                 max_len: int | None = None, n_valid=None):
+        # n_valid (bucketed prefill) only when given: HybridLM takes none
+        kw = {} if n_valid is None else {"n_valid": n_valid}
         return self.inner.prefill(params, self._tokens(batch), policy=policy,
-                                  max_len=max_len, n_valid=n_valid)
+                                  max_len=max_len, **kw)
 
     def init_decode_state(self, batch: int, max_len: int, **kw):
-        """Fixed-slot ring-buffer state (TransformerLM family only)."""
+        """Fixed-slot decode state: ring buffers, SSM caches, or both in
+        a ``HybridState``."""
         return self.inner.init_decode_state(batch, max_len,
                                             device=self.device, **kw)
 
@@ -97,9 +104,12 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model | VitModel:
     """
     if cfg.family == "vit":
         return VitModel(cfg, VisionTransformer(cfg), require_device(device))
-    if cfg.family != "dense":
+    if cfg.family == "hybrid":
+        return Model(cfg, HybridLM(cfg), require_device(device))
+    if cfg.family not in ("dense", "ssm"):
+        item = 4 if cfg.family == "moe" else 3
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported yet — "
-            "ROADMAP.md Queue A lists it; the dense decoder and vision "
-            "families are")
+            f"ROADMAP.md Queue A item {item}; the dense, ssm, hybrid and "
+            "vision families are")
     return Model(cfg, TransformerLM(cfg), require_device(device))

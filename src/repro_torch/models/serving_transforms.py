@@ -23,7 +23,12 @@ map compresses each kernel against *its* rule:
 
 Site addresses are derived from the param-tree path: dict keys join with
 ``/`` and list entries under ``blocks`` become ``blocks.{i}`` (layers are
-always a list of per-layer dicts in this package).
+always a list of per-layer dicts in this package).  That is the
+TransformerLM / ViT layout; the hybrid's tree (``mamba_groups``,
+``shared``, ``lora``) is addressed at run time by family names
+(``shared/q`` against the path ``shared/attn/q``), so it takes flat
+policies only (a flat policy resolves the same at every site) and a
+site-rule map raises there.
 
 The tied embedding table is NOT touched: it feeds the input lookup too,
 and pre-quantizing it would change input embeddings (the runtime path only
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.messages import non_contract_layout_message
 from repro_torch.core import abfp as abfp_mod
 from repro_torch.core.formats import IntFormat
 from repro_torch.core.policy import (
@@ -45,6 +51,7 @@ from repro_torch.core.policy import (
     QuantPolicy,
     TensorQuant,
     as_policy_map,
+    has_site_rules,
     resolve_policy,
 )
 from repro_torch.core.quantize import (pack_int4_codes, quantize,
@@ -115,6 +122,23 @@ def _walk_kernels(params, fn):
     return rec(params, [])
 
 
+# Param-tree top-level keys whose runtime site addresses do not follow the
+# path-derived naming of ``_walk_kernels`` (hybrid: 'shared/q' at run time
+# vs 'shared/attn/q' in the tree; encdec: family-level 'attn/...' names vs
+# 'encoder/...' / 'decoder/...' paths); the reference's static analyzer
+# keeps the same list
+NON_CONTRACT_KEYS = ("mamba_groups", "shared", "lora", "encoder", "decoder")
+
+
+def _check_site_rules_supported(params, policy: Policy, what: str) -> None:
+    """Reject a site-rule map on a tree whose paths are not its sites."""
+    if not isinstance(params, dict) or not has_site_rules(policy):
+        return
+    if any(k in params for k in NON_CONTRACT_KEYS):
+        raise NotImplementedError(non_contract_layout_message(
+            what, list(params)))
+
+
 def _site_weight(policy: Policy, site: str) -> TensorQuant | None:
     p = resolve_policy(policy, site)
     return p.weight if p.enabled else None
@@ -157,6 +181,8 @@ def prequantize_weights(params, policy: Policy):
     resolves at its own site (the reference's stacked-layout check has
     nothing to reject).
     """
+    _check_site_rules_supported(params, policy, "prequantize_weights")
+
     def one(site, w):
         tq = _site_weight(policy, site)
         if tq is None or isinstance(w, CompressedKernel):
@@ -226,6 +252,8 @@ def compress_weights(params, policy: Policy):
       * fp32 (disabled) rule — untouched.
     Pair with ``serving_policy(policy)`` at runtime.
     """
+    _check_site_rules_supported(params, policy, "compress_weights")
+
     def one(site, w):
         if isinstance(w, CompressedKernel):
             return w

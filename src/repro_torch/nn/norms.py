@@ -1,4 +1,5 @@
-"""RMSNorm / LayerNorm (fp32 statistics, cast back to activation dtype)."""
+"""RMSNorm / LayerNorm / Mamba2's gated RMSNorm (fp32 statistics, cast back
+to activation dtype)."""
 
 from __future__ import annotations
 
@@ -53,3 +54,27 @@ class LayerNorm:
         y = y * params["scale"].to(torch.float32) + params["bias"].to(
             torch.float32)
         return y.to(getattr(torch, self.dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class RMSNormGated:
+    """Mamba2's gated RMSNorm: norm(x * silu(z)), in f32."""
+
+    dim: int
+    eps: float = 1e-6
+    param_dtype: str = "float32"
+    dtype: str = "float32"
+
+    def init(self, gen=None, device="cuda") -> dict:
+        return {"scale": torch.ones((self.dim,),
+                                    dtype=getattr(torch, self.param_dtype),
+                                    device=device)}
+
+    def apply(self, params: dict, x: torch.Tensor,
+              z: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32) * torch.nn.functional.silu(
+            z.to(torch.float32))
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        y = xf * (var + self.eps) ** -0.5
+        return (y * params["scale"].to(torch.float32)).to(
+            getattr(torch, self.dtype))

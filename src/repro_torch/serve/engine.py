@@ -9,6 +9,9 @@ multiple of ``prefill_bucket`` and masked via ``n_valid``, so at most
 ``max_len / prefill_bucket`` distinct prefill shapes occur) and the
 resulting batch-1 cache is copied into the slot's rows.  Every tick is one
 batched decode step; idle slots compute garbage — the fixed-shape tax.
+The SSM family serves through it too, with a per-slot recurrent state
+(conv window + SSM state) in place of the ring buffer and an exact-length
+prefill (a padded tail would enter the recurrence).
 
 ``PagedServeEngine`` — vLLM-style paged KV (``serve.kv_pages``).  All
 slots share one physical page pool per layer; a host-side ``PagePool``
@@ -50,6 +53,7 @@ import torch
 from repro_torch.analysis import messages as msg
 from repro_torch.core.policy import (Policy, QuantPolicy, attn_backend_mode,
                                      kv_cache_mode)
+from repro_torch.models.lm import DecodeState
 from repro_torch.nn.module import require_device
 from repro_torch.serve import steps as serve_steps
 from repro_torch.serve.kv_pages import (PageGeometry, PagePool,
@@ -266,6 +270,13 @@ class ServeEngine(_EngineBase):
 
         state = model.init_decode_state(n_slots, max_len,
                                         kv_quant=(mode == "int8"))
+        if not isinstance(state, DecodeState):
+            raise TypeError(
+                "ServeEngine drives TransformerLM-family models; got "
+                f"{type(state).__name__} from "
+                f"{type(model).__name__}.init_decode_state"
+            )
+        self._is_ssm = state.ssm is not None
         self.state = state._replace(position=torch.zeros(
             (n_slots,), dtype=torch.int32, device=self.device))
         self._cur = np.zeros((n_slots, 1), np.int32)
@@ -276,7 +287,10 @@ class ServeEngine(_EngineBase):
 
     def _bucketed(self, S: int) -> int:
         """Pad length for a prompt of S tokens: next bucket multiple,
-        capped at max_len."""
+        capped at max_len.  SSM models prefill at exact length (the
+        recurrence would integrate a padded tail — see lm.prefill)."""
+        if self._is_ssm:
+            return S
         b = self.prefill_bucket
         return min(-(-S // b) * b, self.max_len)
 
@@ -289,8 +303,10 @@ class ServeEngine(_EngineBase):
 
     def _insert_state(self, slot: int, sub, prompt_len: int,
                       first_token: int):
-        """Copy a batch-1 prefill DecodeState into slot ``slot``."""
-        for full, part in zip(self.state.kv, sub.kv):
+        """Copy a batch-1 prefill DecodeState into slot ``slot``: every
+        layer's ring cache, or its SSM conv window and state."""
+        for full, part in zip(self.state.kv or self.state.ssm,
+                              sub.kv or sub.ssm):
             for f, p in zip(full, part):
                 if f is None or f.ndim == 0:
                     continue  # absent scales / the scalar length mark
@@ -317,10 +333,11 @@ class ServeEngine(_EngineBase):
             padded = self._bucketed(S)
             tokens = np.zeros((1, padded), np.int32)
             tokens[0, :S] = req.prompt
+            n_valid = (None if self._is_ssm  # exact-length prefill
+                       else torch.tensor([S], dtype=torch.int32, device=dev))
             logits, sub = self.model.prefill(
                 self.params, {"tokens": torch.as_tensor(tokens, device=dev)},
-                self.policy, max_len=self.max_len,
-                n_valid=torch.tensor([S], dtype=torch.int32, device=dev))
+                self.policy, max_len=self.max_len, n_valid=n_valid)
             self._padded_lengths.add(padded)
             self.prefills += 1
             self._seed_slot(slot, req)
