@@ -134,6 +134,27 @@ Phases (each fatal on failure):
             reordered-sum control; prefill + decode against a longer
             prefill at full width; the reduced mamba2 on the card against
             the CPU
+  encdec    whisper-large-v3 and internvl2-2b at published width and depth,
+            random weights, stub inputs from numpy: the kernels at the new
+            shapes (flash_attention over 1,500 non-causal keys at G = 1,
+            D = 64 and causal at G = 2, D = 128; both dense matmuls at M =
+            6,000 and the heads at N = 51,968 / 92,672; quant_matmul at
+            Whisper's shapes and InternVL2's step; flash_attention_quant's
+            decode kernel at G = 1, D = 64, T = 448 and G = 2, D = 128, T =
+            1,024); through Model under P-fp, P-int8 (Whisper) and P-C
+            (compressed weights, an int8 ring, the compressed backend): a
+            teacher-forced loss (4 x 448 tokens over 4 x 1,500 frames; 4 x
+            (256 patches + 512 tokens)), a prefill (4 tokens into 448; 256
+            patches + 64 tokens into 1,024) and greedy steps (64; 32),
+            every pass's launches asserted by wrapper, by attention kernel
+            and for the x pre-pass, a step's kernels by role from the
+            profiler; wall ms of the encode, the loss, the prefill and the
+            median step, busy ms, idle share and top device operations of
+            a step (and under P-fp of the other three), tokens/s, peak
+            memory, the cross K/V state's bytes; every
+            block held to the ref backend against a reordered-sum control
+            (the logits too where that control lies below no QDQ); the
+            reduced configs on the card emit the CPU's greedy tokens
 
 The last lines of standard output are: one JSON object {"kernels": [...]},
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -160,7 +181,7 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 
 PHASES = ("kernels", "serve", "long", "fixed", "reduced", "identity", "ptq",
-          "vit", "ssm")
+          "vit", "ssm", "encdec")
 
 # every kernel: (wrapper module, TPU kernel it replaces)
 KERNELS = {
@@ -348,7 +369,8 @@ def attention_pairs(torch, q_pos, kv_pos, window: int, causal: bool):
 
 def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
                     q_starts, want_kernel, timed=True, window=1 << 30,
-                    causal=True, probs_n=64) -> dict:
+                    causal=True, probs_n=64, H=28, KV=4, D=128,
+                    profiled=True) -> dict:
     """One ``flash_attention_quant`` call against its plain version; the
     kernel it launches, read from the profiler, must be ``want_kernel``.
     Timed: beside the plain version, the card's bound for the pairs this
@@ -358,10 +380,12 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
     another kernel is planned) and, at S > 1, SDPA as a yardstick.
     ``attention_long_kernel`` is also called with the other score handling
     (pass 2 forming the scores again, or reading back stored ones), which
-    must give the same bits; timed, with the bytes of the stored scores."""
+    must give the same bits; timed, with the bytes of the stored scores.
+    ``H``, ``KV``, ``D``: the heads (qwen2-7b's by default) of 4 rows;
+    ``profiled``: as ``kernel_launches`` reads the kernel."""
     from repro_torch.kernels import flash_attention_quant as faq
 
-    B, H, KV, D = 4, 28, 4, 128
+    B = len(q_starts)
     args = attention_inputs(torch, gen, B=B, S=S, T=T, H=H, KV=KV, D=D,
                             fp8=fp8, q_starts=q_starts)
     kw = dict(scale=D ** -0.5, causal=causal, block_k=block_k, probs_n=0,
@@ -390,8 +414,9 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
     else:
         tol = 2e-5 * vmax  # f32 products, sums in another order
         ok = finite and err <= tol
-    launched = device_launches(torch, call, ATTENTION_KERNELS,
-                               {want_kernel: 1}, label)
+    launched = kernel_launches(torch, faq.flash_attention_quant, call,
+                               ATTENTION_KERNELS, {want_kernel: 1}, label,
+                               profiled)
     row = {"shape": label, "S": S, "T": T, "probs_qdq": probs, "fp8": fp8,
            "kernel": launched, "max_abs_err": err, "tol": tol, "ok": ok}
     if want_kernel == "attention_long_kernel":
@@ -623,12 +648,10 @@ def check_abfp_qdq(torch, timer, gen, *, M, K, n, fmt_name, label,
     """``abfp_qdq`` at (M, K) in ``dtype`` (``x32``: f32 values on the
     card, else activation-like ones) with its base ``offset`` elements off
     its allocation, against the plain version (``torch.equal``), and the
-    kernel one call launches (profiler: the planned one, once; without
-    ``profiled`` the wrapper's count alone, as late in a whole run the
-    profiler has dropped a lone launch's record five captures in a row);
-    timed:
-    beside the bound, the plain version and ``y.copy_(x)`` on the same
-    bytes (a yardstick of what the card moves at that size)."""
+    kernel one call launches (the planned one, once, read as
+    ``kernel_launches`` reads it); timed: beside the bound, the plain
+    version and ``y.copy_(x)`` on the same bytes (a yardstick of what the
+    card moves at that size)."""
     from repro_torch.core.formats import get_format
     from repro_torch.kernels import abfp_qdq as aq
 
@@ -650,16 +673,16 @@ def check_abfp_qdq(torch, timer, gen, *, M, K, n, fmt_name, label,
     err = torch.where(same, 0.0, (got.float() - want.float()).abs()
                       ).max().item()
     bits = {1: torch.int8, 2: torch.int16, 4: torch.int32}[x.element_size()]
-    seen = (device_launches(torch, lambda: aq.abfp_qdq(x, fmt, n=n),
-                            QDQ_KERNELS, {plan.kernel: 1},
-                            f"abfp_qdq {label}") if profiled
-            else "not read (the wrapper's count)")
+    seen = kernel_launches(torch, aq.abfp_qdq,
+                           lambda: aq.abfp_qdq(x, fmt, n=n), QDQ_KERNELS,
+                           {plan.kernel: 1}, f"abfp_qdq {label}", profiled)
     row = {"shape": label, "M": M, "K": K, "n": n, "fmt": fmt.name,
            "dtype": dtype, "offset_bytes": offset * x.element_size(),
            "kernel": plan.kernel, "vec": plan.vec, "lanes": plan.lanes,
            "vpl": plan.vpl, "mode": plan.mode, "threads": plan.threads,
            "blocks": plan.blocks, "launched": seen, "counted": counted,
-           "max_abs_err": err, "tol": 0.0, "ok": ok and counted == 1,
+           "max_abs_err": err, "tol": 0.0,
+           "ok": ok and counted == 1 and seen == {plan.kernel: 1},
            "bit_equal": bool(torch.equal(got.view(bits), want.view(bits)))}
     if timed:
         # per element: |x|, max, divide, round, clamp (2), multiply
@@ -835,8 +858,8 @@ def check_flash(torch, timer, gen, *, B=1, S, T, H=28, KV=4, D=128,
                 causal=True, q_offset=None, label, timed=True,
                 profiled=True) -> dict:
     """One ``flash_attention`` call against its plain version; the kernel
-    it launches, read from the profiler (``profiled=False``: from the
-    wrapper's count by kernel), must be the planned one
+    it launches (read as ``kernel_launches`` reads it) must be the planned
+    one
     (``flash_mma_kernel``).  Timed: beside the plain version, SDPA (a
     yardstick) and the card's bound: the bytes moved once are the floor,
     the products as the kernel issues them (three tf32 products a
@@ -868,16 +891,9 @@ def check_flash(torch, timer, gen, *, B=1, S, T, H=28, KV=4, D=128,
     front = flash_attention_gqa(qh, kh, vh, **kw)
     ok = ok and torch.equal(front.transpose(1, 2).reshape(B * H, S, D), got)
     plan = plan_flash(B, S, T, H, KV, D, causal)
-    if profiled:
-        launched = device_launches(
-            torch, lambda: flash_attention(q, k, v, **kw), FLASH_KERNELS,
-            {plan.kernel: 1}, label)
-    else:
-        before = dict(flash_attention.launches_by_kernel)
-        flash_attention(q, k, v, **kw)
-        launched = {k: n - before[k] for k, n in
-                    flash_attention.launches_by_kernel.items()
-                    if n != before[k]}
+    launched = kernel_launches(
+        torch, flash_attention, lambda: flash_attention(q, k, v, **kw),
+        FLASH_KERNELS, {plan.kernel: 1}, label, profiled)
     row = {"shape": label, "B": B, "S": S, "T": T, "H": H, "KV": KV,
            "D": D, "causal": causal, "kernel": launched,
            "plan": plan._asdict(), "max_abs_err": err, "tol": tol, "ok": ok}
@@ -1105,6 +1121,22 @@ def device_launches(torch, call, names_of: dict, want=None,
                              f"launches than {want}: "
                              f"{PROFILER_RETRIES[-(wrong + empty):]}")
         time.sleep(0.2)  # let a dropped capture's buffers settle
+
+
+def kernel_launches(torch, wrapper, call, names_of: dict, want: dict,
+                    label: str, profiled: bool = True) -> dict:
+    """{kernel: n} of one ``call`` of ``wrapper``: read from the profiler
+    (``device_launches``, which holds it to ``want``), or with
+    ``profiled=False`` from the wrapper's count by kernel, as late in a
+    whole run the profiler has dropped a lone launch's record five
+    captures in a row."""
+    if profiled:
+        return device_launches(torch, call, names_of, want, label)
+    before = dict(wrapper.launches_by_kernel)
+    call()
+    torch.cuda.synchronize()
+    return {k: n - before[k] for k, n in wrapper.launches_by_kernel.items()
+            if n != before[k]}
 
 
 def check_regimes(torch, gen, kind: str) -> None:
@@ -2372,16 +2404,24 @@ def phase_fixed(torch, seed: int) -> dict:
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         }
         log("  " + json.dumps(report))
-        report["profile"] = profile_decode(
-            torch, cfg, eng, seed, report["decode_ms_median"],
-            watch=tuple(QDQ_KERNELS))
         # a decode tick's x pre-pass, read from the profiler: P-fp 7 L + 1
-        # launches of qdq_stream_kernel, P-int8 none
-        seen = report["profile"].get("watched_kernels_per_step", {})
-        tick_qdq = {k: seen.get(k, {}).get("launches") for k in QDQ_KERNELS}
-        if tick_qdq != {"qdq_stream_kernel": (7 * L + 1 if kind == "p_fp"
-                                              else 0),
-                        "qdq_rows_kernel": 0}:
+        # launches of qdq_stream_kernel, P-int8 none; a capture that reads
+        # other counts is taken again once, as ``device_launches`` does
+        want_qdq = {"qdq_stream_kernel": 7 * L + 1 if kind == "p_fp" else 0,
+                    "qdq_rows_kernel": 0}
+        for capture in (1, 2):
+            report["profile"] = profile_decode(
+                torch, cfg, eng, seed, report["decode_ms_median"],
+                watch=tuple(QDQ_KERNELS))
+            seen = report["profile"].get("watched_kernels_per_step", {})
+            tick_qdq = {k: seen.get(k, {}).get("launches")
+                        for k in QDQ_KERNELS}
+            if tick_qdq == want_qdq:
+                break
+            PROFILER_RETRIES.append({
+                "phase": PHASE["name"], "call": f"fixed {kind} decode tick",
+                "capture": capture, "read": tick_qdq, "expected": want_qdq})
+        else:
             raise SystemExit(f"fixed {kind}: a profiled decode tick's x "
                              f"pre-pass launched {tick_qdq}")
         report["prefill_profile"] = profile_fixed_prefill(torch, cfg, eng,
@@ -3221,54 +3261,136 @@ def vit_gap(torch, model, params, batch, kp, no_qdq) -> dict:
     return out
 
 
-def vit_block_gaps(torch, model, params, batch, kp) -> dict:
+def lm_attend(inner, a, policy) -> None:
+    """A captured ``TransformerLM._block_apply`` call's ``attend`` (index
+    4), which closes over the forward's policy, replaced by the full
+    sequence's attention under ``policy`` (positions 0..S-1, the layer's
+    window)."""
+    import torch
+
+    B, S = a[1].shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=a[1].device)
+    window = int(inner.layer_windows_py()[int(a[3].split(".")[1])])
+    a[4] = lambda attn, ap, h, qa: attn.apply(
+        ap, h, positions=positions[None].expand(B, S), policy=policy,
+        window=window)
+
+
+# each block method of a model's inner module: (index of its input x, index
+# of its policy among the positional arguments[, a rewrite of the other
+# arguments for ``policy``]); a method that returns a tuple returns x first
+BLOCK_METHODS = {
+    "vit": {"_block_apply": (1, 3)},       # (bp, x, positions, policy, q)
+    "lm": {"_block_apply": (1, 2, lm_attend)},  # (bp, x, policy, name, attend)
+    "hybrid": {"_mamba_block": (1, 2),     # (bp, x, policy)
+               # (sparams, lora, x, x0, positions, policy)
+               "_shared_block": (2, 5)},
+    # (bp, x, positions, policy) / (bp, x, positions, enc, enc_pos, policy)
+    "encdec": {"_enc_block": (1, 3), "_dec_block": (1, 5)},
+}
+
+
+def block_gaps(torch, model, params, batch, kp, methods: dict) -> dict:
     """Each block of the fused policy ``kp`` fed the ref backend's input of
-    that block (captured from one ref-backend forward), against the ref
-    backend's output of the block: the root mean square of the difference
-    (and its largest element) in units of the std of the block's update
-    (its output less its input); beside it two controls on the same
-    input: the ref backend's block with every matmul's f32 sum split into
-    two halves of K (the same terms added in another order, as the kernels
-    add them), and the fp32 block with no QDQ.  A code flipped at a
-    rounding boundary moves a few elements; quantization moves all of
-    them, so the mean square tells the two apart where a largest element
-    cannot."""
+    that block (every call of a method of ``methods``, a table of
+    BLOCK_METHODS, captured from one ref-backend forward of ``batch``; a
+    decoder block also gets the ref backend's encoder states) against the
+    ref backend's output of the block: the root mean square of the
+    difference (and its largest element) in units of the std of the
+    block's update (its output less its input); beside it two controls on
+    the same input: the ref backend's block with every matmul's f32 sum
+    split into two halves of K (the same terms added in another order, as
+    the kernels add them), and the fp32 block with no QDQ on the same
+    weights (on compressed weights the same codes: a path that skips the
+    activations' QDQ).  A code flipped at a rounding boundary moves a few
+    elements; quantization moves all of them, so the mean square tells the
+    two apart where a largest element cannot.
+
+    The largest gap is held to at most GAP_FACTOR times the largest
+    reordered control and GAP_MAX.  That bar separates no QDQ where it lies
+    below the smallest no-QDQ control; where it does not (void), the
+    median block's gap is held the same way to the medians, and that bar
+    must separate."""
     from repro_torch.core.policy import preset
 
     inner = model.inner
-    block_apply = type(inner)._block_apply
+    cls = type(inner)
+    saved = {n: getattr(cls, n) for n in methods}
+    calls = []
+
+    def capture(name):
+        def call(self, *a, **kw):
+            calls.append((name, a, kw))
+            return saved[name](self, *a, **kw)
+        return call
+
     rp = ref_backend(kp)
-    inputs = []
-
-    def capture(self, bp, x, positions, policy, q=None, name="block"):
-        inputs.append((x, positions, name))
-        return block_apply(self, bp, x, positions, policy, q, name)
-
-    type(inner)._block_apply = capture
+    for n in methods:
+        setattr(cls, n, capture(n))
     try:
         with torch.no_grad():
             model.apply(params, batch, rp)
     finally:
-        type(inner)._block_apply = block_apply
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+
+    def run(name, a, kw, policy):
+        a = list(a)
+        at, *rewrite = methods[name][1:]
+        a[at] = policy
+        for fn in rewrite:
+            fn(inner, a, policy)
+        y = saved[name](inner, *a, **kw)
+        return y[0] if isinstance(y, tuple) else y
+
     rows = []
     with torch.no_grad():
-        for bp, (x, pos, name) in zip(params["blocks"], inputs):
-            ref = inner._block_apply(bp, x, pos, rp, name=name)
-            fused = inner._block_apply(bp, x, pos, kp, name=name)
+        for name, a, kw in calls:
+            x = a[methods[name][0]]
+            ref = run(name, a, kw, rp)
+            fused = run(name, a, kw, kp)
             with split_contractions(torch):
-                reordered = inner._block_apply(bp, x, pos, rp, name=name)
-            plain = inner._block_apply(bp, x, pos, preset("fp32"), name=name)
+                moved = run(name, a, kw, rp)
+            plain = run(name, a, kw, preset("fp32"))
             unit = (ref - x).std()
+            ys = (fused, moved, plain)
             rows.append({
+                "block": name.strip("_"),
                 "rms": [((y - ref).square().mean().sqrt() / unit).item()
-                        for y in (fused, reordered, plain)],
-                "max": [((y - ref).abs().max() / unit).item()
-                        for y in (fused, reordered, plain)]})
-    gap, reordered = (max(r["rms"][i] for r in rows) for i in range(2))
-    return {"block_gap_rms": gap, "block_reordered_control_rms": reordered,
-            "block_no_qdq_control_rms": min(r["rms"][2] for r in rows),
-            "block_gap_limit": min(GAP_MAX, GAP_FACTOR * reordered),
-            "blocks": rows}
+                        for y in ys],
+                "max": [((y - ref).abs().max() / unit).item() for y in ys]})
+    col = lambda i: [r["rms"][i] for r in rows]
+    gap, moved = max(col(0)), max(col(1))
+    med = [statistics.median(col(i)) for i in range(3)]
+    out = {"blocks": len(rows), "block_gap_rms": gap,
+           "block_reordered_control_rms": moved,
+           "block_no_qdq_control_rms": min(col(2)),
+           "block_gap_limit": min(GAP_MAX, GAP_FACTOR * moved),
+           "block_median_rms": med,
+           "block_median_limit": min(GAP_MAX, GAP_FACTOR * med[1]),
+           "worst": max(rows, key=lambda r: r["rms"][0]), "rows": rows}
+    out["block_held"] = out["block_gap_limit"] < out["block_no_qdq_control_rms"]
+    out["block_median_held"] = out["block_median_limit"] < med[2]
+    out["block_ok"] = gap <= out["block_gap_limit"] and (out["block_held"] or (
+        out["block_median_held"] and med[0] <= out["block_median_limit"]))
+    return out
+
+
+def block_text(out: dict) -> str:
+    """``block_gaps``'s bars as one log phrase."""
+    med = out["block_median_rms"]
+    return (
+        f"{out['blocks']} blocks on the ref backend's inputs: rms "
+        f"{out['block_gap_rms']:.6g} of the update's std (limit "
+        f"{out['block_gap_limit']:.6g}; sums reordered "
+        f"{out['block_reordered_control_rms']:.6g}, no QDQ "
+        f"{out['block_no_qdq_control_rms']:.6g}"
+        + ("" if out["block_held"] else "; void: it does not separate no QDQ")
+        + f"; median block {med[0]:.6g}, limit "
+        f"{out['block_median_limit']:.6g}, reordered {med[1]:.6g}, no QDQ "
+        f"{med[2]:.6g}" + (
+            "" if out["block_held"] else " held" if out["block_median_held"]
+            else " void") + "; worst " + json.dumps(out["worst"]) + ")")
 
 
 def vit_counted(torch, fn) -> tuple:
@@ -3423,24 +3545,17 @@ def vit_fused_runs(torch, model, params, batch, runs, no_qdq, label
 
 
 def vit_block_checks(torch, model, params, batch, runs, label, out) -> None:
-    """``vit_block_gaps`` of each fused run of ``runs`` into its row of
-    ``out``, held: the largest block gap at most GAP_FACTOR times the
-    largest reordered-sum control and at most GAP_MAX, which must lie
-    below the smallest no-QDQ control."""
+    """``block_gaps`` of each fused run of ``runs`` into its row of
+    ``out``, held."""
     for name, kind, base in runs:
-        blocks = vit_block_gaps(torch, model, params, batch,
-                                fixed_policy(kind, base=base))
+        blocks = block_gaps(torch, model, params, batch,
+                            fixed_policy(kind, base=base), BLOCK_METHODS["vit"])
         out[name].update(blocks)
-        log(f"  {label} {name} blocks on the ref backend's inputs: rms "
-            f"{blocks['block_gap_rms']:.3g} of the update's std from the "
-            f"ref backend's (limit {blocks['block_gap_limit']:.3g}; sums "
-            f"reordered {blocks['block_reordered_control_rms']:.3g}, no QDQ "
-            f"{blocks['block_no_qdq_control_rms']:.3g}); "
-            + json.dumps(blocks["blocks"]))
-        if not (blocks["block_gap_rms"] <= blocks["block_gap_limit"]
-                < blocks["block_no_qdq_control_rms"]):
+        log(f"  {label} {name} " + block_text(blocks) + "; "
+            + json.dumps(blocks["rows"]))
+        if not blocks["block_ok"]:
             raise SystemExit(f"vit: {label} {name} fused blocks: " + str(
-                {k: v for k, v in blocks.items() if k != "blocks"}))
+                {k: v for k, v in blocks.items() if k != "rows"}))
 
 
 def vit_ptq(torch, cfg, seed: int, calib, evb, smi) -> dict:
@@ -4083,77 +4198,8 @@ def lm_gap(torch, model, params, toks, kp, no_qdq) -> dict:
     return out
 
 
-def ssm_block_gaps(torch, model, params, toks, kp) -> dict:
-    """Every Mamba2 block (and shared-attention invocation) of the fused
-    policy ``kp`` fed the ref backend's input of that block (captured from
-    one ref-backend forward) against the ref backend's output: the rms of
-    the difference over the std of the block's update, beside the ref
-    backend with its sums reordered and the fp32 block with no QDQ, as the
-    vit phase holds its blocks."""
-    from repro_torch.core.policy import preset
-    from repro_torch.models.hybrid import HybridLM
-
-    inner = model.inner
-    cls = type(inner)
-    hybrid = isinstance(inner, HybridLM)
-    names = ("_mamba_block", "_shared_block") if hybrid else (
-        "_block_apply",)
-    saved = {n: getattr(cls, n) for n in names}
-    calls = []
-
-    def capture(name):
-        def call(self, *a, **kw):
-            calls.append((name, a, kw))
-            return saved[name](self, *a, **kw)
-        return call
-
-    rp = ref_backend(kp)
-    for n in names:
-        setattr(cls, n, capture(n))
-    try:
-        with torch.no_grad():
-            model.apply(params, {"tokens": toks}, rp)
-    finally:
-        for n, fn in saved.items():
-            setattr(cls, n, fn)
-
-    def run(name, a, kw, policy):
-        a = list(a)
-        if name == "_block_apply":  # (bp, x, policy, name, attend, q)
-            a[2] = policy
-            return saved[name](inner, *a, **kw)
-        if name == "_mamba_block":  # (bp, x, policy)
-            a[2] = policy
-            return saved[name](inner, *a, **kw)
-        a[5] = policy  # (sparams, lora, x, x0, positions, policy)
-        return saved[name](inner, *a, **kw)[0]
-
-    rows = []
-    with torch.no_grad():
-        for name, a, kw in calls:
-            x = a[2] if name == "_shared_block" else a[1]
-            ref = run(name, a, kw, rp)
-            fused = run(name, a, kw, kp)
-            with split_contractions(torch):
-                moved = run(name, a, kw, rp)
-            plain = run(name, a, kw, preset("fp32"))
-            unit = (ref - x).std()
-            rows.append({"block": name.strip("_"), "rms": [
-                ((y - ref).square().mean().sqrt() / unit).item()
-                for y in (fused, moved, plain)]})
-    gap, moved = (max(r["rms"][i] for r in rows) for i in range(2))
-    out = {"blocks": len(rows), "block_gap_rms": gap,
-           "block_reordered_control_rms": moved,
-           "block_no_qdq_control_rms": min(r["rms"][2] for r in rows),
-           "block_gap_limit": min(GAP_MAX, GAP_FACTOR * moved),
-           "worst": max(rows, key=lambda r: r["rms"][0])}
-    out["ok"] = (out["block_gap_rms"] <= out["block_gap_limit"]
-                 < out["block_no_qdq_control_rms"])
-    return out
-
-
 def ssm_numerics(torch, model, params, kp, label, smi, served=None) -> dict:
-    """``lm_gap`` and ``ssm_block_gaps`` of one fused policy on
+    """``lm_gap`` and ``block_gaps`` of one fused policy on
     SSM_GAP_TOKENS (``served``: the compressed tree and its serving
     policy, held against the same tree through the plain paths), asserted.
     """
@@ -4168,19 +4214,18 @@ def ssm_numerics(torch, model, params, kp, label, smi, served=None) -> dict:
     no_qdq = lm_logits(torch, model, params, toks, preset("fp32"))
     tree, pol = (params, kp) if served is None else served
     out = lm_gap(torch, model, tree, toks, pol, no_qdq)
-    out.update(ssm_block_gaps(torch, model, tree, toks, pol))
+    out.update(block_gaps(torch, model, tree, {"tokens": toks}, pol,
+                          BLOCK_METHODS["hybrid" if cfg.family == "hybrid"
+                                        else "lm"]))
     log(f"  {label}: logits {out['logit_gap_over_std']:.6g} std from the "
         f"ref backend's (limit {out['logit_gap_limit']:.6g}; sums reordered "
         f"{out['reordered_control_over_std']:.6g}, no QDQ "
         f"{out['no_qdq_control_over_std']:.6g}"
         + ("" if out["held"] else "; void: a last bit moves them as far as "
            "no QDQ, the blocks are held instead") + "); "
-        f"{out['blocks']} blocks on the ref backend's inputs: rms "
-        f"{out['block_gap_rms']:.6g} (limit {out['block_gap_limit']:.6g}; "
-        f"reordered {out['block_reordered_control_rms']:.6g}, no QDQ "
-        f"{out['block_no_qdq_control_rms']:.6g}; worst "
-        + json.dumps(out["worst"]) + f") [{smi}]")
-    if not out["ok"]:
+        + block_text(out) + f" [{smi}]")
+    del out["rows"]
+    if not (out["ok"] and out["block_ok"]):
         raise SystemExit(f"{label}: " + json.dumps(out))
     return out
 
@@ -4473,6 +4518,630 @@ def phase_ssm(torch, seed: int, smi: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase: encdec
+# --------------------------------------------------------------------------
+# whisper-large-v3: 4 streams of 1,500 stub frame embeddings (the encoder's
+# 30-second window, arXiv:2212.04356 section 2.2), the decoder's context of
+# 448 tokens; a 4-token prompt, 64 greedy steps
+WHISPER_STREAMS = 4
+WHISPER_FRAMES = 1500
+WHISPER_CTX = 448
+WHISPER_PROMPT = 4
+WHISPER_STEPS = 64
+# internvl2-2b: 4 rows of 256 stub patch embeddings before 512 text tokens
+# (the loss) or a 64-token prompt (the prefill, into a ring of 1,024); 32
+# greedy steps
+INTERN_ROWS = 4
+INTERN_TEXT = 512
+INTERN_PROMPT = 64
+INTERN_MAX_LEN = 1024
+INTERN_STEPS = 32
+ENCDEC_RUNS = {"whisper-large-v3": ("p_fp", "p_int8", "p_c"),
+               "internvl2-2b": ("p_fp", "p_c")}
+# the reduced configs on the card against the CPU: a prompt and greedy steps
+ENCDEC_REDUCED = {"prompt": 5, "steps": 8, "frames": 24, "max_len": 32}
+# the matmul wrapper of each path's body (P-C: compressed weights)
+ENCDEC_MM = {"p_fp": "abfp_matmul", "p_int8": "abfp_matmul_int8",
+             "p_c": "quant_matmul"}
+
+
+def encdec_policy(kind: str, n: int = 64):
+    """P-fp and P-int8: ``fixed_policy``'s (the ``fused`` attention backend;
+    P-fp without attention-BMM QDQ, so self-attention takes the flash
+    kernel); P-C: ``fixed_policy("compress")`` (an int8 ring, the
+    ``compressed`` backend), to pair with compressed weights."""
+    return fixed_policy("compress" if kind == "p_c" else kind, n=n)
+
+
+def encdec_serve(model, params, kind: str, n: int = 64):
+    """(params, policy) as a run serves them: P-C compresses the weights
+    (packed int4 codes; the tied embedding stays dense) and pairs them with
+    ``serving_policy``."""
+    from repro_torch.models import serving_transforms as st
+
+    kp = encdec_policy(kind, n)
+    if kind != "p_c":
+        return params, kp
+    return st.compress_weights(params, kp), st.serving_policy(kp)
+
+
+def encdec_matmuls(cfg, what: str, M: int, M_enc: int = 0) -> list:
+    """(label, K, N, calls, rows, part) of the dense matmuls of one
+    ``what`` ("forward": ``apply`` / ``loss`` / ``prefill``, "decode": a
+    step) at ``M`` decoder rows (``M_enc`` encoder rows), the head at its
+    own rows (a prefill's: its last position a row).  Whisper: 6 an encoder
+    layer (q, k, v, o, wi, wo), 12 a decoder layer (self q, k, v, o, cross
+    q, k, v, o: k and v of the decoder input are projected and then
+    replaced, as in the reference; cross/k and cross/v of the encoder
+    states, at the encoder's rows; wi, wo), 10 at a step (the cross K/V come
+    from the state); the tied head.  InternVL2: q, k, v, o, wi, wg, wo a
+    layer and the untied head."""
+    d, L = cfg.d_model, cfg.n_layers
+    hd, kv = cfg.n_heads * cfg.head_dim_, cfg.n_kv * cfg.head_dim_
+    head = ("head", d, cfg.vocab_padded, 1, M, "head")
+    if cfg.family == "encdec":
+        E, f = cfg.encoder_layers, cfg.d_ff
+        rows = [("attn", d, d, 8 * L, M, "body"), ("wi", d, f, L, M, "body"),
+                ("wo", f, d, L, M, "body")]
+        if what == "forward":
+            rows += [("enc attn", d, d, 4 * E, M_enc, "body"),
+                     ("enc wi", d, f, E, M_enc, "body"),
+                     ("enc wo", f, d, E, M_enc, "body"),
+                     ("cross k,v", d, kv, 2 * L, M_enc, "body")]
+        return rows + [head]
+    return [("q,o", d, hd, 2 * L, M, "body"), ("k,v", d, kv, 2 * L, M, "body"),
+            ("wi,wg", d, cfg.d_ff, 2 * L, M, "body"),
+            ("wo", cfg.d_ff, d, L, M, "body"), head]
+
+
+def encdec_calls(cfg, kind: str, mms: list) -> dict:
+    """Wrapper calls of one pass over ``mms`` (``encdec_matmuls``): every
+    matmul through the path's kernel, but under P-C the tied head (Whisper)
+    through abfp_matmul."""
+    calls = {name: 0 for name in KERNELS}
+    for *_, n, _, part in mms:
+        mm = ("abfp_matmul" if kind == "p_c" and part == "head"
+              and cfg.tied_embeddings else ENCDEC_MM[kind])
+        calls[mm] += n
+    return calls
+
+
+def encdec_flash(cfg, kind: str, what: str) -> dict:
+    """Attention launches of one pass: under P-fp / P-int8 one
+    flash_mma_kernel a self-attention call of a full sequence (Whisper's
+    encoder and decoder layers, InternVL2's layers), none at a step; under
+    P-C (attention-BMM QDQ: the plain path at full sequences) one
+    attention_decode_kernel a decoder layer at a step; cross-attention never
+    takes a kernel."""
+    L = cfg.n_layers
+    if kind == "p_c":
+        return ({"flash_attention_quant": L} if what == "decode" else {})
+    if what == "decode":
+        return {}
+    return {"flash_attention": L + cfg.encoder_layers}
+
+
+def encdec_prepass(cfg, kind: str, mms: list) -> int:
+    """abfp_matmul's x pre-pass (qdq_stream_kernel): each of its calls of up
+    to 16 rows."""
+    if kind == "p_int8":
+        return 0
+    return sum(n for *_, n, rows, part in mms
+               if rows <= 16 and (kind == "p_fp" or (
+                   part == "head" and cfg.tied_embeddings)))
+
+
+def encdec_roles(cfg, kind: str, mms: list) -> dict:
+    """One pass's matmul kernels by role (``regime_want`` of each matmul at
+    its rows), every other role of the path's kernels 0."""
+    from repro_torch.kernels import quant_matmul as qm
+
+    names = encdec_role_names(kind)
+    want = dict.fromkeys(names.values(), 0)
+    for _, K, N, n, rows, part in mms:
+        mk = ("fp" if kind == "p_c" and part == "head"
+              and cfg.tied_embeddings else
+              {"p_fp": "fp", "p_int8": "int8", "p_c": "quant"}[kind])
+        wide = mk == "quant" and N >= qm.CONTRACT_MIN_N
+        for role, c in regime_want(mk, rows, 64, wide).items():
+            want[f"{mk} {role}"] += c * n
+    return want
+
+
+def encdec_role_names(kind: str) -> dict:
+    """Kernel-name substring -> role of the matmul kernels of ``kind``'s
+    path (P-C: quant_matmul's and abfp_matmul's) and both attention
+    wrappers' kernels."""
+    kinds = {"p_fp": ("fp",), "p_int8": ("int8",), "p_c": ("quant", "fp")}
+    names = {k: f"{mk} {role}" for mk in kinds[kind]
+             for k, role in REGIME_KERNELS[mk].items()
+             if k != "at::native::"}
+    names.update({"flash_mma_kernel": "flash", **ATTENTION_KERNELS})
+    return names
+
+
+def encdec_kernel_checks(torch, seed: int) -> dict:
+    """The kernels at the slice's new shapes, held against their plain
+    versions and timed beside them and the bound: flash_attention over
+    Whisper's 1,500 encoder keys (non-causal, G = 1, D = 64: 23 full 64-key
+    tiles and one of 28; SDPA beside it), its decoder's 448 causal
+    positions, InternVL2's prefills (causal, G = 2, D = 128, S = T = 320
+    and 768); both dense matmuls at the encoder's M = 6,000 rows (not a
+    multiple of 64) and a step's 4, Whisper's tied head (N = 51,968) at a
+    step and the loss's 1,792 rows, InternVL2's layers and untied head (N =
+    92,672) at a step and its loss's 3,072 rows; quant_matmul (packed int4)
+    at Whisper's shapes (M = 4 and 6,000) and InternVL2's at a step (the
+    head at N = 92,672 through contract_kernel); flash_attention_quant at a
+    P-C decode step of each (int8 ring, probs QDQ: Whisper T = 448, G = 1,
+    D = 64; InternVL2 T = 1,024, G = 2, D = 128); abfp_qdq at the x
+    pre-pass shapes."""
+    from repro_torch.configs import get_config
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 17)
+    rows = {"abfp_matmul": [], "abfp_matmul_int8": [], "quant_matmul": [],
+            "flash_attention": [], "flash_attention_quant": [],
+            "abfp_qdq": []}
+    wh, iv = get_config("whisper-large-v3"), get_config("internvl2-2b")
+    M_enc = WHISPER_STREAMS * WHISPER_FRAMES
+    rows["flash_attention"] += [
+        check_flash(torch, timer, gen, B=WHISPER_STREAMS, S=WHISPER_FRAMES,
+                    T=WHISPER_FRAMES, H=20, KV=20, D=64, causal=False,
+                    label=f"whisper encoder non-causal B={WHISPER_STREAMS} "
+                    f"S=T={WHISPER_FRAMES} H=KV=20 D=64", profiled=False),
+        check_flash(torch, timer, gen, B=WHISPER_STREAMS, S=WHISPER_CTX,
+                    T=WHISPER_CTX, H=20, KV=20, D=64,
+                    label=f"whisper decoder causal B={WHISPER_STREAMS} "
+                    f"S=T={WHISPER_CTX} H=KV=20 D=64", profiled=False)]
+    for S in (iv.vision_patches + INTERN_PROMPT,
+              iv.vision_patches + INTERN_TEXT):
+        rows["flash_attention"].append(check_flash(
+            torch, timer, gen, B=INTERN_ROWS, S=S, T=S, H=16, KV=8, D=128,
+            label=f"internvl2 causal B={INTERN_ROWS} S=T={S} H=16 KV=8 "
+            "D=128", profiled=False))
+    d, f = wh.d_model, wh.d_ff
+    for label, K, N in (("q,k,v,o", d, d), ("wi", d, f), ("wo", f, d)):
+        for M in (M_enc, 4):
+            for kind, name in (("fp", "abfp_matmul"),
+                               ("int8", "abfp_matmul_int8")):
+                rows[name].append(check_dense_matmul(
+                    torch, timer, gen, kind=kind, M=M, K=K, N=N,
+                    label=f"whisper {label} M={M} K={K} N={N}"))
+            rows["quant_matmul"].append(check_quant_matmul(
+                torch, timer, gen, M=M, K=K, N=N, packed=True,
+                label=f"whisper {label} M={M} K={K} N={N} int4"))
+    for M in (4, WHISPER_STREAMS * WHISPER_CTX):
+        for kind, name in (("fp", "abfp_matmul"),
+                           ("int8", "abfp_matmul_int8")):
+            rows[name].append(check_dense_matmul(
+                torch, timer, gen, kind=kind, M=M, K=d, N=wh.vocab_padded,
+                label=f"whisper head M={M} K={d} N={wh.vocab_padded}"))
+        torch.cuda.empty_cache()
+    for label, K, N, *_ in encdec_matmuls(iv, "decode", 4):
+        rows["abfp_matmul"].append(check_dense_matmul(
+            torch, timer, gen, kind="fp", M=4, K=K, N=N,
+            label=f"internvl2 {label} M=4 K={K} N={N}"))
+        rows["quant_matmul"].append(check_quant_matmul(
+            torch, timer, gen, M=4, K=K, N=N, packed=True,
+            label=f"internvl2 {label} M=4 K={K} N={N} int4"))
+    M = INTERN_ROWS * (iv.vision_patches + INTERN_TEXT)
+    rows["abfp_matmul"].append(check_dense_matmul(
+        torch, timer, gen, kind="fp", M=M, K=iv.d_model, N=iv.vocab_padded,
+        label=f"internvl2 head M={M} K={iv.d_model} N={iv.vocab_padded}"))
+    torch.cuda.empty_cache()
+    for T, q_starts, H, KV, D, label in (
+            (WHISPER_CTX, [WHISPER_PROMPT + WHISPER_STEPS - 1, 447, 200, 4],
+             20, 20, 64, "whisper"),
+            (INTERN_MAX_LEN, [iv.vision_patches + INTERN_PROMPT
+                              + INTERN_STEPS - 1, 1023, 600, 320],
+             16, 8, 128, "internvl2")):
+        rows["flash_attention_quant"].append(check_attention(
+            torch, timer, gen, S=1, T=T, probs=True, fp8=False, block_k=0,
+            q_starts=q_starts, H=H, KV=KV, D=D, profiled=False,
+            label=f"{label} decode S=1 T={T} H={H} KV={KV} D={D} int8 exact",
+            want_kernel="attention_decode_kernel"))
+    for M, K, where in ((4, d, "whisper step"), (4, f, "whisper step"),
+                        (16, d, "whisper prefill"), (4, iv.d_model,
+                                                     "internvl2 step"),
+                        (4, iv.d_ff, "internvl2 step")):
+        rows["abfp_qdq"].append(check_abfp_qdq(
+            torch, timer, gen, M=M, K=K, n=64, fmt_name="int8",
+            label=f"{where} pre-pass M={M} K={K} int8", profiled=False))
+    del timer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def encdec_counted(torch, fn) -> tuple:
+    """``fn()`` and what it launched: the wrappers' counts, the attention
+    kernels by name and abfp_matmul's x pre-pass."""
+    from repro_torch.kernels import quant_matmul as qm
+
+    def read():
+        return (read_counts(), read_kernel_counts("flash_attention"),
+                read_kernel_counts("flash_attention_quant"),
+                qm.abfp_matmul.launches_by_kernel["qdq_stream_kernel"])
+
+    before = read()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    after = read()
+    got = {k: v - before[0][k] for k, v in after[0].items()
+           if v != before[0][k]}
+    kern = {k: v - b for a, bb in ((after[1], before[1]),
+                                   (after[2], before[2]))
+            for (k, v), b in zip(a.items(), bb.values()) if v != b}
+    return out, ms, got, kern, after[3] - before[3]
+
+
+def encdec_check(label, got, kern, pre, want, want_pre) -> None:
+    """The launches of one pass against their count from the code: the
+    wrappers' counts, the attention kernels by name (every flash_attention
+    a flash_mma_kernel, every flash_attention_quant an
+    attention_decode_kernel: attention_kernel never) and the x pre-pass."""
+    want_kern = {}
+    if want.get("flash_attention"):
+        want_kern["flash_mma_kernel"] = want["flash_attention"]
+    if want.get("flash_attention_quant"):
+        want_kern["attention_decode_kernel"] = want["flash_attention_quant"]
+    want = {k: v for k, v in want.items() if v}
+    if got != want or kern != want_kern or pre != want_pre:
+        raise SystemExit(f"encdec {label}: launched {got}, by kernel {kern}, "
+                         f"{pre} x pre-passes; expected {want}, {want_kern}, "
+                         f"{want_pre}")
+
+
+def encdec_inputs(torch, cfg, seed: int, rows: int, n_tokens: int) -> dict:
+    """Stub inputs from numpy and ``seed``: tokens, next-token labels over
+    them, and Whisper's frame embeddings (standard normal) or InternVL2's
+    patch embeddings (at the embedding table's scale, 0.02)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, cfg.vocab, (rows, n_tokens)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    batch = {"tokens": toks, "labels": labels}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.randn(rows, WHISPER_FRAMES,
+                                    cfg.d_model).astype(np.float32)
+    else:
+        batch["patch_embeds"] = (0.02 * rng.randn(
+            rows, cfg.vision_patches, cfg.d_model)).astype(np.float32)
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def encdec_run(torch, model, params, kind: str, seed: int, smi: str) -> dict:
+    """One policy through ``Model``: a teacher-forced ``loss`` (Whisper:
+    4 x 448 tokens over 4 x 1,500 frames; InternVL2: 4 x (256 patches + 512
+    tokens), labels over the text), a ``prefill`` (Whisper: 4 tokens into
+    max_len 448; InternVL2: 256 patches + 64 tokens into 1,024) and greedy
+    decode steps (64 / 32), every pass's launches asserted against
+    ``encdec_calls`` / ``encdec_flash`` / ``encdec_prepass``; wall ms of
+    each (Whisper's encode alone too), tokens/s of the decode loop, a
+    step's kernels by role from the profiler (asserted) and a profile (busy
+    ms, idle share, top device operations) of two steps, and under P-fp
+    also of the encode, the loss and the prefill (a profile of the plain
+    attention paths' tens of thousands of operations takes seconds, and
+    P-fp runs the same kernels at the same shapes); peak memory."""
+    cfg = model.cfg
+    whisper = cfg.family == "encdec"
+    B = WHISPER_STREAMS if whisper else INTERN_ROWS
+    n_loss = WHISPER_CTX if whisper else INTERN_TEXT
+    n_prompt = WHISPER_PROMPT if whisper else INTERN_PROMPT
+    max_len = WHISPER_CTX if whisper else INTERN_MAX_LEN
+    steps = WHISPER_STEPS if whisper else INTERN_STEPS
+    P = 0 if whisper else cfg.vision_patches
+    M_enc = B * WHISPER_FRAMES
+    label = f"{cfg.name} {kind}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    served, pol = encdec_serve(model, params, kind)
+    batch = encdec_inputs(torch, cfg, seed + 21, B, n_loss)
+    pbatch = {k: v for k, v in encdec_inputs(
+        torch, cfg, seed + 23, B, n_prompt).items() if k != "labels"}
+    report = {"policy": kind, "rows": B}
+    reset_counts()  # every count from 0 before the path, read after it
+    with torch.no_grad():
+        # the loss: one teacher-forced forward
+        mms = encdec_matmuls(cfg, "forward", B * (P + n_loss), M_enc)
+        loss, report["loss_ms"], got, kern, pre = encdec_counted(
+            torch, lambda: model.loss(served, batch, pol)[0])
+        report["loss"] = float(loss)
+        encdec_check(f"{label} loss", got, kern, pre,
+                     {**encdec_calls(cfg, kind, mms),
+                      **encdec_flash(cfg, kind, "forward")},
+                     encdec_prepass(cfg, kind, mms))
+        report["loss_launches"] = got
+        # the prefill, then greedy steps
+        mms = encdec_matmuls(cfg, "forward", B * (P + n_prompt), M_enc)
+        mms[-1] = mms[-1][:4] + (B, "head")  # the last position a row
+        (logits, st), report["prefill_ms"], got, kern, pre = encdec_counted(
+            torch, lambda: model.prefill(served, pbatch, pol,
+                                         max_len=max_len))
+        encdec_check(f"{label} prefill", got, kern, pre,
+                     {**encdec_calls(cfg, kind, mms),
+                      **encdec_flash(cfg, kind, "forward")},
+                     encdec_prepass(cfg, kind, mms))
+        if int(st.position) != P + n_prompt:
+            raise SystemExit(f"encdec {label}: position {int(st.position)}")
+        report["prefill_launches"] = got
+        mms = encdec_matmuls(cfg, "decode", B)
+        want_step = {**encdec_calls(cfg, kind, mms),
+                     **encdec_flash(cfg, kind, "decode")}
+        step_ms, toks = [], []
+        for _ in range(steps):
+            tok = torch.argmax(logits[:, :cfg.vocab], dim=-1).to(
+                torch.int32)[:, None]
+            toks.append(tok)
+            (logits, st), ms, got, kern, pre = encdec_counted(
+                torch, lambda: model.decode_step(served, tok, st, pol))
+            encdec_check(f"{label} decode step", got, kern, pre, want_step,
+                         encdec_prepass(cfg, kind, mms))
+            step_ms.append(ms)
+        if not torch.isfinite(logits[:, :cfg.vocab]).all():
+            raise SystemExit(f"encdec {label}: non-finite logits")
+        if int(st.position) != P + n_prompt + steps:
+            raise SystemExit(f"encdec {label}: position {int(st.position)}")
+    report.update({
+        "launches": read_counts(),
+        "attention_quant_by_kernel": read_kernel_counts(
+            "flash_attention_quant"),
+        "prepass_launches": read_kernel_counts("abfp_matmul")[
+            "qdq_stream_kernel"],
+        "step_launches": want_step, "steps": steps,
+        "step_ms_median": statistics.median(step_ms),
+        "decode_tokens_per_s": B * steps / sum(step_ms) * 1e3,
+        "tokens": torch.cat(toks, dim=1)[0, :16].tolist(),
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    if whisper:
+        report["cross_kv_bytes"] = nbytes(st.cross_k, st.cross_v)
+        report["ring_bytes"] = sum(nbytes(*(t for t in c if torch.is_tensor(
+            t))) for c in st.kv)
+    # a step's kernels by role from the profiler, then profiles
+    names = encdec_role_names(kind)
+
+    def step():
+        with torch.no_grad():
+            return model.decode_step(served, tok, st, pol)
+
+    report["step_roles"] = device_launches(
+        torch, lambda: (lead_spins(torch), step()), names,
+        {**encdec_roles(cfg, kind, mms),
+         **{k: want_step.get("flash_attention_quant", 0)
+            for k in ("attention_decode_kernel",)},
+         "attention_kernel": 0, "flash": 0},
+        f"{label} decode step", roles_only=True)
+    prof = {"step": profile_steps(torch, step, 2, report["step_ms_median"],
+                                  "decode", lead=True)}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    passes = {"loss": (lambda: model.loss(served, batch, pol),
+                       report["loss_ms"]),
+              "prefill": (lambda: model.prefill(served, pbatch, pol,
+                                                max_len=max_len),
+                          report["prefill_ms"])}
+    if whisper:
+        frames = batch["frames"]
+        enc = lambda: model.inner.encode(served, frames, pol)
+        report["encode_ms"] = timed(enc)
+        passes["encode"] = (enc, report["encode_ms"])
+    if kind != "p_fp":
+        passes = {}
+    for what, (fn, ms) in passes.items():
+        def one(fn=fn):
+            with torch.no_grad():
+                fn()
+        prof[what] = profile_steps(torch, one, 1, ms, what, lead=True)
+    report["profiles"] = prof
+    brief = {w: (p.get("device_busy_ms_per_step", "not measured"),
+                 p.get("device_idle_share", "not measured"))
+             for w, p in prof.items()}
+    log(f"  {label}: loss {report['loss']:.6f} ({report['loss_ms']:.1f} ms), "
+        + (f"encode {report['encode_ms']:.1f} ms, " if whisper else "")
+        + f"prefill {report['prefill_ms']:.1f} ms, step "
+        f"{report['step_ms_median']:.2f} ms (median of {steps}), "
+        f"{report['decode_tokens_per_s']:.1f} tokens/s; busy ms, idle "
+        + json.dumps(brief) + f"; peak {report['peak_memory_bytes']} bytes "
+        f"[{smi}]")
+    log(f"  {label}: " + json.dumps(report))
+    del served, st
+    torch.cuda.empty_cache()
+    return report
+
+
+def encdec_numerics(torch, model, params, kind: str, seed: int, smi: str
+                    ) -> dict:
+    """One stream (Whisper: 1,500 frames and 448 tokens; InternVL2: 256
+    patches and 512 tokens) through the fused policy ``kind`` on the
+    served tree: the logits against the ref backend's beside its
+    reordered-sum control and fp32 on the same tree (under P-C the same
+    int4 codes, so the control is the path without activation QDQ; held
+    only where GAP_FACTOR times the first lies below the second), and every
+    block on the ref backend's inputs (``block_gaps``), asserted."""
+    from repro_torch.core.policy import preset
+
+    cfg = model.cfg
+    batch = encdec_inputs(torch, cfg, seed + 29, 1,
+                          WHISPER_CTX if cfg.family == "encdec"
+                          else INTERN_TEXT)
+    del batch["labels"]
+    served, kp = encdec_serve(model, params, kind)
+
+    def logits(pol):
+        with torch.no_grad():
+            return model.apply(served, batch, pol)[0][..., :cfg.vocab]
+
+    rp = ref_backend(kp)
+    ref = logits(rp)
+    with split_contractions(torch):
+        moved = logits(rp)
+    out = {"logit_gap_over_std": logit_gap(torch, logits(kp), ref),
+           "reordered_control_over_std": logit_gap(torch, moved, ref),
+           "no_qdq_control_over_std": logit_gap(
+               torch, logits(preset("fp32")), ref)}
+    out["logit_gap_limit"] = min(GAP_MAX, GAP_FACTOR
+                                 * out["reordered_control_over_std"])
+    out["held"] = (GAP_FACTOR * out["reordered_control_over_std"]
+                   < out["no_qdq_control_over_std"])
+    out["ok"] = not out["held"] or out["logit_gap_over_std"] <= out[
+        "logit_gap_limit"]
+    out.update(block_gaps(torch, model, served, batch, kp,
+                          BLOCK_METHODS["encdec" if cfg.family == "encdec"
+                                        else "lm"]))
+    log(f"  {cfg.name} {kind}: logits {out['logit_gap_over_std']:.6g} std "
+        f"from the ref backend's (limit {out['logit_gap_limit']:.6g}; sums "
+        f"reordered {out['reordered_control_over_std']:.6g}, no QDQ "
+        f"{out['no_qdq_control_over_std']:.6g}"
+        + ("" if out["held"] else "; void: a last bit moves them as far as "
+           "no QDQ, the blocks are held instead") + "); "
+        + block_text(out) + f" [{smi}]")
+    del out["rows"]
+    if not (out["ok"] and out["block_ok"]):
+        raise SystemExit(f"encdec {cfg.name} {kind}: " + json.dumps(out))
+    del served
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_reduced(torch, seed: int) -> dict:
+    """Both configs ``.reduced()`` on the card through the kernels against
+    the CPU's plain path (the arithmetic the CPU tests hold to the JAX
+    reference): a prefill and greedy decode steps under P-fp, P-int8 and
+    P-C at group 16; the card must emit the CPU's tokens exactly."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    R = ENCDEC_REDUCED
+    rows = []
+    for arch in ENCDEC_RUNS:
+        cfg = get_config(arch).reduced()
+        models = {"cpu": build_model(cfg, device="cpu"),
+                  "cuda": build_model(cfg)}
+        params = models["cpu"].init(make_generator(seed, "cpu"))
+        rng = np.random.RandomState(seed + 31)
+        batch = {"tokens": rng.randint(0, cfg.vocab, (3, R["prompt"]))
+                 .astype(np.int32)}
+        if cfg.family == "encdec":
+            batch["frames"] = rng.randn(3, R["frames"], cfg.d_model).astype(
+                np.float32)
+        else:
+            batch["patch_embeds"] = (0.02 * rng.randn(
+                3, cfg.vision_patches, cfg.d_model)).astype(np.float32)
+        for kind in ("p_fp", "p_int8", "p_c"):
+            toks, counts = {}, {}
+            for dev, model in models.items():
+                tree, pol = encdec_serve(model, to(params, dev), kind, n=16)
+                reset_counts()
+                with torch.no_grad():
+                    logits, st = model.prefill(tree, batch, pol,
+                                               max_len=R["max_len"])
+                    out = []
+                    for _ in range(R["steps"]):
+                        tok = torch.argmax(logits[:, :cfg.vocab], dim=-1).to(
+                            torch.int32)[:, None]
+                        out.append(tok.cpu())
+                        logits, st = model.decode_step(tree, tok, st, pol)
+                toks[dev] = torch.cat(out, dim=1)
+                counts[dev] = {k: v for k, v in read_counts().items() if v}
+            row = {"arch": cfg.name, "policy": kind,
+                   "tokens_equal": int((toks["cuda"] == toks["cpu"]).sum()),
+                   "tokens_total": toks["cpu"].numel(),
+                   "launches": counts["cuda"]}
+            rows.append(row)
+            log("  reduced " + json.dumps(row))
+            if not counts["cuda"].get(ENCDEC_MM[kind]) or counts["cpu"]:
+                raise SystemExit(f"encdec reduced {cfg.name} {kind}: "
+                                 f"launched {counts}")
+            if row["tokens_equal"] != row["tokens_total"]:
+                raise SystemExit(f"encdec reduced {cfg.name} {kind}: the card"
+                                 f" emitted {toks['cuda'].tolist()}, the CPU "
+                                 f"{toks['cpu'].tolist()}")
+    return {"configs": rows}
+
+
+def phase_encdec(torch, seed: int, smi: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+
+    log("== encdec: whisper-large-v3 and internvl2-2b at full width and "
+        "depth through Model")
+    t_phase = time.perf_counter()
+    report = {"kernel_rows": encdec_kernel_checks(torch, seed)}
+    stamps = {"kernel_checks": time.perf_counter() - t_phase}
+    totals = {name: 0 for name in KERNELS}
+    by_kernel = {name: 0 for name in ATTENTION_KERNELS}
+    prepass = 0
+    for arch, kinds in ENCDEC_RUNS.items():
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        params = model.init(make_generator(seed, "cuda"))
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        rep = {"init_s": time.perf_counter() - t0, "params": n_params,
+               "param_bytes": 4 * n_params}
+        log(f"  {arch} built in {rep['init_s']:.1f} s: {n_params} "
+            f"parameters, {rep['param_bytes']} bytes in f32")
+        for kind in kinds:
+            r = encdec_run(torch, model, params, kind, seed, smi)
+            for k, v in r["launches"].items():
+                totals[k] += v
+            for k, v in r["attention_quant_by_kernel"].items():
+                by_kernel[k] += v
+            prepass += r["prepass_launches"]
+            rep[kind] = r
+            stamps[f"{arch} {kind}"] = time.perf_counter() - t_phase
+        if cfg.family == "encdec":
+            st_bytes = rep["p_fp"]["cross_kv_bytes"]
+            log(f"  {arch}: cross K/V state {st_bytes} bytes ({cfg.n_layers}"
+                f" x {WHISPER_STREAMS} x {WHISPER_FRAMES} x "
+                f"{cfg.n_kv * cfg.head_dim_} x 2 x 4 B)")
+        rep["numerics"] = {kind: encdec_numerics(torch, model, params, kind,
+                                                 seed, smi)
+                           for kind in kinds}
+        stamps[f"{arch} numerics"] = time.perf_counter() - t_phase
+        report[arch] = rep
+        del params, model
+        torch.cuda.empty_cache()
+    report["reduced"] = encdec_reduced(torch, seed)
+    stamps["reduced"] = time.perf_counter() - t_phase
+    report["seconds_at"] = stamps
+    report["launches"] = totals
+    report["launches_by_kernel"] = by_kernel
+    report["prepass_launches"] = prepass
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"  encdec launches on the main paths: {json.dumps(totals)}, "
+        f"flash_attention_quant by kernel {json.dumps(by_kernel)}, x "
+        f"pre-pass {prepass}; phase {report['phase_s']:.1f} s (seconds at "
+        f"the end of each part: {json.dumps(stamps)}) [{smi}]")
+    return report
+
+
+# --------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4520,15 +5189,16 @@ def main() -> int:
             "identity": lambda: phase_identity(torch, args.seed),
             "ptq": lambda: phase_ptq(torch, args.seed, smi),
             "vit": lambda: phase_vit(torch, args.seed, smi),
-            "ssm": lambda: phase_ssm(torch, args.seed, smi)}
+            "ssm": lambda: phase_ssm(torch, args.seed, smi),
+            "encdec": lambda: phase_encdec(torch, args.seed, smi)}
     done = {}
     for name in PHASES:
         if name in phases:
             PHASE["name"] = name
             done[name] = runs[name]()
-    kernel_rows, serve, long_ctx, fixed, ptq, vit, ssm = (
+    kernel_rows, serve, long_ctx, fixed, ptq, vit, ssm, encdec = (
         done.get(p) for p in ("kernels", "serve", "long", "fixed", "ptq",
-                              "vit", "ssm"))
+                              "vit", "ssm", "encdec"))
     retakes = {p: {"empty": 0, "other": 0} for p in phases}
     for r in PROFILER_RETRIES:
         retakes.setdefault(r["phase"], {"empty": 0, "other": 0})[
@@ -4538,16 +5208,18 @@ def main() -> int:
     # launches of each kernel on the main paths, each counted from 0 just
     # before its run: the paged serve run, the long-context run, the two
     # fixed-slot runs, the PTQ phase's fused evaluations, the vision
-    # phase's fused forwards and the SSM phase's served and Model runs
+    # phase's fused forwards, the SSM phase's served and Model runs and the
+    # encdec phase's Model runs
     paths = {"serve": (serve or {}).get("launches", {}),
              "long": (long_ctx or {}).get("launches", {}),
              **{f"fixed_{k}": r["launches"] for k, r in (fixed or {}).items()},
              "ptq": (ptq or {}).get("launches", {}),
              "vit": (vit or {}).get("launches", {}),
-             "ssm": (ssm or {}).get("launches", {})}
-    # the ptq, vit and ssm paths' shapes join their kernels' rows
+             "ssm": (ssm or {}).get("launches", {}),
+             "encdec": (encdec or {}).get("launches", {})}
+    # the ptq, vit, ssm and encdec paths' shapes join their kernels' rows
     kernel_rows = dict(kernel_rows or {})
-    for extra in (ptq, vit, ssm):
+    for extra in (ptq, vit, ssm, encdec):
         for name, rows in (extra or {}).get("kernel_rows", {}).items():
             kernel_rows[name] = kernel_rows.get(name, []) + rows
     # the shape whose numbers head a kernel's entry: the decode shape
@@ -4572,9 +5244,11 @@ def main() -> int:
                        .get("abfp_matmul", {}).get("qdq_stream_kernel"))
             if vit_qdq:
                 by_path["vit"] = vit_qdq
-            # and on the SSM paths' P-fp and P-C matmuls of up to 16 rows
-            if (ssm or {}).get("prepass_launches"):
-                by_path["ssm"] = ssm["prepass_launches"]
+            # and on the SSM and encdec paths' P-fp and P-C matmuls of up
+            # to 16 rows
+            for p, r in (("ssm", ssm), ("encdec", encdec)):
+                if (r or {}).get("prepass_launches"):
+                    by_path[p] = r["prepass_launches"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{build.SOURCES[mod]}",
@@ -4624,7 +5298,8 @@ def main() -> int:
     # decode steps and the long path's chunk / decode steps
     rows = (kernel_rows or {}).get("flash_attention_quant", [])
     by_path = {p: (r or {}).get("launches_by_kernel") or {}
-               for p, r in (("serve", serve), ("long", long_ctx))}
+               for p, r in (("serve", serve), ("long", long_ctx),
+                            ("encdec", encdec))}
     kernels[[k["name"] for k in kernels].index("flash_attention_quant")][
         "launches_by_kernel"] = by_path
     for kernel, timed_shape, replaces in (

@@ -6,15 +6,19 @@ statistics (``from_repro_calibrator``).
 ``from_repro_params`` takes the reference's *unboxed* parameter tree (a
 decoder LM's, an SSM LM's (``blocks`` of ``{ln, mamba}``), a ViT's:
 ``patch_embed``, ``pos_embed``, ``cls``, ``final_norm``, ``head`` and the
-blocks; or the Zamba2 hybrid's: ``embed``, ``mamba_groups``, ``shared``,
-``lora``, ``final_norm``) after a host transfer (nested dicts of numpy
+blocks; the Zamba2 hybrid's: ``embed``, ``mamba_groups``, ``shared``,
+``lora``, ``final_norm``; or an encoder-decoder's: ``embed``,
+``pos_embed``, ``encoder``, ``decoder``, ``enc_norm``, ``final_norm``)
+after a host transfer (nested dicts of numpy
 arrays; the caller does the ``device_get``), so this module imports nothing
 of the reference.  Layers stacked along a leading ``(L, ...)`` axis (the
 reference's ``scan_layers=True`` form) are unstacked into the port's list of
 per-layer dicts; a list stays a list.  The hybrid's ``mamba_groups`` (G,
 k-1, ...) become a list of G lists of k-1 block dicts and its ``lora`` (G,
 ...) a list of G dicts.  A key the port does not know is an error, not a
-silent drop.
+silent drop.  The encoder-decoder's ``encoder`` and ``decoder`` (stacked
+or listed) become lists of per-layer dicts, as ``blocks`` do; a VLM's tree
+is a decoder LM's, its head untied (``lm_head``).
 """
 
 from __future__ import annotations
@@ -40,6 +44,14 @@ _BLOCK = {
     "ln": _NORM, "mamba": _MAMBA,
 }
 _LORA = {nm: {"A": _LEAF, "B": _LEAF} for nm in ("q", "k", "v")}
+# the encoder-decoder's blocks: pre-LN encoder blocks, and decoder blocks
+# with a cross-attention between self-attention and the MLP
+_ENC_BLOCK = {"ln1": _NORM, "attn": _ATTN, "ln2": _NORM, "mlp": _MLP}
+_DEC_BLOCK = {"ln1": _NORM, "self_attn": _ATTN, "ln_x": _NORM,
+              "cross_attn": _ATTN, "ln2": _NORM, "mlp": _MLP}
+_ENCDEC = {"embed": {"table": _LEAF}, "pos_embed": _LEAF,
+           "encoder": _ENC_BLOCK, "decoder": _DEC_BLOCK, "enc_norm": _NORM,
+           "final_norm": _NORM}
 _TOP = {
     "embed": {"table": _LEAF},
     "final_norm": _NORM,
@@ -54,7 +66,14 @@ _TOP = {
     "mamba_groups": {"ln": _NORM, "mamba": _MAMBA},
     "shared": {"ln1": _NORM, "attn": _ATTN, "ln2": _NORM, "mlp": _MLP},
     "lora": _LORA,
+    # the encoder-decoder's stacks and encoder norm
+    "encoder": _ENC_BLOCK,
+    "decoder": _DEC_BLOCK,
+    "enc_norm": _NORM,
 }
+# top-level keys of the trees with a layout of their own, by family
+_FOREIGN = {"mamba_groups": "hybrid", "shared": "hybrid", "lora": "hybrid",
+            "encoder": "encdec", "decoder": "encdec", "enc_norm": "encdec"}
 
 
 def _convert(node, schema, path: str, device, index=None):
@@ -87,9 +106,21 @@ def _first_leaf(node):
     return np.asarray(node)
 
 
+def _layers(node, schema, name: str, device) -> list:
+    """A stack of layers — stacked (L, ...) leaves or a list of per-layer
+    dicts — as a list of per-layer dicts of tensors."""
+    if isinstance(node, dict):  # stacked (L, ...) leaves: unstack
+        n = _first_leaf(node).shape[0]
+        return [_convert(node, schema, f"{name}.{i}", device, i)
+                for i in range(n)]
+    return [_convert(b, schema, f"{name}.{i}", device)
+            for i, b in enumerate(node)]
+
+
 def from_repro_params(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
     """The reference's parameter tree (numpy) as the port's (tensors on
-    ``device``), for a dense-, ssm-, hybrid- or vit-family ``cfg``."""
+    ``device``), for a dense-, ssm-, vlm-, hybrid-, encdec- or vit-family
+    ``cfg``."""
     device = require_device(device)
     unknown = sorted(set(tree) - set(_TOP))
     if unknown:
@@ -97,20 +128,17 @@ def from_repro_params(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
                        f"port knows {sorted(_TOP)}")
     if cfg.family == "hybrid":
         return _hybrid_params(tree, cfg, device)
+    if cfg.family == "encdec":
+        return _encdec_params(tree, cfg, device)
     out = {}
     for key, node in tree.items():  # key order is kept: reports walk it
-        if key in ("mamba_groups", "shared", "lora"):
-            raise KeyError(f"params: {key!r} belongs to the hybrid family, "
-                           f"not {cfg.name} ({cfg.family})")
+        if key in _FOREIGN:
+            raise KeyError(f"params: {key!r} belongs to the {_FOREIGN[key]} "
+                           f"family, not {cfg.name} ({cfg.family})")
         if key != "blocks":
             out[key] = _convert(node, _TOP[key], key, device)
-        elif isinstance(node, dict):  # stacked (L, ...) leaves: unstack
-            n = _first_leaf(node).shape[0]
-            out[key] = [_convert(node, _BLOCK, f"blocks.{i}", device, i)
-                        for i in range(n)]
         else:
-            out[key] = [_convert(b, _BLOCK, f"blocks.{i}", device)
-                        for i, b in enumerate(node)]
+            out[key] = _layers(node, _BLOCK, "blocks", device)
     if "blocks" not in out:
         raise KeyError("params lack 'blocks'")
     if len(out["blocks"]) != cfg.n_layers:
@@ -155,6 +183,29 @@ def _hybrid_params(tree: dict, cfg: ArchConfig, device) -> dict:
                         for g in range(G)]
         else:
             out[key] = _convert(node, _TOP[key], key, device)
+    return out
+
+
+def _encdec_params(tree: dict, cfg: ArchConfig, device) -> dict:
+    """The encoder-decoder's tree: ``encoder`` and ``decoder`` stacked (L,
+    ...) or listed, unstacked into lists of per-layer dicts."""
+    wrong = sorted(set(tree) - set(_ENCDEC))
+    missing = sorted(set(_ENCDEC) - set(tree))
+    if wrong or missing:
+        raise KeyError(f"params of {cfg.name}: unexpected {wrong}, missing "
+                       f"{missing}; the encoder-decoder's tree holds "
+                       f"{list(_ENCDEC)}")
+    out = {}
+    for key, node in tree.items():
+        if key in ("encoder", "decoder"):
+            out[key] = _layers(node, _ENCDEC[key], key, device)
+        else:
+            out[key] = _convert(node, _ENCDEC[key], key, device)
+    for key, n in (("encoder", cfg.encoder_layers),
+                   ("decoder", cfg.n_layers)):
+        if len(out[key]) != n:
+            raise ValueError(f"params hold {len(out[key])} {key} layers but "
+                             f"{cfg.name} has {n}")
     return out
 
 

@@ -21,6 +21,10 @@ _ARCHS = {
     # the state-space family and the Mamba2 / shared-attention hybrid
     "mamba2-130m": "repro_torch.configs.mamba2_130m",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    # the encoder-decoder (stub audio front end) and the vision-language
+    # model (stub patch embeddings prepended to the text)
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
 }
 
 

@@ -18,7 +18,15 @@ does.  ``--arch mamba2-130m`` serves through the fixed-slot engine
 (exact-length prefills, a recurrent state a slot); with ``--paged`` it
 raises ``init_paged_state``'s ``TypeError``, and ``--arch zamba2-7b``
 raises the engine's ``TypeError`` (a ``HybridState``), as the reference's
-launcher does.  Flags of the reference launcher whose features are not ported yet
+launcher does.  Neither launcher serves the encoder-decoder or the VLM,
+and the port fails as the reference does: ``--arch whisper-large-v3``
+raises the engine's ``TypeError`` (an ``EncDecState``), with ``--paged``
+an ``AttributeError`` (``EncDecLM`` has no ``init_paged_state``);
+``--arch internvl2-2b`` raises a ``KeyError`` (``'patch_embeds'``: the
+synthetic requests carry no patch embeddings) at the first prefill, and
+with ``--paged`` serves the text alone (the paged step takes no prefix).
+Both run through ``Model`` instead (``chip_smoke.py --phases encdec``).
+Flags of the reference launcher whose features are not ported yet
 (``--speculate``, ``--expert-cache``, ``--expert-precision auto``) exit
 with a message naming the ROADMAP item that will bring them.
 There is no lint gate yet: the static analyzer is a late slice of the

@@ -8,10 +8,13 @@ step (``init_paged_state`` / ``paged_step``), and the next-token losses
 (``cross_entropy``, ``chunked_lm_loss``).  The state-space family
 (``ssm_state > 0``: every block a pre-norm Mamba2 mixer) has ``apply``,
 an exact-length ``prefill`` and ``decode_step`` over per-layer
-``SSMCache``s; it has no paged state.  Every forward takes the
-static-scale q tree (``q=``) of the PTQ passes.  Layers are always a Python
-list of per-layer dicts with sites ``blocks.{i}/...`` — there is no scan —
-so layer-indexed PolicyMap rules always resolve.  ``chunk_step`` (the
+``SSMCache``s; it has no paged state.  ``apply`` and ``prefill`` take
+``prefix_embeds`` (the VLM family's stub patch embeddings, prepended to
+the token embeddings before the positions are formed; decode after such a
+prefill simply continues at position ``n_prefix + len(prompt)``).  Every
+forward takes the static-scale q tree (``q=``) of the PTQ passes.  Layers
+are always a Python list of per-layer dicts with sites ``blocks.{i}/...``
+— there is no scan — so layer-indexed PolicyMap rules always resolve.  ``chunk_step`` (the
 speculative verify pass) and the MoE block wait for ROADMAP.md Queue A
 item 4.
 """
@@ -19,8 +22,10 @@ item 4.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -173,11 +178,13 @@ class TransformerLM:
         return [GLOBAL_WINDOW] * c.n_layers
 
     # ------------------------------------------------------------- embed in
-    def _embed_in(self, params, tokens, pos_offset=0):
+    def _embed_in(self, params, tokens, prefix_embeds=None, pos_offset=0):
         c = self.cfg
         x = self._embed().apply(params["embed"], tokens)
         if c.norm_plus_one:  # gemma convention: scale embeddings by sqrt(d)
             x = x * c.d_model**0.5
+        if prefix_embeds is not None:  # before the positions are formed
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         B, S = x.shape[0], x.shape[1]
         po = torch.as_tensor(pos_offset, dtype=torch.int32, device=x.device)
         if po.ndim == 1:  # per-row offsets (continuous-batching decode)
@@ -250,10 +257,12 @@ class TransformerLM:
 
     # ---------------------------------------------------------------- apply
     def apply(self, params, tokens, *, policy=QuantPolicy(), q=None,
-              return_hidden: bool = False):
-        """Full-sequence forward: (logits (B, S, vocab_padded), aux loss).
-        ``q``: static-scale q tree (calibrated activation alphas)."""
-        x, positions = self._embed_in(params, tokens)
+              prefix_embeds=None, return_hidden: bool = False):
+        """Full-sequence forward: (logits (B, P + S, vocab_padded), aux
+        loss).  ``q``: static-scale q tree (calibrated activation alphas);
+        ``prefix_embeds``: (B, P, d_model) embeddings put before the
+        tokens."""
+        x, positions = self._embed_in(params, tokens, prefix_embeds)
         x = self._run_blocks(
             params, x, policy,
             lambda i, w, attn, ap, h, qa: attn.apply(
@@ -268,7 +277,8 @@ class TransformerLM:
     # -------------------------------------------------------------- prefill
     @torch.no_grad()
     def prefill(self, params, tokens, *, policy=QuantPolicy(),
-                max_len: int | None = None, n_valid=None):
+                max_len: int | None = None, prefix_embeds=None,
+                n_valid=None):
         """Forward pass that also builds the ring-buffer decode caches.
 
         Returns (last-position logits (B, vocab_padded), DecodeState).
@@ -290,8 +300,8 @@ class TransformerLM:
                     "bucketed prefill (n_valid) is attention-family only: "
                     "SSM recurrence integrates the padded tail into the "
                     "state; prefill SSM models at exact length")
-            return self._ssm_prefill(params, tokens, policy)
-        x, positions = self._embed_in(params, tokens)
+            return self._ssm_prefill(params, tokens, policy, prefix_embeds)
+        x, positions = self._embed_in(params, tokens, prefix_embeds)
         B, S = x.shape[0], x.shape[1]
         if n_valid is not None:
             n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
@@ -323,9 +333,9 @@ class TransformerLM:
         logits = self.head_logits(params, x, policy)
         return logits[:, 0], state
 
-    def _ssm_prefill(self, params, tokens, policy):
+    def _ssm_prefill(self, params, tokens, policy, prefix_embeds=None):
         """The SSM family's prefill: every block's cache after the prompt."""
-        x, _ = self._embed_in(params, tokens)
+        x, _ = self._embed_in(params, tokens, prefix_embeds)
         caches = []
         for i, bp in enumerate(params["blocks"]):
             h = _norm(self.cfg).apply(bp["ln"], x)
@@ -334,7 +344,7 @@ class TransformerLM:
             x = x + h
             caches.append(cache)
         state = DecodeState(kv=None, ssm=caches, position=torch.tensor(
-            tokens.shape[1], dtype=torch.int32, device=x.device))
+            x.shape[1], dtype=torch.int32, device=x.device))
         x = _norm(self.cfg).apply(params["final_norm"], x[:, -1:, :])
         return self.head_logits(params, x, policy)[:, 0], state
 
@@ -472,6 +482,35 @@ class TransformerLM:
         x = _norm(c).apply(params["final_norm"], self._last_valid(x, n_valid))
         logits = self.head_logits(params, x, policy)
         return logits[:, 0], new_state
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoid_table(S: int, d: int) -> np.ndarray:
+    """The reference's ``_sinusoid(S, d)`` table, formed on the host as the
+    reference's compiled arithmetic forms it: XLA folds the table into a
+    constant, with ``10000 ** (dim / d)`` correctly rounded to f32 and the
+    division by it taken as a product with its f32 reciprocal — both bit
+    for bit here (numpy, float64 rounded once).  XLA's own sin and cos are
+    not correctly rounded: the sines and cosines here (float64, rounded
+    once) are within one unit in the last place of the reference's, and
+    differ in about 1.3 % of the entries.  torch's f32 ``pow``, division,
+    ``sin`` and ``cos`` on the CPU would move a quarter of them, by up to
+    an ulp of the angle; the table is the same bits on every device."""
+    pos = np.arange(S, dtype=np.float32)[:, None]
+    expo = np.arange(0, d, 2, dtype=np.float32)[None] / np.float32(d)
+    den = np.power(10000.0, expo.astype(np.float64)).astype(np.float32)
+    angle = (pos * (np.float32(1.0) / den)).astype(np.float64)
+    out = np.zeros((S, d), dtype=np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    out.setflags(write=False)
+    return out
+
+
+def _sinusoid(S: int, d: int, device="cpu") -> torch.Tensor:
+    """Sinusoidal embeddings of positions 0 .. S-1 -> (S, d) f32 on
+    ``device`` (the encoder's positions; see ``_sinusoid_table``)."""
+    return torch.from_numpy(_sinusoid_table(S, d).copy()).to(device)
 
 
 def _sinusoid_at(positions: torch.Tensor, d: int) -> torch.Tensor:

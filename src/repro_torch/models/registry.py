@@ -11,10 +11,13 @@
 
 The dense decoder family, the state-space family (``TransformerLM`` with
 Mamba2 blocks), the Zamba2 hybrid (``HybridLM``: no paged state, and a
-``HybridState`` the engines do not take) and the vision family
-(``VitModel``: ``init``, ``apply``, ``loss`` over image batches) are
-ported.  MoE (ROADMAP.md Queue A item 4) and the encoder-decoder and VLM
-families (item 3) raise with the item that will bring them.
+``HybridState`` the engines do not take), the vision family (``VitModel``:
+``init``, ``apply``, ``loss`` over image batches), the encoder-decoder
+family (``EncDecLM``: ``batch["frames"]`` beside the tokens; no paged
+state, and an ``EncDecState`` the engines do not take) and the VLM family
+(``TransformerLM`` with ``batch["patch_embeds"]`` prepended; its loss drops
+the patch positions) are ported.  MoE (ROADMAP.md Queue A item 4) raises
+with the item that will bring it.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import QuantPolicy
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.lm import (TransformerLM, chunked_lm_loss,
                                    cross_entropy)
@@ -51,36 +55,56 @@ class Model:
         PTQ drivers hand numpy batches in)."""
         return torch.as_tensor(batch["tokens"], device=self.device)
 
+    def _split_batch(self, batch):
+        """(tokens, the family's extra inputs): ``frames`` for encdec, the
+        ``patch_embeds`` as ``prefix_embeds`` for vlm; a missing one is a
+        ``KeyError``, as in the reference."""
+        kw = {}
+        if self.cfg.family == "encdec":
+            kw["frames"] = torch.as_tensor(batch["frames"],
+                                           device=self.device)
+        if self.cfg.family == "vlm":
+            kw["prefix_embeds"] = torch.as_tensor(batch["patch_embeds"],
+                                                  device=self.device)
+        return self._tokens(batch), kw
+
     def apply(self, params, batch, policy=QuantPolicy(), q=None,
               return_hidden: bool = False):
-        return self.inner.apply(params, self._tokens(batch), policy=policy,
-                                q=q, return_hidden=return_hidden)
+        tokens, kw = self._split_batch(batch)
+        return self.inner.apply(params, tokens, policy=policy, q=q,
+                                return_hidden=return_hidden, **kw)
 
     def loss(self, params, batch, policy=QuantPolicy(), q=None):
         """Next-token CE (+ 0.01 aux, zero for the ported families).
-        Labels: ``batch['labels']``, -1 masked."""
+        Labels: ``batch['labels']``, -1 masked; for vlm they cover the text
+        only, and the patch positions' logits are dropped."""
         c = self.cfg
         labels = torch.as_tensor(batch["labels"], device=self.device)
+        n_prefix = (batch["patch_embeds"].shape[1] if c.family == "vlm"
+                    else 0)
         if c.logits_chunk > 0 and isinstance(self.inner, TransformerLM):
             hidden, aux = self.apply(params, batch, policy, q,
                                      return_hidden=True)
-            ce = chunked_lm_loss(self.inner, params, hidden, labels, policy,
-                                 c.logits_chunk)
+            ce = chunked_lm_loss(self.inner, params, hidden[:, n_prefix:],
+                                 labels, policy, c.logits_chunk)
         else:
             logits, aux = self.apply(params, batch, policy, q)
-            ce = cross_entropy(logits, labels, c.vocab)
+            ce = cross_entropy(logits[:, n_prefix:], labels, c.vocab)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params, batch, policy=QuantPolicy(),
                 max_len: int | None = None, n_valid=None):
-        # n_valid (bucketed prefill) only when given: HybridLM takes none
-        kw = {} if n_valid is None else {"n_valid": n_valid}
-        return self.inner.prefill(params, self._tokens(batch), policy=policy,
+        # n_valid (bucketed prefill) only when given: HybridLM and
+        # EncDecLM take none
+        tokens, kw = self._split_batch(batch)
+        if n_valid is not None:
+            kw["n_valid"] = n_valid
+        return self.inner.prefill(params, tokens, policy=policy,
                                   max_len=max_len, **kw)
 
     def init_decode_state(self, batch: int, max_len: int, **kw):
-        """Fixed-slot decode state: ring buffers, SSM caches, or both in
-        a ``HybridState``."""
+        """Fixed-slot decode state: ring buffers, SSM caches, both in a
+        ``HybridState``, or rings and cross K/V in an ``EncDecState``."""
         return self.inner.init_decode_state(batch, max_len,
                                             device=self.device, **kw)
 
@@ -106,10 +130,12 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model | VitModel:
         return VitModel(cfg, VisionTransformer(cfg), require_device(device))
     if cfg.family == "hybrid":
         return Model(cfg, HybridLM(cfg), require_device(device))
-    if cfg.family not in ("dense", "ssm"):
-        item = 4 if cfg.family == "moe" else 3
+    if cfg.family == "encdec":
+        return Model(cfg, EncDecLM(cfg), require_device(device))
+    if cfg.family == "moe":
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported yet — "
-            f"ROADMAP.md Queue A item {item}; the dense, ssm, hybrid and "
-            "vision families are")
+            "ROADMAP.md Queue A item 4; the dense, ssm, hybrid, vision, "
+            "encdec and vlm families are")
+    # dense / ssm / vlm all ride on TransformerLM
     return Model(cfg, TransformerLM(cfg), require_device(device))

@@ -71,6 +71,7 @@ def test_recipe_report_matches_reference_launcher(capsys, engine):
 
 def test_unknown_arch_lists_the_registry():
     with pytest.raises(ValueError, match="known: \\['deit-s16', "
-                       "'mamba2-130m', 'opt-125m', 'opt-tiny', 'qwen2-7b', "
-                       "'vit-b16', 'zamba2-7b'\\]"):
+                       "'internvl2-2b', 'mamba2-130m', 'opt-125m', "
+                       "'opt-tiny', 'qwen2-7b', 'vit-b16', "
+                       "'whisper-large-v3', 'zamba2-7b'\\]"):
         tserve.main(["--paged", "--device", "cpu", "--arch", "gemma2-9b"])
