@@ -62,10 +62,10 @@ Phases (each fatal on failure):
             attention_long_kernel and attention_decode_long_kernel on
             none); profiles of decode steps and
             of prefill steps (M = 256)
-  long      paged, full width, full depth, max_len 8192 (T = 8192 in every
-            attention call): 4 greedy requests of 6000 / 4100 / 2500 /
-            1100 prompt tokens, 8 new tokens each; asserted per step: 197
-            quant_matmul + 28 flash_attention_quant launches,
+  long      paged, full width, 14 of 28 layers, max_len 8192 (T = 8192 in
+            every attention call): 4 greedy requests of 6000 / 4100 / 2500
+            / 1100 prompt tokens, 8 new tokens each; asserted per step: 99
+            quant_matmul + 14 flash_attention_quant launches,
             attention_long_kernel on every chunk step,
             attention_decode_long_kernel on every decode step (S = 1 past
             the decode kernel), attention_kernel on none, neither exact
@@ -73,19 +73,21 @@ Phases (each fatal on failure):
             decode step replayed from a copy of their state, timed,
             profiled (attention and device-busy ms) and their peak memory
             read
-  fixed     fixed-slot, full width, full depth, dense f32 weights: the same
-            6 requests under P-int8 (abfp_matmul_int8 + flash_attention)
-            and P-fp (abfp_matmul + flash_attention); 197 matmul launches
-            per forward pass and 28 flash_attention launches per prefill
-            (all of flash_mma_kernel) asserted, and P-fp's x pre-pass:
-            qdq_stream_kernel before every abfp_matmul call of up to 16
-            rows (counted; 197 a decode tick in the profile, none for
-            P-int8); profiles of decode ticks
-            and of one 192-row prefill (28 flash_mma_kernel launches and
-            no flash_kernel, read from the profiler)
+  fixed     fixed-slot, full width, 14 of 28 layers, dense f32 weights:
+            the same 6 requests under P-int8 (abfp_matmul_int8 +
+            flash_attention) and P-fp (abfp_matmul + flash_attention); 99
+            matmul launches per forward pass and 14 flash_attention
+            launches per prefill (all of flash_mma_kernel) asserted, and
+            P-fp's x pre-pass: qdq_stream_kernel before every abfp_matmul
+            call of up to 16 rows (counted; 99 a decode tick in the
+            profile, none for P-int8); profiles of decode ticks and of one
+            192-row prefill (14 flash_mma_kernel launches and no
+            flash_kernel, read from the profiler)
   reduced   reduced width: the kernel path on the card must emit the tokens
             of the plain path on the CPU (the path the CPU tests hold
-            token-identical to the JAX reference), paged and fixed-slot
+            token-identical to the JAX reference), paged and fixed-slot,
+            for qwen2-7b, gemma2-9b, granite-3-8b, h2o-danube-1.8b,
+            phi3.5-moe-42b-a6.6b and llama4-scout-17b-a16e
   identity  full width, 2 layers: the paged kernel path against the
             non-kernel path (fused=False, attn_backend="ref"), with a
             last-bit-noise control run as the yardstick
@@ -118,8 +120,8 @@ Phases (each fatal on failure):
             PTQ over the encoder (a w4a8_mse calibration, static_mse at
             w4a4_mse, smoothquant+gptq+static_mse): seconds, Hessian bytes,
             dropped sites, peak memory
-  ssm       mamba2-130m and zamba2-7b at published width and depth, random
-            weights: the kernels at their shapes (ragged N = 3,352 and
+  ssm       mamba2-130m at published width and depth, zamba2-7b at
+            published width and 27 of its 81 layers, random weights: the kernels at their shapes (ragged N = 3,352 and
             14,576, K up to 14,336; abfp_qdq at the pre-pass shapes and the
             ViT's 16-image head); mamba2-130m served by the fixed-slot
             engine (4 slots, max_len 2048, prompts of 41-1,500 tokens,
@@ -128,14 +130,14 @@ Phases (each fatal on failure):
             quant_matmul + 1 abfp_matmul) and read by role from the
             profiler, device busy ms / idle split into the SSD scan, the
             conv and the kernels; zamba2-7b through Model under P-fp (a
-            loss, a 300-token prefill, 16 decode steps; 298 launches a
-            forward) and P-C raising the reference's ValueError; fused
+            loss, a 300-token prefill, 16 decode steps; every forward's
+            launches asserted) and P-C raising the reference's ValueError; fused
             logits and every block held to the ref backend against a
             reordered-sum control; prefill + decode against a longer
             prefill at full width; the reduced mamba2 on the card against
             the CPU
-  encdec    whisper-large-v3 and internvl2-2b at published width and depth,
-            random weights, stub inputs from numpy: the kernels at the new
+  encdec    whisper-large-v3 (8 of its 32 + 32 layers) and internvl2-2b
+            (all 24) at published width, random weights, stub inputs from numpy: the kernels at the new
             shapes (flash_attention over 1,500 non-causal keys at G = 1,
             D = 64 and causal at G = 2, D = 128; both dense matmuls at M =
             6,000 and the heads at N = 51,968 / 92,672; quant_matmul at
@@ -155,6 +157,28 @@ Phases (each fatal on failure):
             block held to the ref backend against a reordered-sum control
             (the logits too where that control lies below no QDQ); the
             reduced configs on the card emit the CPU's greedy tokens
+  dense_archs gemma2-9b, granite-3-8b and h2o-danube-1.8b at published
+            width and depth, random weights, one at a time: the kernels at
+            the new shapes (flash_attention at D = 80, G = 4 and G = 5
+            beside SDPA; flash_attention_quant at D = 80 over 8,192 keys
+            with the window of 4,096 inside both long kernels, and at G =
+            4; abfp_matmul at the 256,000-wide tied head; K = 12,800);
+            gemma2 paged P-C (its softcap keeps attention on the plain
+            path: no attention kernel), fixed P-fp and a loss on (2, 512)
+            through the chunked tied head; granite paged P-C and fixed
+            P-int8; danube fixed P-fp and paged P-C at max_len 8,192 on
+            the long phase's prompts; every forward's launches asserted by
+            wrapper, attention kernel and x pre-pass; tokens/s, step ms,
+            busy ms, idle share and peak memory; logits and every block
+            held to the ref backend against a reordered-sum control on 512
+            tokens, and the median block on their first 128
+  moe       phi3.5-moe-42b-a6.6b at full width, 8 of 32 layers: fixed P-fp
+            (the expert stacks QDQ'd every forward), paged P-C (ExpertBank
+            int4 codes decompressed every step), a loss with its aux term,
+            expert_loads; llama4-scout-17b-a16e at full width, 4 of 48
+            layers: a loss on (2, 256), a (2, 64) prefill and 16 greedy
+            steps under P-fp (flash_mma_kernel at G = 5); launches, times
+            and numerics as in dense_archs
 
 The last lines of standard output are: one JSON object {"kernels": [...]},
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -181,7 +205,7 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 
 PHASES = ("kernels", "serve", "long", "fixed", "reduced", "identity", "ptq",
-          "vit", "ssm", "encdec")
+          "vit", "ssm", "encdec", "dense_archs", "moe")
 
 # every kernel: (wrapper module, TPU kernel it replaces)
 KERNELS = {
@@ -661,10 +685,9 @@ def check_abfp_qdq(torch, timer, gen, *, M, K, n, fmt_name, label,
     x = qdq_operand(torch, x32, getattr(torch, dtype), offset)
     plan = aq.plan_qdq(M * (K // n), n, x.element_size(),
                        x.data_ptr() % 16 == 0, fmt)  # y: a new allocation
-    before = aq.abfp_qdq.launches
-    got = aq.abfp_qdq(x, fmt, n=n)
-    torch.cuda.synchronize()
-    counted = aq.abfp_qdq.launches - before
+    got, by_kernel = wrapper_launches(torch, aq.abfp_qdq,
+                                      lambda: aq.abfp_qdq(x, fmt, n=n))
+    counted = sum(by_kernel.values())
     want = aq.abfp_qdq_plain(x, fmt, n=n)
     torch.cuda.synchronize()
     # every operation is correctly rounded on both sides: bit-exact
@@ -1123,20 +1146,28 @@ def device_launches(torch, call, names_of: dict, want=None,
         time.sleep(0.2)  # let a dropped capture's buffers settle
 
 
+def wrapper_launches(torch, wrapper, call) -> tuple:
+    """(``call()``, {kernel: n}): the launches ``wrapper`` counted by
+    kernel during the call (its ``launches_by_kernel`` before and after,
+    the kernels it did not launch left out)."""
+    before = dict(wrapper.launches_by_kernel)
+    out = call()
+    torch.cuda.synchronize()
+    return out, {k: n - before[k]
+                 for k, n in wrapper.launches_by_kernel.items()
+                 if n != before[k]}
+
+
 def kernel_launches(torch, wrapper, call, names_of: dict, want: dict,
                     label: str, profiled: bool = True) -> dict:
     """{kernel: n} of one ``call`` of ``wrapper``: read from the profiler
     (``device_launches``, which holds it to ``want``), or with
-    ``profiled=False`` from the wrapper's count by kernel, as late in a
-    whole run the profiler has dropped a lone launch's record five
-    captures in a row."""
+    ``profiled=False`` from the wrapper's count by kernel
+    (``wrapper_launches``), as late in a whole run the profiler has
+    dropped a lone launch's record five captures in a row."""
     if profiled:
         return device_launches(torch, call, names_of, want, label)
-    before = dict(wrapper.launches_by_kernel)
-    call()
-    torch.cuda.synchronize()
-    return {k: n - before[k] for k, n in wrapper.launches_by_kernel.items()
-            if n != before[k]}
+    return wrapper_launches(torch, wrapper, call)[1]
 
 
 def check_regimes(torch, gen, kind: str) -> None:
@@ -1939,6 +1970,9 @@ def phase_serve(torch, seed: int) -> dict:
 
 
 # the long phase: prompt lengths (random ids from the seed), new tokens
+# the depth of qwen2-7b in phases long and fixed, cut to keep the whole
+# script near half its time limit (serve runs all 28 layers)
+QWEN_CUT_LAYERS = 14
 LONG_PROMPTS = (6000, 4100, 2500, 1100)
 LONG_NEW = 8
 LONG_MAX_LEN = 8192
@@ -1946,10 +1980,10 @@ LONG_PROFILED_KEYS = 4000  # the profiled chunk step has a row past this
 
 
 def phase_long(torch, seed: int) -> dict:
-    """Paged serving of qwen2-7b at published width and depth with
-    max_len 8192 (so T = 8192 in every attention call): 4 greedy requests
-    of ``LONG_PROMPTS`` tokens.  Asserted: 28 ``flash_attention_quant``
-    launches a step, ``attention_long_kernel`` on every chunk step,
+    """Paged serving of qwen2-7b at published width and QWEN_CUT_LAYERS of
+    its 28 layers with max_len 8192 (so T = 8192 in every attention call):
+    4 greedy requests of ``LONG_PROMPTS`` tokens.  Asserted: one
+    ``flash_attention_quant`` launch a layer a step, ``attention_long_kernel`` on every chunk step,
     ``attention_decode_long_kernel`` on every decode step (the phased body
     at S = 1), ``attention_kernel`` and both exact kernels on none.  After
     the counted run, one long chunk step (a row past 4,000 seen keys) and
@@ -1962,8 +1996,11 @@ def phase_long(torch, seed: int) -> dict:
     from repro_torch.kernels import flash_attention_quant as faq
     from repro_torch.serve.engine import Request
 
-    log(f"== long: qwen2-7b, full width and depth, max_len {LONG_MAX_LEN}")
     cfg = get_config("qwen2-7b")
+    log(f"== long: qwen2-7b, full width, max_len {LONG_MAX_LEN}")
+    log(f"  cut: qwen2-7b runs {QWEN_CUT_LAYERS} of its {cfg.n_layers} "
+        "layers")
+    cfg = cfg.replace(n_layers=QWEN_CUT_LAYERS)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     eng = build_engine(torch, cfg, seed, kernel_path=True,
@@ -2080,8 +2117,8 @@ def phase_long(torch, seed: int) -> dict:
         profiles[kind] = out
         log(f"  {kind} step profile: " + json.dumps(out))
     report["profiles"] = profiles
-    # the replayed decode step: its attention (28 launches of the decode
-    # kernel for long contexts) and its device time
+    # the replayed decode step: its attention (a launch a layer of the
+    # decode kernel for long contexts) and its device time
     dec = profiles.get("decode", {})
     report["decode_step"] = {
         "attention_ms": dec.get("watched_kernels_per_step", {}).get(
@@ -2143,6 +2180,9 @@ def profile_fixed_prefill(torch, cfg, eng, seed: int) -> dict:
     return out
 
 
+PROFILE_NEW = 10
+
+
 def profile_decode(torch, cfg, eng, seed: int, step_ms: float,
                    watch: tuple = ()) -> dict:
     """Where a decode step's time goes: a few steady decode steps of the
@@ -2150,6 +2190,9 @@ def profile_decode(torch, cfg, eng, seed: int, step_ms: float,
     are not part of the reported counts); ``watch`` as for
     ``profile_steps``."""
     for r in make_requests(cfg, seed + 1)[:4]:
+        # enough tokens for the steps before every slot decodes and the
+        # profiled ones: the rest of the requests' 16 is not needed
+        r.max_new_tokens = PROFILE_NEW
         eng.submit(r)
     busy = (lambda: eng.prefilling.any()) if hasattr(eng, "prefilling") \
         else (lambda: False)
@@ -2322,9 +2365,12 @@ def phase_fixed(torch, seed: int) -> dict:
     from repro_torch.models import build_model
     from repro_torch.nn.module import make_generator
 
-    log("== fixed: qwen2-7b, full width and depth, dense f32 weights, "
-        "fixed-slot engine")
+    log("== fixed: qwen2-7b, full width, dense f32 weights, fixed-slot "
+        "engine")
     cfg = get_config("qwen2-7b")
+    log(f"  cut: qwen2-7b runs {QWEN_CUT_LAYERS} of its {cfg.n_layers} "
+        "layers")
+    cfg = cfg.replace(n_layers=QWEN_CUT_LAYERS)
     L = cfg.n_layers
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2460,8 +2506,14 @@ def _leaves(tree):
         yield tree
 
 
+# the reduced configs held on the card against the CPU: qwen2-7b, and the
+# last families (gemma2's softcap takes no attention kernel)
+REDUCED_ARCHS = ("qwen2-7b", "gemma2-9b", "granite-3-8b", "h2o-danube-1.8b",
+                 "phi3.5-moe-42b-a6.6b", "llama4-scout-17b-a16e")
+
+
 def phase_reduced(torch, seed: int) -> dict:
-    """Kernel path on the card vs plain path on the CPU, reduced config.
+    """Kernel path on the card vs plain path on the CPU, reduced configs.
 
     The CPU side is the arithmetic the CPU tests hold token-identical to
     the JAX reference, so this ties the kernels in situ (other head_dim,
@@ -2471,7 +2523,10 @@ def phase_reduced(torch, seed: int) -> dict:
     other orders.  Paged: ONE request of six may turn at a near-tie before
     the phase fails.  Fixed-slot: every turned token is judged by the
     identity phase's margin rule (its top-2 margin within twice the logit
-    gap of the two runs at that token) and reported."""
+    gap of the two runs at that token) and reported.  Every config of
+    REDUCED_ARCHS runs every policy; an MoE config's fixed-slot prefills
+    take buckets of 64 in a ring of 128 (its routing groups are 64
+    tokens)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2498,87 +2553,103 @@ def phase_reduced(torch, seed: int) -> dict:
                 prompt=rng.randint(0, cfg.vocab, size).astype(np.int32)))
 
     def check_launched(label, counts, names):
+        if cfg.attn_softcap:  # no kernel body has a softcap
+            names = [k for k in names if "attention" not in k]
+            if counts["flash_attention"] or counts["flash_attention_quant"]:
+                raise SystemExit(f"reduced {label}: an attention kernel "
+                                 f"under a softcap: {counts}")
         if min(counts[k] for k in names) == 0:
             raise SystemExit(f"reduced {label}: a kernel of the path was not "
                              f"launched: {counts}")
 
-    cfg = get_config("qwen2-7b").reduced()
-    models = {"cpu": build_model(cfg, device="cpu"), "cuda": build_model(cfg)}
-    params = models["cpu"].init(make_generator(seed, "cpu"))
     rows = []
-    for n, kv in ((64, "int8"), (64, "fp8"), (32, "int8")):
-        pol = map_policies(preset("w4a8_abfp", n=n),
-                           lambda p: p.replace(fused=True))
-        pol = with_attn_backend(pol, "compressed")
-        tokens = {}
-        reset_counts()
-        for dev, model in models.items():
-            eng = PagedServeEngine(
-                model, to_device(params, dev), n_slots=3, max_len=96,
-                policy=pol, page_size=8, kv=kv, compress=True, device=dev)
-            submit(eng)
-            tokens[dev] = {c.uid: c.tokens for c in eng.run_until_done()}
-        counts = read_counts()
-        turned = [u for u in tokens["cpu"]
-                  if tokens["cpu"][u] != tokens["cuda"][u]]
-        row = {"engine": "paged", "group": n, "kv": kv,
-               "requests_equal": 6 - len(turned), "requests": 6,
-               "launches": counts}
-        rows.append(row)
-        log("  " + json.dumps(row))
-        check_launched(f"paged group {n} {kv}", counts,
-                       ("quant_matmul", "flash_attention_quant"))
-        no_attention_kernel(f"reduced paged group {n} {kv}")
-        if len(turned) > 1:
-            raise SystemExit(
-                f"reduced (group {n}, {kv} pages): requests {turned} differ "
-                f"between the card and the CPU: {tokens}")
-    # fixed-slot engine: P-int8, P-fp, and compressed weights with an int8
-    # ring cache read by the quantized-KV kernel
-    fixed_kernels = {"p_int8": ("abfp_matmul_int8", "flash_attention"),
-                     "p_fp": ("abfp_matmul", "flash_attention"),
-                     "compress": ("quant_matmul", "flash_attention_quant")}
-    for kind, n in (("p_int8", 64), ("p_fp", 32), ("compress", 64)):
-        runs = {}
-        reset_counts()
-        for dev, model in models.items():
-            trace = {}
-            eng = fixed_engine(model, to_device(params, dev),
-                               fixed_policy(kind, n), trace=trace,
-                               n_slots=3, max_len=96, prefill_bucket=32,
-                               compress=(kind == "compress"), device=dev)
-            submit(eng)
-            toks = {c.uid: c.tokens for c in eng.run_until_done()}
-            runs[dev] = (toks, {u: [t.cpu() for t in rows_]
-                                for u, rows_ in trace.items()})
-        counts = read_counts()
-        cmp = compare_runs(torch, *runs["cuda"], *runs["cpu"])
-        row = {"engine": "fixed", "policy": kind, "group": n,
-               "requests_equal": 6 - len(cmp["divergences"]), "requests": 6,
-               "tokens_equal": cmp["tokens_equal"],
-               "tokens_total": cmp["tokens_total"],
-               "max_logit_gap_over_std": cmp["max_logit_gap_over_std"],
-               "divergences": cmp["divergences"], "launches": counts}
-        if kind != "compress":
-            # the reduced config's prefill attention (D = 16, G = 2) takes
-            # the tensor-core kernel too, as plan_flash routes every call
-            row["flash_attention_by_kernel"] = read_kernel_counts(
-                "flash_attention")
-        rows.append(row)
-        log("  " + json.dumps(row))
-        check_launched(f"fixed {kind}", counts, fixed_kernels[kind])
-        no_attention_kernel(f"reduced fixed {kind}")
-        if kind != "compress" and row["flash_attention_by_kernel"] != {
-                "flash_mma_kernel": counts["flash_attention"]}:
-            raise SystemExit(f"reduced fixed {kind}: flash_attention's "
-                             f"kernels {row['flash_attention_by_kernel']}, "
-                             f"expected flash_mma_kernel x "
-                             f"{counts['flash_attention']}")
-        for d in cmp["divergences"]:
-            # a token can only turn where the margin is inside the drift
-            if not d["top2_margin_over_std"] <= 2 * d["logit_gap_over_std"]:
-                raise SystemExit(f"reduced fixed {kind}: a token turned away "
-                                 f"from a near-tie: {d}")
+    for arch in REDUCED_ARCHS:
+        cfg = get_config(arch).reduced()
+        models = {"cpu": build_model(cfg, device="cpu"),
+                  "cuda": build_model(cfg)}
+        params = models["cpu"].init(make_generator(seed, "cpu"))
+        for n, kv in ((64, "int8"), (64, "fp8"), (32, "int8")):
+            pol = map_policies(preset("w4a8_abfp", n=n),
+                               lambda p: p.replace(fused=True))
+            pol = with_attn_backend(pol, "compressed")
+            tokens = {}
+            reset_counts()
+            for dev, model in models.items():
+                eng = PagedServeEngine(
+                    model, to_device(params, dev), n_slots=3, max_len=96,
+                    policy=pol, page_size=8, kv=kv, compress=True,
+                    device=dev)
+                submit(eng)
+                tokens[dev] = {c.uid: c.tokens for c in eng.run_until_done()}
+            counts = read_counts()
+            turned = [u for u in tokens["cpu"]
+                      if tokens["cpu"][u] != tokens["cuda"][u]]
+            row = {"arch": cfg.name, "engine": "paged", "group": n, "kv": kv,
+                   "requests_equal": 6 - len(turned), "requests": 6,
+                   "launches": counts}
+            rows.append(row)
+            log("  " + json.dumps(row))
+            check_launched(f"{arch} paged group {n} {kv}", counts,
+                           ("quant_matmul", "flash_attention_quant"))
+            no_attention_kernel(f"reduced {arch} paged group {n} {kv}")
+            if len(turned) > 1:
+                raise SystemExit(
+                    f"reduced {arch} (group {n}, {kv} pages): requests "
+                    f"{turned} differ between the card and the CPU: {tokens}")
+        # fixed-slot engine: P-int8, P-fp, and compressed weights with an
+        # int8 ring cache read by the quantized-KV kernel
+        fixed_kernels = {"p_int8": ("abfp_matmul_int8", "flash_attention"),
+                         "p_fp": ("abfp_matmul", "flash_attention"),
+                         "compress": ("quant_matmul",
+                                      "flash_attention_quant")}
+        bucket, ring = (64, 128) if cfg.family == "moe" else (32, 96)
+        for kind, n in (("p_int8", 64), ("p_fp", 32), ("compress", 64)):
+            runs = {}
+            reset_counts()
+            for dev, model in models.items():
+                trace = {}
+                eng = fixed_engine(model, to_device(params, dev),
+                                   fixed_policy(kind, n), trace=trace,
+                                   n_slots=3, max_len=ring,
+                                   prefill_bucket=bucket,
+                                   compress=(kind == "compress"), device=dev)
+                submit(eng)
+                toks = {c.uid: c.tokens for c in eng.run_until_done()}
+                runs[dev] = (toks, {u: [t.cpu() for t in rows_]
+                                    for u, rows_ in trace.items()})
+            counts = read_counts()
+            cmp = compare_runs(torch, *runs["cuda"], *runs["cpu"])
+            row = {"arch": cfg.name, "engine": "fixed", "policy": kind,
+                   "group": n,
+                   "requests_equal": 6 - len(cmp["divergences"]),
+                   "requests": 6, "tokens_equal": cmp["tokens_equal"],
+                   "tokens_total": cmp["tokens_total"],
+                   "max_logit_gap_over_std": cmp["max_logit_gap_over_std"],
+                   "divergences": cmp["divergences"], "launches": counts}
+            if kind != "compress":
+                # the reduced config's prefill attention (D = 16, G = 2)
+                # takes the tensor-core kernel too, as plan_flash routes
+                # every call
+                row["flash_attention_by_kernel"] = read_kernel_counts(
+                    "flash_attention")
+            rows.append(row)
+            log("  " + json.dumps(row))
+            check_launched(f"{arch} fixed {kind}", counts,
+                           fixed_kernels[kind])
+            no_attention_kernel(f"reduced {arch} fixed {kind}")
+            if kind != "compress" and row["flash_attention_by_kernel"] != {
+                    "flash_mma_kernel": counts["flash_attention"]}:
+                raise SystemExit(
+                    f"reduced {arch} fixed {kind}: flash_attention's "
+                    f"kernels {row['flash_attention_by_kernel']}, expected "
+                    f"flash_mma_kernel x {counts['flash_attention']}")
+            for d in cmp["divergences"]:
+                # a token can only turn where the margin is inside the drift
+                if not (d["top2_margin_over_std"]
+                        <= 2 * d["logit_gap_over_std"]):
+                    raise SystemExit(f"reduced {arch} fixed {kind}: a token "
+                                     f"turned away from a near-tie: {d}")
+        del models, params
     return {"configs": rows}
 
 
@@ -3290,6 +3361,104 @@ BLOCK_METHODS = {
 }
 
 
+def moe_routes():
+    """A context that keeps every ``MoE.route`` call's (probs, dispatch),
+    in call order, in the list it yields."""
+    import contextlib
+
+    from repro_torch.nn import moe as moe_mod
+
+    @contextlib.contextmanager
+    def ctx():
+        routes = []
+        route = moe_mod.MoE.route
+
+        def recorded(self, router, xg):
+            out = route(self, router, xg)
+            routes.append((out[0], out[1]))
+            return out
+
+        moe_mod.MoE.route = recorded
+        try:
+            yield routes
+        finally:
+            moe_mod.MoE.route = route
+
+    return ctx()
+
+
+def moe_turns(torch, recs, top_k: int):
+    """The tokens whose routing one MoE block's fused or reordered run
+    turns against the ref run (``recs``: the block's (probs, dispatch) of
+    its ref, fused and reordered runs, and any after them): a token whose
+    top-k experts differ lies at a tie if its ref probabilities' margin
+    between the k-th and the next expert is within GAP_FACTOR times twice
+    the largest change the reordered run makes to any probability of the
+    block (what a last bit can reach); a token whose experts agree but
+    whose dispatch differs was displaced by a turn through the capacity
+    fill (counted, allowed only in a group that holds a turn).  Returns
+    (the rows to hold (B * S,), turns, displaced, all turns at ties)."""
+    (p0, d0), *others = recs[:3]
+    G, T, E = p0.shape
+    keep = torch.ones((G, T), dtype=torch.bool, device=p0.device)
+    top0 = torch.topk(p0, top_k, dim=-1).indices.sort(dim=-1).values
+    sorted0 = p0.sort(dim=-1, descending=True).values
+    margin = sorted0[..., top_k - 1] - sorted0[..., top_k] \
+        if top_k < E else torch.full_like(sorted0[..., 0], float("inf"))
+    reach = GAP_FACTOR * 2 * (others[-1][0] - p0).abs().max()
+    turns = displaced = 0
+    tied = True
+    for p, d in others:
+        sel0, sel = d0.sum(-1) > 0, d.sum(-1) > 0
+        moved = (sel0 != sel).any(-1)  # (G, T)
+        top = torch.topk(p, top_k, dim=-1).indices.sort(dim=-1).values
+        turned = (top != top0).any(-1)
+        tied = tied and bool((margin <= reach)[turned].all())
+        cascade = moved & ~turned
+        tied = tied and bool((turned.any(-1) | ~cascade.any(-1)).all())
+        turns += int(turned.sum())
+        displaced += int(cascade.sum())
+        keep &= ~(turned | moved)
+    return keep.reshape(-1), turns, displaced, tied
+
+
+def block_calls(torch, model, params, batch, rp, methods: dict) -> tuple:
+    """Every call of a method of ``methods`` (a table of BLOCK_METHODS) in
+    one forward of ``batch`` under the policy ``rp``, as (name, args,
+    kwargs), and ``run(name, args, kwargs, policy)``: that block again on
+    the same input under ``policy``, its output x."""
+    inner = model.inner
+    cls = type(inner)
+    saved = {n: getattr(cls, n) for n in methods}
+    calls = []
+
+    def capture(name):
+        def call(self, *a, **kw):
+            calls.append((name, a, kw))
+            return saved[name](self, *a, **kw)
+        return call
+
+    for n in methods:
+        setattr(cls, n, capture(n))
+    try:
+        with torch.no_grad():
+            model.apply(params, batch, rp)
+    finally:
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+
+    def run(name, a, kw, policy):
+        a = list(a)
+        at, *rewrite = methods[name][1:]
+        a[at] = policy
+        for fn in rewrite:
+            fn(inner, a, policy)
+        y = saved[name](inner, *a, **kw)
+        return y[0] if isinstance(y, tuple) else y
+
+    return calls, run
+
+
 def block_gaps(torch, model, params, batch, kp, methods: dict) -> dict:
     """Each block of the fused policy ``kp`` fed the ref backend's input of
     that block (every call of a method of ``methods``, a table of
@@ -3310,55 +3479,51 @@ def block_gaps(torch, model, params, batch, kp, methods: dict) -> dict:
     reordered control and GAP_MAX.  That bar separates no QDQ where it lies
     below the smallest no-QDQ control; where it does not (void), the
     median block's gap is held the same way to the medians, and that bar
-    must separate."""
+    must separate.
+
+    In an MoE block the router may turn a token's experts where two of its
+    probabilities tie (``moe_turns``): such tokens, and those they
+    displace, are left out of the mean square and counted; a turn away
+    from a tie fails."""
     from repro_torch.core.policy import preset
 
-    inner = model.inner
-    cls = type(inner)
-    saved = {n: getattr(cls, n) for n in methods}
-    calls = []
-
-    def capture(name):
-        def call(self, *a, **kw):
-            calls.append((name, a, kw))
-            return saved[name](self, *a, **kw)
-        return call
-
     rp = ref_backend(kp)
-    for n in methods:
-        setattr(cls, n, capture(n))
-    try:
-        with torch.no_grad():
-            model.apply(params, batch, rp)
-    finally:
-        for n, fn in saved.items():
-            setattr(cls, n, fn)
-
-    def run(name, a, kw, policy):
-        a = list(a)
-        at, *rewrite = methods[name][1:]
-        a[at] = policy
-        for fn in rewrite:
-            fn(inner, a, policy)
-        y = saved[name](inner, *a, **kw)
-        return y[0] if isinstance(y, tuple) else y
-
+    calls, run = block_calls(torch, model, params, batch, rp, methods)
     rows = []
-    with torch.no_grad():
-        for name, a, kw in calls:
-            x = a[methods[name][0]]
-            ref = run(name, a, kw, rp)
-            fused = run(name, a, kw, kp)
-            with split_contractions(torch):
-                moved = run(name, a, kw, rp)
-            plain = run(name, a, kw, preset("fp32"))
-            unit = (ref - x).std()
-            ys = (fused, moved, plain)
-            rows.append({
-                "block": name.strip("_"),
-                "rms": [((y - ref).square().mean().sqrt() / unit).item()
-                        for y in ys],
-                "max": [((y - ref).abs().max() / unit).item() for y in ys]})
+    routing_tied = True
+    with moe_routes() as routes:  # each MoE block run's (probs, dispatch)
+        with torch.no_grad():
+            for name, a, kw in calls:
+                x = a[methods[name][0]]
+                routes.clear()
+                ref = run(name, a, kw, rp)
+                fused = run(name, a, kw, kp)
+                with split_contractions(torch):
+                    moved = run(name, a, kw, rp)
+                plain = run(name, a, kw, preset("fp32"))
+                unit = (ref - x).std()
+                ys = (fused, moved, plain)
+                row = {"block": name.strip("_")}
+                keep = slice(None)
+                if routes:
+                    keep, row["routing_turns"], row["displaced"], tied = \
+                        moe_turns(torch, routes, model.cfg.top_k)
+                    routing_tied = routing_tied and tied
+                diff = [(y - ref).reshape(-1, y.shape[-1])[keep]
+                        for y in ys]
+                row["rms"] = [(d.square().mean().sqrt() / unit).item()
+                              for d in diff]
+                row["max"] = [(d.abs().max() / unit).item() for d in diff]
+                # the share of the mean square its worst rows (tokens; 1 in
+                # 64) carry: a code flipped at a boundary moves a few rows,
+                # a wrong operation all of them
+                sq = [d.square().sum(-1) for d in diff[:2]]
+                k = max(1, sq[0].numel() // 64)
+                row["worst_rows_share"] = [
+                    (q.topk(k).values.sum() / q.sum().clamp_min(1e-30))
+                    .item() for q in sq]
+                row["index"] = len(rows)
+                rows.append(row)
     col = lambda i: [r["rms"][i] for r in rows]
     gap, moved = max(col(0)), max(col(1))
     med = [statistics.median(col(i)) for i in range(3)]
@@ -3373,6 +3538,11 @@ def block_gaps(torch, model, params, batch, kp, methods: dict) -> dict:
     out["block_median_held"] = out["block_median_limit"] < med[2]
     out["block_ok"] = gap <= out["block_gap_limit"] and (out["block_held"] or (
         out["block_median_held"] and med[0] <= out["block_median_limit"]))
+    if any("routing_turns" in r for r in rows):
+        out["routing_turns"] = sum(r["routing_turns"] for r in rows)
+        out["routing_displaced"] = sum(r["displaced"] for r in rows)
+        out["routing_at_ties"] = routing_tied
+        out["block_ok"] = out["block_ok"] and routing_tied
     return out
 
 
@@ -3390,7 +3560,11 @@ def block_text(out: dict) -> str:
         f"{out['block_median_limit']:.6g}, reordered {med[1]:.6g}, no QDQ "
         f"{med[2]:.6g}" + (
             "" if out["block_held"] else " held" if out["block_median_held"]
-            else " void") + "; worst " + json.dumps(out["worst"]) + ")")
+            else " void") + (
+            f"; router turns {out['routing_turns']} (all at ties: "
+            f"{out['routing_at_ties']}), {out['routing_displaced']} tokens "
+            "displaced, both left out" if "routing_turns" in out else "")
+        + "; worst " + json.dumps(out["worst"]) + ")")
 
 
 def vit_counted(torch, fn) -> tuple:
@@ -3753,6 +3927,9 @@ ZAMBA_LOSS = (2, 256)
 ZAMBA_PREFILL = (2, 300)
 ZAMBA_MAX_LEN = 332
 ZAMBA_STEPS = 16
+# zamba2-7b's depth, cut to keep the whole script near half its time
+# limit: 9 groups of two Mamba2 blocks and the shared attention block
+ZAMBA_LAYERS = 27
 # the profiler's names of the time a profiled step spends in the SSD scan
 # and the causal conv (record_function ranges around Mamba2's methods)
 SSM_RANGES = {"_ssd": "ssm._ssd", "_conv": "ssm._conv",
@@ -4130,14 +4307,17 @@ def ssm_serve(torch, model, params, kind: str, seed: int, smi: str
 
 def split_contractions(torch):
     """A context in which the plain paths add each contraction's terms in
-    another order: every f32 matmul as the sum of its two halves of K, and
-    every group sum of codes as the sum of its two halves of the groups —
-    the last-bit control of the logits and block checks."""
+    another order: every f32 matmul as the sum of its two halves of K
+    (the MoE block's router and expert contractions too), and every group
+    sum of codes as the sum of its two halves of the groups — the last-bit
+    control of the logits and block checks."""
     import contextlib
 
     from repro_torch.core import simulate as sim
+    from repro_torch.nn import moe as moe_mod
 
     fp_matmul, contract = sim._fp_matmul, sim.group_contract
+    moe_contract = moe_mod.contract
 
     def split_k(x, w, compute_dtype):
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4156,13 +4336,27 @@ def split_contractions(torch):
                 + contract(xc[..., h:, :], xs[..., h:], wc[:, h:],
                            ws[:, h:], max_abs_product=max_abs_product))
 
+    def split_einsum(spec, a, b):
+        # the contracted axis: a's last, wherever it sits in b
+        ins, _ = spec.split("->")
+        sa, sb = ins.split(",")
+        ax = sb.index(sa[-1])
+        h = a.shape[-1] // 2
+        lo = [slice(None)] * b.ndim
+        hi = list(lo)
+        lo[ax], hi[ax] = slice(None, h), slice(h, None)
+        return (moe_contract(spec, a[..., :h], b[tuple(lo)])
+                + moe_contract(spec, a[..., h:], b[tuple(hi)]))
+
     @contextlib.contextmanager
     def ctx():
         sim._fp_matmul, sim.group_contract = split_k, split_groups
+        moe_mod.contract = split_einsum
         try:
             yield
         finally:
             sim._fp_matmul, sim.group_contract = fp_matmul, contract
+            moe_mod.contract = moe_contract
 
     return ctx()
 
@@ -4173,6 +4367,11 @@ def lm_logits(torch, model, params, toks, policy):
             ..., :model.cfg.vocab]
 
 
+# the share of an MoE model's tokens that lm_gap may leave out for router
+# turns: the whole-logits bar must still judge most of them
+LOGIT_LEFT_OUT_MAX = 0.5
+
+
 def lm_gap(torch, model, params, toks, kp, no_qdq) -> dict:
     """The fused policy ``kp``'s logits against its ref backend's, in units
     of their std, beside the ref backend moved by a last bit (its sums
@@ -4180,14 +4379,36 @@ def lm_gap(torch, model, params, toks, kp, no_qdq) -> dict:
     (``no_qdq``, their logits).  Held (at most GAP_FACTOR times the control
     and GAP_MAX) only where GAP_FACTOR times the control lies below the
     no-QDQ control: on random weights a deep recurrence may carry a last
-    bit as far as no QDQ."""
+    bit as far as no QDQ.  In an MoE model a token whose experts turn in
+    some layer (``moe_turns``) against the ref run, in the fused or the
+    reordered run, and a token it displaces, are left out of the logits
+    compared, and counted, and the check fails where they are more than
+    LOGIT_LEFT_OUT_MAX of the tokens.  Whether a turn lay at a tie is not
+    judged here: after a first turn every later layer's input differs from
+    the ref run's, so its probabilities are not the ref run's moved by a
+    last bit; ``block_gaps`` judges each turn where each block gets the
+    same input."""
     rp = ref_backend(kp)
-    ref = lm_logits(torch, model, params, toks, rp)
-    fused = lm_logits(torch, model, params, toks, kp)
-    with split_contractions(torch):
-        moved = lm_logits(torch, model, params, toks, rp)
-    out = {"logit_gap_over_std": logit_gap(torch, fused, ref),
-           "reordered_control_over_std": logit_gap(torch, moved, ref),
+    with moe_routes() as routes:
+        ref = lm_logits(torch, model, params, toks, rp)
+        n = len(routes)
+        fused = lm_logits(torch, model, params, toks, kp)
+        with split_contractions(torch):
+            moved = lm_logits(torch, model, params, toks, rp)
+    V = ref.shape[-1]
+    keep = torch.ones(ref.numel() // V, dtype=torch.bool, device=ref.device)
+    turns = displaced = 0
+    for i in range(n):  # each MoE layer: ref, fused, reordered
+        k, t, d, _ = moe_turns(torch, routes[i::n], model.cfg.top_k)
+        keep &= k
+        turns, displaced = turns + t, displaced + d
+
+    def gap(a):
+        d = (a - ref).reshape(-1, V)[keep]
+        return (d.abs().max() / ref.std()).item()
+
+    out = {"logit_gap_over_std": gap(fused),
+           "reordered_control_over_std": gap(moved),
            "no_qdq_control_over_std": logit_gap(torch, no_qdq, ref)}
     out["logit_gap_limit"] = min(GAP_MAX, GAP_FACTOR
                                  * out["reordered_control_over_std"])
@@ -4195,6 +4416,13 @@ def lm_gap(torch, model, params, toks, kp, no_qdq) -> dict:
                    < out["no_qdq_control_over_std"])
     out["ok"] = (not out["held"]
                  or out["logit_gap_over_std"] <= out["logit_gap_limit"])
+    if n:
+        left = int((~keep).sum())
+        out.update(logit_routing_turns=turns,
+                   logit_routing_displaced=displaced,
+                   logit_rows_left_out=left,
+                   logit_rows_left_out_limit=LOGIT_LEFT_OUT_MAX * keep.numel())
+        out["ok"] = out["ok"] and left <= out["logit_rows_left_out_limit"]
     return out
 
 
@@ -4447,7 +4675,7 @@ def phase_ssm(torch, seed: int, smi: str) -> dict:
     from repro_torch.nn.module import make_generator
 
     log("== ssm: mamba2-130m through the fixed-slot engine, zamba2-7b "
-        "through Model, full width and depth")
+        "through Model, full width")
     t_phase = time.perf_counter()
     report = {"kernel_rows": ssm_kernel_checks(torch, seed)}
     totals = {name: 0 for name in KERNELS}
@@ -4483,6 +4711,10 @@ def phase_ssm(torch, seed: int, smi: str) -> dict:
 
     # zamba2-7b: Model under P-fp, and P-C's raise
     cfg = get_config("zamba2-7b")
+    log(f"  cut: zamba2-7b runs {ZAMBA_LAYERS} of its {cfg.n_layers} layers "
+        f"({ZAMBA_LAYERS // cfg.shared_attn_every} of its "
+        f"{cfg.n_layers // cfg.shared_attn_every} groups)")
+    cfg = cfg.replace(n_layers=ZAMBA_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg)
@@ -4536,6 +4768,9 @@ INTERN_TEXT = 512
 INTERN_PROMPT = 64
 INTERN_MAX_LEN = 1024
 INTERN_STEPS = 32
+# encoder and decoder depth, cut to keep the whole script near half its
+# time limit
+ENCDEC_LAYERS = {"whisper-large-v3": 8}
 ENCDEC_RUNS = {"whisper-large-v3": ("p_fp", "p_int8", "p_c"),
                "internvl2-2b": ("p_fp", "p_c")}
 # the reduced configs on the card against the CPU: a prompt and greedy steps
@@ -5086,8 +5321,8 @@ def phase_encdec(torch, seed: int, smi: str) -> dict:
     from repro_torch.models import build_model
     from repro_torch.nn.module import make_generator
 
-    log("== encdec: whisper-large-v3 and internvl2-2b at full width and "
-        "depth through Model")
+    log("== encdec: whisper-large-v3 and internvl2-2b at full width through "
+        "Model")
     t_phase = time.perf_counter()
     report = {"kernel_rows": encdec_kernel_checks(torch, seed)}
     stamps = {"kernel_checks": time.perf_counter() - t_phase}
@@ -5096,6 +5331,11 @@ def phase_encdec(torch, seed: int, smi: str) -> dict:
     prepass = 0
     for arch, kinds in ENCDEC_RUNS.items():
         cfg = get_config(arch)
+        if arch in ENCDEC_LAYERS:
+            n = ENCDEC_LAYERS[arch]
+            log(f"  cut: {arch} runs {n} of its {cfg.encoder_layers} encoder "
+                f"and {n} of its {cfg.n_layers} decoder layers")
+            cfg = cfg.replace(n_layers=n, encoder_layers=n)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         model = build_model(cfg)
@@ -5138,6 +5378,671 @@ def phase_encdec(torch, seed: int, smi: str) -> dict:
         f"flash_attention_quant by kernel {json.dumps(by_kernel)}, x "
         f"pre-pass {prepass}; phase {report['phase_s']:.1f} s (seconds at "
         f"the end of each part: {json.dumps(stamps)}) [{smi}]")
+    return report
+
+
+# --------------------------------------------------------------------------
+# phases: dense_archs, moe
+# --------------------------------------------------------------------------
+PHI_LAYERS = 8  # of 32: 42.7 GB of f32 (the whole model is 167.5 GB)
+SCOUT_LAYERS = 4  # of 48: 41.5 GB of f32 (the whole model is 406.9 GB)
+GEMMA_LOSS = (2, 512)  # through the 256k tied head in chunks of 512
+PHI_LOSS = (2, 512)
+SCOUT_LOSS, SCOUT_PREFILL, SCOUT_STEPS = (2, 256), (2, 64), 16
+# the numerics' batch: inside every sliding window (the fused prefill drops
+# the window, as the reference's does: ROADMAP.md Queue C), and long enough
+# that a block's gap is not decided by whether one K code flips.  A K code
+# at a rounding boundary moves every later query's scores: at its first
+# 128 tokens Phi-3.5's first P-C block reads 3.1x its reordered control
+# because q / k / v, which agree with the plain ones to 1.2e-7, flip the
+# K code of token 58 and the reordered sums flip none; at 512 tokens both
+# flip K codes at tokens 191, 300 and 345 and read alike
+# (``scripts/moe_block_gap.py``).  On those first ARCH_SHORT_TOKENS the
+# median block is held as well: one flip moves one block, a fault of the
+# path every block.
+ARCH_GAP_TOKENS = (1, 512)
+ARCH_SHORT_TOKENS = 128
+
+
+def arch_sites(cfg) -> int:
+    """Dense matmul sites a layer: q, k, v, o, and the FFN's wi, wg, wo
+    (the MoE block's expert stacks are einsums on QDQ'd weights, as in the
+    reference: no kernel site)."""
+    return 4 if cfg.family == "moe" else 7
+
+
+def arch_calls(cfg, kind: str, head: bool = True) -> dict:
+    """Matmul wrapper launches of one forward under ``kind`` ('p_c' on
+    compressed weights, 'p_fp', 'p_int8'), attention aside: every dense
+    site of every layer and (``head``) the head.  Under P-C a tied head
+    keeps its runtime weight QDQ (``serving_policy``: the table is never
+    compressed), so it runs ``abfp_matmul``."""
+    n = arch_sites(cfg) * cfg.n_layers
+    if kind == "p_c":
+        if cfg.tied_embeddings:
+            return {"quant_matmul": n, "abfp_matmul": int(head)}
+        return {"quant_matmul": n + int(head)}
+    return {FIXED_PATHS[kind]: n + int(head)}
+
+
+def arch_attention(cfg) -> int:
+    """Attention-kernel launches of a forward: one a layer, none under an
+    attention softcap (no kernel body has one: ``flash_ok`` and
+    ``_compressed_eligible`` are false, as in the reference)."""
+    return 0 if cfg.attn_softcap else cfg.n_layers
+
+
+def arch_expect(label: str, got: dict, want: dict) -> None:
+    want = {k: v for k, v in want.items() if v}
+    got = {k: v for k, v in got.items() if v}
+    if got != want:
+        raise SystemExit(f"{label}: launched {got}, expected {want}")
+
+
+def arch_kernel_checks(torch, seed: int) -> dict:
+    """The kernels at the shapes the last model families give them, held
+    against their plain versions and timed beside them and the bound:
+    flash_attention at Danube's D = 80 (padded to 128 in the kernel),
+    Granite's and Phi-3.5's 4 query heads a KV head and Llama-4's 5 (SDPA
+    beside each); flash_attention_quant at D = 80 over 8,192 keys with the
+    window of 4,096 inside the long kernels (Danube's paged decode and
+    chunk) and at 4 query heads a KV head (Granite's and Phi-3.5's paged
+    decode and prefill); abfp_matmul at Gemma2's 256,000-wide tied head (a
+    step's 4 rows and a loss chunk's 1,024) and layers, Danube's and
+    Llama-4's; abfp_matmul_int8 and quant_matmul at Granite's K = 12,800;
+    quant_matmul at Gemma2's, Phi-3.5's and Danube's P-C shapes; abfp_qdq
+    at the new pre-pass widths."""
+    from repro_torch.configs import get_config
+
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 37)
+    rows = {"abfp_matmul": [], "abfp_matmul_int8": [], "quant_matmul": [],
+            "flash_attention": [], "flash_attention_quant": [],
+            "abfp_qdq": []}
+    ge, gr, da = (get_config(a) for a in ("gemma2-9b", "granite-3-8b",
+                                          "h2o-danube-1.8b"))
+    phi, sc = get_config("phi3.5-moe-42b-a6.6b"), get_config(
+        "llama4-scout-17b-a16e")
+    for cfg, B, S in ((da, 1, 64), (da, 1, 256), (gr, 1, 256),
+                      (sc, *SCOUT_PREFILL), (sc, *SCOUT_LOSS)):
+        H, KV, D = cfg.n_heads, cfg.n_kv, cfg.head_dim_
+        rows["flash_attention"].append(check_flash(
+            torch, timer, gen, B=B, S=S, T=S, H=H, KV=KV, D=D,
+            label=f"{cfg.name} causal B={B} S=T={S} H={H} KV={KV} D={D}",
+            profiled=False))
+    for cfg, S, T, bk, q_starts, want, what in (
+            (da, 1, LONG_MAX_LEN, 512, [6007, 4107, 2507, -1],
+             "attention_decode_long_kernel", "long decode"),
+            (da, 64, LONG_MAX_LEN, 512, [5952, 4032, 2000, -1],
+             "attention_long_kernel", "long"),
+            (gr, 1, 512, 0, [100, 510, 37, -1], "attention_decode_kernel",
+             "decode"),
+            (gr, 64, 512, 0, [0, 448, 128, -1], "attention_prefill_kernel",
+             "prefill")):
+        H, KV, D, w = cfg.n_heads, cfg.n_kv, cfg.head_dim_, cfg.window
+        body = "phased" if bk else "exact"
+        rows["flash_attention_quant"].append(check_attention(
+            torch, timer, gen, S=S, T=T, probs=True, fp8=False, block_k=bk,
+            q_starts=q_starts, H=H, KV=KV, D=D, window=w or 1 << 30,
+            profiled=False, want_kernel=want,
+            label=f"{cfg.name} {what} S={S} T={T} H={H} KV={KV} D={D} int8 "
+            f"{body}" + (f" window={w}" if w else "")))
+    d = ge.d_model
+    for M in (4, GEMMA_LOSS[0] * 512):
+        rows["abfp_matmul"].append(check_dense_matmul(
+            torch, timer, gen, kind="fp", M=M, K=d, N=ge.vocab_padded,
+            label=f"gemma2-9b tied head M={M} K={d} N={ge.vocab_padded}"))
+        torch.cuda.empty_cache()
+    for cfg, M in ((ge, 4), (da, 4), (sc, SCOUT_PREFILL[0])):
+        for label, K, N in arch_shapes(cfg):
+            rows["abfp_matmul"].append(check_dense_matmul(
+                torch, timer, gen, kind="fp", M=M, K=K, N=N,
+                label=f"{cfg.name} {label} M={M} K={K} N={N}"))
+        torch.cuda.empty_cache()
+    for label, K, N in arch_shapes(gr):
+        for M in (4, 256):
+            rows["abfp_matmul_int8"].append(check_dense_matmul(
+                torch, timer, gen, kind="int8", M=M, K=K, N=N,
+                label=f"granite-3-8b {label} M={M} K={K} N={N}"))
+            rows["quant_matmul"].append(check_quant_matmul(
+                torch, timer, gen, M=M, K=K, N=N, packed=True,
+                label=f"granite-3-8b {label} M={M} K={K} N={N} int4"))
+    for cfg in (ge, phi, da):
+        for label, K, N in arch_shapes(cfg):
+            if cfg is not da or label == "head":
+                rows["quant_matmul"].append(check_quant_matmul(
+                    torch, timer, gen, M=4, K=K, N=N, packed=True,
+                    label=f"{cfg.name} {label} M=4 K={K} N={N} int4"))
+        torch.cuda.empty_cache()
+    for M, K, where in ((4, ge.d_model, "gemma2-9b"),
+                        (4, da.d_model, "h2o-danube-1.8b"),
+                        (SCOUT_PREFILL[0], sc.d_model, "llama4-scout")):
+        rows["abfp_qdq"].append(check_abfp_qdq(
+            torch, timer, gen, M=M, K=K, n=64, fmt_name="int8",
+            label=f"{where} pre-pass M={M} K={K} int8", profiled=False))
+    del timer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def arch_shapes(cfg) -> list:
+    """(label, K, N) of a layer's distinct dense sites and the untied head
+    (the MoE block's experts are no kernel site)."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
+    q, kv = cfg.n_heads * hd, cfg.n_kv * hd
+    out = [("q", d, q), ("k,v", d, kv), ("o", q, d)]
+    if cfg.family != "moe":
+        out += [("wi,wg", d, f), ("wo", f, d)]
+    if not cfg.tied_embeddings:
+        out.append(("head", d, cfg.vocab_padded))
+    return out
+
+
+# the arch_numerics checks that failed in the running phase: the phase
+# finishes its other runs, then fails (``arch_failures``)
+ARCH_FAILED = []
+
+
+def arch_failures(phase: str) -> None:
+    if ARCH_FAILED:
+        raise SystemExit(f"{phase}: numerics failed: "
+                         + json.dumps(ARCH_FAILED))
+
+
+def arch_numerics(torch, model, tree, kp, label: str, smi: str) -> dict:
+    """``lm_gap`` and ``block_gaps`` of the fused policy ``kp`` on ``tree``
+    (a served tree is held against the same codes through the plain
+    paths), on ARCH_GAP_TOKENS, and ``block_gaps``' median bar on their
+    first ARCH_SHORT_TOKENS, asserted: a failure is kept in ARCH_FAILED
+    and fails the phase at its end."""
+    import numpy as np
+
+    from repro_torch.core.policy import preset
+
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(19)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab, ARCH_GAP_TOKENS),
+                           device="cuda")
+    no_qdq = lm_logits(torch, model, tree, toks, preset("fp32"))
+    out = lm_gap(torch, model, tree, toks, kp, no_qdq)
+    out.update(block_gaps(torch, model, tree, {"tokens": toks}, kp,
+                          BLOCK_METHODS["lm"]))
+    log(f"  {label}: logits {out['logit_gap_over_std']:.6g} std from the "
+        f"ref backend's (limit {out['logit_gap_limit']:.6g}; sums reordered "
+        f"{out['reordered_control_over_std']:.6g}, no QDQ "
+        f"{out['no_qdq_control_over_std']:.6g}"
+        + ("" if out["held"] else "; void: a last bit moves them as far as "
+           "no QDQ, the blocks are held instead")
+        + (f"; {out['logit_rows_left_out']} tokens left out (limit "
+           f"{out['logit_rows_left_out_limit']:g}): router turns "
+           f"{out['logit_routing_turns']}, "
+           f"{out['logit_routing_displaced']} displaced"
+           if "logit_routing_turns" in out else "") + "); "
+        + block_text(out) + f" [{smi}]")
+    out["block_rows"] = [
+        {k: r[k] for k in ("index", "rms", "worst_rows_share")}
+        for r in out.pop("rows")]
+    short = block_gaps(torch, model, tree,
+                       {"tokens": toks[:, :ARCH_SHORT_TOKENS]}, kp,
+                       BLOCK_METHODS["lm"])
+    med = short["block_median_rms"]
+    out["short"] = {
+        "tokens": ARCH_SHORT_TOKENS, "block_median_rms": med,
+        "block_median_limit": short["block_median_limit"],
+        "block_median_held": short["block_median_held"],
+        "block_gap_rms": short["block_gap_rms"],
+        "block_reordered_control_rms": short["block_reordered_control_rms"],
+        "worst": short["worst"],
+        "routing_at_ties": short.get("routing_at_ties", True)}
+    out["short"]["ok"] = (short["block_median_held"]
+                          and med[0] <= short["block_median_limit"]
+                          and out["short"]["routing_at_ties"])
+    log(f"  {label}: first {ARCH_SHORT_TOKENS} tokens: median block "
+        f"{med[0]:.6g} (limit {short['block_median_limit']:.6g}; sums "
+        f"reordered {med[1]:.6g}, no QDQ {med[2]:.6g}"
+        + ("" if short["block_median_held"] else "; void: FAILS")
+        + f"; router turns at ties: {out['short']['routing_at_ties']}); "
+        f"largest block {short['block_gap_rms']:.6g} against reordered "
+        f"{short['block_reordered_control_rms']:.6g} (block "
+        f"{short['worst']['index']}; not held here: one K code can decide it)"
+        f"; numerics in {time.perf_counter() - t0:.1f} s [{smi}]")
+    if not (out["ok"] and out["block_ok"] and out["short"]["ok"]):
+        log(f"  {label}: numerics FAILED")
+        ARCH_FAILED.append({"run": label, **{k: v for k, v in out.items()
+                                             if k != "block_rows"}})
+    return out
+
+
+def arch_requests(cfg, seed: int, long: bool):
+    """``serve``'s six requests, or ``long``'s four prompts of 6,000 /
+    4,100 / 2,500 / 1,100 tokens and 8 new each."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    if not long:
+        return make_requests(cfg, seed)
+    rng = np.random.RandomState(seed + 5)
+    return [Request(uid=3000 + i, max_new_tokens=LONG_NEW,
+                    prompt=rng.randint(0, cfg.vocab, size=n).astype(np.int32))
+            for i, n in enumerate(LONG_PROMPTS)]
+
+
+def arch_brief(label: str, rep: dict, smi: str) -> None:
+    prof = rep.get("profile", {})
+    log(f"  {label}: {rep['tokens_per_s']:.2f} tokens/s, step ms (median) "
+        + json.dumps(rep["step_ms_median"]) + ", busy "
+        f"{prof.get('device_busy_ms_per_step', 'not measured')} ms, idle "
+        f"{prof.get('device_idle_share', 'not measured')} of a decode step; "
+        f"peak {rep['peak_memory_bytes'] / 1e9:.2f} GB [{smi}]")
+
+
+def arch_paged(torch, cfg, seed: int, long: bool, smi: str) -> dict:
+    """``PagedServeEngine`` on ``cfg`` at full width under P-C (compressed
+    weights, int8 pages of 16, the compressed backend; the dense tree
+    freed): ``serve``'s requests at max_len 512, or ``long``'s at 8,192 (T
+    = 8,192 in every attention call, the sliding window masking keys
+    inside the long kernels).  Asserted per step: the matmul and attention
+    launches by wrapper and kernel, the head's x pre-pass; then a profiled
+    decode step and the numerics on the served tree."""
+    from repro_torch.kernels.flash_attention_quant import PREFILL_MIN_S
+    from repro_torch.models.serving_transforms import weight_bytes_summary
+
+    max_len = LONG_MAX_LEN if long else 512
+    label = f"{cfg.name} paged p_c max_len {max_len}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build_engine(torch, cfg, seed, kernel_path=True, max_len=max_len)
+    torch.cuda.synchronize()
+    log(f"  {label}: built and compressed in {time.perf_counter() - t0:.1f}"
+        " s: " + json.dumps(weight_bytes_summary(eng.weight_bytes)))
+    reqs = arch_requests(cfg, seed, long)
+    for r in reqs:
+        eng.submit(r)
+    reset_counts()
+    t0 = time.perf_counter()
+    while eng._has_work():
+        eng.tick()
+        if eng.ticks > 2000:
+            raise SystemExit(f"{label}: did not drain in 2000 ticks")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    by_kernel = read_kernel_counts("flash_attention_quant")
+    prepass = read_kernel_counts("abfp_matmul")["qdq_stream_kernel"]
+    done = eng.done
+    new = LONG_NEW if long else 16
+    if sorted(c.uid for c in done) != sorted(r.uid for r in reqs) or any(
+            len(c.tokens) != new or not all(0 <= t < cfg.vocab
+                                            for t in c.tokens)
+            for c in done):
+        raise SystemExit(f"{label}: completions "
+                         f"{[(c.uid, c.tokens) for c in done]}")
+    st = eng.page_stats()
+    if st["page_allocs"] != st["page_frees"] or st["pages_in_use"]:
+        raise SystemExit(f"{label}: page accounting does not balance: {st}")
+    chunks = sum(1 for s, _ in eng.step_ms if s >= PREFILL_MIN_S)
+    decodes = eng.steps - chunks
+    attn = arch_attention(cfg)
+    want = {k: v * eng.steps for k, v in arch_calls(cfg, "p_c").items()}
+    want["flash_attention_quant"] = attn * eng.steps
+    arch_expect(label, counts, want)
+    want_kernel = dict.fromkeys(by_kernel, 0)
+    want_kernel["attention_long_kernel" if long else
+                "attention_prefill_kernel"] = attn * chunks
+    want_kernel["attention_decode_long_kernel" if long else
+                "attention_decode_kernel"] = attn * decodes
+    want_prepass = eng.steps if cfg.tied_embeddings else 0
+    if by_kernel != want_kernel or prepass != want_prepass or not (
+            chunks and decodes):
+        raise SystemExit(f"{label}: attention kernels {by_kernel} and "
+                         f"{prepass} x pre-passes in {chunks} chunk and "
+                         f"{decodes} decode steps; expected {want_kernel}, "
+                         f"{want_prepass}")
+    n_tok = sum(len(c.tokens) for c in done)
+    by_kind = {"decode": [ms for s, ms in eng.step_ms if s == 1],
+               "chunk": [ms for s, ms in eng.step_ms if s > 1]}
+    rep = {"policy": "p_c", "max_len": max_len,
+           "prompt_lens": [len(r.prompt) for r in reqs],
+           "generated_tokens": n_tok, "steps": eng.steps,
+           "step_counts": {k: len(v) for k, v in by_kind.items()},
+           "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "step_ms_median": {k: statistics.median(v)
+                              for k, v in by_kind.items()},
+           "launches": counts, "launches_by_kernel": by_kernel,
+           "prepass_launches": prepass,
+           "launches_per_step": {k: v // eng.steps for k, v in want.items()},
+           "weight_bytes": weight_bytes_summary(eng.weight_bytes),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    rep["profile"] = profile_decode(
+        torch, cfg, eng, seed, rep["step_ms_median"]["decode"],
+        watch=("quant_decode_kernel", "contract_kernel",
+               "attention_decode_kernel", "attention_decode_long_kernel"))
+    arch_brief(label, rep, smi)
+    rep["numerics"] = arch_numerics(torch, eng.model, eng.params,
+                                    eng.policy, label, smi)
+    log(f"  {label}: " + json.dumps(rep))
+    del eng
+    torch.cuda.empty_cache()
+    return rep
+
+
+def arch_fixed(torch, model, params, kind: str, seed: int, smi: str
+               ) -> dict:
+    """The fixed-slot ``ServeEngine`` on dense f32 weights under P-fp or
+    P-int8: ``serve``'s six requests (4 slots, max_len 512, buckets of 64).
+    Asserted: every forward's matmul launches, each prefill's
+    flash_mma_kernel launches (none under a softcap) and P-fp's x
+    pre-pass; then a profiled decode tick and the numerics."""
+    cfg = model.cfg
+    label = f"{cfg.name} fixed {kind}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timed = TimedModel(model, torch)
+    kp = fixed_policy(kind)
+    eng = fixed_engine(timed, params, kp, n_slots=4, max_len=512,
+                       prefill_bucket=64)
+    reqs = make_requests(cfg, seed)
+    for r in reqs:
+        eng.submit(r)
+    reset_counts()
+    t0 = time.perf_counter()
+    while eng._has_work():
+        eng.tick()
+        if eng.ticks > 2000:
+            raise SystemExit(f"{label}: did not drain in 2000 ticks")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_completions(cfg, eng, eng.done, reqs)
+    passes = eng.prefills + eng.ticks
+    per = arch_calls(cfg, kind)
+    want = {k: v * passes for k, v in per.items()}
+    attn = arch_attention(cfg)
+    want["flash_attention"] = attn * eng.prefills
+    arch_expect(label, counts, want)
+    flash = read_kernel_counts("flash_attention")
+    prepass = read_kernel_counts("abfp_matmul")["qdq_stream_kernel"]
+    want_pre = (sum(per.values()) * eng.ticks + eng.prefills
+                if kind == "p_fp" else 0)
+    if flash != {"flash_mma_kernel": attn * eng.prefills} or \
+            prepass != want_pre:
+        raise SystemExit(f"{label}: flash_attention's kernels {flash}, "
+                         f"{prepass} x pre-passes; expected "
+                         f"flash_mma_kernel x {attn * eng.prefills}, "
+                         f"{want_pre}")
+    n_tok = sum(len(c.tokens) for c in eng.done)
+    rep = {"policy": kind, "prompt_lens": [len(r.prompt) for r in reqs],
+           "padded_lens": sorted(eng._padded_lengths),
+           "generated_tokens": n_tok, "prefills": eng.prefills,
+           "decode_ticks": eng.ticks, "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
+           "step_ms_median": {
+               "prefill": statistics.median(timed.prefill_ms),
+               "decode": statistics.median(eng.decode_ms)},
+           "launches": counts, "launches_per_forward": per,
+           "flash_attention_by_kernel": flash, "prepass_launches": prepass,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    rep["profile"] = profile_decode(
+        torch, cfg, eng, seed, rep["step_ms_median"]["decode"],
+        watch=("fp_decode_kernel", "int8_decode_kernel",
+               "qdq_stream_kernel"))
+    arch_brief(label, rep, smi)
+    rep["numerics"] = arch_numerics(torch, model, params, kp, label, smi)
+    log(f"  {label}: " + json.dumps(rep))
+    del eng, timed
+    torch.cuda.empty_cache()
+    return rep
+
+
+def arch_batch(torch, cfg, seed: int, shape) -> dict:
+    """Tokens of ``shape`` from ``seed`` and next-token labels (-1 last)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, cfg.vocab, shape).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -1] = -1
+    return {"tokens": torch.as_tensor(toks, device="cuda"),
+            "labels": torch.as_tensor(labels, device="cuda")}
+
+
+def arch_model(torch, model, params, kind: str, seed: int, smi: str, *,
+               loss_shape, prefill_shape=None, steps: int = 0,
+               loads: bool = False) -> dict:
+    """Through ``Model`` on dense f32 weights under P-fp: ``loss`` on
+    ``loss_shape`` tokens (the head in ``logits_chunk`` chunks where the
+    config sets one; an MoE config adds 0.01 x its aux loss, which must be
+    positive), ``expert_loads`` on the same tokens (``loads``), a
+    ``prefill`` of ``prefill_shape`` and ``steps`` greedy decode steps;
+    every pass's launches asserted (wrapper, attention kernel, x
+    pre-pass), wall ms, a profiled step, peak memory."""
+    cfg = model.cfg
+    label = f"{cfg.name} model {kind}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kp = fixed_policy(kind)
+    attn = arch_attention(cfg)
+    rep = {"policy": kind}
+    batch = arch_batch(torch, cfg, seed + 41, loss_shape)
+
+    def arch_counted(torch, fn):
+        """``fn()``, its wall ms and what it launched, by wrapper, attention
+        kernel and x pre-pass (``qdq_stream_kernel``), in one dict."""
+        out, ms, got, kern, pre = encdec_counted(torch, fn)
+        return out, ms, {**got, **kern, "qdq_stream_kernel": pre}
+
+    reset_counts()  # every count from 0 before the path, read after it
+    with torch.no_grad():
+        (loss, m), rep["loss_ms"], got = arch_counted(
+            torch, lambda: model.loss(params, batch, kp))
+        arch_expect(f"{label} loss", got, {
+            **arch_calls(cfg, kind), "flash_attention": attn,
+            "flash_mma_kernel": attn})
+        rep.update(loss=float(loss), aux=float(m["aux"]))
+        if not (torch.isfinite(loss) and (rep["aux"] > 0) == (
+                cfg.family == "moe")):
+            raise SystemExit(f"{label}: loss {rep['loss']}, aux {rep['aux']}")
+        if loads:
+            ld, rep["expert_loads_ms"], got = arch_counted(
+                torch, lambda: model.expert_loads(params, batch["tokens"],
+                                                  policy=kp))
+            arch_expect(f"{label} expert_loads", got, {
+                **arch_calls(cfg, kind, head=False), "flash_attention": attn,
+                "flash_mma_kernel": attn})
+            cap = batch["tokens"].numel() * cfg.top_k
+            if ld.shape != (cfg.n_layers, cfg.n_experts) or not (
+                    0 < float(ld.sum(dim=1).max()) <= cap):
+                raise SystemExit(f"{label}: expert loads {ld.tolist()}")
+            rep["expert_loads"] = ld.tolist()
+        if prefill_shape:
+            B, P = prefill_shape
+            pb = {"tokens": arch_batch(torch, cfg, seed + 43,
+                                       prefill_shape)["tokens"]}
+            (logits, st), rep["prefill_ms"], got = arch_counted(
+                torch, lambda: model.prefill(params, pb, kp,
+                                             max_len=P + steps))
+            n1 = sum(arch_calls(cfg, kind).values())
+            arch_expect(f"{label} prefill", got, {
+                **arch_calls(cfg, kind), "flash_attention": attn,
+                "flash_mma_kernel": attn,
+                "qdq_stream_kernel": int(kind == "p_fp")})
+            step_ms, toks = [], []
+            for _ in range(steps):
+                tok = torch.argmax(logits[:, :cfg.vocab], dim=-1).to(
+                    torch.int32)[:, None]
+                toks.append(tok)
+                (logits, st), ms, got = arch_counted(
+                    torch, lambda: model.decode_step(params, tok, st, kp))
+                arch_expect(f"{label} decode step", got, {
+                    **arch_calls(cfg, kind),
+                    "qdq_stream_kernel": n1 * int(kind == "p_fp")})
+                step_ms.append(ms)
+            if not torch.isfinite(logits[:, :cfg.vocab]).all() or int(
+                    st.position) != P + steps:
+                raise SystemExit(f"{label}: decode ended at position "
+                                 f"{int(st.position)} or non-finite")
+            rep.update(steps=steps, step_ms_median=statistics.median(step_ms),
+                       decode_tokens_per_s=B * steps / sum(step_ms) * 1e3,
+                       tokens=torch.cat(toks, dim=1)[0].tolist())
+    # the main path's counts, read before the profiled steps launch more
+    rep["launches"] = read_counts()
+    rep["attention_by_kernel"] = read_kernel_counts("flash_attention")
+    rep["prepass_launches"] = read_kernel_counts("abfp_matmul")[
+        "qdq_stream_kernel"]
+    rep["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    if prefill_shape:
+        def step():
+            with torch.no_grad():
+                return model.decode_step(params, tok, st, kp)
+
+        rep["profile"] = profile_steps(torch, step, 2, rep["step_ms_median"],
+                                       "decode", lead=True)
+    prof = rep.get("profile", {})
+    log(f"  {label}: loss {rep['loss']:.6f} (aux {rep['aux']:.6g}) in "
+        f"{rep['loss_ms']:.1f} ms"
+        + (f", expert_loads {rep['expert_loads_ms']:.1f} ms" if loads else
+           "")
+        + (f", prefill {rep['prefill_ms']:.1f} ms, step "
+           f"{rep['step_ms_median']:.2f} ms (median of {steps}), "
+           f"{rep['decode_tokens_per_s']:.1f} tokens/s, busy "
+           f"{prof.get('device_busy_ms_per_step', 'not measured')} ms, idle "
+           f"{prof.get('device_idle_share', 'not measured')}"
+           if prefill_shape else "")
+        + f"; peak {rep['peak_memory_bytes'] / 1e9:.2f} GB [{smi}]")
+    return rep
+
+
+def arch_build(torch, cfg, seed: int):
+    """Model and random f32 weights from ``seed`` on the card."""
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(make_generator(seed, "cuda"))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"  {cfg.name}: {cfg.n_layers} layers built in "
+        f"{time.perf_counter() - t0:.1f} s: {n} parameters, {4 * n} bytes "
+        "in f32")
+    return model, params
+
+
+def arch_totals(report: dict, runs) -> None:
+    """The launches of every counted run, by wrapper, attention kernel
+    and x pre-pass, into ``report``."""
+    totals = {name: 0 for name in KERNELS}
+    by_kernel = {name: 0 for name in ATTENTION_KERNELS}
+    prepass = 0
+    for r in runs:
+        for k, v in r["launches"].items():
+            totals[k] += v
+        for k, v in r.get("launches_by_kernel", {}).items():
+            by_kernel[k] += v
+        prepass += r["prepass_launches"]
+    report.update(launches=totals, launches_by_kernel=by_kernel,
+                  prepass_launches=prepass)
+
+
+def phase_dense_archs(torch, seed: int, smi: str) -> dict:
+    """Gemma2-9B, Granite-3-8B and H2O-Danube-1.8B at published width and
+    depth, random weights from ``seed``, one at a time: the kernels at
+    their new shapes; Gemma2 paged P-C (attention on the plain path: its
+    softcap), fixed P-fp and a loss on (2, 512) through the chunked 256k
+    tied head; Granite paged P-C and fixed P-int8; Danube fixed P-fp
+    (flash_mma_kernel at D = 80) and paged P-C at max_len 8,192 on
+    ``long``'s prompts (the window of 4,096 inside the long kernels)."""
+    from repro_torch.configs import get_config
+
+    log("== dense_archs: gemma2-9b, granite-3-8b, h2o-danube-1.8b at full "
+        "width and depth")
+    t_phase = time.perf_counter()
+    report = {"kernel_rows": arch_kernel_checks(torch, seed)}
+    stamps = {"kernel_checks": time.perf_counter() - t_phase}
+    runs = []
+    for arch, paged_long, fixed, loss in (
+            ("gemma2-9b", False, "p_fp", GEMMA_LOSS),
+            ("granite-3-8b", False, "p_int8", None),
+            ("h2o-danube-1.8b", True, "p_fp", None)):
+        cfg = get_config(arch)
+        rep = {"paged": arch_paged(torch, cfg, seed, paged_long, smi)}
+        model, params = arch_build(torch, cfg, seed)
+        rep["fixed"] = arch_fixed(torch, model, params, fixed, seed, smi)
+        runs += [rep["paged"], rep["fixed"]]
+        if loss:
+            rep["model"] = arch_model(torch, model, params, fixed, seed, smi,
+                                      loss_shape=loss)
+            runs.append(rep["model"])
+        del model, params
+        torch.cuda.empty_cache()
+        report[arch] = rep
+        stamps[arch] = time.perf_counter() - t_phase
+    arch_totals(report, runs)
+    report["seconds_at"] = stamps
+    report["phase_s"] = time.perf_counter() - t_phase
+    arch_failures("dense_archs")
+    log(f"  dense_archs launches on the main paths: "
+        f"{json.dumps(report['launches'])}, attention by kernel "
+        f"{json.dumps(report['launches_by_kernel'])}, x pre-pass "
+        f"{report['prepass_launches']}; phase {report['phase_s']:.1f} s "
+        f"(seconds at the end of each part: {json.dumps(stamps)}) [{smi}]")
+    return report
+
+
+def phase_moe(torch, seed: int, smi: str) -> dict:
+    """Phi-3.5-MoE at full width and PHI_LAYERS of its 32 layers: fixed
+    P-fp (the expert stacks QDQ'd every forward), paged P-C (``ExpertBank``
+    int4 codes decompressed every step, as the reference does), a loss
+    with its aux term and ``expert_loads``; Llama-4-Scout at full width and
+    SCOUT_LAYERS of 48: a loss on (2, 256), a (2, 64) prefill and 16
+    greedy steps under P-fp."""
+    from repro_torch.configs import get_config
+
+    log("== moe: phi3.5-moe-42b-a6.6b and llama4-scout-17b-a16e at full "
+        "width")
+    t_phase = time.perf_counter()
+    phi = get_config("phi3.5-moe-42b-a6.6b")
+    sc = get_config("llama4-scout-17b-a16e")
+    for cfg, n in ((phi, PHI_LAYERS), (sc, SCOUT_LAYERS)):
+        log(f"  cut: {cfg.name} runs {n} of its {cfg.n_layers} layers "
+            f"({cfg.replace(n_layers=n).n_params()} of {cfg.n_params()} "
+            "parameters)")
+    phi, sc = phi.replace(n_layers=PHI_LAYERS), sc.replace(
+        n_layers=SCOUT_LAYERS)
+    report = {"reduced_depth": {phi.name: PHI_LAYERS, sc.name: SCOUT_LAYERS}}
+    model, params = arch_build(torch, phi, seed)
+    rep = {"fixed": arch_fixed(torch, model, params, "p_fp", seed, smi)}
+    rep["model"] = arch_model(torch, model, params, "p_fp", seed, smi,
+                              loss_shape=PHI_LOSS, loads=True)
+    del model, params
+    rep["paged"] = arch_paged(torch, phi, seed, False, smi)
+    report[phi.name] = rep
+    stamps = {phi.name: time.perf_counter() - t_phase}
+    model, params = arch_build(torch, sc, seed)
+    report[sc.name] = {"model": arch_model(
+        torch, model, params, "p_fp", seed, smi, loss_shape=SCOUT_LOSS,
+        prefill_shape=SCOUT_PREFILL, steps=SCOUT_STEPS)}
+    report[sc.name]["numerics"] = arch_numerics(
+        torch, model, params, fixed_policy("p_fp"), f"{sc.name} model p_fp",
+        smi)
+    del model, params
+    torch.cuda.empty_cache()
+    stamps[sc.name] = time.perf_counter() - t_phase
+    arch_totals(report, [rep["paged"], rep["fixed"], rep["model"],
+                         report[sc.name]["model"]])
+    report["seconds_at"] = stamps
+    report["phase_s"] = time.perf_counter() - t_phase
+    arch_failures("moe")
+    log(f"  moe launches on the main paths: {json.dumps(report['launches'])}"
+        f", attention by kernel {json.dumps(report['launches_by_kernel'])},"
+        f" x pre-pass {report['prepass_launches']}; phase "
+        f"{report['phase_s']:.1f} s (seconds at the end of each part: "
+        f"{json.dumps(stamps)}) [{smi}]")
     return report
 
 
@@ -5190,15 +6095,22 @@ def main() -> int:
             "ptq": lambda: phase_ptq(torch, args.seed, smi),
             "vit": lambda: phase_vit(torch, args.seed, smi),
             "ssm": lambda: phase_ssm(torch, args.seed, smi),
-            "encdec": lambda: phase_encdec(torch, args.seed, smi)}
+            "encdec": lambda: phase_encdec(torch, args.seed, smi),
+            "dense_archs": lambda: phase_dense_archs(torch, args.seed, smi),
+            "moe": lambda: phase_moe(torch, args.seed, smi)}
     done = {}
+    phase_s = {"build": round(time.perf_counter() - t_start, 1)}
     for name in PHASES:
         if name in phases:
             PHASE["name"] = name
+            t0 = time.perf_counter()
             done[name] = runs[name]()
-    kernel_rows, serve, long_ctx, fixed, ptq, vit, ssm, encdec = (
-        done.get(p) for p in ("kernels", "serve", "long", "fixed", "ptq",
-                              "vit", "ssm", "encdec"))
+            phase_s[name] = round(time.perf_counter() - t0, 1)
+    log("== seconds by phase: " + json.dumps(phase_s))
+    (kernel_rows, serve, long_ctx, fixed, ptq, vit, ssm, encdec, dense,
+     moe) = (done.get(p) for p in ("kernels", "serve", "long", "fixed",
+                                   "ptq", "vit", "ssm", "encdec",
+                                   "dense_archs", "moe"))
     retakes = {p: {"empty": 0, "other": 0} for p in phases}
     for r in PROFILER_RETRIES:
         retakes.setdefault(r["phase"], {"empty": 0, "other": 0})[
@@ -5208,18 +6120,22 @@ def main() -> int:
     # launches of each kernel on the main paths, each counted from 0 just
     # before its run: the paged serve run, the long-context run, the two
     # fixed-slot runs, the PTQ phase's fused evaluations, the vision
-    # phase's fused forwards, the SSM phase's served and Model runs and the
-    # encdec phase's Model runs
+    # phase's fused forwards, the SSM phase's served and Model runs, the
+    # encdec phase's Model runs and the last families' served and Model
+    # runs
     paths = {"serve": (serve or {}).get("launches", {}),
              "long": (long_ctx or {}).get("launches", {}),
              **{f"fixed_{k}": r["launches"] for k, r in (fixed or {}).items()},
              "ptq": (ptq or {}).get("launches", {}),
              "vit": (vit or {}).get("launches", {}),
              "ssm": (ssm or {}).get("launches", {}),
-             "encdec": (encdec or {}).get("launches", {})}
-    # the ptq, vit, ssm and encdec paths' shapes join their kernels' rows
+             "encdec": (encdec or {}).get("launches", {}),
+             "dense_archs": (dense or {}).get("launches", {}),
+             "moe": (moe or {}).get("launches", {})}
+    # the ptq, vit, ssm, encdec, dense_archs and moe paths' shapes join
+    # their kernels' rows
     kernel_rows = dict(kernel_rows or {})
-    for extra in (ptq, vit, ssm, encdec):
+    for extra in (ptq, vit, ssm, encdec, dense, moe):
         for name, rows in (extra or {}).get("kernel_rows", {}).items():
             kernel_rows[name] = kernel_rows.get(name, []) + rows
     # the shape whose numbers head a kernel's entry: the decode shape
@@ -5244,9 +6160,10 @@ def main() -> int:
                        .get("abfp_matmul", {}).get("qdq_stream_kernel"))
             if vit_qdq:
                 by_path["vit"] = vit_qdq
-            # and on the SSM and encdec paths' P-fp and P-C matmuls of up
-            # to 16 rows
-            for p, r in (("ssm", ssm), ("encdec", encdec)):
+            # and on the SSM, encdec and last families' paths' P-fp and
+            # P-C matmuls of up to 16 rows
+            for p, r in (("ssm", ssm), ("encdec", encdec),
+                         ("dense_archs", dense), ("moe", moe)):
                 if (r or {}).get("prepass_launches"):
                     by_path[p] = r["prepass_launches"]
         kernels.append({
@@ -5299,7 +6216,8 @@ def main() -> int:
     rows = (kernel_rows or {}).get("flash_attention_quant", [])
     by_path = {p: (r or {}).get("launches_by_kernel") or {}
                for p, r in (("serve", serve), ("long", long_ctx),
-                            ("encdec", encdec))}
+                            ("encdec", encdec), ("dense_archs", dense),
+                            ("moe", moe))}
     kernels[[k["name"] for k in kernels].index("flash_attention_quant")][
         "launches_by_kernel"] = by_path
     for kernel, timed_shape, replaces in (

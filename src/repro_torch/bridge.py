@@ -8,7 +8,9 @@ decoder LM's, an SSM LM's (``blocks`` of ``{ln, mamba}``), a ViT's:
 ``patch_embed``, ``pos_embed``, ``cls``, ``final_norm``, ``head`` and the
 blocks; the Zamba2 hybrid's: ``embed``, ``mamba_groups``, ``shared``,
 ``lora``, ``final_norm``; or an encoder-decoder's: ``embed``,
-``pos_embed``, ``encoder``, ``decoder``, ``enc_norm``, ``final_norm``)
+``pos_embed``, ``encoder``, ``decoder``, ``enc_norm``, ``final_norm``;
+or an MoE LM's, whose blocks' ``ffn`` holds the ``router`` (D, E) and
+the expert stacks ``wi`` / ``wg`` (E, D, F) and ``wo`` (E, F, D))
 after a host transfer (nested dicts of numpy
 arrays; the caller does the ``device_get``), so this module imports nothing
 of the reference.  Layers stacked along a leading ``(L, ...)`` axis (the
@@ -43,6 +45,9 @@ _BLOCK = {
     # the SSM family's block: a pre-norm Mamba2 mixer
     "ln": _NORM, "mamba": _MAMBA,
 }
+# the MoE family's block: its FFN is a router and three expert stacks
+_MOE_BLOCK = dict(_BLOCK, ffn={"router": _LEAF, "wi": _LEAF, "wg": _LEAF,
+                               "wo": _LEAF})
 _LORA = {nm: {"A": _LEAF, "B": _LEAF} for nm in ("q", "k", "v")}
 # the encoder-decoder's blocks: pre-LN encoder blocks, and decoder blocks
 # with a cross-attention between self-attention and the MLP
@@ -119,8 +124,8 @@ def _layers(node, schema, name: str, device) -> list:
 
 def from_repro_params(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
     """The reference's parameter tree (numpy) as the port's (tensors on
-    ``device``), for a dense-, ssm-, vlm-, hybrid-, encdec- or vit-family
-    ``cfg``."""
+    ``device``), for a dense-, moe-, ssm-, vlm-, hybrid-, encdec- or
+    vit-family ``cfg``."""
     device = require_device(device)
     unknown = sorted(set(tree) - set(_TOP))
     if unknown:
@@ -138,7 +143,8 @@ def from_repro_params(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
         if key != "blocks":
             out[key] = _convert(node, _TOP[key], key, device)
         else:
-            out[key] = _layers(node, _BLOCK, "blocks", device)
+            out[key] = _layers(node, _MOE_BLOCK if cfg.family == "moe"
+                               else _BLOCK, "blocks", device)
     if "blocks" not in out:
         raise KeyError("params lack 'blocks'")
     if len(out["blocks"]) != cfg.n_layers:

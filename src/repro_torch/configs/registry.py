@@ -1,8 +1,4 @@
-"""Config registry: ``--arch <id>`` resolution.
-
-Only architectures whose model family is ported are registered; the rest
-of the reference's registry follows with their families.
-"""
+"""Config registry: ``--arch <id>`` resolution (the reference's 14 ids)."""
 
 from __future__ import annotations
 
@@ -11,7 +7,13 @@ import importlib
 from repro_torch.configs.base import ArchConfig
 
 _ARCHS = {
+    "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
+    "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
+    # the mixture-of-experts family
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout",
     # the paper's vision-transformer family (§III ViT/DeiT tables)
     "vit-b16": "repro_torch.configs.vit_b16",
     "deit-s16": "repro_torch.configs.deit_s16",

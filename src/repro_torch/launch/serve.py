@@ -26,7 +26,9 @@ an ``AttributeError`` (``EncDecLM`` has no ``init_paged_state``);
 synthetic requests carry no patch embeddings) at the first prefill, and
 with ``--paged`` serves the text alone (the paged step takes no prefix).
 Both run through ``Model`` instead (``chip_smoke.py --phases encdec``).
-Flags of the reference launcher whose features are not ported yet
+The dense configs (gemma2-9b, granite-3-8b, h2o-danube-1.8b) and the MoE
+configs (phi3.5-moe-42b-a6.6b, llama4-scout-17b-a16e) serve through
+either engine.  Flags of the reference launcher whose features are not ported yet
 (``--speculate``, ``--expert-cache``, ``--expert-precision auto``) exit
 with a message naming the ROADMAP item that will bring them.
 There is no lint gate yet: the static analyzer is a late slice of the

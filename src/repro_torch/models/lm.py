@@ -1,22 +1,24 @@
 """Decoder-only transformer LM for serving, with the INT-FP-QSim policy
 threaded through every matmul.
 
-Ported so far, for the dense attention family: parameter init, the
-embedding front, the LM head, full-sequence ``apply``, ``prefill`` into
-ring-buffer caches, the fixed-slot ``decode_step``, and the paged serving
-step (``init_paged_state`` / ``paged_step``), and the next-token losses
-(``cross_entropy``, ``chunked_lm_loss``).  The state-space family
-(``ssm_state > 0``: every block a pre-norm Mamba2 mixer) has ``apply``,
-an exact-length ``prefill`` and ``decode_step`` over per-layer
-``SSMCache``s; it has no paged state.  ``apply`` and ``prefill`` take
-``prefix_embeds`` (the VLM family's stub patch embeddings, prepended to
-the token embeddings before the positions are formed; decode after such a
-prefill simply continues at position ``n_prefix + len(prompt)``).  Every
-forward takes the static-scale q tree (``q=``) of the PTQ passes.  Layers
-are always a Python list of per-layer dicts with sites ``blocks.{i}/...``
-— there is no scan — so layer-indexed PolicyMap rules always resolve.  ``chunk_step`` (the
-speculative verify pass) and the MoE block wait for ROADMAP.md Queue A
-item 4.
+Ported: parameter init, the embedding front, the LM head, full-sequence
+``apply``, ``prefill`` into ring-buffer caches, the fixed-slot
+``decode_step``, the paged serving step (``init_paged_state`` /
+``paged_step``), the next-token losses (``cross_entropy``,
+``chunked_lm_loss``), for the dense attention family and the MoE family
+(every block's FFN a top-k ``nn.moe.MoE``: ``apply`` returns the summed
+Switch aux loss, ``expert_loads`` the routed-token counts per layer and
+expert).  The state-space family (``ssm_state > 0``: every block a
+pre-norm Mamba2 mixer) has ``apply``, an exact-length ``prefill`` and
+``decode_step`` over per-layer ``SSMCache``s; it has no paged state.
+``apply`` and ``prefill`` take ``prefix_embeds`` (the VLM family's stub
+patch embeddings, prepended to the token embeddings before the positions
+are formed; decode after such a prefill simply continues at position
+``n_prefix + len(prompt)``).  Every forward takes the static-scale q tree
+(``q=``) of the PTQ passes.  Layers are always a Python list of per-layer
+dicts with sites ``blocks.{i}/...`` — there is no scan — so layer-indexed
+PolicyMap rules always resolve.  ``chunk_step`` (the speculative verify
+pass) waits for ROADMAP.md Queue A item 4's speculative half.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from repro_torch.core.policy import QuantPolicy, kv_cache_mode
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.ffn import MLP
 from repro_torch.nn.linear import Dense, Embed
+from repro_torch.nn.moe import MoE
 from repro_torch.nn.module import require_device, truncated_normal
 from repro_torch.nn.norms import LayerNorm, RMSNorm
 from repro_torch.nn.ssm import mamba_from_config
@@ -84,13 +87,6 @@ def _norm(cfg: ArchConfig):
 class TransformerLM:
     cfg: ArchConfig
 
-    def __post_init__(self):
-        c = self.cfg
-        if self.is_moe:
-            raise NotImplementedError(
-                f"{c.name}: the MoE block is not ported yet (ROADMAP.md "
-                "Queue A item 4); the dense and SSM families are")
-
     @property
     def is_ssm(self) -> bool:
         return self.cfg.ssm_state > 0
@@ -115,6 +111,15 @@ class TransformerLM:
         return MLP(c.d_model, c.d_ff, act=c.act, param_dtype=c.param_dtype,
                    dtype=c.dtype, name=name)
 
+    def _moe(self, name: str = "ffn") -> MoE:
+        c = self.cfg
+        return MoE(
+            c.d_model, c.d_ff, n_experts=c.n_experts, top_k=c.top_k,
+            capacity_factor=c.capacity_factor,
+            group_tokens=c.moe_group_tokens, act=c.act,
+            param_dtype=c.param_dtype, dtype=c.dtype, name=name,
+        )
+
     def _head(self) -> Dense:
         c = self.cfg
         return Dense(c.d_model, c.vocab_padded, param_dtype=c.param_dtype,
@@ -138,7 +143,8 @@ class TransformerLM:
             "ln1": _norm(c).init(gen, device),
             "attn": self._attention().init(gen, device),
             "ln2": _norm(c).init(gen, device),
-            "ffn": self._mlp().init(gen, device),
+            "ffn": (self._moe() if self.is_moe else self._mlp()).init(
+                gen, device),
         }
         if c.post_norms:
             p["ln1_post"] = _norm(c).init(gen, device)
@@ -213,16 +219,19 @@ class TransformerLM:
 
     # --------------------------------------------------------------- blocks
     def _block_apply(self, bparams, x, policy, name: str, attend, q=None):
-        """One decoder block.  ``attend(attn, attn_params, h, q_attn)`` runs
-        the attention half — full sequence, ring-buffer decode or paged —
-        and returns its output; the rest of the block is the same for all.
-        ``q``: this block's slice of the static-scale q tree, or None."""
+        """One decoder block -> (x, aux loss, expert load).  ``attend(attn,
+        attn_params, h, q_attn)`` runs the attention half — full sequence,
+        ring-buffer decode or paged — and returns its output; the rest of
+        the block is the same for all.  ``q``: this block's slice of the
+        static-scale q tree, or None.  The aux loss and the load (the MoE
+        block's routed tokens per expert) are None outside the MoE
+        family."""
         c = self.cfg
         getq = (lambda k: None) if q is None else q.get
         if self.is_ssm:  # a pre-norm Mamba2 mixer; ``attend`` is not used
             h = _norm(c).apply(bparams["ln"], x)
             return x + self._mamba(f"{name}/mamba").apply(
-                bparams["mamba"], h, policy, q=getq("mamba"))
+                bparams["mamba"], h, policy, q=getq("mamba")), None, None
         h = _norm(c).apply(bparams["ln1"], x)
         h = attend(self._attention(f"{name}/attn"), bparams["attn"], h,
                    getq("attn"))
@@ -230,24 +239,37 @@ class TransformerLM:
             h = _norm(c).apply(bparams["ln1_post"], h)
         x = x + h
         h = _norm(c).apply(bparams["ln2"], x)
-        h = self._mlp(f"{name}/ffn").apply(bparams["ffn"], h, policy,
-                                           q=getq("ffn"))
+        aux = load = None
+        if self.is_moe:
+            h, metrics = self._moe(f"{name}/ffn").apply(
+                bparams["ffn"], h, policy, q=getq("ffn"))
+            aux, load = metrics["moe_aux_loss"], metrics["expert_load"]
+        else:
+            h = self._mlp(f"{name}/ffn").apply(bparams["ffn"], h, policy,
+                                               q=getq("ffn"))
         if c.post_norms:
             h = _norm(c).apply(bparams["ln2_post"], h)
-        return x + h
+        return x + h, aux, load
 
-    def _run_blocks(self, params, x, policy, attend, q=None):
-        """Every block in order; ``attend(i, window, attn, attn_params, h,
-        q_attn)`` as in ``_block_apply`` with the layer index and window.
-        ``q``: the static-scale q tree ``{"blocks": [per-layer dict]}``."""
+    def _run_blocks(self, params, x, policy, attend, q=None, loads=None):
+        """Every block in order -> (x, the summed aux loss, None outside the
+        MoE family); ``attend(i, window, attn, attn_params, h, q_attn)``
+        as in ``_block_apply`` with the layer index and window.  ``q``: the
+        static-scale q tree ``{"blocks": [per-layer dict]}``; ``loads``: a
+        list that gets each MoE block's expert load."""
         wl = self.layer_windows_py()
+        aux = None
         for i, bp in enumerate(params["blocks"]):
             qi = None if q is None else q["blocks"][i]
-            x = self._block_apply(
+            x, a, load = self._block_apply(
                 bp, x, policy, f"blocks.{i}",
                 lambda attn, ap, h, qa, i=i: attend(i, int(wl[i]), attn, ap,
                                                     h, qa), q=qi)
-        return x
+            if a is not None:
+                aux = a if aux is None else aux + a
+            if loads is not None:
+                loads.append(load)
+        return x, aux
 
     def _last_valid(self, x, n_valid):
         """Each row's hidden state at its last valid position (B, 1, d)."""
@@ -263,16 +285,41 @@ class TransformerLM:
         ``prefix_embeds``: (B, P, d_model) embeddings put before the
         tokens."""
         x, positions = self._embed_in(params, tokens, prefix_embeds)
-        x = self._run_blocks(
-            params, x, policy,
-            lambda i, w, attn, ap, h, qa: attn.apply(
-                ap, h, positions=positions, policy=policy, window=w, q=qa),
-            q)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = self._run_blocks(params, x, policy,
+                                  self._full_attention(positions, policy), q)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         x = _norm(self.cfg).apply(params["final_norm"], x)
         if return_hidden:
             return x, aux
         return self.head_logits(params, x, policy), aux
+
+    @staticmethod
+    def _full_attention(positions, policy):
+        """``_run_blocks``' ``attend`` of a full sequence at ``positions``."""
+        return lambda i, w, attn, ap, h, qa: attn.apply(
+            ap, h, positions=positions, policy=policy, window=w, q=qa)
+
+    # -------------------------------------------------------- routing probe
+    @torch.no_grad()
+    def expert_loads(self, params, tokens, *,
+                     policy=QuantPolicy()) -> torch.Tensor:
+        """Routed-token counts per expert: ``(n_layers, n_experts)`` f32.
+
+        A routing-frequency probe for the serve-side expert store: runs the
+        block stack forward and collects each MoE block's post-capacity
+        ``expert_load`` metric; ``tokens`` is ``(B, S)`` and loads sum over
+        the whole batch.
+        """
+        if not self.is_moe:
+            raise TypeError(
+                f"expert_loads: {self.cfg.name!r} is not an MoE config")
+        x, positions = self._embed_in(params, tokens)
+        loads = []
+        self._run_blocks(params, x, policy,
+                         self._full_attention(positions, policy),
+                         loads=loads)
+        return torch.stack(loads, dim=0)
 
     # -------------------------------------------------------------- prefill
     @torch.no_grad()
@@ -321,7 +368,7 @@ class TransformerLM:
                                           policy=policy))
             return h
 
-        x = self._run_blocks(params, x, policy, attend)
+        x, _ = self._run_blocks(params, x, policy, attend)
         if n_valid is None:
             pos = torch.tensor(S, dtype=torch.int32, device=x.device)
             x = x[:, -1:, :]
@@ -402,7 +449,7 @@ class TransformerLM:
             caches.append(cache)
             return h
 
-        x = self._run_blocks(params, x, policy, attend, q)
+        x, _ = self._run_blocks(params, x, policy, attend, q)
         new_state = DecodeState(kv=caches, ssm=None, position=pos + 1)
         x = _norm(self.cfg).apply(params["final_norm"], x)
         logits = self.head_logits(params, x, policy)
@@ -471,7 +518,7 @@ class TransformerLM:
             caches.append(cache)
             return h
 
-        x = self._run_blocks(params, x, policy, attend, q)
+        x, _ = self._run_blocks(params, x, policy, attend, q)
         new_state = DecodeState(
             kv=None, ssm=None, position=pos + n_valid,
             pages=PagedState(cache=caches, table=table),

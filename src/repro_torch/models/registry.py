@@ -16,8 +16,9 @@ Mamba2 blocks), the Zamba2 hybrid (``HybridLM``: no paged state, and a
 family (``EncDecLM``: ``batch["frames"]`` beside the tokens; no paged
 state, and an ``EncDecState`` the engines do not take) and the VLM family
 (``TransformerLM`` with ``batch["patch_embeds"]`` prepended; its loss drops
-the patch positions) are ported.  MoE (ROADMAP.md Queue A item 4) raises
-with the item that will bring it.
+the patch positions) are ported, and so is the MoE family
+(``TransformerLM`` with top-k ``nn.moe.MoE`` FFNs: ``loss`` adds 0.01 x
+the Switch aux loss, ``expert_loads`` probes the routing).
 """
 
 from __future__ import annotations
@@ -75,7 +76,7 @@ class Model:
                                 return_hidden=return_hidden, **kw)
 
     def loss(self, params, batch, policy=QuantPolicy(), q=None):
-        """Next-token CE (+ 0.01 aux, zero for the ported families).
+        """Next-token CE (+ 0.01 x the MoE aux loss; 0 for other families).
         Labels: ``batch['labels']``, -1 masked; for vlm they cover the text
         only, and the patch positions' logits are dropped."""
         c = self.cfg
@@ -101,6 +102,13 @@ class Model:
             kw["n_valid"] = n_valid
         return self.inner.prefill(params, tokens, policy=policy,
                                   max_len=max_len, **kw)
+
+    def expert_loads(self, params, tokens, *, policy=QuantPolicy()):
+        """Routing-frequency probe: (n_layers, n_experts) routed-token
+        counts (MoE TransformerLM family only; raises TypeError else)."""
+        return self.inner.expert_loads(
+            params, torch.as_tensor(tokens, device=self.device),
+            policy=policy)
 
     def init_decode_state(self, batch: int, max_len: int, **kw):
         """Fixed-slot decode state: ring buffers, SSM caches, both in a
@@ -132,10 +140,5 @@ def build_model(cfg: ArchConfig, device="cuda") -> Model | VitModel:
         return Model(cfg, HybridLM(cfg), require_device(device))
     if cfg.family == "encdec":
         return Model(cfg, EncDecLM(cfg), require_device(device))
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported yet — "
-            "ROADMAP.md Queue A item 4; the dense, ssm, hybrid, vision, "
-            "encdec and vlm families are")
-    # dense / ssm / vlm all ride on TransformerLM
+    # dense / moe / ssm / vlm all ride on TransformerLM
     return Model(cfg, TransformerLM(cfg), require_device(device))

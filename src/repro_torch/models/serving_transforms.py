@@ -34,7 +34,12 @@ The tied embedding table is NOT touched: it feeds the input lookup too,
 and pre-quantizing it would change input embeddings (the runtime path only
 QDQs the readout matmul).
 
-MoE expert banks are not ported yet (no ``ExpertBank``).
+MoE expert banks (the ``wi``/``wg``/``wo`` stacks next to a ``router``)
+are walked along their stacked expert axis: each expert resolves its OWN
+rule at ``{site}/experts.{e}`` (first-match-wins over the block-level
+pattern), so a mixed map can keep hot experts at INT8/FP8 while cold
+experts compress to INT4.  Heterogeneous per-expert storage lives in an
+``ExpertBank``.
 """
 
 from __future__ import annotations
@@ -96,16 +101,74 @@ class CompressedKernel:
                 f" fmt={self.fmt_name}, packed={self.packed})")
 
 
-def _walk_kernels(params, fn):
+class ExpertBank:
+    """Per-expert entries for one stacked MoE expert kernel.
+
+    Replaces a dense ``(E, K, N)`` expert stack with a tuple of per-expert
+    entries — each a dense ``(K, N)`` slice or a ``CompressedKernel`` — so
+    experts can carry *different* storage formats (hot INT8 / cold INT4).
+    The expert axis is END-RELATIVE at -3, as in the reference.
+    """
+
+    __slots__ = ("entries",)
+
+    def __init__(self, entries):
+        self.entries = tuple(entries)
+
+    @property
+    def n_experts(self) -> int:
+        return len(self.entries)
+
+    def dense(self, dtype=None) -> torch.Tensor:
+        """Stacked dense view ``(E, K, N)``: every compressed entry
+        decompressed (each call, as the reference's forward does)."""
+        mats = [decompress_kernel(e, dtype)
+                if isinstance(e, CompressedKernel)
+                else (e if dtype is None else e.to(dtype))
+                for e in self.entries]
+        return torch.stack(mats, dim=mats[0].ndim - 2)
+
+    def __repr__(self):
+        n_c = sum(isinstance(e, CompressedKernel) for e in self.entries)
+        return (f"ExpertBank(n_experts={self.n_experts}, "
+                f"compressed={n_c}, dense={self.n_experts - n_c})")
+
+
+def entry_bytes(entry) -> int:
+    """Resident bytes of one weight entry (dense tensor or codes+scales)."""
+    if isinstance(entry, CompressedKernel):
+        return _leaf_bytes(entry.codes) + _leaf_bytes(entry.scale)
+    return _leaf_bytes(entry)
+
+
+# MoE param sub-dicts are recognised structurally: the expert stacks sit
+# next to their router.  Keys here are the ONLY non-'kernel' leaves the
+# walks transform.
+_EXPERT_KEYS = ("wi", "wg", "wo")
+
+
+def _is_moe_bank(node) -> bool:
+    return (isinstance(node, dict) and "router" in node
+            and "wi" in node and "wo" in node)
+
+
+def _walk_kernels(params, fn, expert_fn=None):
     """Apply ``fn(site, kernel_leaf)`` to every 'kernel' entry; keep
     structure.  ``site`` follows the runtime site-address contract (see
-    module docstring)."""
+    module docstring).  When ``expert_fn`` is given, MoE expert stacks are
+    visited too as ``expert_fn(site, kind, stack)`` with ``kind`` one of
+    ``wi``/``wg``/``wo`` and ``site`` the block-level address (e.g.
+    ``blocks.0/ffn``); otherwise they pass through untouched."""
 
     def rec(node, path):
         if isinstance(node, dict):
             out = {}
+            bank = _is_moe_bank(node)
             for k, v in node.items():
-                if k == "kernel" and isinstance(
+                if bank and k in _EXPERT_KEYS:
+                    out[k] = (expert_fn("/".join(path), k, v)
+                              if expert_fn is not None else v)
+                elif k == "kernel" and isinstance(
                         v, (torch.Tensor, CompressedKernel)):
                     out[k] = fn("/".join(path), v)
                 elif k == "blocks" and isinstance(v, (list, tuple)):
@@ -144,6 +207,17 @@ def _site_weight(policy: Policy, site: str) -> TensorQuant | None:
     return p.weight if p.enabled else None
 
 
+def expert_site(site: str, e: int) -> str:
+    """Site address of expert ``e`` inside the MoE block at ``site``
+    (``blocks.0/ffn/experts.3``), the runtime contract of ``nn.moe``."""
+    return f"{site}/experts.{e}"
+
+
+def _expert_weights(policy: Policy, site: str, n_experts: int):
+    return [_site_weight(policy, expert_site(site, e))
+            for e in range(n_experts)]
+
+
 def serving_policy(policy: Policy) -> Policy:
     """The runtime policy to pair with compressed weights.
 
@@ -179,7 +253,8 @@ def prequantize_weights(params, policy: Policy):
     (abfp / channel_max / dynamic_max) round-trip exactly at serving time.
     Layers are always a list of per-layer dicts here, so every kernel
     resolves at its own site (the reference's stacked-layout check has
-    nothing to reject).
+    nothing to reject).  MoE expert stacks QDQ per-expert against their
+    ``experts.{e}`` rules and stay stacked-dense.
     """
     _check_site_rules_supported(params, policy, "prequantize_weights")
 
@@ -189,7 +264,22 @@ def prequantize_weights(params, policy: Policy):
             return w
         return qdq_weight(w, tq, contract_axis=w.ndim - 2).to(w.dtype)
 
-    return _walk_kernels(params, one)
+    def one_bank(site, kind, w):
+        if isinstance(w, ExpertBank):
+            return w
+        e_axis = w.ndim - 3
+        tqs = _expert_weights(policy, site, w.shape[e_axis])
+        if all(tq is None for tq in tqs):
+            return w
+        cols = []
+        for e, tq in enumerate(tqs):
+            we = w.select(e_axis, e)
+            if tq is not None:
+                we = qdq_weight(we, tq, contract_axis=we.ndim - 2)
+            cols.append(we.to(w.dtype))
+        return torch.stack(cols, dim=e_axis)
+
+    return _walk_kernels(params, one, expert_fn=one_bank)
 
 
 # ---------------------------------------------------------------------------
@@ -250,14 +340,13 @@ def compress_weights(params, policy: Policy):
         consumed directly by the ``compressed`` execution backend;
       * float-format rule (e.g. FP8-E4M3) — QDQ'd offline, stays dense;
       * fp32 (disabled) rule — untouched.
-    Pair with ``serving_policy(policy)`` at runtime.
+    MoE expert stacks become ``ExpertBank``s of per-expert entries, each
+    resolved at ``{site}/experts.{e}`` — a fully fp32 bank stays a plain
+    dense stack.  Pair with ``serving_policy(policy)`` at runtime.
     """
     _check_site_rules_supported(params, policy, "compress_weights")
 
-    def one(site, w):
-        if isinstance(w, CompressedKernel):
-            return w
-        tq = _site_weight(policy, site)
+    def _one_entry(w, tq):
         if tq is None:
             return w
         if isinstance(tq.fmt, IntFormat) and tq.scaler in ("abfp",
@@ -267,7 +356,22 @@ def compress_weights(params, policy: Policy):
         # prequantize offline so serving still matches the QDQ simulation
         return qdq_weight(w, tq, contract_axis=w.ndim - 2).to(w.dtype)
 
-    return _walk_kernels(params, one)
+    def one(site, w):
+        if isinstance(w, CompressedKernel):
+            return w
+        return _one_entry(w, _site_weight(policy, site))
+
+    def one_bank(site, kind, w):
+        if isinstance(w, ExpertBank):
+            return w
+        e_axis = w.ndim - 3
+        tqs = _expert_weights(policy, site, w.shape[e_axis])
+        if all(tq is None for tq in tqs):
+            return w  # fully fp32 bank: stays a plain dense stack
+        return ExpertBank([_one_entry(w.select(e_axis, e), tq)
+                           for e, tq in enumerate(tqs)])
+
+    return _walk_kernels(params, one, expert_fn=one_bank)
 
 
 def decompress_kernel(entry: CompressedKernel, dtype=None) -> torch.Tensor:
@@ -296,7 +400,9 @@ def weight_bytes_report(dense_params, served_params) -> dict:
 
     Walks the ``kernel`` leaves of both trees in lockstep and reports the
     bytes each representation keeps resident in device memory, scale
-    overhead included.
+    overhead included.  MoE expert stacks report one row per expert site
+    (``{site}/experts.{e}``, the wi/wg/wo kernels of one expert summed),
+    so per-expert precision shows up per expert.
     """
     sites = []
     dense_by_site = {}
@@ -305,7 +411,11 @@ def weight_bytes_report(dense_params, served_params) -> dict:
         dense_by_site[site] = _leaf_bytes(w)
         return w
 
-    _walk_kernels(dense_params, record)
+    def record_bank(site, kind, w):
+        dense_by_site[(site, kind)] = _leaf_bytes(w)
+        return w
+
+    _walk_kernels(dense_params, record, expert_fn=record_bank)
 
     def one(site, w):
         if isinstance(w, CompressedKernel):
@@ -323,7 +433,29 @@ def weight_bytes_report(dense_params, served_params) -> dict:
         })
         return w
 
-    _walk_kernels(served_params, one)
+    expert_rows = {}  # expert site -> row (wi/wg/wo summed)
+
+    def one_bank(site, kind, w):
+        entries = (list(w.entries) if isinstance(w, ExpertBank)
+                   else [w.select(w.ndim - 3, e)
+                         for e in range(w.shape[w.ndim - 3])])
+        per_dense = dense_by_site[(site, kind)] // len(entries)
+        for e, entry in enumerate(entries):
+            if isinstance(entry, CompressedKernel):
+                k_, fmt = "compressed", entry.fmt_name + (
+                    "_packed" if entry.packed else "")
+            else:
+                k_, fmt = "dense", _dtype_name(entry.dtype)
+            row = expert_rows.setdefault(expert_site(site, e), {
+                "site": expert_site(site, e), "kind": k_, "fmt": fmt,
+                "dense_bytes": 0, "resident_bytes": 0,
+            })
+            row["dense_bytes"] += per_dense
+            row["resident_bytes"] += entry_bytes(entry)
+        return w
+
+    _walk_kernels(served_params, one, expert_fn=one_bank)
+    sites.extend(expert_rows.values())
     dense_total = sum(s["dense_bytes"] for s in sites)
     resident_total = sum(s["resident_bytes"] for s in sites)
     return {

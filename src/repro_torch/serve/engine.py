@@ -123,6 +123,8 @@ def _tree_devices(tree, out: set):
     elif hasattr(tree, "codes"):  # CompressedKernel
         out.add(tree.codes.device)
         out.add(tree.scale.device)
+    elif hasattr(tree, "entries"):  # ExpertBank
+        _tree_devices(list(tree.entries), out)
     return out
 
 

@@ -71,7 +71,9 @@ def test_recipe_report_matches_reference_launcher(capsys, engine):
 
 def test_unknown_arch_lists_the_registry():
     with pytest.raises(ValueError, match="known: \\['deit-s16', "
-                       "'internvl2-2b', 'mamba2-130m', 'opt-125m', "
-                       "'opt-tiny', 'qwen2-7b', 'vit-b16', "
+                       "'gemma2-9b', 'granite-3-8b', 'h2o-danube-1.8b', "
+                       "'internvl2-2b', 'llama4-scout-17b-a16e', "
+                       "'mamba2-130m', 'opt-125m', 'opt-tiny', "
+                       "'phi3.5-moe-42b-a6.6b', 'qwen2-7b', 'vit-b16', "
                        "'whisper-large-v3', 'zamba2-7b'\\]"):
-        tserve.main(["--paged", "--device", "cpu", "--arch", "gemma2-9b"])
+        tserve.main(["--paged", "--device", "cpu", "--arch", "gemma3-27b"])
