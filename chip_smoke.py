@@ -87,10 +87,31 @@ Phases (each fatal on failure):
             of the plain path on the CPU (the path the CPU tests hold
             token-identical to the JAX reference), paged and fixed-slot,
             for qwen2-7b, gemma2-9b, granite-3-8b, h2o-danube-1.8b,
-            phi3.5-moe-42b-a6.6b and llama4-scout-17b-a16e
+            phi3.5-moe-42b-a6.6b and llama4-scout-17b-a16e; speculative
+            qwen2-7b (fixed and paged, against the CPU and the card's
+            target-only tokens) and phi3.5-moe's expert store (2 cached,
+            against the CPU and, exactly, the card's storeless run)
   identity  full width, 2 layers: the paged kernel path against the
             non-kernel path (fused=False, attn_backend="ref"), with a
             last-bit-noise control run as the yardstick
+  spec      qwen2-7b at full width and depth, random weights: speculative
+            serving, the fused w8a8_abfp target on the dense f32 tree
+            verifying what the w4a8_abfp draft compressed from it
+            proposes; the verify pass's new shapes held to their plain
+            versions and timed (abfp_matmul at M = 20 and 16 on the
+            layers, w8a8; flash_attention_quant at S = 5 over 512 int8
+            keys); fixed-slot (int8 ring, compressed attention) at k = 4
+            on serve's six requests (197 quant_matmul + 28
+            attention_decode_kernel a draft step, 197 abfp_matmul + 28
+            attention_prefill_kernel a verify pass, attention_kernel
+            none), its first two verify passes held to the target's
+            sequential decode steps (identity's bar, from a last-bit
+            control), every emitted token the verify argmax, the seeded
+            sampler twice alike, a profiled round; k = 3 on two requests
+            (16 rows: decode kernels and their x pre-pass); paged over fp
+            pages (attention plain), both pools drained; tokens/s, round
+            ms, tokens a target step, the tokens shared with a target-only
+            run
   ptq       opt-125m at full width and depth: its fused path's kernels held
             to their plain versions and timed at its shapes (both dense
             matmuls at M = 512 up to the 50432-column tied head,
@@ -158,7 +179,8 @@ Phases (each fatal on failure):
             (the logits too where that control lies below no QDQ); the
             reduced configs on the card emit the CPU's greedy tokens
   dense_archs gemma2-9b, granite-3-8b and h2o-danube-1.8b at published
-            width and depth, random weights, one at a time: the kernels at
+            width (gemma2 at 10 of 42 layers, granite at 10 of 40, danube
+            at 12 of 24), random weights, one at a time: the kernels at
             the new shapes (flash_attention at D = 80, G = 4 and G = 5
             beside SDPA; flash_attention_quant at D = 80 over 8,192 keys
             with the window of 4,096 inside both long kernels, and at G =
@@ -174,7 +196,10 @@ Phases (each fatal on failure):
             tokens, and the median block on their first 128
   moe       phi3.5-moe-42b-a6.6b at full width, 8 of 32 layers: fixed P-fp
             (the expert stacks QDQ'd every forward), paged P-C (ExpertBank
-            int4 codes decompressed every step), a loss with its aux term,
+            int4 codes decompressed every step), the same with the expert
+            store (4 experts a layer cached and refreshed into the params:
+            tokens equal, stats, bytes, step ms) and --expert-precision
+            auto (4 hot experts INT8, 12 INT4), a loss with its aux term,
             expert_loads; llama4-scout-17b-a16e at full width, 4 of 48
             layers: a loss on (2, 256), a (2, 64) prefill and 16 greedy
             steps under P-fp (flash_mma_kernel at G = 5); launches, times
@@ -204,8 +229,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 
-PHASES = ("kernels", "serve", "long", "fixed", "reduced", "identity", "ptq",
-          "vit", "ssm", "encdec", "dense_archs", "moe")
+PHASES = ("kernels", "serve", "long", "fixed", "reduced", "identity", "spec",
+          "ptq", "vit", "ssm", "encdec", "dense_archs", "moe")
 
 # every kernel: (wrapper module, TPU kernel it replaces)
 KERNELS = {
@@ -1109,7 +1134,10 @@ def device_launches(torch, call, names_of: dict, want=None,
     reads; without ``want``: no device event at all; the profiler now and
     then drops an event, or a whole capture) is taken again and recorded
     in ``PROFILER_RETRIES``: a second one that reads other events fails,
-    and so does the ``PROFILER_EMPTY_CAPTURES``-th that reads none."""
+    and so does the ``PROFILER_EMPTY_CAPTURES``-th that reads none.  Each
+    capture starts with ``lead_spins``, left out of the reading: late in
+    a whole run the profiler drops a capture's first launches (an
+    opt-125m forward read 72 of its 73 x and w codings twice in a row)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1120,10 +1148,12 @@ def device_launches(torch, call, names_of: dict, want=None,
         names = {}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            lead_spins(torch)
             call()
             torch.cuda.synchronize()
         for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA or not e.count:
+            if (e.device_type != DeviceType.CUDA or not e.count
+                    or "spin_kernel" in e.key):
                 continue
             hit = [v for k, v in names_of.items() if k in e.key]
             key = hit[0] if hit else e.key[:90]
@@ -1832,13 +1862,17 @@ def no_attention_kernel(label: str) -> None:
 
 
 def build_engine(torch, cfg, seed: int, kernel_path: bool, trace=None,
-                 perturb: bool = False, max_len: int = 512):
+                 perturb: bool = False, max_len: int = 512, model=None,
+                 params=None, policy=None, expert_cache=None):
     """Model with random weights from ``seed`` on the card -> engine with
-    compressed weights and int8 pages; the dense tree is freed.  With a
+    compressed weights and int8 pages; the dense tree is freed (unless the
+    caller passes ``model`` and ``params`` and keeps them).  With a
     ``trace`` dict, the logits row behind every emitted token is kept on
     the card under its request's uid, in emission order.  ``perturb``
     scales the embedding table by 1 + 2**-20: RMSNorm undoes the scale up
-    to rounding, so the model is the same function fed last-bit noise."""
+    to rounding, so the model is the same function fed last-bit noise.
+    ``policy``: in place of ``slice_policy``; ``expert_cache``: the MoE
+    expert store's capacity."""
     from repro_torch.models import build_model
     from repro_torch.nn.module import make_generator
     from repro_torch.serve.engine import PagedServeEngine
@@ -1864,12 +1898,14 @@ def build_engine(torch, cfg, seed: int, kernel_path: bool, trace=None,
                         logits[s, :cfg.vocab].clone())
             return super()._sample(logits)
 
-    model = build_model(cfg)  # device="cuda" by default
-    params = model.init(make_generator(seed, "cuda"))
+    if model is None:
+        model = build_model(cfg)  # device="cuda" by default
+        params = model.init(make_generator(seed, "cuda"))
     if perturb:
         params["embed"]["table"] *= 1.0 + 2.0 ** -20
     eng = Engine(model, params, n_slots=4, max_len=max_len, page_size=16,
-                 policy=slice_policy(kernel_path), compress=True, kv="int8")
+                 policy=policy or slice_policy(kernel_path), compress=True,
+                 kv="int8", expert_cache=expert_cache)
     eng.step_ms = []  # (tokens per row, wall ms) of every paged step
     del params
     torch.cuda.empty_cache()
@@ -2527,14 +2563,12 @@ def phase_reduced(torch, seed: int) -> dict:
     REDUCED_ARCHS runs every policy; an MoE config's fixed-slot prefills
     take buckets of 64 in a ring of 128 (its routing groups are 64
     tokens)."""
-    import numpy as np
-
     from repro_torch.configs import get_config
     from repro_torch.core.policy import (map_policies, preset,
                                          with_attn_backend)
     from repro_torch.models import build_model
     from repro_torch.nn.module import make_generator
-    from repro_torch.serve.engine import PagedServeEngine, Request
+    from repro_torch.serve.engine import PagedServeEngine
 
     log("== reduced: kernel path on the card vs plain path on the CPU")
 
@@ -2546,11 +2580,7 @@ def phase_reduced(torch, seed: int) -> dict:
         return [to_device(v, dev) for v in tree]
 
     def submit(eng):
-        rng = np.random.RandomState(seed + 3)
-        for uid, size in enumerate((5, 11, 3, 70, 8, 2)):
-            eng.submit(Request(
-                uid=uid, max_new_tokens=6,
-                prompt=rng.randint(0, cfg.vocab, size).astype(np.int32)))
+        submit_reduced(eng, cfg, seed)
 
     def check_launched(label, counts, names):
         if cfg.attn_softcap:  # no kernel body has a softcap
@@ -2650,7 +2680,137 @@ def phase_reduced(torch, seed: int) -> dict:
                     raise SystemExit(f"reduced {arch} fixed {kind}: a token "
                                      f"turned away from a near-tie: {d}")
         del models, params
+    rows += spec_reduced(torch, seed, to_device, submit_reduced)
+    rows.append(expert_reduced(torch, seed, to_device, submit_reduced))
     return {"configs": rows}
+
+
+def submit_reduced(eng, cfg, seed: int, n: int = 6) -> None:
+    """The reduced phase's requests: prompts of 5, 11, 3, 70, 8, 2 tokens
+    from ``seed`` + 3, 6 new tokens each; the first ``n``."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.RandomState(seed + 3)
+    for uid, size in enumerate((5, 11, 3, 70, 8, 2)):
+        prompt = rng.randint(0, cfg.vocab, size).astype(np.int32)
+        if uid < n:
+            eng.submit(Request(uid=uid, max_new_tokens=6, prompt=prompt))
+
+
+def reduced_gate(label: str, want: dict, got: dict) -> int:
+    """Requests whose tokens differ; the phase fails past one (a turn at a
+    near-tie, as the reduced paged runs allow)."""
+    turned = [u for u in want if want[u] != got[u]]
+    if len(turned) > 1:
+        raise SystemExit(f"{label}: requests {turned} differ: {want} vs "
+                         f"{got}")
+    return len(want) - len(turned)
+
+
+def spec_reduced(torch, seed: int, to_device, submit) -> list:
+    """Reduced qwen2-7b served speculatively (k = 3, the phase ``spec``'s
+    policies), fixed (int8 ring, ``compressed`` attention) and paged (fp
+    pages), on the card and on the CPU; the card's greedy tokens against
+    the CPU's and against the card's target-only engine's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+    from repro_torch.serve.engine import PagedServeEngine, ServeEngine
+    from repro_torch.serve.speculative import SpeculativeServeEngine
+
+    cfg = get_config("qwen2-7b").reduced()
+    models = {"cpu": build_model(cfg, device="cpu"),
+              "cuda": build_model(cfg)}
+    params = models["cpu"].init(make_generator(seed, "cpu"))
+    rows = []
+    for paged in (False, True):
+        target = spec_policy("w8a8_abfp", not paged)
+        kw = (dict(page_size=8, prefill_chunk=16) if paged
+              else dict(prefill_bucket=32))
+        toks = {}
+        reset_counts()
+        for dev, model in models.items():
+            eng = SpeculativeServeEngine(
+                model, to_device(params, dev), target_policy=target,
+                draft_policy=spec_policy("w4a8_abfp", not paged), draft_k=3,
+                n_slots=3, max_len=96, device=dev,
+                **(dict(kv_cache="paged", **kw) if paged else kw))
+            submit(eng, cfg, seed)
+            toks[dev] = {c.uid: c.tokens for c in eng.run_until_done()}
+            if dev == "cuda":
+                stats = eng.acceptance_stats()
+        counts = read_counts()
+        base = (PagedServeEngine if paged else ServeEngine)(
+            models["cuda"], to_device(params, "cuda"), n_slots=3, max_len=96,
+            policy=target, device="cuda", **kw)
+        submit(base, cfg, seed)
+        target_only = {c.uid: c.tokens for c in base.run_until_done()}
+        label = f"reduced {cfg.name} speculative {'paged' if paged else 'fixed'}"
+        row = {"arch": cfg.name, "engine": "speculative "
+               + ("paged" if paged else "fixed"), "draft_k": 3,
+               "requests": 6,
+               "requests_equal": reduced_gate(label + " card vs CPU",
+                                              toks["cpu"], toks["cuda"]),
+               "requests_equal_target_only": reduced_gate(
+                   label + " vs target-only", target_only, toks["cuda"]),
+               "accepted_per_target_step": stats["accepted_per_target_step"],
+               "launches": counts}
+        rows.append(row)
+        log("  " + json.dumps(row))
+        need = ("quant_matmul", "abfp_matmul") + (
+            () if paged else ("flash_attention_quant",))
+        if min(counts[k] for k in need) == 0:
+            raise SystemExit(f"{label}: a kernel of the path was not "
+                             f"launched: {counts}")
+        no_attention_kernel(label)
+    return rows
+
+
+def expert_reduced(torch, seed: int, to_device, submit) -> dict:
+    """Reduced Phi-3.5-MoE paged P-C with ``expert_cache=2``, refreshed
+    once the first requests are in, on the card and on the CPU; the card's
+    tokens against the CPU's and, exactly, against the card's run without
+    a store."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+    from repro_torch.serve.engine import PagedServeEngine
+
+    cfg = get_config("phi3.5-moe-42b-a6.6b").reduced()
+    models = {"cpu": build_model(cfg, device="cpu"),
+              "cuda": build_model(cfg)}
+    params = models["cpu"].init(make_generator(seed, "cpu"))
+    toks, stats = {}, None
+    reset_counts()
+    for dev, cache in (("cpu", 2), ("cuda", 2), ("cuda", None)):
+        eng = PagedServeEngine(
+            models[dev], to_device(params, dev), n_slots=3, max_len=96,
+            policy=slice_policy(True), page_size=8, kv="int8",
+            compress=True, expert_cache=cache, device=dev)
+        submit(eng, cfg, seed)
+        eng.tick()
+        if cache:
+            eng.refresh_experts()
+        toks[dev, cache] = {c.uid: c.tokens
+                            for c in eng.run_until_done()}
+        if dev == "cuda" and cache:
+            stats = moe_stats_brief(eng)
+            counts = read_counts()
+    label = f"reduced {cfg.name} expert_cache 2"
+    if toks["cuda", 2] != toks["cuda", None]:
+        raise SystemExit(f"{label}: the store's tokens on the card differ "
+                         f"from the run without one")
+    row = {"arch": cfg.name, "engine": "paged expert store", "requests": 6,
+           "requests_equal": reduced_gate(label + " card vs CPU",
+                                          toks["cpu", 2], toks["cuda", 2]),
+           "equal_without_store": True, "expert_stats": stats,
+           "launches": counts}
+    log("  " + json.dumps(row))
+    if not stats["cached_experts"] or not counts["quant_matmul"]:
+        raise SystemExit(f"{label}: {row}")
+    return row
 
 
 def clone_state(state):
@@ -2813,6 +2973,472 @@ def phase_identity(torch, seed: int) -> dict:
         log(f"  tokens differ at {len(vs_plain['divergences'])} near-ties "
             f"(control: {len(control['divergences'])}); logit drift "
             f"{gaps['whole_run']:.3g} std, {limit:.3g} allowed")
+    return report
+
+
+# --------------------------------------------------------------------------
+# phase: spec
+# --------------------------------------------------------------------------
+SPEC_K = 4  # draft tokens a round: the verify pass runs 4 x 5 = 20 rows
+SPEC_SHORT = (3, 2, 8)  # draft_k, requests, new tokens: 16 rows a verify
+SPEC_TEMPERATURE = (0.8, 20)  # temperature, top-k of the seeded run
+SPEC_CHECK_ROUNDS = 2  # verify passes held against sequential decode steps
+# launches of each speculative call by wrapper, attention kernel and x
+# pre-pass, read from the counts around the call
+SPEC_KINDS = ("draft", "verify", "prefill")
+
+
+def spec_policy(name: str, ring: bool):
+    """A speculative side's policy: preset ``name`` with ``fused`` on every
+    entry; ``ring``: an int8 ring read by the ``compressed`` attention
+    backend, else fp pages (paged speculative serving rejects quantized
+    pages, and ``compressed`` over fp storage raises), ``fused`` and no
+    attention-BMM QDQ: over fp pages that QDQ groups V along the sequence,
+    so a verify chunk's later tokens would move an earlier position's
+    codes and the verify pass would not be the sequential steps (the
+    reference's too)."""
+    from repro_torch.core.policy import (map_policies, preset,
+                                         with_attn_backend, with_kv_cache)
+
+    pol = map_policies(preset(name), lambda p: p.replace(
+        fused=True, attn_bmm=p.attn_bmm and ring))
+    if ring:
+        return with_attn_backend(with_kv_cache(pol, "int8"), "compressed")
+    return with_attn_backend(pol, "fused")
+
+
+def save_counts() -> dict:
+    return {name: (fn.launches, dict(getattr(fn, "launches_by_kernel", {})))
+            for name, fn in _wrappers().items()}
+
+
+def restore_counts(saved: dict) -> None:
+    """Launches made between ``save_counts`` and here (comparisons with
+    another path) leave the main path's counts as they were."""
+    for name, fn in _wrappers().items():
+        fn.launches = saved[name][0]
+        if hasattr(fn, "launches_by_kernel"):
+            fn.launches_by_kernel.update(saved[name][1])
+
+
+def count_snapshot() -> dict:
+    """Every wrapper's launches, flash_attention_quant's by kernel and
+    abfp_matmul's x pre-pass (``qdq_stream_kernel``), flat."""
+    out = dict(read_counts())
+    out.update(read_kernel_counts("flash_attention_quant"))
+    out["prepass"] = read_kernel_counts("abfp_matmul")["qdq_stream_kernel"]
+    return out
+
+
+def spec_counted(eng) -> dict:
+    """Wraps the draft side's steps, the target's verify and both sides'
+    prefills so that every call's launches are kept (a dict of nonzero
+    counts a call, by kind)."""
+    calls = {k: [] for k in SPEC_KINDS}
+
+    def wrap(side, name, kind):
+        inner = getattr(side, name)
+
+        def call(*a, **kw):
+            before = count_snapshot()
+            out = inner(*a, **kw)
+            after = count_snapshot()
+            calls[kind].append({k: after[k] - before[k] for k in after
+                                if after[k] != before[k]})
+            return out
+
+        setattr(side, name, call)
+
+    wrap(eng.draft, "decode", "draft")
+    wrap(eng.target, "verify", "verify")
+    wrap(eng.draft, "prefill_into", "prefill")
+    wrap(eng.target, "prefill_into", "prefill")
+    return calls
+
+
+def spec_want(cfg, paged: bool, k: int) -> dict:
+    """Launches of one draft step and one verify pass: every dense site of
+    every layer and the head through ``quant_matmul`` (the compressed
+    draft, 4 rows) or ``abfp_matmul`` (the target, 4 (k + 1) rows; its x
+    pre-pass where that is at most 16), one ``flash_attention_quant`` a
+    layer on the int8 ring (the decode kernel at S = 1, the prefill kernel
+    at S = k + 1), none over fp pages (the plain path, as in the
+    reference)."""
+    n = 7 * cfg.n_layers + 1
+    L = 0 if paged else cfg.n_layers
+    rows = 4 * (k + 1)
+    draft = {"quant_matmul": n, "flash_attention_quant": L,
+             "attention_decode_kernel": L}
+    verify = {"abfp_matmul": n, "flash_attention_quant": L,
+              "attention_prefill_kernel": L,
+              "prepass": n if rows <= 16 else 0}
+    return {"draft": {a: b for a, b in draft.items() if b},
+            "verify": {a: b for a, b in verify.items() if b}}
+
+
+def clone_ring(state):
+    """A deep copy of a fixed-slot DecodeState (its rings are written in
+    place)."""
+    kv = [type(c)(*(t.clone() if hasattr(t, "clone") else t for t in c))
+          for c in state.kv]
+    return state._replace(kv=kv, position=state.position.clone())
+
+
+def spec_gap_check(torch, eng, chunk, mask, vlogits, state0, perturbed
+                   ) -> dict:
+    """The verify pass's logits at every chunk position against the
+    target's own sequential ``decode_step`` logits on the same committed
+    context (a copy of the ring taken before the pass), and a control: the
+    same sequential steps with the embedding table scaled by 1 + 2**-20
+    (the identity phase's last-bit noise).  Gaps in units of the row's
+    std, over the active rows."""
+    import numpy as np
+
+    model, params, pol = eng.model, eng.target.params, eng.target.policy
+    V = model.cfg.vocab
+    rows = [s for s in range(eng.n_slots) if mask[s]]
+    seqs = {}
+    for name, p in (("seq", params), ("control", perturbed)):
+        st = clone_ring(state0)
+        out = []
+        for j in range(chunk.shape[1]):
+            lg, st = model.decode_step(
+                p, torch.as_tensor(chunk[:, j:j + 1], device="cuda"), st,
+                pol)
+            out.append(lg[:, :V].float().cpu().numpy())
+        seqs[name] = np.stack(out, axis=1)  # (B, S, V)
+
+    def gap(a, b):
+        return max(float(np.abs(a[s, j] - b[s, j]).max() / b[s, j].std())
+                   for s in rows for j in range(chunk.shape[1]))
+
+    return {"verify_vs_sequential": gap(vlogits[:, :, :V], seqs["seq"]),
+            "control_vs_sequential": gap(seqs["control"], seqs["seq"])}
+
+
+def free_card(torch) -> None:
+    """Collect the reference cycles a wrapped engine leaves (its sides'
+    methods close over the engine), then return the memory to the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def spec_engine(torch, model, params, *, paged: bool, k: int):
+    """A ``SpeculativeServeEngine`` on the card: the fused w8a8_abfp target
+    on the dense f32 weights, the w4a8_abfp draft compressed from them;
+    4 slots, max_len 512; an int8 ring (buckets of 64) or fp pages of 16
+    (prefill chunk 64).  Every round's wall ms is kept."""
+    from repro_torch.serve.speculative import SpeculativeServeEngine
+
+    class Engine(SpeculativeServeEngine):
+        def tick(self):
+            rounds = self.stats["rounds"]
+            t0 = time.perf_counter()
+            super().tick()  # ends in host copies: synchronized
+            if self.stats["rounds"] > rounds:
+                self.round_ms.append((time.perf_counter() - t0) * 1e3)
+
+    kw = (dict(kv_cache="paged", page_size=16, prefill_chunk=64) if paged
+          else dict(prefill_bucket=64))
+    eng = Engine(model, params, target_policy=spec_policy("w8a8_abfp",
+                                                          not paged),
+                 draft_policy=spec_policy("w4a8_abfp", not paged),
+                 draft_k=k, n_slots=4, max_len=512, **kw)
+    eng.round_ms = []
+    return eng
+
+
+def spec_run(torch, cfg, model, params, *, paged: bool, k: int, reqs,
+             smi: str, check_rounds: int = 0) -> dict:
+    """Serve ``reqs`` speculatively; assert every draft step's and verify
+    pass's launches, the completions' metadata, the emitted greedy tokens
+    against the verify logits' argmax and, paged, both pools drained.
+    ``check_rounds``: the first verify passes are also held against the
+    target's sequential decode steps (``spec_gap_check``)."""
+    import numpy as np
+
+    label = f"spec {'paged' if paged else 'fixed'} k={k}"
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = spec_engine(torch, model, params, paged=paged, k=k)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    calls = spec_counted(eng)
+    firsts, rounds, gaps = {}, [], []
+    perturbed = None
+    if check_rounds:
+        perturbed = dict(params, embed=dict(
+            params["embed"], table=params["embed"]["table"]
+            * (1.0 + 2.0 ** -20)))
+    prefill, verify = eng.target.prefill_into, eng.target.verify
+
+    def target_prefill(slot, prompt):
+        logits = prefill(slot, prompt)
+        firsts[prompt.tobytes()] = int(np.argmax(logits[:cfg.vocab]))
+        return logits
+
+    def target_verify(chunk, mask):
+        state0 = None
+        if len(gaps) < check_rounds:
+            state0 = clone_ring(eng.target.state)
+        vlogits = verify(chunk, mask)
+        rounds.append({eng.req[s].uid: (len(eng.generated[s]),
+                                        np.argmax(vlogits[s, :, :cfg.vocab],
+                                                  axis=-1).tolist())
+                       for s in range(eng.n_slots) if mask[s]})
+        if state0 is not None:
+            saved = save_counts()
+            gaps.append(spec_gap_check(torch, eng, chunk, mask, vlogits,
+                                       state0, perturbed))
+            restore_counts(saved)
+            del state0
+        return vlogits
+
+    eng.target.prefill_into, eng.target.verify = target_prefill, \
+        target_verify
+    for r in reqs:
+        eng.submit(r)
+    reset_counts()
+    t0 = time.perf_counter()
+    while eng._has_work():
+        eng.tick()
+        if eng.ticks > 2000:
+            raise SystemExit(f"{label}: did not drain in 2000 ticks")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, by_kernel = read_counts(), read_kernel_counts(
+        "flash_attention_quant")
+    prepass = read_kernel_counts("abfp_matmul")["qdq_stream_kernel"]
+    del perturbed
+    done = {c.uid: c for c in eng.done}
+    new = reqs[0].max_new_tokens
+    if sorted(done) != sorted(r.uid for r in reqs) or any(
+            len(c.tokens) != new or c.finished_reason != "length"
+            or not all(0 <= t < cfg.vocab for t in c.tokens)
+            for c in done.values()):
+        raise SystemExit(f"{label}: completions "
+                         f"{[(c.uid, c.tokens) for c in done.values()]}")
+    for c in done.values():
+        if not (c.target_steps > 0 and c.drafted_tokens == k * c.target_steps
+                and 0 <= c.accepted_draft_tokens <= c.drafted_tokens):
+            raise SystemExit(f"{label}: request {c.uid}: {c.target_steps} "
+                             f"target steps, {c.drafted_tokens} drafted, "
+                             f"{c.accepted_draft_tokens} accepted")
+    # every emitted token is the target's argmax at its position: the
+    # first one from the prefill logits, then each round's a + 1 tokens
+    # from the verify logits' first a + 1 rows
+    starts = {}
+    for rnd in rounds:
+        for uid, (at, _) in rnd.items():
+            starts.setdefault(uid, []).append(at)
+    for r in reqs:
+        toks = done[r.uid].tokens
+        if toks[0] != firsts[np.asarray(r.prompt, np.int32).tobytes()]:
+            raise SystemExit(f"{label}: request {r.uid}'s first token is "
+                             "not the target prefill's argmax")
+    for i, rnd in enumerate(rounds):
+        for uid, (at, argmax) in rnd.items():
+            later = [a for a in starts[uid] if a > at]
+            end = min(later) if later else len(done[uid].tokens)
+            emitted = done[uid].tokens[at:end]
+            if not emitted or emitted != argmax[:len(emitted)]:
+                raise SystemExit(f"{label}: round {i}, request {uid} "
+                                 f"emitted {emitted}, the verify argmax is "
+                                 f"{argmax}")
+    want = spec_want(cfg, paged, k)
+    for kind in ("draft", "verify"):
+        bad = [c for c in calls[kind] if c != want[kind]]
+        if bad or not calls[kind]:
+            raise SystemExit(f"{label}: {kind} launches {bad[:2]} of "
+                             f"{len(calls[kind])} calls, expected "
+                             f"{want[kind]} each")
+    if by_kernel["attention_kernel"]:
+        raise SystemExit(f"{label}: attention_kernel launched "
+                         f"{by_kernel['attention_kernel']} times")
+    stats = eng.acceptance_stats()
+    if stats["draft_steps"] != (k + 1) * stats["rounds"]:
+        raise SystemExit(f"{label}: {stats}")
+    pages = eng.page_stats()
+    for pool, st in pages.items():
+        if st["pages_in_use"] or not (
+                st["page_allocs"] == st["page_frees"] > 0):
+            raise SystemExit(f"{label}: the {pool} pool does not balance: "
+                             f"{st}")
+    n_tok = sum(len(c.tokens) for c in done.values())
+    prefills = calls["prefill"]
+    rep = {"engine": "paged" if paged else "fixed", "draft_k": k,
+           "verify_rows": 4 * (k + 1), "requests": len(reqs),
+           "prompt_lens": [len(r.prompt) for r in reqs],
+           "generated_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "engine_build_s": build_s,
+           "round_ms_median": statistics.median(eng.round_ms),
+           "rounds": stats["rounds"],
+           "accepted_per_target_step": stats["accepted_per_target_step"],
+           "acceptance_rate": stats["acceptance_rate"],
+           "acceptance": stats, "page_stats": pages,
+           "launches": counts, "launches_by_kernel": by_kernel,
+           "prepass_launches": prepass,
+           "launches_per_draft_step": want["draft"],
+           "launches_per_verify": want["verify"],
+           "draft_steps": len(calls["draft"]),
+           "verify_passes": len(calls["verify"]),
+           "prefill_launches": {k_: sum(c.get(k_, 0) for c in prefills)
+                                for k_ in sorted({x for c in prefills
+                                                  for x in c})},
+           "tokens": {u: c.tokens for u, c in sorted(done.items())},
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    if gaps:
+        rep["gap_checks"] = gaps
+    log(f"  {label}: {rep['tokens_per_s']:.2f} tokens/s, round "
+        f"{rep['round_ms_median']:.1f} ms (median of {len(eng.round_ms)}), "
+        f"{rep['accepted_per_target_step']:.3f} tokens a target step, "
+        f"acceptance {rep['acceptance_rate']:.3f}; peak "
+        f"{rep['peak_memory_bytes'] / 1e9:.2f} GB [{smi}]")
+    log(f"  {label}: " + json.dumps(rep))
+    return eng, rep
+
+
+def spec_kernel_checks(torch, seed: int) -> dict:
+    """The new shapes of the verify pass, held against their plain
+    versions and timed beside the bound: abfp_matmul on qwen2-7b's layers
+    at M = 20 (4 slots x 5 tokens: the tensor cores) and M = 16 (k = 3:
+    the decode kernels and their x pre-pass), w8a8's int8 weights; the
+    prefill kernel at S = 5 over a ring of 512 int8 keys."""
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 41)
+    rows = {"abfp_matmul": [], "flash_attention_quant": []}
+    for M in (4 * (SPEC_K + 1), 4 * (SPEC_SHORT[0] + 1)):
+        for name, K, N in DECODE_SHAPES:
+            rows["abfp_matmul"].append(check_dense_matmul(
+                torch, timer, gen, kind="fp", M=M, K=K, N=N, fw="int8",
+                label=f"spec verify {name} M={M} K={K} N={N} w8a8"))
+        torch.cuda.empty_cache()
+    rows["flash_attention_quant"].append(check_attention(
+        torch, timer, gen, S=SPEC_K + 1, T=512, probs=True, fp8=False,
+        block_k=0, q_starts=[100, 507, 37, -1], profiled=False,
+        want_kernel="attention_prefill_kernel",
+        label=f"spec verify S={SPEC_K + 1} T=512 int8 exact"))
+    del timer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_spec(torch, seed: int, smi: str) -> dict:
+    """Speculative serving of qwen2-7b at published width and full depth,
+    random weights from ``seed``: the fused w8a8_abfp target on the dense
+    f32 tree verifies what the w4a8_abfp draft compressed from it proposes.
+    Fixed-slot (int8 ring, ``compressed`` attention) at k = 4 on ``serve``'s
+    six requests, its first rounds held against sequential decode steps;
+    at k = 3 (16 rows a verify pass) on two of them, 8 new tokens; paged
+    over fp pages of 16 at k = 4; the seeded sampler twice.  A target-only
+    run of the same requests counts the tokens both emit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    log("== spec: qwen2-7b, full width and depth, speculative serving")
+    t_phase = time.perf_counter()
+    report = {"kernel_rows": spec_kernel_checks(torch, seed)}
+    cfg = get_config("qwen2-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(make_generator(seed, "cuda"))
+    torch.cuda.synchronize()
+    log(f"  dense model built in {time.perf_counter() - t0:.1f} s")
+    reqs = make_requests(cfg, seed)
+    eng, rep = spec_run(torch, cfg, model, params, paged=False, k=SPEC_K,
+                        reqs=reqs, smi=smi, check_rounds=SPEC_CHECK_ROUNDS)
+    # the verify pass against sequential decode steps: the identity
+    # phase's bar, from this check's own last-bit control
+    gaps = rep["gap_checks"]
+    control = max(g["control_vs_sequential"] for g in gaps)
+    limit = min(GAP_MAX, GAP_FACTOR * control)
+    worst = max(g["verify_vs_sequential"] for g in gaps)
+    rep["gap_limit"] = limit
+    log(f"  verify vs sequential decode steps: logit gap {worst:.4g} std "
+        f"(control {control:.4g}, limit {limit:.4g}) over "
+        f"{len(gaps)} rounds")
+    if not worst <= limit:
+        raise SystemExit(f"spec: the verify pass is {worst} std from the "
+                         f"target's sequential decode steps, over {limit}")
+    weights = eng.weight_bytes
+    rep["draft_weight_bytes"] = {
+        "dense": weights["dense_kernel_bytes"],
+        "compressed": weights["resident_kernel_bytes"]}
+    # a profiled round: four more requests, admitted (and a first round
+    # run) by one tick
+    for r in make_requests(cfg, seed + 1)[:4]:
+        r.max_new_tokens = PROFILE_NEW
+        eng.submit(r)
+    eng.tick()
+    rep["profile"] = profile_steps(torch, eng.tick, 2,
+                                   rep["round_ms_median"], kind="round")
+    eng.run_until_done(max_ticks=2000)
+    log("  round profile: " + json.dumps(rep["profile"]))
+    # the seeded sampler, twice on the same engine (admission rewrites a
+    # slot's rows and reseeds its stream)
+    temp, top_k = SPEC_TEMPERATURE
+    sampled = []
+    for _ in range(2):
+        eng.done.clear()
+        for r in reqs[:2]:
+            eng.submit(Request(uid=r.uid, prompt=r.prompt, max_new_tokens=6,
+                               temperature=temp, top_k=top_k,
+                               seed=100 + r.uid))
+        sampled.append({c.uid: c.tokens
+                        for c in eng.run_until_done(max_ticks=2000)})
+    if sampled[0] != sampled[1]:
+        raise SystemExit(f"spec: seeded sampling is not deterministic: "
+                         f"{sampled}")
+    rep["sampled"] = {"temperature": temp, "top_k": top_k,
+                      "tokens": sampled[0]}
+    del eng
+    free_card(torch)
+    report["fixed"] = rep
+    # target-only: the fixed-slot engine under the target's policy
+    base = ServeEngine(model, params, n_slots=4, max_len=512,
+                       policy=spec_policy("w8a8_abfp", True))
+    for r in reqs:
+        base.submit(Request(uid=r.uid, prompt=r.prompt, max_new_tokens=16))
+    saved = save_counts()
+    target_only = {c.uid: c.tokens for c in base.run_until_done()}
+    restore_counts(saved)
+    del base
+    free_card(torch)
+    agree = sum(a == b for u, t in target_only.items()
+                for a, b in zip(t, rep["tokens"][u]))
+    report["target_only_agreement"] = {
+        "tokens_equal": agree,
+        "tokens_total": sum(len(t) for t in target_only.values()),
+        "requests_equal": sum(t == rep["tokens"][u]
+                              for u, t in target_only.items())}
+    log("  speculative vs target-only tokens: "
+        + json.dumps(report["target_only_agreement"]))
+    torch.cuda.empty_cache()
+    k, n_req, new = SPEC_SHORT
+    short = [Request(uid=r.uid, prompt=r.prompt, max_new_tokens=new)
+             for r in reqs[:n_req]]
+    eng, report["fixed_short"] = spec_run(torch, cfg, model, params,
+                                          paged=False, k=k, reqs=short,
+                                          smi=smi)
+    del eng
+    eng, report["paged"] = spec_run(torch, cfg, model, params, paged=True,
+                                    k=SPEC_K, reqs=reqs, smi=smi)
+    del eng, model, params
+    free_card(torch)
+    runs = [report[k_] for k_ in ("fixed", "fixed_short", "paged")]
+    arch_totals(report, runs)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"  spec launches on the main paths: {json.dumps(report['launches'])}"
+        f", attention by kernel {json.dumps(report['launches_by_kernel'])},"
+        f" x pre-pass {report['prepass_launches']}; phase "
+        f"{report['phase_s']:.1f} s [{smi}]")
     return report
 
 
@@ -5402,6 +6028,11 @@ SCOUT_LOSS, SCOUT_PREFILL, SCOUT_STEPS = (2, 256), (2, 64), 16
 # path every block.
 ARCH_GAP_TOKENS = (1, 512)
 ARCH_SHORT_TOKENS = 128
+# the depth of the dense configs in dense_archs, cut to keep the whole
+# script inside 900 s on a slow host beside the spec phase (their kernel
+# shapes do not depend on the depth)
+DENSE_CUT_LAYERS = {"gemma2-9b": 10, "granite-3-8b": 10,
+                    "h2o-danube-1.8b": 12}
 
 
 def arch_sites(cfg) -> int:
@@ -5423,6 +6054,20 @@ def arch_calls(cfg, kind: str, head: bool = True) -> dict:
             return {"quant_matmul": n, "abfp_matmul": int(head)}
         return {"quant_matmul": n + int(head)}
     return {FIXED_PATHS[kind]: n + int(head)}
+
+
+def arch_probe(cfg) -> int:
+    """Matmul launches of the expert store's routing probe at admission
+    (``expert_loads``: every dense site, no head; attention at the full
+    prompt takes the plain path under attention-BMM QDQ)."""
+    return arch_sites(cfg) * cfg.n_layers
+
+
+def moe_stats_brief(eng) -> dict | None:
+    """``expert_stats()`` without the per-site lists."""
+    st = eng.expert_stats()
+    return None if st is None else {k: v for k, v in st.items()
+                                    if k != "sites"}
 
 
 def arch_attention(cfg) -> int:
@@ -5689,6 +6334,10 @@ def arch_paged(torch, cfg, seed: int, long: bool, smi: str) -> dict:
     attn = arch_attention(cfg)
     want = {k: v * eng.steps for k, v in arch_calls(cfg, "p_c").items()}
     want["flash_attention_quant"] = attn * eng.steps
+    if eng.expert_store is not None:
+        # the routing probe at each admission (``_observe_experts``): a
+        # forward of the prompt without the head, its attention plain
+        want["quant_matmul"] += arch_probe(cfg) * len(reqs)
     arch_expect(label, counts, want)
     want_kernel = dict.fromkeys(by_kernel, 0)
     want_kernel["attention_long_kernel" if long else
@@ -5714,9 +6363,12 @@ def arch_paged(torch, cfg, seed: int, long: bool, smi: str) -> dict:
                               for k, v in by_kind.items()},
            "launches": counts, "launches_by_kernel": by_kernel,
            "prepass_launches": prepass,
-           "launches_per_step": {k: v // eng.steps for k, v in want.items()},
+           "launches_per_step": {**arch_calls(cfg, "p_c"),
+                                 "flash_attention_quant": attn},
            "weight_bytes": weight_bytes_summary(eng.weight_bytes),
-           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "tokens": {c.uid: c.tokens for c in done},
+           "expert_stats": moe_stats_brief(eng)}
     rep["profile"] = profile_decode(
         torch, cfg, eng, seed, rep["step_ms_median"]["decode"],
         watch=("quant_decode_kernel", "contract_kernel",
@@ -5950,8 +6602,8 @@ def arch_totals(report: dict, runs) -> None:
 
 
 def phase_dense_archs(torch, seed: int, smi: str) -> dict:
-    """Gemma2-9B, Granite-3-8B and H2O-Danube-1.8B at published width and
-    depth, random weights from ``seed``, one at a time: the kernels at
+    """Gemma2-9B, Granite-3-8B and H2O-Danube-1.8B at published width
+    (depth: DENSE_CUT_LAYERS), random weights from ``seed``, one at a time: the kernels at
     their new shapes; Gemma2 paged P-C (attention on the plain path: its
     softcap), fixed P-fp and a loss on (2, 512) through the chunked 256k
     tied head; Granite paged P-C and fixed P-int8; Danube fixed P-fp
@@ -5960,7 +6612,7 @@ def phase_dense_archs(torch, seed: int, smi: str) -> dict:
     from repro_torch.configs import get_config
 
     log("== dense_archs: gemma2-9b, granite-3-8b, h2o-danube-1.8b at full "
-        "width and depth")
+        "width")
     t_phase = time.perf_counter()
     report = {"kernel_rows": arch_kernel_checks(torch, seed)}
     stamps = {"kernel_checks": time.perf_counter() - t_phase}
@@ -5970,6 +6622,10 @@ def phase_dense_archs(torch, seed: int, smi: str) -> dict:
             ("granite-3-8b", False, "p_int8", None),
             ("h2o-danube-1.8b", True, "p_fp", None)):
         cfg = get_config(arch)
+        if arch in DENSE_CUT_LAYERS:
+            log(f"  cut: {arch} runs {DENSE_CUT_LAYERS[arch]} of its "
+                f"{cfg.n_layers} layers")
+            cfg = cfg.replace(n_layers=DENSE_CUT_LAYERS[arch])
         rep = {"paged": arch_paged(torch, cfg, seed, paged_long, smi)}
         model, params = arch_build(torch, cfg, seed)
         rep["fixed"] = arch_fixed(torch, model, params, fixed, seed, smi)
@@ -5994,10 +6650,148 @@ def phase_dense_archs(torch, seed: int, smi: str) -> dict:
     return report
 
 
+PHI_EXPERT_CACHE = 4  # the reference's E // 4 for Phi-3.5's 16 experts
+PHI_AUTO = (2, 8)  # requests and new tokens of the precision-auto run
+
+
+def moe_store(torch, cfg, seed: int, smi: str, storeless: dict) -> dict:
+    """Phi-3.5-MoE paged P-C with the expert store, beside ``arch_paged``'s
+    run without one (a store of capacity 0).  First the launcher's
+    ``--expert-precision auto``: routing frequencies of two synthetic
+    one-group prompts (seed + 2), the 4 hottest experts INT8 and the rest
+    INT4 under ``*/experts.{e}`` rules, served on a few requests.  Then
+    ``expert_cache`` = E // 4 (the dense tree freed before serving),
+    ``refresh_experts()`` once the first requests are in and again once
+    the last one is: its tokens must be the storeless run's, exactly (a
+    cached copy is ``decompress_kernel`` of its entry, the function
+    ``ExpertBank.dense`` applies)."""
+    import numpy as np
+
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+    from repro_torch.serve.experts import (assign_expert_precision,
+                                           hot_experts, route_frequencies)
+
+    free_card(torch)
+    model = build_model(cfg)
+    params = model.init(make_generator(seed, "cuda"))
+    pol = slice_policy(True)
+    prng = np.random.RandomState(seed + 2)
+    gt = max(1, cfg.moe_group_tokens)
+    probe = [prng.randint(0, cfg.vocab, (1, gt)).astype(np.int32)
+             for _ in range(2)]
+    saved = save_counts()
+    loads = route_frequencies(model, params, probe, policy=pol)
+    restore_counts(saved)
+    # --expert-precision auto: hot experts INT8, cold INT4
+    n_hot = max(1, cfg.n_experts // 4)
+    eng = build_engine(torch, cfg, seed, True, model=model, params=params,
+                       policy=assign_expert_precision(loads, pol,
+                                                      n_hot=n_hot))
+    n_req, new = PHI_AUTO
+    auto_reqs = arch_requests(cfg, seed, False)[:n_req]
+    for r in auto_reqs:
+        r.max_new_tokens = new
+        eng.submit(r)
+    done = eng.run_until_done(max_ticks=2000)
+    if len(done) != n_req or any(len(c.tokens) != new or not all(
+            0 <= t < cfg.vocab for t in c.tokens) for c in done):
+        raise SystemExit(f"{cfg.name} precision auto: completions "
+                         f"{[(c.uid, c.tokens) for c in done]}")
+    auto = eng.expert_stats()
+    flat = storeless["expert_stats"]
+    fmts = sorted({r["fmt"] for r in eng.weight_bytes["sites"]
+                   if "/experts." in r["site"]})
+    auto_rep = {
+        "hot_experts": hot_experts(loads, n_hot),
+        "loads": [float(x) for x in np.asarray(loads).sum(axis=0)],
+        "expert_formats": fmts, "resident_bytes": auto["resident_bytes"],
+        "flat_int4_resident_bytes": flat["resident_bytes"],
+        "dense_bytes": auto["dense_bytes"],
+        "tokens": {c.uid: c.tokens for c in done}}
+    log(f"  {cfg.name} precision auto: experts {fmts}, resident "
+        f"{auto['resident_bytes']} bytes against flat INT4's "
+        f"{flat['resident_bytes']} (dense {auto['dense_bytes']}) [{smi}]")
+    del eng
+    free_card(torch)
+    # the store: E // 4 experts a layer cached, refreshed into the params
+    label = f"{cfg.name} paged p_c expert_cache {PHI_EXPERT_CACHE}"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build_engine(torch, cfg, seed, True, model=model, params=params,
+                       expert_cache=PHI_EXPERT_CACHE)
+    del params
+    free_card(torch)
+    build_s = time.perf_counter() - t0
+    reqs = arch_requests(cfg, seed, False)
+    for r in reqs:
+        eng.submit(r)
+    refresh_ms = []
+
+    def refresh():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.refresh_experts()
+        torch.cuda.synchronize()
+        refresh_ms.append((time.perf_counter() - t) * 1e3)
+
+    t0 = time.perf_counter()
+    eng.tick()  # the first four requests admitted and observed
+    refresh()
+    while eng._has_work():
+        queued = len(eng.queue)
+        eng.tick()
+        if queued and not eng.queue:
+            refresh()  # the last admission's routes in the cache too
+        if eng.ticks > 2000:
+            raise SystemExit(f"{label}: did not drain in 2000 ticks")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = {c.uid: c.tokens for c in eng.done}
+    if tokens != storeless["tokens"]:
+        raise SystemExit(f"{label}: tokens {tokens} differ from the run "
+                         f"without a store: {storeless['tokens']}")
+    stats = eng.expert_stats()
+    share = sum(r["resident_bytes"] for r in eng.weight_bytes["sites"]
+                if "/experts." in r["site"])
+    if stats["store_bytes"] != share or not stats["cached_experts"]:
+        raise SystemExit(f"{label}: store bytes {stats['store_bytes']} vs "
+                         f"the byte report's expert share {share}, "
+                         f"{stats['cached_experts']} cached")
+    banks = [b["ffn"]["wi"] for b in eng.params["blocks"]]
+    dense_entries = sum(not hasattr(e, "codes") for b in banks
+                        for e in b.entries)
+    decode = [ms for s_, ms in eng.step_ms if s_ == 1]
+    n_tok = sum(len(t) for t in tokens.values())
+    rep = {"expert_cache": PHI_EXPERT_CACHE, "engine_build_s": build_s,
+           "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "step_ms_median": {"decode": statistics.median(decode)},
+           "refresh_ms": refresh_ms, "tokens_equal_storeless": True,
+           "dense_entries_served": dense_entries,
+           "expert_stats": moe_stats_brief(eng),
+           "store_vs_byte_report_expert_share": [stats["store_bytes"],
+                                                 share],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "precision_auto": auto_rep}
+    rep["profile"] = profile_decode(torch, cfg, eng, seed,
+                                    rep["step_ms_median"]["decode"])
+    log(f"  {label}: " + json.dumps(rep))
+    log(f"  {label}: decode step {rep['step_ms_median']['decode']:.1f} ms "
+        f"wall, {rep['profile'].get('device_busy_ms_per_step')} busy; "
+        f"without a store {storeless['step_ms_median']['decode']:.1f} / "
+        f"{storeless['profile'].get('device_busy_ms_per_step')}; peak "
+        f"{rep['peak_memory_bytes'] / 1e9:.2f} GB [{smi}]")
+    del eng
+    free_card(torch)
+    return rep
+
+
 def phase_moe(torch, seed: int, smi: str) -> dict:
     """Phi-3.5-MoE at full width and PHI_LAYERS of its 32 layers: fixed
     P-fp (the expert stacks QDQ'd every forward), paged P-C (``ExpertBank``
-    int4 codes decompressed every step, as the reference does), a loss
+    int4 codes decompressed every step, as the reference does), then with
+    the expert store (``moe_store``: E // 4 experts cached and refreshed
+    into the params, tokens equal; ``--expert-precision auto``), a loss
     with its aux term and ``expert_loads``; Llama-4-Scout at full width and
     SCOUT_LAYERS of 48: a loss on (2, 256), a (2, 64) prefill and 16
     greedy steps under P-fp."""
@@ -6021,6 +6815,7 @@ def phase_moe(torch, seed: int, smi: str) -> dict:
                               loss_shape=PHI_LOSS, loads=True)
     del model, params
     rep["paged"] = arch_paged(torch, phi, seed, False, smi)
+    rep["store"] = moe_store(torch, phi, seed, smi, rep["paged"])
     report[phi.name] = rep
     stamps = {phi.name: time.perf_counter() - t_phase}
     model, params = arch_build(torch, sc, seed)
@@ -6092,6 +6887,7 @@ def main() -> int:
             "fixed": lambda: phase_fixed(torch, args.seed),
             "reduced": lambda: phase_reduced(torch, args.seed),
             "identity": lambda: phase_identity(torch, args.seed),
+            "spec": lambda: phase_spec(torch, args.seed, smi),
             "ptq": lambda: phase_ptq(torch, args.seed, smi),
             "vit": lambda: phase_vit(torch, args.seed, smi),
             "ssm": lambda: phase_ssm(torch, args.seed, smi),
@@ -6107,9 +6903,9 @@ def main() -> int:
             done[name] = runs[name]()
             phase_s[name] = round(time.perf_counter() - t0, 1)
     log("== seconds by phase: " + json.dumps(phase_s))
-    (kernel_rows, serve, long_ctx, fixed, ptq, vit, ssm, encdec, dense,
+    (kernel_rows, serve, long_ctx, fixed, spec, ptq, vit, ssm, encdec, dense,
      moe) = (done.get(p) for p in ("kernels", "serve", "long", "fixed",
-                                   "ptq", "vit", "ssm", "encdec",
+                                   "spec", "ptq", "vit", "ssm", "encdec",
                                    "dense_archs", "moe"))
     retakes = {p: {"empty": 0, "other": 0} for p in phases}
     for r in PROFILER_RETRIES:
@@ -6119,13 +6915,15 @@ def main() -> int:
 
     # launches of each kernel on the main paths, each counted from 0 just
     # before its run: the paged serve run, the long-context run, the two
-    # fixed-slot runs, the PTQ phase's fused evaluations, the vision
+    # fixed-slot runs, the three speculative runs, the PTQ phase's fused
+    # evaluations, the vision
     # phase's fused forwards, the SSM phase's served and Model runs, the
     # encdec phase's Model runs and the last families' served and Model
     # runs
     paths = {"serve": (serve or {}).get("launches", {}),
              "long": (long_ctx or {}).get("launches", {}),
              **{f"fixed_{k}": r["launches"] for k, r in (fixed or {}).items()},
+             "spec": (spec or {}).get("launches", {}),
              "ptq": (ptq or {}).get("launches", {}),
              "vit": (vit or {}).get("launches", {}),
              "ssm": (ssm or {}).get("launches", {}),
@@ -6135,7 +6933,7 @@ def main() -> int:
     # the ptq, vit, ssm, encdec, dense_archs and moe paths' shapes join
     # their kernels' rows
     kernel_rows = dict(kernel_rows or {})
-    for extra in (ptq, vit, ssm, encdec, dense, moe):
+    for extra in (spec, ptq, vit, ssm, encdec, dense, moe):
         for name, rows in (extra or {}).get("kernel_rows", {}).items():
             kernel_rows[name] = kernel_rows.get(name, []) + rows
     # the shape whose numbers head a kernel's entry: the decode shape
@@ -6162,7 +6960,7 @@ def main() -> int:
                 by_path["vit"] = vit_qdq
             # and on the SSM, encdec and last families' paths' P-fp and
             # P-C matmuls of up to 16 rows
-            for p, r in (("ssm", ssm), ("encdec", encdec),
+            for p, r in (("spec", spec), ("ssm", ssm), ("encdec", encdec),
                          ("dense_archs", dense), ("moe", moe)):
                 if (r or {}).get("prepass_launches"):
                     by_path[p] = r["prepass_launches"]
@@ -6216,8 +7014,8 @@ def main() -> int:
     rows = (kernel_rows or {}).get("flash_attention_quant", [])
     by_path = {p: (r or {}).get("launches_by_kernel") or {}
                for p, r in (("serve", serve), ("long", long_ctx),
-                            ("encdec", encdec), ("dense_archs", dense),
-                            ("moe", moe))}
+                            ("spec", spec), ("encdec", encdec),
+                            ("dense_archs", dense), ("moe", moe))}
     kernels[[k["name"] for k in kernels].index("flash_attention_quant")][
         "launches_by_kernel"] = by_path
     for kernel, timed_shape, replaces in (

@@ -46,6 +46,87 @@ def page_chunk_message(chunk: int, page_size: int) -> str:
     )
 
 
+def spec_kv_mismatch_message(draft_mode: str, target_mode: str) -> str:
+    """Speculative draft/target kv_cache storage modes must agree
+    (QL401 / SpeculativeServeEngine constructor): the two sides replay
+    the same positions against their own caches, and a mode mismatch
+    means the drafts were proposed against a different-fidelity context
+    than the one the target verifies."""
+    return (
+        f"speculative draft and target policies disagree on kv_cache "
+        f"storage (draft={draft_mode!r} vs target={target_mode!r}); align "
+        "both sides with with_kv_cache() before serving"
+    )
+
+
+def spec_quantized_pages_message(mode: str) -> str:
+    """Paged speculative serving requires fp page storage (QL403 /
+    SpeculativeServeEngine constructor): the quantized page write path
+    needs page-aligned chunks — a k+1 verify chunk rarely is — and the
+    per-(page, head) scales only ratchet upward, so a rollback could
+    never undo a rejected token's scale bump."""
+    return (
+        f"paged speculative serving cannot store kv_cache={mode!r} pages: "
+        "verify chunks are not page-aligned and page scales are monotone "
+        "(a rollback cannot lower them); use fp pages or the fixed-slot "
+        "engine's per-token int8 ring cache"
+    )
+
+
+def spec_draft_k_message(draft_k: int, max_len: int) -> str:
+    """Speculative draft depth sanity bound (QL404 /
+    SpeculativeServeEngine constructor)."""
+    return (
+        f"speculative draft depth draft_k={draft_k} is out of range: need "
+        f"1 <= draft_k < max_len ({max_len})"
+    )
+
+
+def expert_cache_capacity_message(capacity: int, n_experts: int) -> str:
+    """Expert cache at least as large as the expert count (QL501,
+    advisory): nothing ever evicts, so the compressed backing entries of
+    cached experts are pure overhead — serve dense-resident instead."""
+    return (
+        f"expert cache capacity {capacity} >= expert count {n_experts}: "
+        "every expert fits resident and the LRU never evicts, so the "
+        "compressed backing store is pure overhead — shrink the cache or "
+        "serve dense-resident"
+    )
+
+
+def expert_non_moe_message(what: str, arch: str) -> str:
+    """Expert-serving machinery pointed at a dense model (QL502 /
+    ExpertStore + engine ``expert_cache`` constructors): per-expert sites
+    only exist on MoE configs."""
+    return (
+        f"{what} requires an MoE config (n_experts > 0): {arch!r} has no "
+        "expert banks, so per-expert sites (…/experts.{e}) never resolve"
+    )
+
+
+def expert_precision_inversion_message(hot_bits: float,
+                                       cold_bits: float) -> str:
+    """Hot experts assigned fewer weight bits than cold ones (QL503,
+    advisory, computed from the roofline per-expert bit report)."""
+    return (
+        f"hot experts average {hot_bits:.1f} weight bits vs {cold_bits:.1f}"
+        " for cold experts: the most-routed experts carry LESS precision "
+        "than the rarely-routed ones — swap the assignment "
+        "(hot→INT8/FP8, cold→INT4)"
+    )
+
+
+def expert_cache_requires_compress_message() -> str:
+    """``expert_cache`` without compressed serving (engine constructors):
+    the cache swaps dense copies in for compressed backing entries; with
+    dense-resident params there is nothing to cache."""
+    return (
+        "expert_cache requires compress=True: the expert cache holds "
+        "decompressed copies of compressed backing entries, and "
+        "dense-resident serving has nothing to decompress"
+    )
+
+
 def compressed_attn_storage_message(mode: str, where: str) -> str:
     """Compressed attention over fp KV storage: the backend contracts
     stored codes — dense fp storage has none to contract."""

@@ -28,9 +28,15 @@ with ``--paged`` serves the text alone (the paged step takes no prefix).
 Both run through ``Model`` instead (``chip_smoke.py --phases encdec``).
 The dense configs (gemma2-9b, granite-3-8b, h2o-danube-1.8b) and the MoE
 configs (phi3.5-moe-42b-a6.6b, llama4-scout-17b-a16e) serve through
-either engine.  Flags of the reference launcher whose features are not ported yet
-(``--speculate``, ``--expert-cache``, ``--expert-precision auto``) exit
-with a message naming the ROADMAP item that will bring them.
+either engine.  ``--speculate`` serves through ``SpeculativeServeEngine``
+(a ``--draft-preset`` draft compressed from the same weights proposes
+``--draft-k`` tokens a round, the target verifies them in one pass; with
+``--paged`` over fp pages) and reports acceptance stats.  On an MoE arch,
+``--compress --expert-cache N`` keeps an LRU of N decompressed experts a
+MoE site and reports hit / miss and residency stats; ``--expert-precision
+auto`` probes routing frequencies on synthetic prompts and serves the
+hottest quarter of the experts at INT8, the rest at INT4.  Neither expert
+flag combines with ``--speculate``, as in the reference.
 There is no lint gate yet: the static analyzer is a late slice of the
 port, and the launcher says so.  Like the reference launcher it has no flag
 that sets ``fused`` on the policy, so its matmuls take the non-kernel
@@ -46,12 +52,6 @@ import sys
 import time
 
 import numpy as np
-
-
-def _not_ported(flag: str, item: str) -> SystemExit:
-    return SystemExit(
-        f"{flag} is not supported by the PyTorch port yet — ROADMAP.md "
-        f"Queue A, '{item}'")
 
 
 def main(argv=None) -> int:
@@ -72,9 +72,17 @@ def main(argv=None) -> int:
                     "INT4 packs two-per-byte) and contract the codes "
                     "directly — reports resident weight bytes")
     ap.add_argument("--expert-cache", type=int, default=None,
-                    help="not ported yet")
+                    help="expert-resident MoE serving (requires --compress "
+                    "on an MoE arch): LRU capacity, in experts per MoE "
+                    "site, of decompressed-dense copies admitted by "
+                    "routing frequency; reports hit/miss + residency "
+                    "stats (E//4 is the useful starting point)")
     ap.add_argument("--expert-precision", default="flat",
-                    choices=("flat", "auto"), help="'auto' is not ported yet")
+                    choices=("flat", "auto"),
+                    help="'auto' probes routing frequencies and assigns "
+                    "per-expert weight formats (hot experts INT8, cold "
+                    "INT4) as */experts.{e} policy rules before serving; "
+                    "'flat' keeps the policy's single weight format")
     ap.add_argument("--n-slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--n-requests", type=int, default=8)
@@ -101,13 +109,22 @@ def main(argv=None) -> int:
                     "'fused' runs the dense flash-attention kernel at "
                     "prefill where eligible, 'ref' pins the plain path, "
                     "'auto' keeps the module defaults")
-    ap.add_argument("--speculate", action="store_true", help="not ported yet")
+    ap.add_argument("--speculate", action="store_true",
+                    help="speculative serving: a compressed low-precision "
+                    "draft (same param tree, --draft-preset policy) "
+                    "proposes --draft-k tokens per round and the target "
+                    "verifies them in one chunked pass; reports "
+                    "acceptance stats (--paged selects paged KV with fp "
+                    "pages — --kv is ignored)")
     ap.add_argument("--draft-preset", default="w4a8_abfp",
-                    help="not ported yet (--speculate)")
+                    help="draft-side policy preset (--speculate)")
     ap.add_argument("--draft-k", type=int, default=4,
-                    help="not ported yet (--speculate)")
+                    help="draft tokens proposed per verify pass "
+                    "(--speculate)")
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="per-request sampling temperature (0 = greedy)")
+                    help="per-request sampling temperature (0 = greedy; "
+                    "under --speculate, > 0 switches acceptance to "
+                    "rejection sampling)")
     ap.add_argument("--top-k", type=int, default=0,
                     help="per-request top-k sampling cutoff (0 = full "
                     "distribution)")
@@ -119,12 +136,7 @@ def main(argv=None) -> int:
                     "card; 'cpu' must be asked for)")
     args = ap.parse_args(argv)
 
-    if args.speculate:
-        raise _not_ported("--speculate", "Speculative + MoE serving")
-    if args.expert_cache is not None or args.expert_precision != "flat":
-        raise _not_ported("--expert-cache / --expert-precision auto",
-                          "Speculative + MoE serving")
-
+    from repro_torch.analysis import messages as msg
     from repro_torch.configs import get_config
     from repro_torch.core.policy import (preset, replace_enabled,
                                          with_attn_backend)
@@ -133,6 +145,8 @@ def main(argv=None) -> int:
     from repro_torch.nn.module import make_generator
     from repro_torch.serve.engine import (PagedServeEngine, Request,
                                           ServeEngine)
+    from repro_torch.serve.kv_pages import PageGeometry, pages_for
+    from repro_torch.serve.speculative import SpeculativeServeEngine
 
     cfg = get_config(args.arch)
     if cfg.family == "vit":
@@ -152,6 +166,25 @@ def main(argv=None) -> int:
     policy = preset(policy_name, n_layers=cfg.n_layers)
     if args.attn_backend != "auto":
         policy = with_attn_backend(policy, args.attn_backend)
+    pages_geo = None
+    if args.paged:
+        chunk = max(args.page_size, -(-64 // args.page_size) * args.page_size)
+        n_pages = (args.n_pages if args.n_pages is not None
+                   else args.n_slots * pages_for(args.max_len,
+                                                 args.page_size))
+        pages_geo = PageGeometry(page_size=args.page_size, n_pages=n_pages,
+                                 max_len=args.max_len, prefill_chunk=chunk)
+    if args.expert_cache is not None or args.expert_precision != "flat":
+        if args.speculate:
+            raise SystemExit(
+                "--expert-cache / --expert-precision are not supported "
+                "under --speculate (the draft/target pair shares no "
+                "expert store)")
+        if args.expert_cache is not None and not args.compress:
+            raise SystemExit(msg.expert_cache_requires_compress_message())
+    draft_policy = None
+    if args.speculate:
+        draft_policy = preset(args.draft_preset, n_layers=cfg.n_layers)
     print("note: no pre-flight lint gate in the PyTorch port yet (the "
           "static analyzer is a later slice)", file=sys.stderr)
 
@@ -186,16 +219,59 @@ def main(argv=None) -> int:
             print(f"note: recipe {rec.name!r} produced a static q tree; "
                   "serving ignores it (dynamic-max fallback)",
                   file=sys.stderr)
-    if args.paged:
+    expert_info = {}
+    if args.expert_precision == "auto":
+        from repro_torch.serve.experts import (assign_expert_precision,
+                                               hot_experts,
+                                               route_frequencies)
+
+        if not getattr(model, "is_moe", False):
+            raise SystemExit(msg.expert_non_moe_message(
+                "--expert-precision auto", cfg.name))
+        # offline assignment pass: probe routing frequencies on synthetic
+        # prompts (group-size-aligned), hottest E//4 experts -> INT8,
+        # the rest INT4, emitted as a serializable per-expert PolicyMap
+        prng = np.random.RandomState(args.seed + 2)
+        gt = max(1, cfg.moe_group_tokens)
+        probe = [prng.randint(0, cfg.vocab, (1, gt)).astype(np.int32)
+                 for _ in range(2)]
+        loads = route_frequencies(model, params, probe, policy=policy)
+        n_hot = max(1, cfg.n_experts // 4)
+        hot = hot_experts(loads, n_hot)
+        try:
+            policy = assign_expert_precision(loads, policy, n_hot=n_hot)
+        except ValueError as e:  # e.g. fp32 base: no weight rule to split
+            raise SystemExit(f"--expert-precision auto: {e}")
+        policy_name = policy.name
+        expert_info["expert_precision"] = {
+            "mode": "auto",
+            "hot_experts": [int(e) for e in hot],
+            "loads": [float(x) for x in np.asarray(loads).sum(axis=0)],
+        }
+    if args.speculate:
+        kw = {}
+        if args.paged:
+            kw = dict(kv_cache="paged", page_size=pages_geo.page_size,
+                      n_pages=pages_geo.n_pages,
+                      prefill_chunk=pages_geo.prefill_chunk)
+        engine = SpeculativeServeEngine(
+            model, params, target_policy=policy, draft_policy=draft_policy,
+            draft_k=args.draft_k, n_slots=args.n_slots,
+            max_len=args.max_len, device=args.device, **kw,
+        )
+    elif args.paged:
         engine = PagedServeEngine(
             model, params, n_slots=args.n_slots, max_len=args.max_len,
-            policy=policy, compress=args.compress, page_size=args.page_size,
-            n_pages=args.n_pages, kv=args.kv, device=args.device,
+            policy=policy, compress=args.compress,
+            page_size=pages_geo.page_size, n_pages=pages_geo.n_pages,
+            prefill_chunk=pages_geo.prefill_chunk, kv=args.kv,
+            expert_cache=args.expert_cache, device=args.device,
         )
     else:
         engine = ServeEngine(
             model, params, n_slots=args.n_slots, max_len=args.max_len,
-            policy=policy, compress=args.compress, device=args.device,
+            policy=policy, compress=args.compress,
+            expert_cache=args.expert_cache, device=args.device,
         )
     del params  # with --compress the engine holds the served tree only
     compress_info = {}
@@ -226,13 +302,56 @@ def main(argv=None) -> int:
         torch.cuda.synchronize(engine.device)
     dt = time.perf_counter() - t0
     total_tokens = sum(len(c.tokens) for c in done)
-    completions = [
-        {"uid": c.uid, "prompt_len": c.prompt_len, "n_tokens": len(c.tokens),
-         "finished_reason": c.finished_reason}
-        for c in done
-    ]
+    # per-request completion metadata: accept counts and target steps are
+    # per-request facts, so they are reported there
+    completions = []
+    for c in done:
+        row = {"uid": c.uid, "prompt_len": c.prompt_len,
+               "n_tokens": len(c.tokens),
+               "finished_reason": c.finished_reason}
+        if args.speculate:
+            row.update({
+                "target_steps": c.target_steps,
+                "drafted_tokens": c.drafted_tokens,
+                "accepted_draft_tokens": c.accepted_draft_tokens,
+                "acceptance_rate": round(
+                    c.accepted_draft_tokens / c.drafted_tokens, 4)
+                    if c.drafted_tokens else 0.0,
+            })
+        completions.append(row)
+    spec_info = {}
+    if args.speculate:
+        stats = engine.acceptance_stats()
+        spec_info = {"speculative": {
+            "draft_preset": args.draft_preset,
+            "draft_k": args.draft_k,
+            "kv_cache": engine.kv_cache,
+            **{k: stats[k] for k in ("rounds", "target_steps", "draft_steps",
+                                     "drafted", "accepted")},
+            "acceptance_rate": round(stats["acceptance_rate"], 4),
+            "accepted_per_target_step": round(
+                stats["accepted_per_target_step"], 4),
+        }}
+        if engine.weight_bytes is not None:
+            spec_info["speculative"]["draft_weights"] = \
+                weight_bytes_summary(engine.weight_bytes)
+        if args.paged:
+            spec_info["speculative"]["page_stats"] = engine.page_stats()
+    estats = None if args.speculate else engine.expert_stats()
+    if estats is not None:
+        expert_info["experts"] = {
+            **{k: estats[k] for k in (
+                "capacity", "n_experts", "n_sites", "cached_experts", "hits",
+                "misses", "evictions")},
+            "hit_rate": round(estats["hit_rate"], 4),
+            **{k: estats[k] for k in (
+                "store_bytes", "cache_bytes", "resident_bytes", "hot_bytes",
+                "cold_bytes", "dense_bytes")},
+            "resident_ratio": round(estats["ratio"], 4),
+            "sites": estats["sites"],
+        }
     paged_info = {}
-    if args.paged:
+    if args.paged and not args.speculate:
         stats = engine.page_stats()
         paged_info = {
             "paged": True,
@@ -256,8 +375,11 @@ def main(argv=None) -> int:
                 "completions": completions,
                 **recipe_info,
                 **compress_info,
-                "attention": {"backend": engine.attn_backend,
-                              "engine": "paged" if args.paged else "fixed"},
+                **expert_info,
+                **spec_info,
+                "attention": {
+                    "backend": getattr(engine, "attn_backend", "auto"),
+                    "engine": "paged" if args.paged else "fixed"},
                 "device": str(engine.device),
                 **paged_info,
             }

@@ -455,6 +455,43 @@ class TransformerLM:
         logits = self.head_logits(params, x, policy)
         return logits[:, 0], new_state
 
+    @torch.no_grad()
+    def chunk_step(self, params, tokens, state: DecodeState, *,
+                   n_valid, policy=QuantPolicy(), q=None):
+        """Score a (B, S) token chunk against the fixed-slot KV cache.
+
+        The speculative verify pass: S sequential ``decode_step`` calls
+        under teacher forcing in one pass, returning logits at EVERY chunk
+        position (B, S, vocab_padded).  Rows score their first ``n_valid``
+        tokens; ``n_valid = 0`` masks a row.  The ring caches are updated
+        in place and ``position`` advances by ``n_valid`` per row — the
+        caller rolls back a rejected suffix by resetting positions.
+        Attention family only: SSM recurrent state cannot rewind.
+        """
+        c = self.cfg
+        if self.is_ssm:
+            raise TypeError(
+                "chunk_step is attention-family only; SSM recurrent state "
+                f"cannot roll back a rejected draft suffix ({c.name})")
+        pos = torch.as_tensor(state.position, dtype=torch.int32,
+                              device=tokens.device)
+        n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
+                                  device=tokens.device)
+        x, _ = self._embed_in(params, tokens, pos_offset=pos)
+        caches = []
+
+        def attend(i, w, attn, ap, h, qa):
+            h, cache = attn.chunk_step(ap, h, state.kv[i], position=pos,
+                                       n_valid=n_valid, policy=policy,
+                                       window=w, q=qa)
+            caches.append(cache)
+            return h
+
+        x, _ = self._run_blocks(params, x, policy, attend, q)
+        new_state = DecodeState(kv=caches, ssm=None, position=pos + n_valid)
+        x = _norm(c).apply(params["final_norm"], x)
+        return self.head_logits(params, x, policy), new_state
+
     # ---------------------------------------------------------- paged decode
     def init_paged_state(self, batch: int, *, page_size: int, n_pages: int,
                          max_pages_per_seq: int, kv: str = "fp",

@@ -6,6 +6,7 @@
     loss, metrics = model.loss(params, batch, policy, q)
     logits, state = model.prefill(params, batch, policy, max_len, n_valid)
     logits, state = model.decode_step(params, token, state, policy)
+    logits, state = model.chunk_step(params, tokens, state, n_valid=...)
     state = model.init_paged_state(n_slots, ...)
     logits, state = model.paged_step(params, tokens, state, n_valid=...)
 
@@ -118,6 +119,12 @@ class Model:
 
     def decode_step(self, params, token, state, policy=QuantPolicy()):
         return self.inner.decode_step(params, token, state, policy=policy)
+
+    def chunk_step(self, params, tokens, state, *, n_valid,
+                   policy=QuantPolicy()):
+        """All-position scoring of a token chunk (speculative verify)."""
+        return self.inner.chunk_step(params, tokens, state,
+                                     n_valid=n_valid, policy=policy)
 
     def init_paged_state(self, batch: int, **kw):
         """Paged-KV serving state (TransformerLM family only)."""

@@ -128,6 +128,13 @@ class ExpertBank:
                 for e in self.entries]
         return torch.stack(mats, dim=mats[0].ndim - 2)
 
+    def replace_entry(self, e: int, value) -> "ExpertBank":
+        """A bank with expert ``e``'s entry swapped for ``value`` (the
+        expert store swaps a dense copy in, or the backing entry back)."""
+        entries = list(self.entries)
+        entries[e] = value
+        return ExpertBank(entries)
+
     def __repr__(self):
         n_c = sum(isinstance(e, CompressedKernel) for e in self.entries)
         return (f"ExpertBank(n_experts={self.n_experts}, "

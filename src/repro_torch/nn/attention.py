@@ -595,6 +595,118 @@ class Attention:
             q=None if q is None else q.get("o"))
         return y, cache
 
+    def chunk_step(
+        self,
+        params: dict,
+        x: torch.Tensor,  # (B, S, d_model): an S-token verify/score chunk
+        cache: KVCache,
+        *,
+        position,  # (B,) absolute position of x[:, 0] (or a scalar)
+        n_valid,  # (B,) valid tokens in x (0 masks the row)
+        policy: Policy,
+        window: int | None = None,
+        q: dict | None = None,
+    ) -> tuple[torch.Tensor, KVCache]:
+        """Write-then-attend over an S-token chunk against the ring buffer.
+
+        The speculative verify pass: each chunk token attends to the whole
+        cache plus the chunk's own earlier tokens (strictly causal), as S
+        sequential ``decode_step`` calls would, and the returned
+        activations cover every chunk position.  Tokens past a row's
+        ``n_valid`` leave their slots untouched (a wrapped slot can still
+        hold a live older position) and produce outputs the caller
+        ignores.  The writes are in place.  Rolling back a rejection is
+        the caller rewinding ``position``: entries past it are masked by
+        the ring validity mask and overwritten by the next write.
+        """
+        pol = resolve_policy(policy, self.name)
+        B, S, _ = x.shape
+        dev = x.device
+        size = cache.k.shape[1]
+        if S > size:
+            raise ValueError(
+                f"chunk of {S} tokens exceeds the ring-buffer cache size "
+                f"{size}; a chunk must not wrap over itself")
+        position = torch.as_tensor(position, dtype=torch.int32, device=dev)
+        pos_vec = torch.broadcast_to(torch.atleast_1d(position), (B,))
+        n_valid = torch.as_tensor(n_valid, dtype=torch.int32, device=dev)
+        steps = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        positions = pos_vec[:, None] + steps  # (B, S)
+        qh, kh, vh = self._project_qkv(params, x, positions, policy, q)
+        int8_cache = cache.k_scale is not None
+        kv_on_write = (pol.enabled and pol.attn_bmm
+                       and pol.input is not None
+                       and pol.kv_cache == "on_write")
+        if kv_on_write:
+            kh = qdq_activation(kh, pol.input, axis=-1,
+                                site=self.name + "/bmm_k")
+            vh = qdq_activation(vh, pol.input, axis=-1,
+                                site=self.name + "/bmm_v")
+        rows = torch.arange(B, device=dev)[:, None]
+        slot = (positions % size).long()  # (B, S)
+        # invalid tail tokens (>= n_valid) keep their target slots as-is
+        kf = (steps < n_valid[:, None])[..., None]  # (B, S, 1)
+
+        def write(store, new):
+            store[rows, slot] = torch.where(kf, new.to(store.dtype),
+                                            store[rows, slot])
+
+        if int8_cache:
+            kc, ks = _kv_quantize(kh)  # per (token, head): rollback-exact
+            vc, vs = _kv_quantize(vh)
+            write(cache.k, kc.reshape(B, S, -1))
+            write(cache.v, vc.reshape(B, S, -1))
+            write(cache.k_scale, ks)
+            write(cache.v_scale, vs)
+        else:
+            write(cache.k, kh.reshape(B, S, -1))
+            write(cache.v, vh.reshape(B, S, -1))
+        last = pos_vec + torch.clamp_min(n_valid, 1) - 1  # last written
+        cache = cache._replace(length=last.max() + 1)
+
+        # absolute position per ring slot (decode_step's formula at the
+        # chunk's high-water mark)
+        idx = torch.arange(size, dtype=torch.int32, device=dev)[None]
+        slot_b = (last % size)[:, None]
+        ring_rounds = torch.div(last, size,
+                                rounding_mode="floor")[:, None] * size
+        slot_pos = idx + torch.where(idx <= slot_b, ring_rounds,
+                                     ring_rounds - size)
+        unwritten = (slot_pos > last[:, None]) | (slot_pos < 0)
+        slot_pos = torch.where(unwritten, torch.full_like(slot_pos, -1),
+                               slot_pos)
+
+        dt = getattr(torch, self.dtype)
+        if window is None:
+            window = size + 1
+        if self._use_compressed(pol, mode="int8" if int8_cache else "fp",
+                                where="the ring-buffer cache"):
+            out = attn_backends()["compressed"].fn(
+                self._quant_q(pol, qh, q),
+                cache.k.reshape(B, size, self.n_kv, self.head_dim),
+                cache.v.reshape(B, size, self.n_kv, self.head_dim),
+                cache.k_scale, cache.v_scale, positions, slot_pos, window,
+                scale=self._scale(), causal=self.causal,
+                probs_tq=self._attn_probs_tq(pol),
+            ).to(dt)
+        else:
+            if int8_cache:
+                kv = _kv_dequantize(cache.k, cache.k_scale, self.n_kv,
+                                    self.head_dim, dt)
+                vv = _kv_dequantize(cache.v, cache.v_scale, self.n_kv,
+                                    self.head_dim, dt)
+            else:
+                kv = cache.k.reshape(B, size, self.n_kv, self.head_dim)
+                vv = cache.v.reshape(B, size, self.n_kv, self.head_dim)
+            out = self._reference(qh, kv, vv, positions, slot_pos, window,
+                                  policy, q=q,
+                                  kv_prequant=kv_on_write or int8_cache)
+        y = self._dense("o", self.d_model,
+                        self.n_heads * self.head_dim).apply(
+            params["o"], out.reshape(B, S, -1), policy,
+            q=None if q is None else q.get("o"))
+        return y, cache
+
     # ------------------------------------------------------- paged decoding
     def init_paged_cache(self, n_pages: int, page_size: int, dtype=None,
                          kv: str = "fp", device="cuda") -> PagedKVCache:

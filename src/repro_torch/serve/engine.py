@@ -39,8 +39,17 @@ drops its weight quantizers; qmatmul's ``compressed`` execution backend
 then contracts the stored codes directly, so decode never dequantizes a
 kernel.  ``engine.weight_bytes`` records the resident-byte accounting.
 
-Speculative serving and the MoE expert store of the reference are later
-slices of the port.
+Expert-resident MoE serving: when ``compress=True`` meets an MoE model,
+the per-expert compressed banks are collected into a
+``serve.experts.ExpertStore`` — an LRU (``expert_cache`` capacity) of
+decompressed-dense expert copies fed by a routing-frequency probe at
+admission.  ``refresh_experts()`` swaps cache-resident experts into the
+params (skipping their per-step dequant); cache state is pure
+representation, so hits/misses/refreshes never change tokens.
+``expert_stats()`` reports hit/miss + residency split hot/cold.
+
+Speculative serving (a compressed draft, a verifying target) is
+``serve.speculative.SpeculativeServeEngine``, on the same base.
 """
 
 from __future__ import annotations
@@ -128,6 +137,25 @@ def _tree_devices(tree, out: set):
     return out
 
 
+def copy_into_slot(full_caches, part_caches, slot: int) -> None:
+    """Copy each layer's batch-1 prefill cache (ring, or SSM conv window and
+    state) into row ``slot`` of the engine's batched caches, in place."""
+    for full, part in zip(full_caches, part_caches):
+        for f, p in zip(full, part):
+            if f is None or f.ndim == 0:
+                continue  # absent scales / the scalar length mark
+            if p.shape[0] != 1:
+                raise ValueError(
+                    f"prefill state must be batch-1 along axis 0 to "
+                    f"scatter into a slot; got shape {tuple(p.shape)}")
+            if p.shape[1:] != f.shape[1:]:
+                raise ValueError(
+                    "prefill cache shape mismatch — prefill with the "
+                    f"engine's max_len: got {tuple(p.shape)} vs engine "
+                    f"{tuple(f.shape)} (batch axis 0)")
+            f[slot] = p[0].to(f.dtype)
+
+
 class _EngineBase:
     """Queue / completion bookkeeping shared by the engines."""
 
@@ -136,6 +164,7 @@ class _EngineBase:
     policy: Policy
     n_slots: int
     max_len: int
+    expert_store = None  # set by MoE compressed construction
 
     def _bind(self, model, params, device):
         """Check that the model and every parameter live on ``device`` (the
@@ -149,10 +178,13 @@ class _EngineBase:
                     f"params live on {where}; build and init the model on "
                     "the engine's device")
 
-    def _compress(self, params, policy, compress: bool):
+    def _compress(self, params, policy, compress: bool,
+                  expert_cache: int | None = None):
         """Compressed serving: weights stored per resolved site rule once,
-        the runtime policy without weight quantizers."""
+        the runtime policy without weight quantizers; on an MoE model the
+        expert banks also go into an ``ExpertStore``."""
         self.weight_bytes = None
+        served = None
         if compress:
             from repro_torch.models import serving_transforms as st
 
@@ -160,8 +192,71 @@ class _EngineBase:
             self.weight_bytes = st.weight_bytes_report(params, served)
             params = served
             policy = st.serving_policy(policy)
+        self._build_expert_store(served, expert_cache, compress)
         self.params = params
         self.policy = policy
+
+    # ------------------------------------------------------- expert store
+    def _build_expert_store(self, served, expert_cache: int | None,
+                            compress: bool) -> None:
+        """Validate the ``expert_cache`` request and, when compressed
+        serving meets an MoE model, collect the expert banks into an
+        ``ExpertStore`` (per-expert backing entries + LRU caches)."""
+        name = getattr(self.model.cfg, "name", "?")
+        if expert_cache is not None:
+            if not compress:
+                raise ValueError(msg.expert_cache_requires_compress_message())
+            if not getattr(self.model, "is_moe", False):
+                raise ValueError(msg.expert_non_moe_message(
+                    "an expert cache", name))
+        if compress and getattr(self.model, "is_moe", False):
+            from repro_torch.serve.experts import ExpertStore
+
+            try:
+                self.expert_store = ExpertStore(
+                    served, capacity=int(expert_cache or 0),
+                    model_name=name)
+            except ValueError:
+                # float-rule banks stayed plain dense stacks — nothing to
+                # store; serving is dense-resident and trivially identical
+                self.expert_store = None
+
+    def _observe_experts(self, prompt) -> None:
+        """Probe routing loads for an admitted prompt and feed the store.
+
+        The probe pads the prompt to a multiple of the MoE group size
+        (the dispatch asserts ``(B*S) % group_tokens == 0``) — pad-token
+        routes only perturb the frequency counters, and counters / cache
+        state never enter the compute path, so tokens are unaffected.
+        ``Model.expert_loads`` runs eagerly at that padded length."""
+        if self.expert_store is None:
+            return
+        p = np.asarray(prompt, np.int32).reshape(-1)
+        gt = max(1, getattr(self.model.cfg, "moe_group_tokens", 1))
+        padded = max(gt, -(-len(p) // gt) * gt)
+        if padded != len(p):
+            p = np.concatenate([p, np.zeros(padded - len(p), np.int32)])
+        loads = self.model.expert_loads(
+            self.params, torch.as_tensor(p[None], device=self.device),
+            policy=self.policy)
+        self.expert_store.observe(loads.cpu().numpy())
+
+    def refresh_experts(self) -> None:
+        """Swap cache-resident experts into the serving params (and
+        evicted ones back to their compressed entries).  Tokens are
+        unchanged by construction — the cached dense copies equal the
+        dequantized backing entries bit for bit."""
+        if self.expert_store is None:
+            raise ValueError(
+                "refresh_experts: engine has no expert store (construct "
+                "with compress=True on an MoE model)")
+        self.params = self.expert_store.materialize(self.params)
+
+    def expert_stats(self) -> dict | None:
+        """The store's residency/traffic report, or None when expert-
+        resident serving is inactive."""
+        return (None if self.expert_store is None
+                else self.expert_store.stats())
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         """(n_slots, vocab) logits -> (n_slots, 1) sampled tokens."""
@@ -196,6 +291,10 @@ class _EngineBase:
             )
         self.queue.append(req)
 
+    def _completion_extra(self, slot: int) -> dict:
+        """Per-request metadata hook (the speculative engine overrides)."""
+        return {}
+
     def _complete(self, slot: int, reason: str):
         req = self.req[slot]
         self.done.append(
@@ -204,6 +303,7 @@ class _EngineBase:
                 tokens=list(self.generated[slot]),
                 prompt_len=len(req.prompt),
                 finished_reason=reason,
+                **self._completion_extra(slot),
             )
         )
         self.req[slot] = None
@@ -253,6 +353,7 @@ class ServeEngine(_EngineBase):
         policy: Policy = QuantPolicy(),
         prefill_bucket: int = 64,
         compress: bool = False,
+        expert_cache: int | None = None,
         device="cuda",
     ):
         self._bind(model, params, device)
@@ -265,7 +366,7 @@ class ServeEngine(_EngineBase):
             # the decode path would raise this at its first step anyway
             raise ValueError(msg.compressed_attn_storage_message(
                 mode, "the ring-buffer cache"))
-        self._compress(params, policy, compress)
+        self._compress(params, policy, compress, expert_cache)
         self.n_slots = n_slots
         self.max_len = max_len
         self.prefill_bucket = prefill_bucket
@@ -307,21 +408,8 @@ class ServeEngine(_EngineBase):
                       first_token: int):
         """Copy a batch-1 prefill DecodeState into slot ``slot``: every
         layer's ring cache, or its SSM conv window and state."""
-        for full, part in zip(self.state.kv or self.state.ssm,
-                              sub.kv or sub.ssm):
-            for f, p in zip(full, part):
-                if f is None or f.ndim == 0:
-                    continue  # absent scales / the scalar length mark
-                if p.shape[0] != 1:
-                    raise ValueError(
-                        f"prefill state must be batch-1 along axis 0 to "
-                        f"scatter into a slot; got shape {tuple(p.shape)}")
-                if p.shape[1:] != f.shape[1:]:
-                    raise ValueError(
-                        "prefill cache shape mismatch — prefill with the "
-                        f"engine's max_len: got {tuple(p.shape)} vs engine "
-                        f"{tuple(f.shape)} (batch axis 0)")
-                f[slot] = p[0].to(f.dtype)
+        copy_into_slot(self.state.kv or self.state.ssm, sub.kv or sub.ssm,
+                       slot)
         self.state.position[slot] = prompt_len
         self._cur[slot, 0] = first_token
 
@@ -331,6 +419,7 @@ class ServeEngine(_EngineBase):
             if self.active[slot] or not self.queue:
                 continue
             req = self.queue.pop(0)
+            self._observe_experts(req.prompt)
             S = len(req.prompt)
             padded = self._bucketed(S)
             tokens = np.zeros((1, padded), np.int32)
@@ -430,6 +519,7 @@ class PagedServeEngine(_EngineBase):
         prefill_chunk: int | None = None,
         kv: str = "auto",
         compress: bool = False,
+        expert_cache: int | None = None,
         device="cuda",
     ):
         self._bind(model, params, device)
@@ -455,7 +545,7 @@ class PagedServeEngine(_EngineBase):
             raise ValueError(msg.compressed_attn_storage_message(
                 "fp", "the paged KV pool"))
 
-        self._compress(params, policy, compress)
+        self._compress(params, policy, compress, expert_cache)
         self._paged_step = serve_steps.make_paged_step(model, self.policy)
         self.n_slots = n_slots
         self.max_len = max_len
@@ -505,6 +595,7 @@ class PagedServeEngine(_EngineBase):
             if pages is None:
                 return  # FCFS: the head waits for pages; no overtaking
             self.queue.pop(0)
+            self._observe_experts(req.prompt)
             slot = free[0]
             self.slot_pages[slot] = pages
             self.table[slot, :] = -1

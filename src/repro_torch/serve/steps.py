@@ -37,6 +37,48 @@ def make_paged_step(model, policy: Policy = QuantPolicy()) -> Callable:
 
 
 # ---------------------------------------------------------------------------
+# Speculative step factories: the draft decodes one token at a time, the
+# target scores a whole [current, d_1..d_k] chunk in ONE pass.
+# ---------------------------------------------------------------------------
+def make_draft_step(model, policy: Policy = QuantPolicy(),
+                    paged: bool = False) -> Callable:
+    """S = 1 decode returning full logits (B, V) + new state.
+
+    The speculative engine samples on the host from the returned logits
+    (it needs the draft distribution for rejection sampling anyway), so
+    the draft step stays sampling-free and is the plain decode step.
+    """
+    if paged:
+        def draft_step(params, token, state, n_valid):
+            return model.paged_step(params, token, state,
+                                    n_valid=n_valid, policy=policy)
+    else:
+        def draft_step(params, token, state):
+            return model.decode_step(params, token, state, policy)
+
+    return draft_step
+
+
+def make_verify_step(model, policy: Policy = QuantPolicy(),
+                     paged: bool = False) -> Callable:
+    """One chunked pass scoring all S positions: (B, S) -> (B, S, V).
+
+    Verifying k drafts is one step of S = k + 1 tokens, not k decode
+    steps.
+    """
+    if paged:
+        def verify_step(params, tokens, state, n_valid):
+            return model.paged_step(params, tokens, state, n_valid=n_valid,
+                                    policy=policy, all_logits=True)
+    else:
+        def verify_step(params, tokens, state, n_valid):
+            return model.chunk_step(params, tokens, state, n_valid=n_valid,
+                                    policy=policy)
+
+    return verify_step
+
+
+# ---------------------------------------------------------------------------
 # Sampling
 # ---------------------------------------------------------------------------
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:

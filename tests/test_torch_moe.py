@@ -33,6 +33,7 @@ from repro.models import build_model as j_build_model
 from repro.models import serving_transforms as jst
 from repro.nn import moe as j_moe
 from repro.nn.module import unbox
+from repro_torch.analysis.messages import expert_cache_requires_compress_message
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.core import policy as tp
 from repro_torch.launch import serve as tserve
@@ -356,7 +357,9 @@ def test_paged_engine_tokens_equal_reference(stacks):
 
 def test_launcher_serves_an_moe_arch(capsys):
     """``--arch phi3.5-moe-42b-a6.6b`` reaches the paged engine on the CPU
-    (reduced), compressed; the MoE serving flags keep their exit."""
+    (reduced), compressed, with an expert store (capacity 0) whose stats
+    the report carries; ``--expert-cache`` without ``--compress`` exits
+    with the reference's message."""
     assert tserve.main(["--arch", "phi3.5-moe-42b-a6.6b", "--paged",
                         "--compress", "--policy", "w4a8_abfp", "--kv",
                         "int8", "--n-requests", "2", "--max-new-tokens", "3",
@@ -365,9 +368,11 @@ def test_launcher_serves_an_moe_arch(capsys):
     got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert got["arch"] == "phi3.5-moe-42b-a6.6b-reduced"
     assert got["requests"] == 2 and got["compressed_sites"] > 0
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
+    assert got["experts"]["capacity"] == 0 and got["experts"]["misses"] > 0
+    with pytest.raises(SystemExit) as e:
         tserve.main(["--arch", "phi3.5-moe-42b-a6.6b", "--paged",
                      "--expert-cache", "2", "--device", "cpu"])
+    assert str(e.value) == expert_cache_requires_compress_message()
 
 
 FULL = {"phi3.5-moe-42b-a6.6b": (41_873_833_984, 32_256, 32),
