@@ -204,6 +204,22 @@ Phases (each fatal on failure):
             layers: a loss on (2, 256), a (2, 64) prefill and 16 greedy
             steps under P-fp (flash_mma_kernel at G = 5); launches, times
             and numerics as in dense_archs
+  train     opt-125m at full width and depth through launch/train's
+            make_everything + run: 20 QAT steps under w4a8_abfp at 16 x
+            512 (checkpoints every 10), loss falling, every leaf moved; ms
+            a step, tokens/s, peak memory, two profiled steps (busy, idle,
+            launches); two runs from one state without deterministic
+            algorithms, bit-equal or not; a run stopped after step 10 and restarted
+            to 20, bit-equal to the uninterrupted one; the QAT'd weights
+            evaluated under fused P-fp and P-int8 (73 dense matmuls and
+            12 flash_mma_kernel a forward asserted, logits held to the ref
+            backend as in ptq), their kernels at M = 4096 held to their
+            plain versions and timed; h2o-danube-1.8b at full width and
+            depth, 3 QAT steps at 8 x 512 under remat dots and full (step
+            1's loss bit-equal, ms a step, peak memory); opt-125m fp32 2
+            microbatches against 1: the loss at the reference's bar, the
+            gradients held to a reordered and a nudged full-batch control
+            that a planted dropped microbatch must fail
 
 The last lines of standard output are: one JSON object {"kernels": [...]},
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -213,6 +229,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -230,7 +247,7 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 
 PHASES = ("kernels", "serve", "long", "fixed", "reduced", "identity", "spec",
-          "ptq", "vit", "ssm", "encdec", "dense_archs", "moe")
+          "ptq", "vit", "ssm", "encdec", "dense_archs", "moe", "train")
 
 # every kernel: (wrapper module, TPU kernel it replaces)
 KERNELS = {
@@ -3543,6 +3560,38 @@ class PTQTimers:
         return False
 
 
+def fused_logit_gap(torch, model, params, batch, kp, label: str) -> dict:
+    """One batch's logits under the fused policy ``kp`` against the ref
+    backend's, in units of their std, held as the identity phase holds its
+    paths: at most GAP_FACTOR times as far as the ref backend moves from
+    itself when its embedding table is scaled by 1 + 2**-20 (the kernels
+    add the same f32 terms in other orders, and a last bit can move a
+    value across a rounding boundary), and at most GAP_MAX; the weights
+    with no QDQ at all (fp32) must lie beyond that limit."""
+    from repro_torch.core.policy import preset
+
+    rp = ref_backend(kp)
+    ref = ptq_logits(torch, model, params, batch, rp)
+    gap = logit_gap(torch, ptq_logits(torch, model, params, batch, kp), ref)
+    nudged = dict(params, embed=dict(
+        params["embed"], table=params["embed"]["table"] * (1 + 2.0 ** -20)))
+    last_bit = logit_gap(torch, ptq_logits(torch, model, nudged, batch, rp),
+                         ref)
+    no_qdq = logit_gap(torch, ptq_logits(torch, model, params, batch,
+                                         preset("fp32")), ref)
+    del ref, nudged
+    limit = min(GAP_MAX, GAP_FACTOR * last_bit)
+    log(f"  {label} fused logits {gap:.3g} std from the ref backend's "
+        f"(limit {limit:.3g}; last-bit control {last_bit:.3g}, fp32 with "
+        f"no QDQ {no_qdq:.3g})")
+    if not gap <= limit < no_qdq:
+        raise SystemExit(f"{label} fused logits are {gap} std from the ref "
+                         f"backend's; limit {limit}, no-QDQ control "
+                         f"{no_qdq}")
+    return {"logit_gap_over_std": gap, "last_bit_control_over_std": last_bit,
+            "no_qdq_control_over_std": no_qdq, "logit_gap_limit": limit}
+
+
 def gptq_card_vs_cpu(torch, params, calib) -> dict:
     """GPTQ of blocks.0/attn/q (K = 768) and blocks.0/ffn/wo (K = 3072)
     with the card's Hessians, on the card and on the CPU in float64.  The
@@ -3754,40 +3803,12 @@ def phase_ptq(torch, seed: int, smi: str) -> dict:
         rp = ref_backend(kp)
         lk, ms_k = ptq_eval(torch, model, params, evals, kp)
         lr, ms_r = ptq_eval(torch, model, params, evals, rp)
-        # one held-out batch's logits against the ref backend's, in units
-        # of their std, held as the identity phase holds its paths: at most
-        # GAP_FACTOR times as far as the ref backend moves from itself when
-        # its embedding table is scaled by 1 + 2**-20 (the kernels add the
-        # same f32 terms in other orders, and a last bit can move a value
-        # across a rounding boundary), and at most GAP_MAX; the fp32
-        # weights with no QDQ at all must lie beyond that limit
-        ref = ptq_logits(torch, model, params, evals[0], rp)
-        gap = logit_gap(torch, ptq_logits(torch, model, params, evals[0],
-                                          kp), ref)
-        nudged = dict(params, embed=dict(
-            params["embed"], table=params["embed"]["table"]
-            * (1 + 2.0 ** -20)))
-        last_bit = logit_gap(torch, ptq_logits(torch, model, nudged,
-                                               evals[0], rp), ref)
-        no_qdq = logit_gap(torch, ptq_logits(torch, model, params, evals[0],
-                                             preset("fp32")), ref)
-        del ref, nudged
-        limit = min(GAP_MAX, GAP_FACTOR * last_bit)
         fused[kind] = {"loss": lk, "ref_backend_loss": lr,
                        "relative_loss_gap": abs(lk - lr) / abs(lr),
-                       "logit_gap_over_std": gap,
-                       "last_bit_control_over_std": last_bit,
-                       "no_qdq_control_over_std": no_qdq,
-                       "logit_gap_limit": limit,
+                       **fused_logit_gap(torch, model, params, evals[0], kp,
+                                         f"ptq: {kind}"),
                        "eval_ms": ms_k, "ref_eval_ms": ms_r}
-        log(f"  {kind} fused: loss {lk:.6f}, ref backend {lr:.6f}; logits "
-            f"{gap:.3g} std from the ref backend's (limit {limit:.3g}; "
-            f"last-bit control {last_bit:.3g}, fp32 with no QDQ "
-            f"{no_qdq:.3g})")
-        if not gap <= limit < no_qdq:
-            raise SystemExit(f"ptq: {kind} fused logits are {gap} std from "
-                             f"the ref backend's; limit {limit}, no-QDQ "
-                             f"control {no_qdq}")
+        log(f"  {kind} fused: loss {lk:.6f}, ref backend {lr:.6f}")
     counts = read_counts()
     # each kind: the held-out batches and the logits' forward
     runs = PTQ_BATCHES + 1
@@ -6842,6 +6863,468 @@ def phase_moe(torch, seed: int, smi: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# --------------------------------------------------------------------------
+# phase: train
+# --------------------------------------------------------------------------
+# opt-125m through the launcher: QAT under w4a8_abfp (the reference's
+# `python -m repro.launch.train` flags), checkpoints every 10 steps
+TRAIN_FLAGS = ("--arch", "opt-125m", "--policy", "w4a8_abfp", "--qat",
+               "--steps", "20", "--seq-len", "512", "--global-batch", "16",
+               "--warmup", "5", "--ckpt-interval", "10", "--no-lint")
+TRAIN_KILL = 10  # (b): the run stops after this step's checkpoint
+TRAIN_EVAL_BATCHES = 4  # (e): of 8 x 512 tokens (M = 4096)
+TRAIN_PROFILED = 2  # steps under the profiler
+DANUBE_STEPS = 3
+DANUBE_SHAPE = (8, 512)
+TRAIN_DIR = os.path.join(ROOT, "build", "train_checkpoints")
+
+
+def train_args(seed: int, ckpt: str, *extra):
+    from repro_torch.launch import train as tlaunch
+
+    return tlaunch.build_argparser().parse_args(
+        [*TRAIN_FLAGS, "--seed", str(seed), "--ckpt-dir", ckpt,
+         "--device", "cuda", *extra])
+
+
+def train_eval_batch(args) -> dict:
+    """The launcher's first evaluation batch (its held-out tail of the
+    synthetic corpus, as ``make_everything`` cuts it)."""
+    from repro_torch.data.corpus import synthetic_corpus
+    from repro_torch.data.loader import eval_batches
+
+    stream = synthetic_corpus(args.corpus_tokens, vocab=503, seed=args.seed)
+    n_eval = max(len(stream) // 10, args.seq_len * 2 + 2)
+    return next(eval_batches(stream[-n_eval:], args.seq_len,
+                             min(args.global_batch, 8), max_batches=1))
+
+
+def train_loop(args, total: int):
+    """``make_everything`` + ``run`` as the launcher's ``main`` drives them,
+    stopped after ``total`` steps -> (result, params, opt_state, the
+    launcher's pieces)."""
+    from repro_torch.checkpoint.manager import CheckpointConfig
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.train.loop import LoopConfig, run
+
+    parts = tlaunch.make_everything(args)
+    model, params, opt, opt_state, loader, step_fn, eval_fn, policy = parts
+    res, params, opt_state = run(
+        step_fn, params, opt_state, loader,
+        LoopConfig(total_steps=total, checkpoint=CheckpointConfig(
+            directory=args.ckpt_dir, interval=args.ckpt_interval)))
+    return res, params, opt_state, parts
+
+
+def tree_clone(tree):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def train_steps_ms(torch, step_fn, params, state, loader, first: int,
+                   n: int) -> list:
+    """Wall ms of ``n`` steps on ``params`` / ``state`` (updated in place),
+    each between two synchronizations."""
+    ms = []
+    for k in range(first, first + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, m = step_fn(params, state, loader.batch_at(k))
+        float(m["loss"])  # synchronizes
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def train_determinism(torch, step_fn, params, state, loader) -> bool:
+    """Whether the train step is bit-reproducible without
+    ``use_deterministic_algorithms``: two runs of two steps from copies of
+    one state, compared bit for bit."""
+    from repro_torch.tree import leaves
+
+    runs = []
+    for _ in range(2):
+        p, s = tree_clone(params), tree_clone(state)
+        train_steps_ms(torch, step_fn, p, s, loader, 0, 2)
+        runs.append(p)
+    return all(torch.equal(a, b) for a, b in zip(leaves(runs[0]),
+                                                 leaves(runs[1])))
+
+
+def train_kernel_checks(torch, seed: int) -> dict:
+    """The fused evaluation's kernels at its M = 4096 rows (8 x 512): both
+    dense matmuls at every (K, N) of opt-125m, flash_attention at B = 8,
+    S = T = 512, one query head a KV head (beside SDPA)."""
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 11)
+    rows = {"abfp_matmul": [], "abfp_matmul_int8": [], "flash_attention": []}
+    B, S = DANUBE_SHAPE
+    M = B * S
+    for kind, name in (("fp", "abfp_matmul"), ("int8", "abfp_matmul_int8")):
+        for label, K, N in PTQ_MATMULS:
+            rows[name].append(check_dense_matmul(
+                torch, timer, gen, kind=kind, M=M, K=K, N=N,
+                label=f"opt train eval {label} M={M} K={K} N={N}"))
+    rows["flash_attention"].append(check_flash(
+        torch, timer, gen, B=B, S=S, T=S, H=12, KV=12, D=64,
+        label=f"opt train eval B={B} S=T={S} H=KV=12 D=64", profiled=False))
+    del timer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_fused_eval(torch, model, params, eval_fn, args, report) -> None:
+    """(e) The QAT'd weights evaluated through the fused P-fp and P-int8
+    forwards (the route the benchmark tables take): every forward's
+    launches, the loss beside the ref backend's, the logits gap."""
+    batch = train_eval_batch(args)
+    dense, layers = ptq_dense(model.cfg), model.cfg.n_layers
+    for kind, mm in FIXED_PATHS.items():
+        kp = fixed_policy(kind)
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = eval_fn(params, max_batches=TRAIN_EVAL_BATCHES, eval_policy=kp)
+        wall = (time.perf_counter() - t0) * 1e3 / TRAIN_EVAL_BATCHES
+        got = {k: v - before[k] for k, v in read_counts().items()
+               if v != before[k]}
+        want = {mm: dense * TRAIN_EVAL_BATCHES,
+                "flash_attention": layers * TRAIN_EVAL_BATCHES}
+        if got != want:
+            raise SystemExit(f"train: the {kind} evaluation launched {got}, "
+                             f"expected {want} ({dense} matmuls and {layers} "
+                             f"flash_attention a forward)")
+        saved = save_counts()  # the gap check's forwards are not counted
+        t0 = time.perf_counter()
+        ref = eval_fn(params, max_batches=TRAIN_EVAL_BATCHES,
+                      eval_policy=ref_backend(kp))
+        ref_wall = (time.perf_counter() - t0) * 1e3 / TRAIN_EVAL_BATCHES
+        gap = fused_logit_gap(torch, model, params, batch, kp,
+                              f"train: {kind}")
+        restore_counts(saved)
+        report["fused_eval"][kind] = {
+            "eval_loss": ev["eval_loss"], "ref_backend_loss": ref["eval_loss"],
+            "relative_loss_gap": abs(ev["eval_loss"] - ref["eval_loss"])
+            / abs(ref["eval_loss"]),
+            "launches_per_forward": {k: v / TRAIN_EVAL_BATCHES
+                                     for k, v in got.items()},
+            "eval_ms_per_batch": wall, "ref_eval_ms_per_batch": ref_wall,
+            **gap}
+        log(f"  (e) {kind}: eval loss {ev['eval_loss']:.6f}, ref backend "
+            f"{ref['eval_loss']:.6f}; {wall:.1f} ms a batch of 8 x 512 "
+            f"(ref backend {ref_wall:.1f})")
+
+
+def train_danube(torch, seed: int, smi: str) -> dict:
+    """(d) H2O-Danube-1.8B at published width and depth: QAT steps at
+    8 x 512 under its remat="dots", then "full"; step 1's loss bit-equal
+    across the two, peak memory and ms a step of each."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import preset
+    from repro_torch.data.corpus import synthetic_corpus
+    from repro_torch.data.loader import LMLoader
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = get_config("h2o-danube-1.8b")
+    B, S = DANUBE_SHAPE
+    stream = synthetic_corpus(B * (S + 1) * DANUBE_STEPS + 1,
+                              vocab=min(cfg.vocab, 503), seed=seed)
+    loader = LMLoader(stream, seq_len=S, global_batch=B, seed=seed)
+    policy = preset("w4a8_abfp", n_layers=cfg.n_layers).with_ste(True)
+    out = {"model": cfg.name, "batch": [B, S], "steps": DANUBE_STEPS}
+    for remat in ("dots", "full"):
+        free_card(torch)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        model = build_model(cfg.replace(remat=remat), device="cuda")
+        params = model.init(make_generator(seed, "cuda"))
+        n_params = sum(p.numel() for p in leaves(params))
+        opt = AdamW(lr=warmup_cosine(3e-4, 1, DANUBE_STEPS),
+                    weight_decay=0.01)
+        state = opt.init(params)
+        step = make_train_step(model, opt, policy)
+        losses, ms = [], []
+        for k in range(DANUBE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # the step returns ``params`` itself: bind no name to it, so
+            # that nothing of this mode outlives the ``del`` below
+            state, m = step(params, state, loader.batch_at(k))[1:]
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[remat] = {"losses": losses, "step_ms": ms,
+                      "step_ms_median_after_first": statistics.median(ms[1:]),
+                      "allocated_before_bytes": before,
+                      "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                      "n_params": n_params}
+        log(f"  (d) {cfg.name} remat={remat}: losses {losses}, step ms "
+            f"{[round(t, 1) for t in ms]}, peak "
+            f"{out[remat]['peak_memory_bytes'] / 1e9:.2f} GB ("
+            f"{before / 1e9:.2f} GB allocated before the model) [{smi}]")
+        if not all(map(math.isfinite, losses)):
+            raise SystemExit(f"train: {cfg.name} remat={remat} losses "
+                             f"{losses}")
+        del model, params, state, step, opt
+    out["n_params"] = out["dots"]["n_params"]
+    out["first_loss_bit_equal"] = (out["dots"]["losses"][0]
+                                   == out["full"]["losses"][0])
+    out["all_losses_bit_equal"] = (out["dots"]["losses"]
+                                   == out["full"]["losses"])
+    if not out["first_loss_bit_equal"]:
+        raise SystemExit(f"train: {cfg.name} step 1's loss differs between "
+                         f"remat dots {out['dots']['losses'][0]} and full "
+                         f"{out['full']['losses'][0]}")
+    free_card(torch)
+    return out
+
+
+MICRO_BAR = 4.0  # (c): a split may move the gradient 4x what a control does
+
+
+def grad_gaps(torch, got, want) -> dict:
+    """How far the gradient ``got`` lies from ``want`` (lists of leaves):
+    the relative L2 gap over the whole tree, and each leaf's own (its
+    absolute gap where ``want``'s leaf is all zero)."""
+    d2 = n2 = 0.0
+    by_leaf = []
+    for a, b in zip(got, want):
+        dl = float(((a - b).double() ** 2).sum())
+        nl = float((b.double() ** 2).sum())
+        d2, n2 = d2 + dl, n2 + nl
+        by_leaf.append((dl / nl) ** 0.5 if nl > 0 else dl ** 0.5)
+    return {"tree": (d2 / n2) ** 0.5, "leaves": by_leaf}
+
+
+def grad_gate(gaps: dict, control: dict, paths) -> list:
+    """What ``gaps`` breaks of the bar ``MICRO_BAR`` x ``control``: the
+    tree's gap, and each leaf's gap against that leaf's control."""
+    bad = []
+    if gaps["tree"] > MICRO_BAR * control["tree"]:
+        bad.append(f"tree gap {gaps['tree']:.3g} > {MICRO_BAR} x "
+                   f"{control['tree']:.3g}")
+    over = [(p, g, c) for p, g, c in zip(paths, gaps["leaves"],
+                                         control["leaves"])
+            if g > MICRO_BAR * c]
+    if over:
+        p, g, c = max(over, key=lambda r: r[1] / max(r[2], 1e-300))
+        bad.append(f"{len(over)} leaves over their bar, the worst {p} "
+                   f"{g:.3g} against a control of {c:.3g}")
+    return bad
+
+
+def train_microbatches(torch, seed: int) -> dict:
+    """(c) opt-125m fp32 at 16 x 512 from one set of weights: 2
+    microbatches against 1.  The loss is held to the reference's bar
+    (``tests/test_train_loop.py``: 1e-4).  A microbatched gradient sums
+    the same terms in another order, so it is held to what reordering
+    does, read on the card: the full-batch gradient with the batch's rows
+    reversed, and with every weight moved by 2**-20 of itself up or down
+    at random (the larger of the two, by tree and by leaf; ``grad_gate``);
+    the train steps' global gradient norms too (their ratio less one, at
+    most the tree's bar).  A planted fault (microbatch 2 dropped, with and
+    without the division by 2; the division left out) must break that
+    bar, else the check is blind.  One train step each from copies of the
+    weights: the reference's parameter bar (rtol 1e-4, atol 1e-5) is
+    reported, not held — AdamW's first step moves every parameter by
+    about lr, whatever its gradient's size, so a gradient that reordering
+    moves across zero moves its parameter by up to 2 lr."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import preset
+    from repro_torch.data.corpus import synthetic_corpus
+    from repro_torch.data.loader import LMLoader
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.train.step import (TrainStepConfig, make_loss_and_grads,
+                                        make_train_step)
+    from repro_torch.tree import flatten_with_paths, leaves, tree_map
+
+    cfg = get_config("opt-125m")
+    model = build_model(cfg, device="cuda")
+    params = model.init(make_generator(seed, "cuda"))
+    paths = [p for p, _ in flatten_with_paths(params)]
+    loader = LMLoader(synthetic_corpus(16 * 513 + 1, vocab=503, seed=seed),
+                      seq_len=512, global_batch=16, seed=seed)
+    batch = loader.batch_at(0)
+    pol = preset("fp32")
+    full, split = (make_loss_and_grads(model, pol, n) for n in (1, 2))
+    l1, _, g1 = full(params, batch)
+    l2, _, g2 = split(params, batch)
+    _, _, g_rev = full(params, {k: np.ascontiguousarray(v[::-1])
+                                for k, v in batch.items()})
+    gen = make_generator(seed + 1, "cuda")
+
+    def nudged(p):  # each weight times 1 + 2**-20 or 1 - 2**-20
+        sign = torch.randint(0, 2, p.shape, generator=gen, device="cuda")
+        return p * (1 + 2.0 ** -20 * (2 * sign - 1).to(p.dtype))
+
+    _, _, g_nudge = full(tree_map(nudged, params), batch)
+    _, _, g_first = full(params, {k: v[:8] for k, v in batch.items()})
+    gaps = {"reversed": grad_gaps(torch, g_rev, g1),
+            "nudged": grad_gaps(torch, g_nudge, g1),
+            "microbatches_2": grad_gaps(torch, g2, g1),
+            "fault_dropped": grad_gaps(torch, [g / 2 for g in g_first], g1),
+            "fault_dropped_renormalized": grad_gaps(torch, g_first, g1),
+            "fault_no_division": grad_gaps(torch, [g * 2 for g in g2], g1)}
+    control = {"tree": max(gaps["reversed"]["tree"], gaps["nudged"]["tree"]),
+               "leaves": [max(a, b) for a, b in zip(
+                   gaps["reversed"]["leaves"], gaps["nudged"]["leaves"])]}
+    del g_rev, g_nudge, g_first
+    out = {"loss_1": float(l1), "loss_2": float(l2),
+           "loss_gap": abs(float(l1) - float(l2)), "bar": MICRO_BAR,
+           "control_tree": control["tree"],
+           "gaps": {k: {"tree": v["tree"], "worst_leaf": max(v["leaves"]),
+                        "worst_leaf_over_control": max(
+                            g / max(c, 1e-300) for g, c in zip(
+                                v["leaves"], control["leaves"]))}
+                    for k, v in gaps.items()},
+           "violations": {k: grad_gate(v, control, paths)
+                          for k, v in gaps.items()
+                          if k not in ("reversed", "nudged")}}
+    del g1, g2
+    # the steps themselves: the reference's parameter bar, reported
+    opt = AdamW(lr=warmup_cosine(3e-4, 5, 20), weight_decay=0.01)
+    (p1, _, m1), (p2, _, m2) = (
+        make_train_step(model, opt, pol, TrainStepConfig(n))(
+            tree_clone(params), opt.init(params), batch) for n in (1, 2))
+    n1, n2 = float(m1["grad_norm"]), float(m2["grad_norm"])
+    out.update(grad_norm_1=n1, grad_norm_2=n2,
+               grad_norm_gap=abs(n2 / n1 - 1.0),
+               step_loss_equal=bool(torch.equal(m1["loss"], m2["loss"])),
+               params=sum(a.numel() for a in leaves(p1)),
+               params_outside_reference_bar=sum(
+                   int(((a - b).abs() > 1e-5 + 1e-4 * b.abs()).sum())
+                   for a, b in zip(leaves(p1), leaves(p2))),
+               params_max_abs_gap=max(float((a - b).abs().max())
+                                      for a, b in zip(leaves(p1),
+                                                      leaves(p2))))
+    log("  (c) microbatches 2 vs 1: " + json.dumps(out))
+    v = out["violations"]
+    blind = [k for k in v if k.startswith("fault") and not v[k]]
+    if not (out["loss_gap"] < 1e-4 and not v["microbatches_2"]
+            and out["grad_norm_gap"] <= MICRO_BAR * control["tree"]
+            and not blind):
+        raise SystemExit(f"train: (c) microbatches 2 vs 1: loss gap "
+                         f"{out['loss_gap']}, grad norm gap "
+                         f"{out['grad_norm_gap']}, outside the control's "
+                         f"bar: {v['microbatches_2']}; planted faults the "
+                         f"bar does not see: {blind}")
+    del model, params, p1, p2
+    free_card(torch)
+    return out
+
+
+def phase_train(torch, seed: int, smi: str) -> dict:
+    import shutil
+
+    from repro_torch.nn.module import make_generator
+    from repro_torch.tree import flatten_with_paths, leaves
+
+    log("== train: opt-125m QAT through launch/train (full width and "
+        "depth), kill and resume, fused evaluation; h2o-danube-1.8b QAT "
+        "steps under remat dots / full")
+    t_phase = time.perf_counter()
+    report = {"kernel_rows": train_kernel_checks(torch, seed),
+              "fused_eval": {}}
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    try:
+        reset_counts()
+        # (a) the uninterrupted run
+        free_card(torch)
+        torch.cuda.reset_peak_memory_stats()
+        args = train_args(seed, os.path.join(TRAIN_DIR, "a"))
+        res_a, params, state, parts = train_loop(args, args.steps)
+        model, _, _, _, loader, step_fn, eval_fn, policy = parts
+        peak = torch.cuda.max_memory_allocated()
+        hist = res_a.history
+        losses = [h["loss"] for h in hist]
+        norms = [h["grad_norm"] for h in hist]
+        step_ms = statistics.median(h["time_s"] for h in hist[2:]) * 1e3
+        n_params = sum(p.numel() for p in leaves(params))
+        tokens = loader.tokens_per_step
+        a = {"policy": policy.name, "steps": len(hist), "losses": losses,
+             "grad_norms": norms, "step_ms_median_3_20": step_ms,
+             "tokens_per_s": tokens / step_ms * 1e3,
+             "peak_memory_bytes": peak, "n_params": n_params,
+             # 6 N operations a token, f32 on the CUDA cores
+             "model_flops_per_step": 6.0 * n_params * tokens}
+        a["f32_peak_share"] = (a["model_flops_per_step"] / (step_ms / 1e3)
+                               / PEAK_F32_FLOPS)
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+                and min(norms) > 0):
+            raise SystemExit(f"train: (a) losses {losses}, grad norms "
+                             f"{norms}")
+        # every leaf moved: the launcher's initial weights, drawn again
+        init = model.init(make_generator(seed, "cuda"))
+        still = [p for (p, x), y in zip(flatten_with_paths(init),
+                                        leaves(params)) if torch.equal(x, y)]
+        del init
+        if still:
+            raise SystemExit(f"train: (a) leaves that did not move: {still}")
+        report["a"] = a
+        log(f"  (a) {model.cfg.name} {policy.name}: losses {losses[0]:.4f} "
+            f"-> {losses[-1]:.4f}, grad norms {min(norms):.3g}-"
+            f"{max(norms):.3g}, {step_ms:.1f} ms a step (median of steps "
+            f"3-20), {a['tokens_per_s']:.0f} tokens/s, peak "
+            f"{peak / 1e9:.2f} GB [{smi}]")
+        p2, s2 = tree_clone(params), tree_clone(state)
+        report["a"]["profile"] = profile_steps(
+            torch, lambda: step_fn(p2, s2, loader.batch_at(args.steps)),
+            TRAIN_PROFILED, step_ms, kind="train")
+        log("  (a) profile: " + json.dumps(report["a"]["profile"]))
+        report["a"]["bit_equal_without_deterministic_algorithms"] = (
+            train_determinism(torch, step_fn, p2, s2, loader))
+        log("  (a) two runs without deterministic algorithms bit-equal: "
+            f"{report['a']['bit_equal_without_deterministic_algorithms']}")
+        del p2, s2
+
+        # (b) killed after step 10 (its checkpoint written), restarted
+        args_b = train_args(seed, os.path.join(TRAIN_DIR, "b"))
+        res_b, _, _, _ = train_loop(args_b, TRAIN_KILL)
+        free_card(torch)
+        res_r, params_r, state_r, _ = train_loop(args_b, args_b.steps)
+        b = {"resumed_from": res_r.resumed_from,
+             "losses": [h["loss"] for h in res_r.history],
+             "losses_bit_equal": [h["loss"] for h in res_r.history]
+             == losses[TRAIN_KILL:],
+             "params_bit_equal": all(torch.equal(x, y) for x, y in zip(
+                 leaves(params_r), leaves(params))),
+             "opt_state_bit_equal": all(torch.equal(x, y) for x, y in zip(
+                 leaves(state_r), leaves(state)))}
+        report["b"] = b
+        log("  (b) kill and resume: " + json.dumps(b))
+        if not (b["resumed_from"] == TRAIN_KILL and b["losses_bit_equal"]
+                and b["params_bit_equal"] and b["opt_state_bit_equal"]):
+            raise SystemExit(f"train: (b) the resumed run is not the "
+                             f"uninterrupted one: {b}")
+        del params_r, state_r, res_b
+        free_card(torch)
+
+        # (e) the fused evaluation of (a)'s weights
+        train_fused_eval(torch, model, params, eval_fn, args, report)
+        report["launches"] = read_counts()
+        del params, state, parts, model, step_fn, eval_fn
+        free_card(torch)
+        report["d"] = train_danube(torch, seed, smi)
+        report["c"] = train_microbatches(torch, seed)
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+        free_card(torch)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log("  " + json.dumps({k: v for k, v in report.items()
+                           if k != "kernel_rows"}))
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6893,7 +7376,8 @@ def main() -> int:
             "ssm": lambda: phase_ssm(torch, args.seed, smi),
             "encdec": lambda: phase_encdec(torch, args.seed, smi),
             "dense_archs": lambda: phase_dense_archs(torch, args.seed, smi),
-            "moe": lambda: phase_moe(torch, args.seed, smi)}
+            "moe": lambda: phase_moe(torch, args.seed, smi),
+            "train": lambda: phase_train(torch, args.seed, smi)}
     done = {}
     phase_s = {"build": round(time.perf_counter() - t_start, 1)}
     for name in PHASES:
@@ -6904,9 +7388,10 @@ def main() -> int:
             phase_s[name] = round(time.perf_counter() - t0, 1)
     log("== seconds by phase: " + json.dumps(phase_s))
     (kernel_rows, serve, long_ctx, fixed, spec, ptq, vit, ssm, encdec, dense,
-     moe) = (done.get(p) for p in ("kernels", "serve", "long", "fixed",
-                                   "spec", "ptq", "vit", "ssm", "encdec",
-                                   "dense_archs", "moe"))
+     moe, train) = (done.get(p) for p in ("kernels", "serve", "long",
+                                          "fixed", "spec", "ptq", "vit",
+                                          "ssm", "encdec", "dense_archs",
+                                          "moe", "train"))
     retakes = {p: {"empty": 0, "other": 0} for p in phases}
     for r in PROFILER_RETRIES:
         retakes.setdefault(r["phase"], {"empty": 0, "other": 0})[
@@ -6918,8 +7403,8 @@ def main() -> int:
     # fixed-slot runs, the three speculative runs, the PTQ phase's fused
     # evaluations, the vision
     # phase's fused forwards, the SSM phase's served and Model runs, the
-    # encdec phase's Model runs and the last families' served and Model
-    # runs
+    # encdec phase's Model runs, the last families' served and Model runs
+    # and the training phase's fused evaluations of its QAT'd weights
     paths = {"serve": (serve or {}).get("launches", {}),
              "long": (long_ctx or {}).get("launches", {}),
              **{f"fixed_{k}": r["launches"] for k, r in (fixed or {}).items()},
@@ -6929,11 +7414,12 @@ def main() -> int:
              "ssm": (ssm or {}).get("launches", {}),
              "encdec": (encdec or {}).get("launches", {}),
              "dense_archs": (dense or {}).get("launches", {}),
-             "moe": (moe or {}).get("launches", {})}
-    # the ptq, vit, ssm, encdec, dense_archs and moe paths' shapes join
-    # their kernels' rows
+             "moe": (moe or {}).get("launches", {}),
+             "train": (train or {}).get("launches", {})}
+    # the ptq, vit, ssm, encdec, dense_archs, moe and train paths' shapes
+    # join their kernels' rows
     kernel_rows = dict(kernel_rows or {})
-    for extra in (spec, ptq, vit, ssm, encdec, dense, moe):
+    for extra in (spec, ptq, vit, ssm, encdec, dense, moe, train):
         for name, rows in (extra or {}).get("kernel_rows", {}).items():
             kernel_rows[name] = kernel_rows.get(name, []) + rows
     # the shape whose numbers head a kernel's entry: the decode shape

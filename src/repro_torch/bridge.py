@@ -1,7 +1,9 @@
 """Weights carried across: the reference package's parameter tree, as numpy
 arrays, becomes the port's tree of tensors — and so do its PTQ artifacts:
-a static-scale q tree (``from_repro_qtree``) and a calibrator's running
-statistics (``from_repro_calibrator``).
+a static-scale q tree (``from_repro_qtree``), a calibrator's running
+statistics (``from_repro_calibrator``), an optimizer state
+(``from_repro_opt_state``) and a checkpoint the reference wrote
+(``read_repro_checkpoint``).
 
 ``from_repro_params`` takes the reference's *unboxed* parameter tree (a
 decoder LM's, an SSM LM's (``blocks`` of ``{ln, mamba}``), a ViT's:
@@ -24,6 +26,8 @@ is a decoder LM's, its head untied (``lm_head``).
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -88,6 +92,9 @@ def _convert(node, schema, path: str, device, index=None):
         if isinstance(node, dict):
             raise KeyError(f"{path}: expected an array, got a dict with "
                            f"keys {sorted(node)}")
+        if isinstance(node, torch.Tensor):  # a checkpoint's bf16 leaf
+            t = node if index is None else node[index]
+            return t.clone().to(device)
         arr = np.asarray(node)
         if index is not None:
             arr = arr[index]
@@ -259,3 +266,83 @@ def from_repro_calibrator(calib, device="cuda"):
             outer=t(st.outer, np.float64),
         )
     return out
+
+
+def from_repro_opt_state(state, cfg: ArchConfig, device="cuda"):
+    """The reference's ``AdamWState`` (``mu`` / ``nu`` trees of numpy
+    arrays after a host transfer, ``count`` an int32 scalar) as the port's:
+    the moments laid out as ``from_repro_params`` lays out the parameters,
+    ``count`` an int32 tensor on ``device``."""
+    from repro_torch.optim.adamw import AdamWState
+
+    device = require_device(device)
+    return AdamWState(
+        mu=from_repro_params(state.mu, cfg, device),
+        nu=from_repro_params(state.nu, cfg, device),
+        count=torch.tensor(int(np.asarray(state.count)), dtype=torch.int32,
+                           device=device))
+
+
+_TOKEN = re.compile(
+    r"\['(?P<key>[^']*)'\]|\[(?P<index>\d+)\]|\.(?P<attr>\w+)")
+
+
+def _tree_from_paths(entries) -> dict:
+    """Nested dicts (and lists, for ``[i]`` keys) from ``(path, leaf)``
+    pairs whose paths are the reference's key strings
+    (``['blocks']/[0]/['attn']``; a NamedTuple's field is ``.mu``)."""
+    root: dict = {}
+    for path, leaf in entries:
+        keys = []
+        for tok in path.split("/"):
+            m = _TOKEN.fullmatch(tok)
+            if m is None:
+                raise ValueError(f"checkpoint path {path!r}: cannot parse "
+                                 f"{tok!r}")
+            keys.append(int(m["index"]) if m["index"] is not None
+                        else m["key"] if m["key"] is not None else m["attr"])
+        node = root
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            if sorted(node) != list(range(len(node))):
+                raise ValueError(f"checkpoint indices {sorted(node)} are "
+                                 "not 0..n-1")
+            return [lists(node[i]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)
+
+
+def read_repro_checkpoint(directory: str, step: int, cfg: ArchConfig,
+                          device="cuda") -> dict:
+    """A checkpoint written by the reference's ``checkpoint.store`` (its
+    ``CheckpointManager``: ``step_<N>/params`` and ``step_<N>/opt``) as the
+    port's trees: ``{"params": ..., "opt": AdamWState, "metadata": ...}``.
+    The manifest's leaf paths are parsed into the reference's tree, which
+    ``from_repro_params`` (stacked layers unstacked) and
+    ``from_repro_opt_state`` carry across; a reference run resumes in the
+    port from them."""
+    from types import SimpleNamespace
+
+    from repro_torch.checkpoint import store
+
+    def read(name):
+        final, manifest = store.read_manifest(directory, step, name)
+        tree = _tree_from_paths(
+            (e["path"], store.load_leaf(final, e).numpy()
+             if e["dtype"] != "bfloat16" else store.load_leaf(final, e))
+            for e in manifest["leaves"])
+        return tree, manifest.get("metadata", {})
+
+    params, meta = read("params")
+    opt, _ = read("opt")
+    state = SimpleNamespace(mu=opt["mu"], nu=opt["nu"], count=opt["count"])
+    return {"params": from_repro_params(params, cfg, device),
+            "opt": from_repro_opt_state(state, cfg, device),
+            "metadata": meta}

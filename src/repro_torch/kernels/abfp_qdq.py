@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core.formats import Format, IntFormat
 from repro_torch.core.quantize import div_by_constant
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 
@@ -168,6 +168,7 @@ def _bind(lib: ctypes.CDLL):
 def abfp_qdq(x: torch.Tensor, fmt: Format, n: int = 64) -> torch.Tensor:
     """Fused ABFP QDQ along the last dim of a 2-D f32, bf16 or f16 tensor
     ``(M, K)``; returns a tensor of ``x``'s dtype."""
+    refuse_grad("abfp_qdq", x)
     if x.device.type == "cpu":
         return abfp_qdq_plain(x, fmt, n)
     if x.device.type != "cuda":

@@ -48,7 +48,7 @@ from repro_torch.analysis.messages import abfp_group_message
 from repro_torch.core import abfp as abfp_mod
 from repro_torch.core.formats import Format, IntFormat
 from repro_torch.core.quantize import unpack_int4_codes
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.abfp_qdq import (SMS, format_args, plan_qdq,
                                          plan_struct, qdq_groups)
 
@@ -347,6 +347,7 @@ def quant_matmul(x: torch.Tensor, w_codes: torch.Tensor,
     Returns (M, N) f32.  Only x is quantized (against the integer format
     ``fmt_x``, bf16 group scales); the dense kernel is never materialized.
     """
+    refuse_grad("quant_matmul", x, w_codes, w_scales)
     if x.device.type == "cpu":
         return quant_matmul_plain(x, w_codes, w_scales, fmt_x, n, packed)
     if x.device.type != "cuda":
@@ -682,6 +683,7 @@ def abfp_matmul(x: torch.Tensor, w: torch.Tensor, fmt_x: Format,
     """Fused fp-path ABFP matmul: ``x (M, K)`` f32 @ ``w (K, N)`` f32, both
     QDQ'd per group of n along K; returns (M, N) f32.  Any M and N; K must
     be a multiple of n."""
+    refuse_grad("abfp_matmul", x, w)
     if x.device.type == "cpu":
         return abfp_matmul_plain(x, w, fmt_x, fmt_w, n)
     if x.device.type != "cuda":
@@ -742,6 +744,7 @@ def abfp_matmul_int8(x: torch.Tensor, w: torch.Tensor, fmt_x: IntFormat,
     """Native-int ABFP matmul: int codes of x per (row, group) and of w per
     (group, column), exact integer group sums, f32 rescale and sum over
     groups; returns (M, N) f32.  Any M and N; K must be a multiple of n."""
+    refuse_grad("abfp_matmul_int8", x, w)
     if x.device.type == "cpu":
         return abfp_matmul_int8_plain(x, w, fmt_x, fmt_w, n)
     if x.device.type != "cuda":

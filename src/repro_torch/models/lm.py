@@ -17,8 +17,9 @@ are formed; decode after such a prefill simply continues at position
 ``n_prefix + len(prompt)``).  Every forward takes the static-scale q tree
 (``q=``) of the PTQ passes.  Layers are always a Python list of per-layer
 dicts with sites ``blocks.{i}/...`` — there is no scan — so layer-indexed
-PolicyMap rules always resolve.  ``chunk_step`` (the speculative verify
-pass) waits for ROADMAP.md Queue A item 4's speculative half.
+PolicyMap rules always resolve.  ``chunk_step`` scores a token chunk
+against the ring (the speculative verify pass).  Under a gradient each
+block is rematerialized as ``cfg.remat`` says (``remat_block``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import QuantPolicy, kv_cache_mode
@@ -256,12 +259,14 @@ class TransformerLM:
         MoE family); ``attend(i, window, attn, attn_params, h, q_attn)``
         as in ``_block_apply`` with the layer index and window.  ``q``: the
         static-scale q tree ``{"blocks": [per-layer dict]}``; ``loads``: a
-        list that gets each MoE block's expert load."""
+        list that gets each MoE block's expert load.  Under grad mode each
+        block is rematerialized as ``cfg.remat`` says (``remat_block``)."""
         wl = self.layer_windows_py()
         aux = None
+        block = remat_block(self.cfg.remat, self._block_apply)
         for i, bp in enumerate(params["blocks"]):
             qi = None if q is None else q["blocks"][i]
-            x, a, load = self._block_apply(
+            x, a, load = block(
                 bp, x, policy, f"blocks.{i}",
                 lambda attn, ap, h, qa, i=i: attend(i, int(wl[i]), attn, ap,
                                                     h, qa), q=qi)
@@ -566,6 +571,42 @@ class TransformerLM:
         x = _norm(c).apply(params["final_norm"], self._last_valid(x, n_valid))
         logits = self.head_logits(params, x, policy)
         return logits[:, 0], new_state
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of the weight contractions
+    (``aten.mm`` / ``aten.addmm``: no batch dimension) and recompute the
+    rest, attention's batched products included — the reference's
+    ``checkpoint_dots_with_no_batch_dims``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_block(remat: str, fn):
+    """``fn`` (a block) under the config's rematerialization: "none" keeps
+    every activation, "full" recomputes the whole block in the backward,
+    "dots" keeps only the weight contractions' outputs.  Only where a
+    graph is built: under grad mode with an input that requires grad (a
+    train step's embeddings always do; a served step's never do, and it
+    pays one flag test a block).  Memory changes, the numbers do not."""
+    if remat == "none":
+        return fn
+    if remat not in ("full", "dots"):
+        raise ValueError(f"remat must be 'none', 'full' or 'dots', got "
+                         f"{remat!r}")
+
+    def block(bp, x, *args, **kw):
+        if not (x.requires_grad and torch.is_grad_enabled()):
+            return fn(bp, x, *args, **kw)
+        extra = {}
+        if remat == "dots":
+            extra["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_matmuls)
+        return checkpoint(fn, bp, x, *args, use_reentrant=False, **extra,
+                          **kw)
+
+    return block
 
 
 @functools.lru_cache(maxsize=8)

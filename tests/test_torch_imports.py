@@ -54,7 +54,7 @@ def test_no_source_file_names_jax_or_repro():
 
 def test_expected_layout():
     for sub in ("core", "kernels", "nn", "models", "serve", "configs",
-                "launch"):
+                "launch", "data", "optim", "train", "checkpoint"):
         assert (PKG / sub / "__init__.py").is_file(), sub
     assert (PKG / "bridge.py").is_file()
 
