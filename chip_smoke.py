@@ -55,6 +55,15 @@ Phases (each fatal on failure):
             (the kernel plan_qdq names read from the profiler), timed at
             M = 256, a whole wi weight and abfp_matmul's pre-pass shapes
             beside y.copy_(x) on the same bytes
+  lint      qlint's QL303 against the kernels' own plans on the card:
+            abfp_matmul at n = 1,200 / 1,216 and abfp_matmul_int8 at n =
+            1,440 / 1,456 (M = 256, K = 4n, N = 4,096), each linted as a
+            fused w4a8 site first: where the lint is clean the kernel
+            launches (counted) and matches its plain version (timed beside
+            it and its bound), where QL303 fires the wrapper raises the
+            same text before any launch; launch/serve --arch qwen2-7b
+            --full --paged --n-pages 1 exits 2 on QL305 with nothing
+            allocated on the card; the --all sweep's summary
   serve     paged, full width, full depth: 6 greedy requests; launch counts
             per step asserted (197 quant_matmul + 28 flash_attention_quant:
             attention_prefill_kernel on chunk steps,
@@ -205,7 +214,8 @@ Phases (each fatal on failure):
             steps under P-fp (flash_mma_kernel at G = 5); launches, times
             and numerics as in dense_archs
   train     opt-125m at full width and depth through launch/train's
-            make_everything + run: 20 QAT steps under w4a8_abfp at 16 x
+            make_everything + run, through its pre-flight gate (counted),
+            as the ptq phase's launcher run: 20 QAT steps under w4a8_abfp at 16 x
             512 (checkpoints every 10), loss falling, every leaf moved; ms
             a step, tokens/s, peak memory, two profiled steps (busy, idle,
             launches); two runs from one state without deterministic
@@ -240,13 +250,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT8_OPS = 1979e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_F32_FLOPS = 67e12
+from repro_torch.launch.mesh import HBM_BW as PEAK_BYTES_PER_S
+from repro_torch.launch.mesh import (PEAK_BF16_FLOPS, PEAK_F32_FLOPS,
+                                     PEAK_INT8_OPS, PEAK_TF32_FLOPS)
 
-PHASES = ("kernels", "serve", "long", "fixed", "reduced", "identity", "spec",
+PHASES = ("kernels", "lint", "serve", "long", "fixed", "reduced", "identity", "spec",
           "ptq", "vit", "ssm", "encdec", "dense_archs", "moe", "train")
 
 # every kernel: (wrapper module, TPU kernel it replaces)
@@ -530,7 +538,7 @@ def check_attention(torch, timer, gen, *, S, T, probs, fp8, block_k, label,
         old = faq.plan_attention_kernel(B, S, H, KV, D, block_k or T)
         if want_kernel == "attention_kernel":
             pass
-        elif old.smem_bytes > faq._SMEM_MAX:
+        elif old.smem_bytes > faq.SMEM_MAX:
             row["attention_kernel_ms"] = None
             row["attention_kernel_is"] = (
                 "not measured: its score tile of the whole row exceeds "
@@ -1390,7 +1398,7 @@ def quant_decode_in_situ(torch, gen) -> dict:
                  "two_launch": two_launch(K, N)}
         for s in SWEEP_SPLITS:
             plan = one_launch(K, N, s)
-            if s <= K // 64 and plan.smem_bytes <= qm._SMEM_MAX:
+            if s <= K // 64 and plan.smem_bytes <= qm.SMEM_MAX:
                 plans[f"one_launch splits={s}"] = plan
         row = {}
         for label, plan in plans.items():
@@ -1809,6 +1817,160 @@ def phase_kernels(torch, seed: int) -> dict:
                                    "captures": list(PROFILER_RETRIES)}}
     log("  profiler captures taken again: "
         + json.dumps(report["profiler_retries"]))
+    return report
+
+
+# --------------------------------------------------------------------------
+# phase: lint
+# --------------------------------------------------------------------------
+# pre-flight gates passed, by launcher (``count_gates``)
+GATES: dict = {}
+
+
+def count_gates() -> None:
+    """Count the launchers' passes through ``preflight`` by ``where``: the
+    launchers import it from ``repro_torch.launch.lint`` when they run, so
+    the counting wrapper is the one they call.  A blocked launch raises
+    before it is counted."""
+    from repro_torch.launch import lint as lint_cli
+
+    preflight = lint_cli.preflight
+    if getattr(preflight, "counted", False):
+        return
+
+    def counted(*args, where="launch", **kw):
+        preflight(*args, where=where, **kw)
+        GATES[where] = GATES.get(where, 0) + 1
+
+    counted.counted = True
+    lint_cli.preflight = counted
+
+
+# (wrapper, its plain kernel kind, the longest group a block holds, the
+# shortest it refuses): quantize_cols_kernel's tile of a group must fit in
+# a block's shared memory (plan_abfp_matmul)
+LINT_GROUPS = (("abfp_matmul", "fp", 1200, 1216),
+               ("abfp_matmul_int8", "int8", 1440, 1456))
+LINT_M, LINT_N = 256, 4096  # a paged prefill chunk's rows; K = 4 n
+
+
+def lint_site(n: int, kind: str) -> list:
+    """qlint's QL303 findings at one fused w4a8 site of (K, N) = (4 n,
+    LINT_N) with LINT_M rows (``kind`` "int8": compute='int8')."""
+    from repro_torch.analysis.kernel_lint import lint_kernels
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.policy import preset
+
+    pol = preset("w4a8_abfp", n=n).replace(fused=True)
+    if kind == "int8":
+        pol = pol.replace(compute="int8")
+    return [d for d in lint_kernels(
+        get_config("qwen2-7b"), pol, [("blocks.0/ffn/wi", 4 * n, LINT_N, 1)],
+        compress=False, shape=ShapeSpec("lint", 1, LINT_M, "decode"))
+        if d.code == "QL303"]
+
+
+def lint_boundaries(torch, timer, gen) -> tuple:
+    """(a): at the longest group each fused kernel's block holds the lint is
+    clean and the kernel launches once a call (counted) and matches its
+    plain version; one group step past it QL303 fires and the wrapper
+    raises the same text before any launch."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.kernels import quant_matmul as qm
+
+    rows, found = {}, []
+    for name, kind, clean, refused in LINT_GROUPS:
+        fn = getattr(qm, name)
+        for n in (clean, refused):
+            diags = lint_site(n, kind)
+            x = activations(torch, gen, (LINT_M, 4 * n))
+            w = torch.randn((4 * n, LINT_N), generator=gen, device="cuda")
+            before = fn.launches
+            try:
+                fn(x, w, get_format("int8"), get_format("int4"), n=n)
+                torch.cuda.synchronize()
+                raised = None
+            except ValueError as e:
+                raised = str(e)
+            out = {"wrapper": name, "n": n, "M": LINT_M, "K": 4 * n,
+                   "N": LINT_N, "ql303": [d.message for d in diags],
+                   "raised": raised, "launches": fn.launches - before}
+            found.append(out)
+            log("  " + json.dumps(out))
+            if diags:
+                if raised != diags[0].message or out["launches"]:
+                    raise SystemExit(f"lint: QL303 fired at {name} n={n} "
+                                     f"but the wrapper {out}")
+                continue
+            if raised is not None or out["launches"] != 1:
+                raise SystemExit(f"lint: {name} n={n} linted clean but "
+                                 f"{out}")
+            rows.setdefault(name, []).append(check_dense_matmul(
+                torch, timer, gen, kind=kind, M=LINT_M, K=4 * n, N=LINT_N,
+                n=n, label=f"longest group n={n} M={LINT_M} K={4 * n} "
+                f"N={LINT_N}"))
+        if [bool(f["ql303"]) for f in found[-2:]] != [False, True]:
+            raise SystemExit(f"lint: {name}'s boundary moved: {found[-2:]}")
+    return rows, found
+
+
+def lint_gate_blocks(torch) -> dict:
+    """(b): a launch the gate refuses allocates nothing on the card."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as tserve
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    err = io.StringIO()
+    code = None
+    with contextlib.redirect_stderr(err):
+        try:
+            tserve.main(["--arch", "qwen2-7b", "--full", "--paged",
+                         "--n-pages", "1"])
+        except SystemExit as e:
+            code = e.code
+    torch.cuda.synchronize()
+    out = {"exit_code": code, "ql305": "QL305" in err.getvalue(),
+           "allocated_before": before,
+           "allocated_after": torch.cuda.memory_allocated()}
+    log("  launch/serve --arch qwen2-7b --full --paged --n-pages 1: "
+        + json.dumps(out))
+    if not (code == 2 and out["ql305"]
+            and out["allocated_after"] == before):
+        raise SystemExit(f"lint: the gate did not block the one-page pool "
+                         f"before allocating: {out} {err.getvalue()}")
+    return out
+
+
+def phase_lint(torch, seed: int, smi: str) -> dict:
+    import contextlib
+    import io
+
+    from repro_torch.launch import lint as lint_cli
+
+    log("== lint: QL303 at the kernels' own shared-memory boundaries, the "
+        "pre-flight gate on the card, the --all sweep")
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 32)
+    rows, found = lint_boundaries(torch, Timer(torch), gen)
+    torch.cuda.empty_cache()
+    report = {"kernel_rows": rows, "boundaries": found,
+              "gate": lint_gate_blocks(torch)}
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = lint_cli.run_sweep(True, os.path.join(
+            ROOT, "build", "lint_all.json"), False)
+    summary = json.loads(out.getvalue())
+    report["sweep"] = dict(summary, rc=rc,
+                           seconds=time.perf_counter() - t0)
+    log(f"  --all sweep on {smi}: " + json.dumps(report["sweep"]))
+    if rc != 0 or not summary["ok"]:
+        raise SystemExit(f"lint: the --all sweep found errors: {summary}")
+    report["phase_s"] = time.perf_counter() - t_phase
     return report
 
 
@@ -3834,17 +3996,19 @@ def phase_ptq(torch, seed: int, smi: str) -> dict:
         "gptq": report["gptq_card_vs_cpu"],
         "mse_alpha": report["mse_alpha_card_vs_cpu"]}))
 
-    # the launcher, as a user runs it
+    # the launcher, as a user runs it (through its pre-flight gate)
     out = io.StringIO()
+    gates = GATES.get("serve", 0)
     with contextlib.redirect_stdout(out):
         rc = tserve.main(["--arch", "opt-125m", "--full", "--recipe",
                           "sq_gptq_w4a8", "--n-requests", "4",
                           "--max-new-tokens", "8", "--max-len", "256",
                           "--seed", str(seed)])
     served = json.loads(out.getvalue().strip().splitlines()[-1])
+    served["gates_passed"] = GATES.get("serve", 0) - gates
     if (rc != 0 or served["recipe"] != "sq_gptq_w4a8"
             or served["recipe_calibrations"] != 3
-            or served["requests"] != 4
+            or served["requests"] != 4 or served["gates_passed"] != 1
             or not served["device"].startswith("cuda")):
         raise SystemExit(f"ptq: the launcher reported {served}")
     report["launcher"] = served
@@ -6870,7 +7034,7 @@ def phase_moe(torch, seed: int, smi: str) -> dict:
 # `python -m repro.launch.train` flags), checkpoints every 10 steps
 TRAIN_FLAGS = ("--arch", "opt-125m", "--policy", "w4a8_abfp", "--qat",
                "--steps", "20", "--seq-len", "512", "--global-batch", "16",
-               "--warmup", "5", "--ckpt-interval", "10", "--no-lint")
+               "--warmup", "5", "--ckpt-interval", "10")
 TRAIN_KILL = 10  # (b): the run stops after this step's checkpoint
 TRAIN_EVAL_BATCHES = 4  # (e): of 8 x 512 tokens (M = 4096)
 TRAIN_PROFILED = 2  # steps under the profiler
@@ -7226,6 +7390,8 @@ def train_microbatches(torch, seed: int) -> dict:
 def phase_train(torch, seed: int, smi: str) -> dict:
     import shutil
 
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.roofline import model_flops
     from repro_torch.nn.module import make_generator
     from repro_torch.tree import flatten_with_paths, leaves
 
@@ -7238,9 +7404,10 @@ def phase_train(torch, seed: int, smi: str) -> dict:
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     try:
         reset_counts()
-        # (a) the uninterrupted run
+        # (a) the uninterrupted run, through the launcher's gate
         free_card(torch)
         torch.cuda.reset_peak_memory_stats()
+        gates_before = GATES.get("train", 0)
         args = train_args(seed, os.path.join(TRAIN_DIR, "a"))
         res_a, params, state, parts = train_loop(args, args.steps)
         model, _, _, _, loader, step_fn, eval_fn, policy = parts
@@ -7255,14 +7422,18 @@ def phase_train(torch, seed: int, smi: str) -> dict:
              "grad_norms": norms, "step_ms_median_3_20": step_ms,
              "tokens_per_s": tokens / step_ms * 1e3,
              "peak_memory_bytes": peak, "n_params": n_params,
-             # 6 N operations a token, f32 on the CUDA cores
-             "model_flops_per_step": 6.0 * n_params * tokens}
+             # 6 N operations a token (N the config's count, as the
+             # roofline's cost model takes it), f32 on the CUDA cores
+             "model_flops_per_step": model_flops(model.cfg, ShapeSpec(
+                 "train", args.seq_len, args.global_batch, "train"), 1),
+             "gates_passed": GATES.get("train", 0) - gates_before}
         a["f32_peak_share"] = (a["model_flops_per_step"] / (step_ms / 1e3)
                                / PEAK_F32_FLOPS)
         if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]
-                and min(norms) > 0):
+                and min(norms) > 0 and a["gates_passed"] == 1):
             raise SystemExit(f"train: (a) losses {losses}, grad norms "
-                             f"{norms}")
+                             f"{norms}, pre-flight gates passed "
+                             f"{a['gates_passed']}")
         # every leaf moved: the launcher's initial weights, drawn again
         init = model.init(make_generator(seed, "cuda"))
         still = [p for (p, x), y in zip(flatten_with_paths(init),
@@ -7364,7 +7535,9 @@ def main() -> int:
             + (" | ".join(used) if used else "already built"))
     log(f"  built in {time.perf_counter() - t0:.1f} s")
 
+    count_gates()
     runs = {"kernels": lambda: phase_kernels(torch, args.seed),
+            "lint": lambda: phase_lint(torch, args.seed, smi),
             "serve": lambda: phase_serve(torch, args.seed),
             "long": lambda: phase_long(torch, args.seed),
             "fixed": lambda: phase_fixed(torch, args.seed),
@@ -7387,11 +7560,10 @@ def main() -> int:
             done[name] = runs[name]()
             phase_s[name] = round(time.perf_counter() - t0, 1)
     log("== seconds by phase: " + json.dumps(phase_s))
-    (kernel_rows, serve, long_ctx, fixed, spec, ptq, vit, ssm, encdec, dense,
-     moe, train) = (done.get(p) for p in ("kernels", "serve", "long",
-                                          "fixed", "spec", "ptq", "vit",
-                                          "ssm", "encdec", "dense_archs",
-                                          "moe", "train"))
+    (kernel_rows, lint, serve, long_ctx, fixed, spec, ptq, vit, ssm, encdec,
+     dense, moe, train) = (done.get(p) for p in (
+         "kernels", "lint", "serve", "long", "fixed", "spec", "ptq", "vit",
+         "ssm", "encdec", "dense_archs", "moe", "train"))
     retakes = {p: {"empty": 0, "other": 0} for p in phases}
     for r in PROFILER_RETRIES:
         retakes.setdefault(r["phase"], {"empty": 0, "other": 0})[
@@ -7416,10 +7588,10 @@ def main() -> int:
              "dense_archs": (dense or {}).get("launches", {}),
              "moe": (moe or {}).get("launches", {}),
              "train": (train or {}).get("launches", {})}
-    # the ptq, vit, ssm, encdec, dense_archs, moe and train paths' shapes
-    # join their kernels' rows
+    # the lint phase's longest groups and the ptq, vit, ssm, encdec,
+    # dense_archs, moe and train paths' shapes join their kernels' rows
     kernel_rows = dict(kernel_rows or {})
-    for extra in (spec, ptq, vit, ssm, encdec, dense, moe, train):
+    for extra in (lint, spec, ptq, vit, ssm, encdec, dense, moe, train):
         for name, rows in (extra or {}).get("kernel_rows", {}).items():
             kernel_rows[name] = kernel_rows.get(name, []) + rows
     # the shape whose numbers head a kernel's entry: the decode shape

@@ -13,4 +13,6 @@ when the caller passes ``device="cpu"`` (the tests do), and then the kernel
 wrappers run their plain PyTorch versions.
 """
 
-__version__ = "0.1.0"
+from repro_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -1,11 +1,17 @@
-"""Shared message formatters for runtime errors.
+"""Shared message formatters for runtime errors and QL3xx diagnostics.
 
-Only the messages the ported modules raise live here; the wording is the
-reference package's, so an error reads the same from either stack.  The
-module is import-free so every layer can use it without cycles.
+The typed errors in ``kernels/`` / ``nn/attention.py`` / ``serve/`` and the
+static analyzer's findings tell the same story in the same words: a user
+who hits the runtime error finds the lint code by pasting the message, and
+vice versa.  The wording is the reference package's, so an error reads the
+same from either stack, except for the kernels' shared-memory plans
+(``smem_message``), which are the Hopper kernels' own.  The module is
+import-free so every layer can use it without cycles.
 """
 
 from __future__ import annotations
+
+INT32_MAX = 2**31 - 1
 
 
 def attention_block_message(S: int, T: int, bq: int, bk: int) -> str:
@@ -26,11 +32,31 @@ def abfp_group_message(K: int, n: int, where: str = "") -> str:
     )
 
 
+def int32_overflow_message(site: str, K: int, group: int, bits_x: int,
+                           bits_w: int, bound: int) -> str:
+    n_acc = min(group, K)
+    return (
+        f"int32 accumulator can overflow at {site}: contracting "
+        f"{n_acc} elements of int{bits_x} x int{bits_w} codes bounds the "
+        f"per-group partial sum at {bound} > {INT32_MAX} (2^31-1)"
+    )
+
+
+def smem_message(kernel: str, what: str, need: int, limit: int) -> str:
+    """A kernel plan whose block would need more dynamic shared memory than
+    an sm_90 block may use: the plans in ``kernels/`` raise it before any
+    launch, and qlint reports the same text as QL303."""
+    return (
+        f"{kernel}: {what} needs {need} bytes a block, more shared memory "
+        f"than the {limit} bytes a block may use on sm_90"
+    )
+
+
 def page_pool_message(n_pages: int, need: int, max_len: int,
                       page_size: int) -> str:
     """Paged-KV pool too small to ever admit a maximal request (the
     admission loop would livelock on it; PagedServeEngine raises this at
-    construction)."""
+    construction and qlint flags it as QL305)."""
     return (
         f"paged KV pool of {n_pages} pages cannot admit a maximal request: "
         f"max_len={max_len} at page_size={page_size} reserves {need} pages"
@@ -39,10 +65,19 @@ def page_pool_message(n_pages: int, need: int, max_len: int,
 
 def page_chunk_message(chunk: int, page_size: int) -> str:
     """Chunked prefill must tile by the page size so each chunk's writes
-    land in whole pages."""
+    land in whole pages (QL306 / PagedServeEngine constructor)."""
     return (
         f"prefill chunk {chunk} is not a multiple of the KV page size "
         f"{page_size}; chunk writes must cover whole pages"
+    )
+
+
+def page_waste_message(page_size: int, max_len: int, waste_pct: float) -> str:
+    """Coarse pages waste reserved capacity (QL307, advisory)."""
+    return (
+        f"KV page size {page_size} is coarse for max_len={max_len}: "
+        f"worst-case reservation rounding wastes {waste_pct:.0f}% of a "
+        "sequence's pages"
     )
 
 
@@ -128,8 +163,9 @@ def expert_cache_requires_compress_message() -> str:
 
 
 def compressed_attn_storage_message(mode: str, where: str) -> str:
-    """Compressed attention over fp KV storage: the backend contracts
-    stored codes — dense fp storage has none to contract."""
+    """Compressed attention over fp KV storage (QL601 / nn.attention
+    decode paths): the backend contracts stored codes — dense fp storage
+    has none to contract."""
     return (
         f"attention backend 'compressed' needs quantized KV storage, but "
         f"{where} holds kv_cache={mode!r} (dense fp) — store int8/fp8 "
@@ -137,9 +173,19 @@ def compressed_attn_storage_message(mode: str, where: str) -> str:
     )
 
 
+def flash_fallback_message(backend: str, reason: str) -> str:
+    """Flash/compressed attention request that silently degrades to a
+    reference-speed path (QL602, advisory — the runtime falls back
+    without a signal; this is that signal)."""
+    return (
+        f"attention backend {backend!r} silently degrades to a "
+        f"reference-speed path: {reason}"
+    )
+
+
 def fp8_fixed_slot_message() -> str:
-    """fp8 KV pages on the fixed-slot engine (the ``ServeEngine``
-    constructor raises this)."""
+    """fp8 KV pages on the fixed-slot engine (QL603 / serve.ServeEngine
+    constructor)."""
     return (
         "kv_cache='fp8' is paged-only (the ring-buffer cache has no fp8 "
         "storage); serve this policy with PagedServeEngine"
@@ -153,49 +199,4 @@ def flash_q_offset_message(S: int, T: int) -> str:
         f"causal flash attention with S={S} != T={T} needs an explicit "
         "q_offset (absolute position of the first query row); without it "
         "the block mask would assume the queries start at position 0"
-    )
-
-
-def scan_compat_message(policy_name: str, patterns: list,
-                        model_name: str = "") -> str:
-    """Layer-indexed rules can never match scan-over-layers sites."""
-    return (
-        f"PolicyMap {policy_name!r} has layer-indexed rules "
-        f"({patterns}) which need per-layer "
-        f"sites: run {model_name or 'the model'} with "
-        "cfg.scan_layers=False (the same eager-unrolled constraint "
-        "calibration already has)"
-    )
-
-
-def layer_rules_family_message(patterns: list, model_name: str = "") -> str:
-    """Layer-indexed rules on a family without per-layer sites."""
-    return (
-        f"{model_name or 'this model family'} does not thread "
-        f"per-layer site names; layer-indexed PolicyMap rules "
-        f"({patterns}) are unsupported here — "
-        "use pattern rules like '*attn*' / 'mamba*' instead"
-    )
-
-
-def kv_mode_message(policy_name: str, modes: list) -> str:
-    """A map whose rules disagree on the engine-global KV storage mode."""
-    return (
-        f"PolicyMap {policy_name!r} mixes kv_cache modes {modes} "
-        "(fp32 rules count: cache storage is structural); KV-cache "
-        "storage is engine-global — set it on every entry with "
-        "with_kv_cache(policy, mode)"
-    )
-
-
-def non_contract_layout_message(what: str, top_keys) -> str:
-    """A site-rule map over a param tree whose paths are not the runtime
-    site addresses (hybrid, encdec): the serving transforms would resolve
-    its rules at the wrong sites."""
-    return (
-        f"{what} with a site-rule PolicyMap supports the "
-        "TransformerLM/ViT param layout only: this tree's param paths "
-        f"(top-level keys {sorted(top_keys)}) do not match the runtime "
-        "site addresses, so per-site rules would silently mis-resolve "
-        "— use a flat policy for hybrid/encdec families"
     )

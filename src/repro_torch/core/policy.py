@@ -45,7 +45,6 @@ import functools
 import re
 from typing import Callable, Union
 
-from repro_torch.analysis import messages as msg
 from repro_torch.core.formats import Format, get_format
 
 
@@ -286,17 +285,31 @@ def has_expert_rules(policy: Policy) -> bool:
 
 def check_scan_compatible(policy: Policy, scan_layers: bool,
                           model_name: str = "") -> None:
-    """Raise if layer-indexed rules are used with scan-over-layers."""
-    if scan_layers and has_layer_rules(policy):
-        raise ValueError(msg.scan_compat_message(
-            policy.name, [r.pattern for r in policy.rules], model_name))
+    """Raise if layer-indexed rules are used with scan-over-layers.
+
+    Thin shim over the static analyzer (QL004): the runtime error and the
+    lint finding are the same message, produced in one place.
+    """
+    from repro_torch.analysis.policy_lint import scan_compat_diagnostic
+
+    d = scan_compat_diagnostic(policy, scan_layers, model_name)
+    if d is not None:
+        raise ValueError(d.message)
 
 
 def reject_layer_rules(policy: Policy, model_name: str = "") -> None:
-    """Raise if layer-indexed rules hit a model without per-layer sites."""
-    if has_layer_rules(policy):
-        raise NotImplementedError(msg.layer_rules_family_message(
-            [r.pattern for r in policy.rules], model_name))
+    """Raise if layer-indexed rules hit a model without per-layer sites.
+
+    encdec/hybrid address their matmuls with family-level names (``attn``,
+    ``shared/q``, ``mamba/...``) — no ``blocks.{i}`` prefix exists there, so
+    layer-indexed rules would silently resolve to the default everywhere.
+    Thin shim over the static analyzer (QL005).
+    """
+    from repro_torch.analysis.policy_lint import layer_rules_family_diagnostic
+
+    d = layer_rules_family_diagnostic(policy, model_name)
+    if d is not None:
+        raise NotImplementedError(d.message)
 
 
 def policies_of(policy: Policy) -> tuple:
@@ -331,12 +344,13 @@ def kv_cache_mode(policy: Policy) -> str:
     """
     # disabled (fp32) rules count: cache storage keys off kv_cache alone,
     # so an fp32 rule's 'requant' is heterogeneous with int8 elsewhere.
-    if not isinstance(policy, PolicyMap):
-        return policy.kv_cache
-    modes = {p.kv_cache for p in policy.policies}
-    if len(modes) > 1:
-        raise ValueError(msg.kv_mode_message(policy.name, sorted(modes)))
-    return modes.pop()
+    # Thin shim over the static analyzer (QL007).
+    from repro_torch.analysis.policy_lint import kv_mode_diagnostic
+
+    mode, d = kv_mode_diagnostic(policy)
+    if d is not None:
+        raise ValueError(d.message)
+    return mode
 
 
 def with_kv_cache(policy: Policy, mode: str) -> Policy:

@@ -36,16 +36,16 @@ import torch
 
 from repro_torch.analysis.messages import flash_q_offset_message
 from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels.ops import SMEM_MAX
 
 NEG_INF = -1e30
 
 # flash_mma_kernel: rows a block serves (3 m16 tiles), keys a K / V tile
-# holds, the head dimensions it is instantiated for, and the shared memory
-# a block may use on sm_90 (every plan fits: 214,272 bytes at D = 128)
+# holds and the head dimensions it is instantiated for (every plan fits
+# in ``SMEM_MAX``: 214,272 bytes at D = 128)
 FLASH_ROWS = 48
 FLASH_KEYS = 64
 FLASH_WIDTHS = (16, 32, 64, 128)
-_SMEM_MAX = 232448
 
 
 class FlashPlan(NamedTuple):
@@ -82,7 +82,7 @@ def plan_flash(B: int, S: int, T: int, H: int, KV: int, D: int,
     row_tiles = -(-S * (H // KV) // FLASH_ROWS)
     plan = FlashPlan("flash_mma_kernel", dp, FLASH_ROWS, row_tiles * B * KV,
                      flash_smem_bytes(dp))
-    assert plan.smem_bytes <= _SMEM_MAX
+    assert plan.smem_bytes <= SMEM_MAX
     return plan
 
 

@@ -78,15 +78,16 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.analysis.messages import (abfp_group_message,
-                                           attention_block_message)
+                                           attention_block_message,
+                                           smem_message)
 from repro_torch.core.quantize import div_by_constant
 from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels.ops import SMEM_MAX
 
 NEG_INF = -1e9  # mask value — matches nn.attention.NEG_INF
 M_INIT = -1e30  # running-max init; exp(M_INIT - m_new) underflows to 0
 
 _ROWS_MAX = 16          # query rows (positions x grouped heads) per block
-_SMEM_MAX = 232448      # dynamic shared memory a block may use on sm_90
 
 # attention_prefill_kernel: rows a block serves (4 m16 tiles), keys a K / V
 # tile holds, and the fewest query positions a call must have to take it.
@@ -360,16 +361,16 @@ def plan_attention(B: int, S: int, T: int, H: int, KV: int, D: int,
     if S < PREFILL_MIN_S:
         if bk == T:
             plan = plan_attention_decode(B, T, H, KV, D, probs_n)
-            if plan.smem_bytes <= _SMEM_MAX:
+            if plan.smem_bytes <= SMEM_MAX:
                 return plan
         plan = plan_attention_decode_long(B, T, H, KV, D, bk, probs_n)
-        if plan.smem_bytes <= _SMEM_MAX:
+        if plan.smem_bytes <= SMEM_MAX:
             return plan
     if S >= PREFILL_MIN_S and _prefill_groups(probs_n):
-        if bk == T and prefill_smem_bytes(T, D) <= _SMEM_MAX:
+        if bk == T and prefill_smem_bytes(T, D) <= SMEM_MAX:
             return plan_attention_prefill(B, S, T, H, KV, D)
         plan = plan_attention_long(B, S, T, H, KV, D, probs_n)
-        if plan.smem_bytes <= _SMEM_MAX:
+        if plan.smem_bytes <= SMEM_MAX:
             return plan
     return plan_attention_kernel(B, S, H, KV, D, bk)
 
@@ -598,11 +599,11 @@ def _flash_attention_quant(qh, k_codes, v_codes, k_scale, v_scale, q_pos,
             if t.data_ptr() % 16:
                 raise ValueError(f"flash_attention_quant: {name} must be "
                                  "16-byte aligned")
-    if plan.smem_bytes > _SMEM_MAX:
-        raise ValueError(
-            f"flash_attention_quant: a ({plan.rows} x {bk}) score tile needs "
-            f"{plan.smem_bytes} bytes of shared memory (> {_SMEM_MAX}); use "
-            "a smaller block_k")
+    if plan.smem_bytes > SMEM_MAX:
+        raise ValueError(smem_message(
+            "flash_attention_quant",
+            f"a ({plan.rows} x {bk}) score tile (use a smaller block_k)",
+            plan.smem_bytes, SMEM_MAX))
     mode = 0 if bk == T else (2 if probs_n else 1)
     out = torch.empty((B, S, H, D), dtype=torch.float32, device=qh.device)
     if out.numel() == 0:

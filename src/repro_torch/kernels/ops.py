@@ -10,6 +10,11 @@ mask ragged edges themselves, so there is no tiling contract to meet.
 
 from __future__ import annotations
 
+# Dynamic shared memory a block may use on sm_90 (227 KiB, the opt-in
+# maximum): the one budget the kernels' plans and qlint's QL303 read.  It
+# is set before the kernel modules are imported, which read it from here.
+SMEM_MAX = 232448
+
 import torch
 
 from repro_torch.core.policy import QuantPolicy

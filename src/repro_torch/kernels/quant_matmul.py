@@ -44,13 +44,14 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.analysis.messages import abfp_group_message
+from repro_torch.analysis.messages import abfp_group_message, smem_message
 from repro_torch.core import abfp as abfp_mod
 from repro_torch.core.formats import Format, IntFormat
 from repro_torch.core.quantize import unpack_int4_codes
 from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels.abfp_qdq import (SMS, format_args, plan_qdq,
                                          plan_struct, qdq_groups)
+from repro_torch.kernels.ops import SMEM_MAX
 
 
 def group_contract(xc: torch.Tensor, xs: torch.Tensor, wc: torch.Tensor,
@@ -117,7 +118,6 @@ def quant_matmul_plain(x: torch.Tensor, w_codes: torch.Tensor,
                           max_abs_product=fmt_x.qmax_pos * w_bound)
 
 
-_SMEM_MAX = 232448  # dynamic shared memory a block may use on sm_90
 MMA_BM = 64  # output rows of an mma_contract_kernel block (kMmaBM)
 MMA_BN = 128  # output columns of an mma_contract_kernel block (kMmaBN)
 MMA_STAGES = 4  # its shared-memory ring depth (kMmaStages)
@@ -217,10 +217,10 @@ def plan_mma_contract(M: int, N: int, K: int, n: int,
              + MMA_BN * mma_row_bytes(chunk // 2 if packed else chunk * xb)
              + 4 * (bm + MMA_BN))
     smem = MMA_STAGES * stage
-    if smem > _SMEM_MAX:
-        raise ValueError(f"tensor-core contraction: n={n} needs "
-                         f"{smem} bytes of shared memory, more than a block "
-                         "has")
+    if smem > SMEM_MAX:
+        raise ValueError(smem_message(
+            "tensor-core contraction", f"group length n={n} ({codes} codes)",
+            smem, SMEM_MAX))
     return MmaPlan(bm, chunk, splits, (cols, rows, splits), smem)
 
 
@@ -286,12 +286,12 @@ def plan_quant_decode(M: int, N: int, K: int, n_pad: int,
     while True:
         t_max = max(1, -(-G // splits))
         smem = qd_smem_bytes(B, bm, n_pad, t_max)
-        if smem <= _SMEM_MAX:
+        if smem <= SMEM_MAX:
             return QuantDecodePlan(bm, tiles, splits, t_max, smem)
         if t_max == 1:
-            raise ValueError(f"quant_matmul decode kernel: groups of {n_pad} "
-                             "codes need more shared memory than a block "
-                             "has")
+            raise ValueError(smem_message(
+                "quant_matmul decode kernel", f"a group of {n_pad} codes",
+                smem, SMEM_MAX))
         splits += 1
 
 
@@ -616,19 +616,22 @@ def plan_abfp_matmul(M: int, N: int, K: int, n: int, int8: bool = False,
     if int8 or all(bf16_holds_codes(f) for f in formats):
         codes = "int8" if int8 else "bf16"
         n_pad = pad_group(n)
-        if _col_stage_smem(n, n_pad, CODE_BYTES[codes]) > _SMEM_MAX:
-            raise ValueError(f"abfp_matmul: group length n={n} needs more "
-                             "shared memory than a block has to quantize w")
+        col = _col_stage_smem(n, n_pad, CODE_BYTES[codes])
+        if col > SMEM_MAX:
+            raise ValueError(smem_message(
+                "abfp_matmul_int8" if int8 else "abfp_matmul",
+                f"quantizing w in groups of n={n}", col, SMEM_MAX))
         mma = plan_mma_contract(M, N, G * n_pad, n_pad, codes)
         return AbfpPlan("prefill", mma.block_rows, mma.tiles, mma.splits,
                         mma.smem_bytes, n_pad)
     for rows in (64, 32):
         smem = 4 * (rows * n + 64 * n + 256)
-        if smem <= _SMEM_MAX:
+        if smem <= SMEM_MAX:
             return AbfpPlan("simt", rows, -(-N // 64) * -(-M // rows), 1,
                             smem, n)
-    raise ValueError(f"abfp_matmul kernel: group length n={n} needs more "
-                     "shared memory than a block has")
+    raise ValueError(smem_message(
+        "abfp_matmul", f"the f32 contraction in groups of n={n}", smem,
+        SMEM_MAX))
 
 
 def split_bounds(G: int, splits: int) -> list[tuple[int, int]]:

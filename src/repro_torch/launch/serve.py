@@ -37,11 +37,15 @@ MoE site and reports hit / miss and residency stats; ``--expert-precision
 auto`` probes routing frequencies on synthetic prompts and serves the
 hottest quarter of the experts at INT8, the rest at INT4.  Neither expert
 flag combines with ``--speculate``, as in the reference.
-There is no lint gate yet: the static analyzer is a late slice of the
-port, and the launcher says so.  Like the reference launcher it has no flag
-that sets ``fused`` on the policy, so its matmuls take the non-kernel
-paths; the matmul kernels are reached through the engine API (see
-``chip_smoke.py``).
+Before any weight is built, the qlint pre-flight gate
+(``repro_torch.launch.lint.preflight``) lints the launch: the policy, the
+recipe, the page geometry, the speculative pair, the expert cache and the
+attention backend; an error exits with code 2 and the report on stderr,
+before anything is allocated on the card (``--expert-precision auto`` is
+gated again once its map is assigned).  ``--no-lint`` bypasses the gate.
+Like the reference launcher it has no flag that sets ``fused`` on the
+policy, so its matmuls take the non-kernel paths; the matmul kernels are
+reached through the engine API (see ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -129,8 +133,7 @@ def main(argv=None) -> int:
                     help="per-request top-k sampling cutoff (0 = full "
                     "distribution)")
     ap.add_argument("--no-lint", action="store_true",
-                    help="accepted for compatibility: there is no lint gate "
-                    "in the port yet")
+                    help="skip the qlint pre-flight gate")
     ap.add_argument("--device", default="cuda",
                     help="where the model lives and runs (default: the "
                     "card; 'cpu' must be asked for)")
@@ -138,8 +141,9 @@ def main(argv=None) -> int:
 
     from repro_torch.analysis import messages as msg
     from repro_torch.configs import get_config
-    from repro_torch.core.policy import (preset, replace_enabled,
-                                         with_attn_backend)
+    from repro_torch.core.policy import (has_layer_rules, preset,
+                                         replace_enabled, with_attn_backend)
+    from repro_torch.launch.lint import preflight
     from repro_torch.models import build_model
     from repro_torch.models.serving_transforms import weight_bytes_summary
     from repro_torch.nn.module import make_generator
@@ -166,14 +170,22 @@ def main(argv=None) -> int:
     policy = preset(policy_name, n_layers=cfg.n_layers)
     if args.attn_backend != "auto":
         policy = with_attn_backend(policy, args.attn_backend)
+    if has_layer_rules(policy):
+        # layer-indexed PolicyMap rules need per-layer sites (eager unroll)
+        cfg = cfg.replace(scan_layers=False)
+    if rec is not None:
+        # calibration observers need eager per-layer execution
+        cfg = cfg.replace(scan_layers=False, remat="none")
     pages_geo = None
     if args.paged:
+        # mirror PagedServeEngine's defaults so the gate lints what runs
         chunk = max(args.page_size, -(-64 // args.page_size) * args.page_size)
         n_pages = (args.n_pages if args.n_pages is not None
                    else args.n_slots * pages_for(args.max_len,
                                                  args.page_size))
         pages_geo = PageGeometry(page_size=args.page_size, n_pages=n_pages,
                                  max_len=args.max_len, prefill_chunk=chunk)
+    experts = None
     if args.expert_cache is not None or args.expert_precision != "flat":
         if args.speculate:
             raise SystemExit(
@@ -182,11 +194,24 @@ def main(argv=None) -> int:
                 "expert store)")
         if args.expert_cache is not None and not args.compress:
             raise SystemExit(msg.expert_cache_requires_compress_message())
+        experts = {"cache_capacity": args.expert_cache}
     draft_policy = None
+    speculative = None
     if args.speculate:
         draft_policy = preset(args.draft_preset, n_layers=cfg.n_layers)
-    print("note: no pre-flight lint gate in the PyTorch port yet (the "
-          "static analyzer is a later slice)", file=sys.stderr)
+        if has_layer_rules(draft_policy):
+            cfg = cfg.replace(scan_layers=False)
+        speculative = {"draft_policy": draft_policy,
+                       "draft_k": args.draft_k}
+    attn_ctx = {"engine": "paged" if args.paged else "fixed"}
+    if args.paged and args.kv != "auto":
+        attn_ctx["kv"] = args.kv
+    if not args.no_lint:
+        # pre-flight gate: errors abort before any weights are built
+        preflight(cfg, policy, rec, compress=args.compress,
+                  scan_layers=cfg.scan_layers, pages=pages_geo,
+                  speculative=speculative, experts=experts, attn=attn_ctx,
+                  where="serve")
 
     model = build_model(cfg, device=args.device)
     params = model.init(make_generator(args.seed, args.device))
@@ -226,6 +251,8 @@ def main(argv=None) -> int:
                                                route_frequencies)
 
         if not getattr(model, "is_moe", False):
+            # the QL502 gate blocks this before weights are built; mirror
+            # it here for --no-lint runs
             raise SystemExit(msg.expert_non_moe_message(
                 "--expert-precision auto", cfg.name))
         # offline assignment pass: probe routing frequencies on synthetic
@@ -248,6 +275,12 @@ def main(argv=None) -> int:
             "hot_experts": [int(e) for e in hot],
             "loads": [float(x) for x in np.asarray(loads).sum(axis=0)],
         }
+        if not args.no_lint:
+            # re-gate with the assigned map + hot set (QL503 inversion)
+            preflight(cfg, policy, rec, compress=args.compress,
+                      scan_layers=cfg.scan_layers, pages=pages_geo,
+                      experts={"cache_capacity": args.expert_cache,
+                               "hot_experts": hot}, where="serve")
     if args.speculate:
         kw = {}
         if args.paged:

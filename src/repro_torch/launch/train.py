@@ -12,8 +12,11 @@ step is deterministic as it stands (the index and gather backwards
 accumulate by sorting, or into distinct elements), so a restarted run is
 bit-identical to an uninterrupted one without
 ``torch.use_deterministic_algorithms`` (``chip_smoke.py --phases train``
-checks both).  There is no lint gate yet: the static analyzer is a later slice of
-the port, and the launcher says so.  An image classifier (``--arch
+checks both).  Before any weight is built the qlint pre-flight gate
+(``repro_torch.launch.lint.preflight``) lints the policy, the recipe and
+the training shape; an error (an unknown ``--recipe`` is QL101) exits
+with code 2 and the report on stderr, before anything is allocated on the
+card.  ``--no-lint`` bypasses the gate.  An image classifier (``--arch
 vit-b16``) exits as the reference's launcher does.
 """
 
@@ -21,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import sys
 
 import numpy as np
 
@@ -54,8 +56,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--eval-every", type=int, default=0)
     ap.add_argument("--abfp-n", type=int, default=64)
     ap.add_argument("--no-lint", action="store_true",
-                    help="accepted for compatibility: there is no lint gate "
-                    "in the port yet")
+                    help="skip the qlint pre-flight gate")
     ap.add_argument("--device", default="cuda",
                     help="where the model lives and trains (default: the "
                     "card; 'cpu' must be asked for)")
@@ -95,8 +96,14 @@ def make_everything(args):
     if args.qat and policy.enabled:
         policy = policy.with_ste(True)
     if not getattr(args, "no_lint", False):
-        print("note: no pre-flight lint gate in the PyTorch port yet (the "
-              "static analyzer is a later slice)", file=sys.stderr)
+        # pre-flight gate: errors abort before any weights are built
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.launch.lint import preflight
+
+        shape = ShapeSpec("train_cli", args.seq_len, args.global_batch,
+                          "train")
+        preflight(cfg, policy, args.recipe or None, shape=shape,
+                  scan_layers=cfg.scan_layers, where="train")
 
     model = build_model(cfg, device=device)
     params = model.init(make_generator(args.seed, device))

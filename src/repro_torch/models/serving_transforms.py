@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.analysis.messages import non_contract_layout_message
 from repro_torch.core import abfp as abfp_mod
 from repro_torch.core.formats import IntFormat
 from repro_torch.core.policy import (
@@ -56,7 +55,6 @@ from repro_torch.core.policy import (
     QuantPolicy,
     TensorQuant,
     as_policy_map,
-    has_site_rules,
     resolve_policy,
 )
 from repro_torch.core.quantize import (pack_int4_codes, quantize,
@@ -192,21 +190,18 @@ def _walk_kernels(params, fn, expert_fn=None):
     return rec(params, [])
 
 
-# Param-tree top-level keys whose runtime site addresses do not follow the
-# path-derived naming of ``_walk_kernels`` (hybrid: 'shared/q' at run time
-# vs 'shared/attn/q' in the tree; encdec: family-level 'attn/...' names vs
-# 'encoder/...' / 'decoder/...' paths); the reference's static analyzer
-# keeps the same list
-NON_CONTRACT_KEYS = ("mamba_groups", "shared", "lora", "encoder", "decoder")
-
-
 def _check_site_rules_supported(params, policy: Policy, what: str) -> None:
-    """Reject a site-rule map on a tree whose paths are not its sites."""
-    if not isinstance(params, dict) or not has_site_rules(policy):
+    """Reject a site-rule map on a tree whose paths are not its sites
+    (thin shim over the static analyzer, QL008: same message, one
+    source)."""
+    if not isinstance(params, dict):
         return
-    if any(k in params for k in NON_CONTRACT_KEYS):
-        raise NotImplementedError(non_contract_layout_message(
-            what, list(params)))
+    from repro_torch.analysis.policy_lint import (
+        non_contract_layout_diagnostic)
+
+    d = non_contract_layout_diagnostic(policy, list(params), what)
+    if d is not None:
+        raise NotImplementedError(d.message)
 
 
 def _site_weight(policy: Policy, site: str) -> TensorQuant | None:

@@ -337,7 +337,7 @@ def test_exact_body_past_the_decode_kernel():
     context, near its start, and dead."""
     B, T, H, KV, D = 2, 16384, 14, 2, 32
     assert faq.plan_attention_decode(B, T, H, KV, D, 64).smem_bytes > \
-        faq._SMEM_MAX
+        faq.SMEM_MAX
     plan = faq.plan_attention(B, 1, T, H, KV, D, T, 64)
     assert (plan.kernel, plan.grid, plan.keys) == (
         "attention_decode_long_kernel", (8, KV, B), 2048)
@@ -513,11 +513,11 @@ def test_long_path_decode_plan():
     full = faq.plan_attention(4, 1, 32768, 28, 4, 128, 512, 64)
     assert (full.kernel, full.grid, full.keys) == (
         "attention_decode_long_kernel", (8, 4, 4), 4096)
-    assert 4 * 7 * 4096 == 114688 < full.smem_bytes <= faq._SMEM_MAX
+    assert 4 * 7 * 4096 == 114688 < full.smem_bytes <= faq.SMEM_MAX
     # the exact body at T = 8192 (bk = T): past the decode kernel's ranges
     exact = faq.plan_attention(4, 1, 8192, 28, 4, 128, 8192, 64)
     assert faq.plan_attention_decode(4, 8192, 28, 4, 128, 64).smem_bytes > \
-        faq._SMEM_MAX
+        faq.SMEM_MAX
     assert exact == plan
 
 
@@ -540,7 +540,7 @@ def test_decode_long_plan(T, probs_n, want):
     assert plan.keys % unit == 0 and (probs_n == 0 or unit % probs_n == 0)
     # a block holds its share of every unit of T
     assert plan.keys == -(-(-(-T // unit)) // plan.cluster) * unit
-    assert plan.smem_bytes <= faq._SMEM_MAX
+    assert plan.smem_bytes <= faq.SMEM_MAX
 
 
 # (B, S, T, bk, probs_n) at 28 / 4 heads, D = 128 -> kernel

@@ -53,10 +53,20 @@ def test_unported_flags_exit_naming_the_roadmap(capsys, flags, outcome):
     expert-resident serving came to the port now do what the reference
     launcher does with them: ``--speculate`` serves (fixed-slot, or paged
     over fp pages) and reports acceptance stats; on a dense arch without
-    ``--compress`` the expert flags exit with the reference's messages."""
+    ``--compress`` the expert flags exit with the reference's messages.
+    ``--expert-precision`` on a dense arch is refused by the pre-flight
+    gate first (QL502, exit code 2), as the reference's gate refuses it;
+    past the gate (``--no-lint``) the launcher's own check exits."""
     argv = flags + ["--device", "cpu", "--n-requests", "2",
                     "--max-new-tokens", "5"]
     if outcome not in ("fixed", "paged"):
+        if "--expert-precision" in flags:
+            capsys.readouterr()
+            with pytest.raises(SystemExit) as e:
+                tserve.main(argv)
+            assert e.value.code == 2
+            assert "QL502" in capsys.readouterr().err
+            argv = argv + ["--no-lint"]
         with pytest.raises(SystemExit) as e:
             tserve.main(argv)
         assert str(e.value) == outcome

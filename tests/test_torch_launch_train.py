@@ -14,7 +14,8 @@ same flags, the port's initial weights carried across from the reference's
   the uninterrupted run's ``final_loss`` and evaluation bit for bit; the
   reference's restart lands on the same numbers;
 - the reference's exits: an image classifier, and the port's default
-  device without a card;
+  device without a card; without ``--no-lint`` the launch passes the
+  pre-flight gate;
 - Queue A item 1: ``--arch mamba2-130m --reduced --steps 2 --recipe
   sq_gptq_w4a8`` — PTQ over an SSM tree after training.  Each of the
   port's three calibrations observes the parameters the reference's
@@ -200,8 +201,14 @@ def test_exits_and_notes(monkeypatch, capsys):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             t_launch.main(["--steps", "1"])
     capsys.readouterr()
+    import repro_torch.launch.lint as t_lint
+
+    gated, preflight = [], t_lint.preflight
+    monkeypatch.setattr(t_lint, "preflight", lambda *a, **kw: (
+        gated.append(kw["where"]), preflight(*a, **kw)))
     _port(FLAGS[:-1] + ["--steps", "1"], monkeypatch)
-    assert "no pre-flight lint gate" in capsys.readouterr().err
+    assert gated == ["train"]  # without --no-lint the launch is gated
+    assert "no pre-flight lint gate" not in capsys.readouterr().err
 
 
 def test_ssm_recipe_after_training_matches_the_reference(monkeypatch):
