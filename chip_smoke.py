@@ -230,6 +230,22 @@ Phases (each fatal on failure):
             microbatches against 1: the loss at the reference's bar, the
             gradients held to a reordered and a nudged full-batch control
             that a planted dropped microbatch must fail
+  dist      a world of one over NCCL (a FileStore, no port), meshes
+            ("data", "model") and ("pod", "data") = (1, 1): (a) opt-125m at
+            full width and depth laid out by shardings_from_axes as
+            DTensors, one w4a8_abfp QAT step under use_rules: loss,
+            gradients and updated parameters bit-equal to the unsharded
+            step (else where they first differ, held to a one-ulp
+            embedding control); no kernel launch; (b) saved and restored
+            onto the mesh by shardings_for_restore (bit-equal, the report
+            printed), then full_tensor() and one fused P-fp forward: 73
+            abfp_matmul + 12 flash_attention launches asserted, logits
+            bit-equal to the unrestored forward's; (c) compressed_psum_pod
+            on (a)'s gradients bit-equal to its plain version, timed; (d)
+            a DTensor handed to quant_matmul and flash_attention_quant
+            raises TypeError with 0 launches; (e) qwen2-7b's full-width
+            restore plans on the (16, 16) and (2, 16, 16) mesh shapes
+            (host only, dense and compressed), printed
 
 The last lines of standard output are: one JSON object {"kernels": [...]},
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -255,7 +271,7 @@ from repro_torch.launch.mesh import (PEAK_BF16_FLOPS, PEAK_F32_FLOPS,
                                      PEAK_INT8_OPS, PEAK_TF32_FLOPS)
 
 PHASES = ("kernels", "lint", "serve", "long", "fixed", "reduced", "identity", "spec",
-          "ptq", "vit", "ssm", "encdec", "dense_archs", "moe", "train")
+          "ptq", "vit", "ssm", "encdec", "dense_archs", "moe", "train", "dist")
 
 # every kernel: (wrapper module, TPU kernel it replaces)
 KERNELS = {
@@ -7496,6 +7512,372 @@ def phase_train(torch, seed: int, smi: str) -> dict:
     return report
 
 
+# --------------------------------------------------------------------------
+# phase: dist
+# --------------------------------------------------------------------------
+DIST_SHAPE = (8, 512)  # (a): the QAT step's batch (M = 4096 in (b)'s forward)
+DIST_TIMED = 5  # (c): calls of compressed_psum_pod timed (median)
+DIST_DIR = os.path.join(ROOT, "build", "dist")
+
+
+class PlanMesh:
+    """A mesh's axis names and shape, for the restore plans of meshes larger
+    than this host (``restore_specs`` reads nothing else)."""
+
+    def __init__(self, names, shape):
+        import types
+
+        self.axis_names = tuple(names)
+        self.devices = types.SimpleNamespace(shape=tuple(shape))
+
+
+def dist_world_of_one(torch):
+    """The default process group: a world of one over NCCL, initialised from
+    a ``FileStore`` under ``build/`` (no port).  A failed init fails the
+    phase."""
+    import datetime
+
+    import torch.distributed as dist
+
+    os.makedirs(DIST_DIR, exist_ok=True)
+    path = os.path.join(DIST_DIR, "store")
+    if os.path.exists(path):
+        os.remove(path)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(path, 1), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    return dist
+
+
+def whole(t):
+    """A DTensor's whole value; a plain tensor as it is."""
+    from repro_torch.dist.sharding import is_dtensor
+
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def dist_batch(torch, cfg, seed: int) -> dict:
+    """``DIST_SHAPE`` random tokens from ``RandomState(seed + 3)`` on the
+    card; labels are the next token (-1 at the end)."""
+    import numpy as np
+
+    t = np.random.RandomState(seed + 3).randint(
+        0, cfg.vocab, DIST_SHAPE).astype(np.int32)
+    labels = np.roll(t, -1, axis=1)
+    labels[:, -1] = -1
+    return {"tokens": torch.from_numpy(t).cuda(),
+            "labels": torch.from_numpy(labels).cuda()}
+
+
+def dist_step(torch, model, params, batch, policy) -> dict:
+    """The loss and gradients (``make_loss_and_grads``), then one train step
+    (in place on ``params``) and its wall ms; every tensor returned whole."""
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import (TrainStepConfig, make_loss_and_grads,
+                                        make_train_step)
+    from repro_torch.tree import leaves
+
+    _, _, grads = make_loss_and_grads(model, policy)(params, batch)
+    opt = AdamW(lr=1e-3)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, m = make_train_step(model, opt, policy, TrainStepConfig())(
+        params, state, batch)
+    loss = whole(m["loss"])
+    float(loss)  # synchronizes
+    return {"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+            "grads": [whole(g) for g in grads],
+            "params": [whole(p) for p in leaves(params)]}
+
+
+def dist_gaps(torch, names, got: dict, want: dict) -> dict:
+    """Bit-equality of two ``dist_step`` results, and where they first
+    differ: the loss's gap, and per tree the largest gap over the leaf's
+    largest value."""
+
+    def tree_gap(a, b):
+        first, worst = None, 0.0
+        for n, x, y in zip(names, a, b):
+            if torch.equal(x, y):
+                continue
+            d = float((x.double() - y.double()).abs().max()
+                      / max(float(y.double().abs().max()), 1e-30))
+            first = first or [n, d]
+            worst = max(worst, d)
+        return first, worst
+
+    out = {"loss_gap": abs(float(got["loss"]) - float(want["loss"]))}
+    for key in ("grads", "params"):
+        out[f"{key}_first"], out[f"{key}_gap"] = tree_gap(got[key],
+                                                          want[key])
+    out["bit_equal"] = not any(out[f"{k}_gap"]
+                               for k in ("loss", "grads", "params"))
+    return out
+
+
+def psum_plain(torch, grads, errors, npods: int = 1):
+    """``compressed_psum_pod``'s arithmetic with no collective: what every
+    pod gets when there is one."""
+    from repro_torch.core.formats import INT8
+    from repro_torch.core.quantize import (dequantize, div_by_constant,
+                                           quantize)
+
+    red, errs = [], []
+    for g, e in zip(grads, errors):
+        g32 = g.to(torch.float32) + e
+        alpha = torch.clamp_min(torch.amax(torch.abs(g32)), 1e-8)
+        codes, scale = quantize(g32, alpha, INT8)
+        red.append(div_by_constant(dequantize(codes.to(torch.int32), scale),
+                                   npods).to(g.dtype))
+        errs.append(g32 - dequantize(codes, scale))
+    return red, errs
+
+
+def events_ms(torch, fn, n: int) -> float:
+    """Median ms of ``n`` calls of ``fn``, CUDA events around each."""
+    fn()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def dist_refusals(torch, mesh) -> dict:
+    """(d) A DTensor handed to ``quant_matmul`` and to
+    ``flash_attention_quant``: each raises ``TypeError`` before any
+    launch."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.core.formats import INT8
+    from repro_torch.kernels.flash_attention_quant import \
+        flash_attention_quant
+    from repro_torch.kernels.quant_matmul import quant_matmul
+
+    rep = [Replicate()] * mesh.ndim
+    dt = lambda t: distribute_tensor(t, mesh, rep)
+    x = dt(torch.randn(4, 512, device="cuda"))
+    codes = torch.zeros(256, 512, dtype=torch.int8, device="cuda")
+    scales = torch.ones(512, 8, device="cuda")
+    qh = dt(torch.randn(1, 1, 4, 128, device="cuda"))
+    kc = torch.zeros(1, 64, 1, 128, dtype=torch.int8, device="cuda")
+    ks = torch.ones(1, 64, 1, device="cuda")
+    pos = torch.zeros(1, 1, dtype=torch.int32, device="cuda")
+    kvp = torch.arange(64, dtype=torch.int32, device="cuda")[None]
+    calls = {"quant_matmul": lambda: quant_matmul(x, codes, scales, INT8,
+                                                  64, True),
+             "flash_attention_quant": lambda: flash_attention_quant(
+                 qh, kc, kc, ks, ks, pos, kvp, 64, scale=128 ** -0.5)}
+    reset_counts()
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = "returned"
+        except TypeError as e:
+            out[name] = str(e)
+    launched = {k: v for k, v in read_counts().items() if v}
+    if launched or not all("DTensor" in v for v in out.values()):
+        raise SystemExit(f"dist: (d) a DTensor reached a kernel: {out}, "
+                         f"launches {launched}")
+    return {"raised": out, "launches": launched}
+
+
+def dist_plans(torch) -> dict:
+    """(e) qwen2-7b's restore plans at full width and depth on the
+    production mesh shapes, dense and compressed (``meta`` tensors: host
+    only)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import preset
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.elastic import restore_specs
+    from repro_torch.models import build_model
+    from repro_torch.models.serving_transforms import (compress_axes,
+                                                       compress_weights)
+
+    t0 = time.perf_counter()
+    model = build_model(get_config("qwen2-7b"), device="meta")
+    meta = model.init(torch.Generator())
+    axes = model.param_axes()
+    comp = compress_weights(meta, preset("w4a8_abfp"))
+    trees = {"dense": (axes, meta),
+             "compressed": (compress_axes(axes, comp), comp)}
+    out = {}
+    for mname, names, shape in (
+            ("16x16", ("data", "model"), (16, 16)),
+            ("2x16x16", ("pod", "data", "model"), (2, 16, 16))):
+        for kind, (ax, tree) in trees.items():
+            _, report = restore_specs(ax, tree, PlanMesh(names, shape),
+                                      shd.DEFAULT_RULES)
+            out[f"{mname} {kind}"] = {
+                "summary": report.summary(),
+                "fallbacks": sorted({(f.logical, f.size, f.ways, f.kept)
+                                     for f in report.fallbacks})}
+            log(f"  (e) qwen2-7b {kind} on {mname}: {report.summary()}; "
+                f"fallbacks by (axis, size, ways, kept): "
+                f"{out[f'{mname} {kind}']['fallbacks']}")
+    out["host_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_dist(torch, seed: int, smi: str) -> dict:
+    import shutil
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import preset
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.elastic import shardings_for_restore
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+    from repro_torch.optim.compression import compressed_psum_pod
+    from repro_torch.tree import flatten_with_paths, leaves, tree_map
+
+    log("== dist: a world of one over NCCL, (1, 1) meshes; opt-125m's "
+        "sharded QAT step, elastic restore + fused forward, "
+        "compressed_psum_pod, kernel refusals, qwen2-7b's restore plans")
+    t_phase = time.perf_counter()
+    dist = dist_world_of_one(torch)
+    report = {}
+    try:
+        mesh = make_debug_mesh(1, 1)  # ("data", "model"), on the card
+        rules = dict(shd.DEFAULT_RULES)
+        cfg = get_config("opt-125m")
+        model = build_model(cfg, device="cuda")
+        params0 = model.init(make_generator(seed, "cuda"))
+        names = [p for p, _ in flatten_with_paths(params0)]
+        batch = dist_batch(torch, cfg, seed)
+        policy = preset("w4a8_abfp").with_ste(True)
+        psh = sp.shardings_from_axes(model.param_axes(), mesh, rules, params0)
+        bsh = sp.shardings_from_axes({"tokens": ("batch", None),
+                                      "labels": ("batch", None)}, mesh,
+                                     rules, batch)
+
+        # (a) the sharded QAT step against the unsharded one
+        reset_counts()
+        plain = dist_step(torch, model, tree_clone(params0), batch, policy)
+        sharded_params = sp.distribute(tree_clone(params0), psh)
+        with shd.use_rules(mesh, rules):
+            sharded = dist_step(torch, model, sharded_params,
+                                sp.distribute(batch, bsh), policy)
+        launched = {k: v for k, v in read_counts().items() if v}
+        gaps = dist_gaps(torch, names, sharded, plain)
+        a = {"policy": policy.name, "batch": list(DIST_SHAPE),
+             "loss": float(plain["loss"]), "n_leaves": len(names),
+             "placements": {n: str(t.placements) for n, t in
+                            list(zip(names, leaves(sharded_params)))[:4]},
+             "step_ms": {"unsharded": plain["ms"], "sharded": sharded["ms"]},
+             "launches": launched, **gaps}
+        if not gaps["bit_equal"]:
+            # the unsharded step with one ulp moved in half the embedding
+            ctrl = tree_clone(params0)
+            half = ctrl["embed"]["table"].view(-1)
+            half = half[:half.numel() // 2]
+            half.copy_(torch.nextafter(half, torch.full_like(half, math.inf)))
+            a["control"] = dist_gaps(torch, names, dist_step(
+                torch, model, ctrl, batch, policy), plain)
+            del ctrl
+            held = all(gaps[f"{k}_gap"] <= a["control"][f"{k}_gap"]
+                       for k in ("loss", "grads", "params"))
+            a["held_to_control"] = held
+        report["a"] = a
+        log("  (a) " + json.dumps(a))
+        if launched or not (gaps["bit_equal"] or a["held_to_control"]):
+            raise SystemExit(f"dist: (a) the sharded step is not the "
+                             f"unsharded one: {a}")
+
+        # (b) saved, restored onto the mesh, gathered, one fused forward
+        ck = os.path.join(DIST_DIR, "ck")
+        shutil.rmtree(ck, ignore_errors=True)
+        saved = [whole(p) for p in leaves(sharded_params)]
+        t0 = time.perf_counter()
+        store.save_pytree(ck, 1, sharded_params)
+        store.mark_committed(ck, 1)
+        save_s = time.perf_counter() - t0
+        meta = build_model(cfg, device="meta").init(torch.Generator())
+        shardings, rep = shardings_for_restore(model.param_axes(), meta,
+                                               mesh, rules)
+        t0 = time.perf_counter()
+        restored = store.restore_pytree(ck, 1, meta, shardings=shardings)
+        restore_s = time.perf_counter() - t0
+        rleaves = leaves(restored)
+        b = {"summary": rep.summary(), "fallbacks": len(rep.fallbacks),
+             "dtensors": all(map(shd.is_dtensor, rleaves)),
+             "bit_equal": all(torch.equal(whole(x), y)
+                              for x, y in zip(rleaves, saved)),
+             "save_s": save_s, "restore_s": restore_s}
+        full = tree_map(whole, restored)
+        unrestored = tree_map(whole, sharded_params)
+        del restored, sharded_params
+        fwd = {"tokens": batch["tokens"]}
+        kp = fixed_policy("p_fp")
+        reset_counts()
+        logits = ptq_logits(torch, model, full, fwd, kp)
+        report["launches"] = read_counts()
+        got = {k: v for k, v in report["launches"].items() if v}
+        want = {"abfp_matmul": ptq_dense(cfg),
+                "flash_attention": cfg.n_layers}
+        kept = save_counts()  # the comparison's forward is not counted
+        b["logits_bit_equal"] = torch.equal(
+            logits, ptq_logits(torch, model, unrestored, fwd, kp))
+        restore_counts(kept)
+        b["forward_launches"] = got
+        report["b"] = b
+        log(f"  (b) {rep.summary()}; " + json.dumps(b))
+        if not (b["dtensors"] and b["bit_equal"] and got == want
+                and b["logits_bit_equal"]):
+            raise SystemExit(f"dist: (b) restore or fused forward: {b}; "
+                             f"launches expected {want}")
+        del full, unrestored, logits
+
+        # (c) the int8-compressed pod all-reduce on (a)'s gradients
+        pmesh = init_device_mesh("cuda", (1, 1),
+                                 mesh_dim_names=("pod", "data"))
+        grads = plain["grads"]
+        errors = [torch.zeros_like(g, dtype=torch.float32) for g in grads]
+        red, enew = compressed_psum_pod(grads, errors, pmesh)
+        pred, penew = psum_plain(torch, grads, errors)
+        c = {"leaves": len(grads),
+             "bytes": sum(g.numel() * g.element_size() for g in grads),
+             "bit_equal": all(torch.equal(x, y) for x, y in zip(
+                 red + enew, pred + penew)),
+             "ms": events_ms(torch, lambda: compressed_psum_pod(
+                 grads, errors, pmesh), DIST_TIMED),
+             "plain_ms": events_ms(torch, lambda: psum_plain(
+                 torch, grads, errors), DIST_TIMED)}
+        report["c"] = c
+        log(f"  (c) compressed_psum_pod over {c['leaves']} gradients "
+            f"({c['bytes']} bytes): {c['ms']:.3f} ms, plain "
+            f"{c['plain_ms']:.3f} ms, bit-equal {c['bit_equal']} [{smi}]")
+        if not c["bit_equal"]:
+            raise SystemExit(f"dist: (c) compressed_psum_pod is not its "
+                             f"plain version: {c}")
+        del plain, sharded, red, enew, pred, penew
+
+        # (d), (e)
+        report["d"] = dist_refusals(torch, mesh)
+        log("  (d) " + json.dumps(report["d"]))
+        report["e"] = dist_plans(torch)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+        free_card(torch)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"  dist phase {report['phase_s']:.1f} s [{smi}]")
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7550,7 +7932,8 @@ def main() -> int:
             "encdec": lambda: phase_encdec(torch, args.seed, smi),
             "dense_archs": lambda: phase_dense_archs(torch, args.seed, smi),
             "moe": lambda: phase_moe(torch, args.seed, smi),
-            "train": lambda: phase_train(torch, args.seed, smi)}
+            "train": lambda: phase_train(torch, args.seed, smi),
+            "dist": lambda: phase_dist(torch, args.seed, smi)}
     done = {}
     phase_s = {"build": round(time.perf_counter() - t_start, 1)}
     for name in PHASES:
@@ -7561,9 +7944,9 @@ def main() -> int:
             phase_s[name] = round(time.perf_counter() - t0, 1)
     log("== seconds by phase: " + json.dumps(phase_s))
     (kernel_rows, lint, serve, long_ctx, fixed, spec, ptq, vit, ssm, encdec,
-     dense, moe, train) = (done.get(p) for p in (
+     dense, moe, train, dist) = (done.get(p) for p in (
          "kernels", "lint", "serve", "long", "fixed", "spec", "ptq", "vit",
-         "ssm", "encdec", "dense_archs", "moe", "train"))
+         "ssm", "encdec", "dense_archs", "moe", "train", "dist"))
     retakes = {p: {"empty": 0, "other": 0} for p in phases}
     for r in PROFILER_RETRIES:
         retakes.setdefault(r["phase"], {"empty": 0, "other": 0})[
@@ -7576,7 +7959,8 @@ def main() -> int:
     # evaluations, the vision
     # phase's fused forwards, the SSM phase's served and Model runs, the
     # encdec phase's Model runs, the last families' served and Model runs
-    # and the training phase's fused evaluations of its QAT'd weights
+    # the training phase's fused evaluations of its QAT'd weights and the
+    # distribution phase's fused forward of its restored weights
     paths = {"serve": (serve or {}).get("launches", {}),
              "long": (long_ctx or {}).get("launches", {}),
              **{f"fixed_{k}": r["launches"] for k, r in (fixed or {}).items()},
@@ -7587,7 +7971,8 @@ def main() -> int:
              "encdec": (encdec or {}).get("launches", {}),
              "dense_archs": (dense or {}).get("launches", {}),
              "moe": (moe or {}).get("launches", {}),
-             "train": (train or {}).get("launches", {})}
+             "train": (train or {}).get("launches", {}),
+             "dist": (dist or {}).get("launches", {})}
     # the lint phase's longest groups and the ptq, vit, ssm, encdec,
     # dense_archs, moe and train paths' shapes join their kernels' rows
     kernel_rows = dict(kernel_rows or {})

@@ -100,9 +100,13 @@ class CheckpointManager:
         steps = store.list_steps(self.cfg.directory)
         return steps[-1] if steps else None
 
-    def restore(self, step: int, examples: dict):
-        return {name: store.restore_pytree(self.cfg.directory, step, ex,
-                                           name=name)
+    def restore(self, step: int, examples: dict,
+                shardings: dict | None = None):
+        """``{name: tree}`` at ``step``; ``shardings[name]`` (optional) lays
+        that tree out on a mesh (``store.restore_pytree``)."""
+        return {name: store.restore_pytree(
+                    self.cfg.directory, step, ex, name=name,
+                    shardings=(shardings or {}).get(name))
                 for name, ex in examples.items()}
 
     def metadata(self, step: int, name: str = "params") -> dict:

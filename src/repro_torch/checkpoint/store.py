@@ -24,6 +24,7 @@ import shutil
 import numpy as np
 import torch
 
+from repro_torch.dist import sharding as shd
 from repro_torch.tree import flatten_with_paths, unflatten
 
 _NP_DTYPES = {torch.float32: "float32", torch.float64: "float64",
@@ -35,8 +36,11 @@ _NP_DTYPES = {torch.float32: "float32", torch.float64: "float64",
 
 def to_host(leaf) -> np.ndarray:
     """A leaf as a numpy array of its logical dtype (bfloat16 as its
-    ``uint16`` bits); tensors are copied off their device."""
+    ``uint16`` bits); tensors are copied off their device, a DTensor
+    gathered whole first (a collective: every rank of its mesh saves)."""
     if isinstance(leaf, torch.Tensor):
+        if shd.is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16)
@@ -90,13 +94,17 @@ def load_leaf(final: str, entry: dict) -> torch.Tensor:
 
 
 def restore_pytree(directory: str, step: int, example_tree,
-                   name: str = "state"):
+                   name: str = "state", shardings=None):
     """Restore into the structure of ``example_tree``.
 
     ``example_tree``'s leaves are tensors (those on the ``meta`` device
     allocate nothing): their shapes are checked, their dtypes kept, and each
     restored leaf goes to the example's device (a meta example's to the
-    CPU)."""
+    CPU).  ``shardings``: optional matching tree of
+    ``dist.sharding.NamedSharding`` (``dist.elastic.shardings_for_restore``)
+    — each leaf then becomes a DTensor on that mesh: every rank reads the
+    file and keeps its own chunk (elastic restore onto any mesh; the leaf
+    goes to the mesh's device)."""
     final, manifest = read_manifest(directory, step, name)
     flat = flatten_with_paths(example_tree)
     by_path = {e["path"]: e for e in manifest["leaves"]}
@@ -107,13 +115,24 @@ def restore_pytree(directory: str, step: int, example_tree,
         raise ValueError(
             f"checkpoint tree mismatch: missing={sorted(missing)[:5]} "
             f"extra={sorted(extra)[:5]}")
+    shard_flat = None
+    if shardings is not None:
+        shard_flat = [sh for _, sh in flatten_with_paths(shardings)]
+        if len(shard_flat) != len(flat):
+            raise ValueError(f"shardings hold {len(shard_flat)} leaves, the "
+                             f"example tree {len(flat)}")
     out = []
-    for p, ex in flat:
+    for i, (p, ex) in enumerate(flat):
         t = load_leaf(final, by_path[p])
         want = tuple(ex.shape)
         if tuple(t.shape) != want:
             raise ValueError(
                 f"{p}: checkpoint shape {tuple(t.shape)} != expected {want}")
+        if shard_flat is not None:
+            sh = shard_flat[i]
+            out.append(sh.distribute(
+                t.to(device=sh.mesh.device_type, dtype=ex.dtype)))
+            continue
         dev = "cpu" if ex.device.type == "meta" else ex.device
         out.append(t.to(device=dev, dtype=ex.dtype))
     return unflatten(example_tree, out)

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.formats import Format
 from repro_torch.core.quantize import maybe_ste, quantize
+from repro_torch.dist import sharding as shd
 
 _EPS = 1e-12
 
@@ -27,6 +28,7 @@ def _to_groups(x: torch.Tensor, axis: int, n: int):
     ``axis`` replaced by (G, n) moved to the last two dims.
     """
     axis = axis % x.ndim
+    x = shd.whole_along(x, (axis,))  # a mesh-sharded axis is gathered
     k = x.shape[axis]
     pad = (-k) % n
     xm = torch.movedim(x, axis, -1)

@@ -49,6 +49,7 @@ from repro_torch.core.formats import IntFormat
 from repro_torch.core.policy import (Policy, QuantPolicy, TensorQuant,
                                      resolve_policy)
 from repro_torch.core.quantize import maybe_ste, unpack_int4_codes
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels.quant_matmul import group_contract
 
 
@@ -337,6 +338,8 @@ def qmatmul(
             "route CompressedKernel weights to a compressed-consuming "
             "backend (decompress explicitly if densification is intended)"
         )
+    # the rows (every dim but the last) whole, as GSPMD gathers them
+    x = shd.whole_along(x, range(1, x.ndim - 1))
     y = backend.fn(x, w, policy, site=site, in_alpha=in_alpha,
                    compute_dtype=compute_dtype)
     if policy.output is not None:

@@ -35,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.analysis.messages import flash_q_offset_message
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import build, refuse_inputs
 from repro_torch.kernels.ops import SMEM_MAX
 
 NEG_INF = -1e30
@@ -163,7 +163,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     position of query row 0 (causal: ``t <= i + q_offset``); it defaults to
     0 when ``S == T`` and must be given otherwise.  ``block_q``/``block_k``
     are the reference's tiling; the kernel tiles by its own sizes."""
-    refuse_grad("flash_attention", q, k, v)
+    refuse_inputs("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale, causal, q_offset,
                                      block_q, block_k)

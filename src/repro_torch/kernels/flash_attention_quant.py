@@ -81,7 +81,7 @@ from repro_torch.analysis.messages import (abfp_group_message,
                                            attention_block_message,
                                            smem_message)
 from repro_torch.core.quantize import div_by_constant
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import build, refuse_inputs
 from repro_torch.kernels.ops import SMEM_MAX
 
 NEG_INF = -1e9  # mask value — matches nn.attention.NEG_INF
@@ -498,7 +498,7 @@ def flash_attention_quant(
     runs the plain version).
     """
     args = (qh, k_codes, v_codes, k_scale, v_scale, q_pos, kv_pos)
-    refuse_grad("flash_attention_quant", *args)
+    refuse_inputs("flash_attention_quant", *args)
     kw = dict(scale=scale, causal=causal, probs_n=probs_n,
               probs_qmax=probs_qmax, probs_qmin=probs_qmin, block_k=block_k)
     if qh.device.type == "cpu":

@@ -37,7 +37,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import QuantPolicy, reject_layer_rules
-from repro_torch.models.lm import GLOBAL_WINDOW, NEG_INF, _sinusoid
+from repro_torch.dist import sharding as shd
+from repro_torch.models.lm import GLOBAL_WINDOW, _sinusoid, mask_padding
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.ffn import MLP
 from repro_torch.nn.linear import Dense, Embed
@@ -112,6 +113,26 @@ class EncDecLM:
             "final_norm": self._ln().init(gen, device),
         }
 
+    def param_axes(self) -> dict:
+        """The logical axes of ``init``'s tree, leaf for leaf: the
+        reference's stacked ``encoder`` / ``decoder`` axes without their
+        leading ``"layers"`` entry."""
+        c = self.cfg
+        enc = {"ln1": self._ln().axes(), "attn": self._attn(False).axes(),
+               "ln2": self._ln().axes(), "mlp": self._mlp().axes()}
+        dec = {"ln1": self._ln().axes(), "self_attn": self._attn(True).axes(),
+               "ln_x": self._ln().axes(),
+               "cross_attn": self._attn(False).axes(),
+               "ln2": self._ln().axes(), "mlp": self._mlp().axes()}
+        return {
+            "embed": self._embed().axes(),
+            "pos_embed": ("seq", "embed"),
+            "encoder": [enc for _ in range(c.encoder_layers)],
+            "decoder": [dec for _ in range(c.n_layers)],
+            "enc_norm": self._ln().axes(),
+            "final_norm": self._ln().axes(),
+        }
+
     # -------------------------------------------------------------- encoder
     def _enc_block(self, bp, x, positions, policy):
         """One pre-LN encoder block (non-causal self-attention + MLP)."""
@@ -128,8 +149,10 @@ class EncDecLM:
         B, S, _ = frames.shape
         x = frames.to(getattr(torch, c.dtype))
         x = x + _sinusoid(S, c.d_model, x.device).to(x.dtype)[None]
+        x = shd.constrain(x, ("batch", "seq_res", "embed"))
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None].expand(B, S)
+        positions = shd.constrain(positions, ("batch", None))
         for bp in params["encoder"]:
             x = self._enc_block(bp, x, positions, policy)
         return self._ln().apply(params["enc_norm"], x), positions
@@ -177,8 +200,7 @@ class EncDecLM:
         x = self._ln().apply(params["final_norm"], x)
         logits = self._embed().attend(params["embed"], x, policy)
         if c.vocab_padded != c.vocab:
-            logits = logits.clone()
-            logits[..., c.vocab:] = NEG_INF
+            logits = mask_padding(logits, c.vocab)
         return logits
 
     # ---------------------------------------------------------------- apply
@@ -289,7 +311,8 @@ def _project_kv(attn: Attention, params, enc, policy):
     for which in ("k", "v"):
         dense = Dense(attn.d_model, attn.n_kv * attn.head_dim,
                       use_bias=attn.qkv_bias, param_dtype=attn.param_dtype,
-                      dtype=attn.dtype, name=f"cross/{which}")
+                      dtype=attn.dtype, name=f"cross/{which}",
+                      in_axis="embed", out_axis="qkv")
         out.append(dense.apply(params[which], enc, policy).reshape(
             B, T, attn.n_kv, attn.head_dim))
     return tuple(out)

@@ -32,7 +32,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import QuantPolicy, reject_layer_rules
 from repro_torch.core.simulate import qmatmul
-from repro_torch.models.lm import GLOBAL_WINDOW, NEG_INF, _norm
+from repro_torch.dist import sharding as shd
+from repro_torch.models.lm import GLOBAL_WINDOW, _norm, mask_padding
 from repro_torch.nn.attention import Attention, KVCache
 from repro_torch.nn.ffn import MLP
 from repro_torch.nn.linear import Embed
@@ -130,6 +131,28 @@ class HybridLM:
             device)}
         return params
 
+    def param_axes(self) -> dict:
+        """The logical axes of ``init``'s tree, leaf for leaf: the
+        reference's stacked ``mamba_groups`` (G, k-1, ...) and ``lora``
+        (G, ...) axes without their leading ``"layers"`` entries."""
+        c = self.cfg
+        block = {"ln": _norm(c).axes(), "mamba": self._mamba().axes()}
+        lora = {nm: {"A": ("embed", "lora"), "B": ("lora", "qkv")}
+                for nm in ("q", "k", "v")}
+        return {
+            "embed": self._embed().axes(),
+            "mamba_groups": [[block for _ in range(self.k - 1)]
+                             for _ in range(self.n_groups)],
+            "shared": {
+                "ln1": RMSNorm(2 * c.d_model).axes(),
+                "attn": self._attn().axes(),
+                "ln2": _norm(c).axes(),
+                "mlp": self._mlp().axes(),
+            },
+            "lora": [lora for _ in range(self.n_groups)],
+            "final_norm": _norm(c).axes(),
+        }
+
     # ------------------------------------------------------------- internals
     def _mamba_block(self, bp, x, policy):
         """One pre-norm Mamba2 block of a group (full sequence)."""
@@ -171,8 +194,9 @@ class HybridLM:
         qh = proj["q"].reshape(B, S, c.n_heads, c.head_dim_)
         kh = proj["k"].reshape(B, S, c.n_kv, c.head_dim_)
         vh = proj["v"].reshape(B, S, c.n_kv, c.head_dim_)
-        qh = apply_rope(qh, positions, c.rope_theta)
-        kh = apply_rope(kh, positions, c.rope_theta)
+        qh = shd.per_shard(apply_rope, qh, positions, c.rope_theta)
+        kh = shd.per_shard(apply_rope, kh, positions, c.rope_theta)
+        qh = shd.constrain(qh, ("batch", "seq", "heads", "head_dim"))
         if cache is None:  # the full sequence
             use_block = (S >= att.blockwise_min_seq
                          and S % att.q_block == 0)
@@ -184,7 +208,10 @@ class HybridLM:
             slot = position % size
             cache.k[:, slot.long()] = kh.reshape(B, -1).to(cache.k.dtype)
             cache.v[:, slot.long()] = vh.reshape(B, -1).to(cache.v.dtype)
-            new_cache = KVCache(cache.k, cache.v, position + 1)
+            new_cache = KVCache(
+                shd.constrain(cache.k, ("batch", "kv_seq", "qkv")),
+                shd.constrain(cache.v, ("batch", "kv_seq", "qkv")),
+                position + 1)
             idx = torch.arange(size, dtype=torch.int32, device=x.device)
             rounds = torch.div(position, size, rounding_mode="floor") * size
             spos = idx + torch.where(idx <= slot, rounds, rounds - size)
@@ -200,15 +227,15 @@ class HybridLM:
                     compute_dtype=getattr(torch, c.dtype))
         x = x + y.to(x.dtype)
         h = _norm(c).apply(sparams["ln2"], x)
-        return x + self._mlp().apply(sparams["mlp"], h, policy), new_cache
+        x = x + self._mlp().apply(sparams["mlp"], h, policy)
+        return shd.constrain(x, ("batch", "seq_res", "embed")), new_cache
 
     def _logits(self, params, x, policy):
         c = self.cfg
         x = _norm(c).apply(params["final_norm"], x)
         logits = self._embed().attend(params["embed"], x, policy)
         if c.vocab_padded != c.vocab:
-            logits = logits.clone()
-            logits[..., c.vocab:] = NEG_INF
+            logits = mask_padding(logits, c.vocab)
         return logits
 
     def _front(self, params, tokens):

@@ -35,6 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import QuantPolicy, kv_cache_mode
+from repro_torch.dist import sharding as shd
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.ffn import MLP
 from repro_torch.nn.linear import Dense, Embed
@@ -126,7 +127,8 @@ class TransformerLM:
     def _head(self) -> Dense:
         c = self.cfg
         return Dense(c.d_model, c.vocab_padded, param_dtype=c.param_dtype,
-                     dtype=c.dtype, name="lm_head")
+                     dtype=c.dtype, name="lm_head", in_axis="embed",
+                     out_axis="vocab")
 
     def _embed(self) -> Embed:
         c = self.cfg
@@ -173,6 +175,36 @@ class TransformerLM:
                 getattr(torch, c.param_dtype), 0.02, device)
         return params
 
+    def _block_axes(self) -> dict:
+        c = self.cfg
+        if self.is_ssm:
+            return {"ln": _norm(c).axes(), "mamba": self._mamba().axes()}
+        p = {
+            "ln1": _norm(c).axes(),
+            "attn": self._attention().axes(),
+            "ln2": _norm(c).axes(),
+            "ffn": (self._moe() if self.is_moe else self._mlp()).axes(),
+        }
+        if c.post_norms:
+            p["ln1_post"] = _norm(c).axes()
+            p["ln2_post"] = _norm(c).axes()
+        return p
+
+    def param_axes(self) -> dict:
+        """The logical axes of ``init``'s tree, leaf for leaf (the
+        reference's ``axes_of(init(...))`` with its blocks listed)."""
+        c = self.cfg
+        axes: dict = {
+            "embed": self._embed().axes(),
+            "final_norm": _norm(c).axes(),
+            "blocks": [self._block_axes() for _ in range(c.n_layers)],
+        }
+        if not c.tied_embeddings:
+            axes["lm_head"] = self._head().axes()
+        if c.pos == "learned":
+            axes["pos_embed"] = ("seq", "embed")
+        return axes
+
     # ------------------------------------------------------------- windows
     def layer_windows_py(self):
         """Python-int per-layer attention windows."""
@@ -200,11 +232,12 @@ class TransformerLM:
             po = po[:, None]
         positions = po + torch.arange(
             S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        positions = shd.constrain(positions, ("batch", None))
         if c.pos == "learned":
-            x = x + params["pos_embed"][positions.long()].to(x.dtype)
+            x = x + shd.take_rows(params["pos_embed"], positions).to(x.dtype)
         elif c.pos == "sinusoidal":
             x = x + _sinusoid_at(positions, c.d_model).to(x.dtype)
-        return x, positions
+        return shd.constrain(x, ("batch", "seq_res", "embed")), positions
 
     # ----------------------------------------------------------------- head
     def head_logits(self, params, x, policy):
@@ -216,8 +249,7 @@ class TransformerLM:
         if c.final_softcap:
             logits = c.final_softcap * torch.tanh(logits / c.final_softcap)
         if c.vocab_padded != c.vocab:
-            logits = logits.clone()
-            logits[..., c.vocab:] = NEG_INF
+            logits = mask_padding(logits, c.vocab)
         return logits
 
     # --------------------------------------------------------------- blocks
@@ -651,14 +683,24 @@ def _sinusoid_at(positions: torch.Tensor, d: int) -> torch.Tensor:
     return out
 
 
+def mask_padding(logits: torch.Tensor, n: int) -> torch.Tensor:
+    """``logits`` with the columns from ``n`` on (the padded vocabulary or
+    classes) set to NEG_INF, as the reference's ``jnp.where``; under
+    ``use_rules`` the mask takes the vocabulary's layout."""
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= n
+    return torch.where(shd.constrain(pad, ("vocab",)), NEG_INF, logits)
+
+
 # ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------
 def _nll_sum(logits, labels):
-    """(summed NLL over the labels >= 0, their count)."""
+    """(summed NLL over the labels >= 0, their count).  Under ``use_rules``
+    the vocabulary is gathered first (logits arrive sharded over it): the
+    gold logit's gather and the logsumexp read whole rows."""
     mask = labels >= 0
     lab = torch.clamp_min(labels, 0).long()
-    lf = logits.to(torch.float32)
+    lf = shd.constrain(logits.to(torch.float32), ("batch", "seq", None))
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, lab[..., None])[..., 0]
     return ((logz - gold) * mask).sum(), mask.sum()
@@ -673,6 +715,7 @@ def cross_entropy(logits, labels, vocab: int):
 def chunked_lm_loss(model: TransformerLM, params, hidden, labels, policy,
                     chunk: int):
     """CE over seq chunks so (S, vocab) logits never materialize."""
+    hidden = shd.constrain(hidden, ("batch", "seq", "embed"))
     B, S, D = hidden.shape
     chunk = min(chunk, S)
     assert S % chunk == 0

@@ -48,6 +48,11 @@ class Model:
     def init(self, gen: torch.Generator):
         return self.inner.init(gen, self.device)
 
+    def param_axes(self):
+        """The logical-axes tree of ``init``'s parameters (tuples of axis
+        names at the leaves), for ``dist.sharding`` / ``launch.specs``."""
+        return self.inner.param_axes()
+
     @property
     def is_moe(self) -> bool:
         return getattr(self.inner, "is_moe", False)

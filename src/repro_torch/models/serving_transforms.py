@@ -87,6 +87,16 @@ class CompressedKernel:
         self.fmt_name = fmt_name
         self.packed = packed
 
+    def tree_children(self) -> tuple:
+        """(codes, scale): the leaves a logical-axes / layout tree holds
+        here (``dist.sharding.map_axes``); the rest is metadata."""
+        return (self.codes, self.scale)
+
+    def tree_rebuild(self, children) -> "CompressedKernel":
+        return CompressedKernel(children[0], children[1], self.axis,
+                                self.pad, self.k, self.dtype, self.fmt_name,
+                                self.packed)
+
     @property
     def group(self) -> int:
         """Stored group length n (in codes, not bytes — packing-aware)."""
@@ -112,6 +122,12 @@ class ExpertBank:
 
     def __init__(self, entries):
         self.entries = tuple(entries)
+
+    def tree_children(self) -> tuple:
+        return self.entries
+
+    def tree_rebuild(self, children) -> "ExpertBank":
+        return ExpertBank(children)
 
     @property
     def n_experts(self) -> int:
@@ -374,6 +390,42 @@ def compress_weights(params, policy: Policy):
                            for e, tq in enumerate(tqs)])
 
     return _walk_kernels(params, one, expert_fn=one_bank)
+
+
+def compress_axes(axes_tree, compressed_tree):
+    """Mirror ``compress_weights`` on the logical-axes tree.
+
+    For a kernel with axes (a_contract, a_out) the codes are laid out
+    (a_out, G, n) and scales (a_out, G) — sharding follows the surviving
+    output axis; group dims replicate.  The metadata is copied from the
+    compressed tree (meta tensors will do), so the structures match leaf
+    for leaf.  Dense (uncompressed / fp32-rule) kernels keep their axes;
+    an ``ExpertBank``'s entries drop the expert axis.
+    """
+    from repro_torch.dist.sharding import is_axes_leaf
+
+    def rec(ax_node, node):
+        if isinstance(node, CompressedKernel):
+            axes = ax_node  # original kernel axes tuple
+            lead = tuple(axes[:-2]) if len(axes) > 2 else ()
+            a_out = axes[-1]
+            return node.tree_rebuild((lead + (a_out, None, None),
+                                      lead + (a_out, None)))
+        if isinstance(node, ExpertBank):
+            # the expert axis is consumed by the bank; each entry keeps the
+            # per-expert kernel axes (contract, out)
+            sub = tuple(ax_node[:-3]) + tuple(ax_node[-2:])
+            return ExpertBank([rec(sub, e) for e in node.entries])
+        if isinstance(ax_node, dict):
+            return {k: rec(ax_node[k], node[k]) for k in ax_node}
+        if isinstance(ax_node, (list, tuple)) and not is_axes_leaf(ax_node):
+            vals = [rec(a, n) for a, n in zip(ax_node, node)]
+            if hasattr(ax_node, "_fields"):
+                return type(ax_node)(*vals)
+            return type(ax_node)(vals)
+        return ax_node
+
+    return rec(axes_tree, compressed_tree)
 
 
 def decompress_kernel(entry: CompressedKernel, dtype=None) -> torch.Tensor:

@@ -29,14 +29,14 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, pad_to
 from repro_torch.core.policy import QuantPolicy, check_scan_compatible
+from repro_torch.dist import sharding as shd
+from repro_torch.models.lm import mask_padding
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.ffn import MLP
 from repro_torch.nn.linear import Dense
 from repro_torch.nn.module import require_device, truncated_normal
 from repro_torch.nn.norms import LayerNorm, RMSNorm
 from repro_torch.nn.patch_embed import PatchEmbed
-
-NEG_INF = -1e9
 
 
 def _norm(cfg: ArchConfig):
@@ -87,7 +87,8 @@ class VisionTransformer:
     def _head(self) -> Dense:
         c = self.cfg
         return Dense(c.d_model, self.n_classes_padded, use_bias=True,
-                     param_dtype=c.param_dtype, dtype=c.dtype, name="head")
+                     param_dtype=c.param_dtype, dtype=c.dtype, name="head",
+                     in_axis="embed", out_axis="vocab")
 
     # ----------------------------------------------------------------- init
     def _block_init(self, gen, device) -> dict:
@@ -118,6 +119,22 @@ class VisionTransformer:
         params["blocks"] = [self._block_init(gen, device)
                             for _ in range(c.n_layers)]
         return params
+
+    def param_axes(self) -> dict:
+        """The logical axes of ``init``'s tree, leaf for leaf."""
+        c = self.cfg
+        block = {"ln1": _norm(c).axes(), "attn": self._attention().axes(),
+                 "ln2": _norm(c).axes(), "ffn": self._mlp().axes()}
+        axes: dict = {
+            "patch_embed": self._patch_embed().axes(),
+            "pos_embed": ("seq", "embed"),
+            "final_norm": _norm(c).axes(),
+            "head": self._head().axes(),
+        }
+        if c.pool == "cls":
+            axes["cls"] = ("embed",)
+        axes["blocks"] = [block for _ in range(c.n_layers)]
+        return axes
 
     # --------------------------------------------------------------- blocks
     def _block_apply(self, bparams, x, positions, policy, q=None,
@@ -161,6 +178,8 @@ class VisionTransformer:
         x = x + params["pos_embed"][:S].to(x.dtype)[None]
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None].expand(B, S)
+        positions = shd.constrain(positions, ("batch", None))
+        x = shd.constrain(x, ("batch", "seq_res", "embed"))
         x = self._run_blocks(params, x, positions, policy, q)
         x = _norm(c).apply(params["final_norm"], x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -170,8 +189,7 @@ class VisionTransformer:
         logits = self._head().apply(params["head"], pooled, policy,
                                     q=getq("head"))
         if self.n_classes_padded != c.n_classes:
-            logits = logits.clone()
-            logits[..., c.n_classes:] = NEG_INF
+            logits = mask_padding(logits, c.n_classes)
         return logits, aux
 
 
@@ -190,6 +208,9 @@ class VitModel:
 
     def init(self, gen: torch.Generator):
         return self.inner.init(gen, self.device)
+
+    def param_axes(self) -> dict:
+        return self.inner.param_axes()
 
     def _field(self, batch, key: str) -> torch.Tensor:
         return torch.as_tensor(batch[key], device=self.device)

@@ -39,6 +39,7 @@ from repro_torch.core.policy import Policy, resolve_policy
 from repro_torch.core.quantize import div_by_constant
 from repro_torch.core.simulate import (attention_backend, attn_backends,
                                        qdq_activation)
+from repro_torch.dist import sharding as shd
 from repro_torch.nn.linear import Dense
 from repro_torch.nn.rotary import apply_rope
 
@@ -117,6 +118,17 @@ def _kv_quantize(x4: torch.Tensor):
     return codes, scale
 
 
+def _constrain_kv(cache):
+    """A ring cache's K / V laid out as ``("batch", "kv_seq", "qkv")``
+    under ``use_rules``; the cache itself otherwise (its tensors are
+    written in place by the serving steps)."""
+    if shd.active() is None:
+        return cache
+    axes = ("batch", "kv_seq", "qkv")
+    return cache._replace(k=shd.constrain(cache.k, axes),
+                          v=shd.constrain(cache.v, axes))
+
+
 def _static_alpha(q: dict | None, key: str):
     """The calibrated ``in_alpha`` of one BMM operand in a q-tree slice."""
     return None if q is None else (q.get(key) or {}).get("in_alpha")
@@ -161,6 +173,16 @@ class Attention:
                              self.n_heads * self.head_dim).init(gen, device),
         }
 
+    def axes(self) -> dict:
+        """The logical axes of ``init``'s tree, leaf for leaf."""
+        return {
+            "q": self._dense("q", self.n_heads * self.head_dim).axes(),
+            "k": self._dense("k", self.n_kv * self.head_dim).axes(),
+            "v": self._dense("v", self.n_kv * self.head_dim).axes(),
+            "o": self._dense("o", self.d_model,
+                             self.n_heads * self.head_dim).axes(),
+        }
+
     # ------------------------------------------------------------- helpers
     def _dense(self, which: str, out_dim: int, in_dim: int | None = None):
         return Dense(
@@ -168,6 +190,8 @@ class Attention:
             use_bias=self.qkv_bias if which in ("q", "k", "v") else False,
             param_dtype=self.param_dtype, dtype=self.dtype,
             name=f"{self.name}/{which}",
+            in_axis="embed" if which != "o" else "qkv",
+            out_axis="qkv" if which != "o" else "embed",
         )
 
     def _project_qkv(self, params, x, positions, policy, q=None):
@@ -182,8 +206,11 @@ class Attention:
         kh = kh.reshape(B, S, self.n_kv, self.head_dim)
         vh = vh.reshape(B, S, self.n_kv, self.head_dim)
         if self.use_rope:
-            qh = apply_rope(qh, positions, self.rope_theta)
-            kh = apply_rope(kh, positions, self.rope_theta)
+            qh = shd.per_shard(apply_rope, qh, positions, self.rope_theta)
+            kh = shd.per_shard(apply_rope, kh, positions, self.rope_theta)
+        qh = shd.constrain(qh, ("batch", "seq", "heads", "head_dim"))
+        kh = shd.constrain(kh, ("batch", "seq", "kv_heads", "head_dim"))
+        vh = shd.constrain(vh, ("batch", "seq", "kv_heads", "head_dim"))
         return qh, kh, vh
 
     def _scale(self) -> float:
@@ -264,11 +291,12 @@ class Attention:
     def _reference(self, qh, kh, vh, q_pos, kv_pos, window, policy,
                    q=None, kv_prequant: bool = False):
         policy = resolve_policy(policy, self.name)
-        G = self.n_heads // self.n_kv
         B, S, H, D = qh.shape
+        KV = kh.shape[2]  # this rank's heads, under a mesh
+        G = H // KV
         qh, kh, vh = self._maybe_quant_qkv(policy, qh, kh, vh, q,
                                            skip_kv=kv_prequant)
-        qg = qh.reshape(B, S, self.n_kv, G, D)
+        qg = qh.reshape(B, S, KV, G, D)
         torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
         scores = torch.einsum("bskgd,btkd->bkgst", qg, kh).to(
             torch.float32) * self._scale()
@@ -309,8 +337,8 @@ class Attention:
         nq, nk = S // qb, T // kb
         if S % qb or T % kb:
             raise ValueError(attention_block_message(S, T, qb, kb))
-        KV = self.n_kv
-        G = self.n_heads // KV
+        KV = kh.shape[2]  # this rank's heads, under a mesh
+        G = qh.shape[2] // KV
         scale = self._scale()
         qh, kh, vh = self._maybe_quant_qkv(policy, qh, kh, vh, q)
         tq = policy.input if (policy.enabled and policy.attn_bmm) else None
@@ -428,11 +456,15 @@ class Attention:
             )
         else:
             fn = self._blockwise if use_block else self._reference
-            out = fn(qh, kh, vh, positions, kv_pos, window, policy, q=q)
+            # under a mesh each rank attends its own batch rows and heads
+            out = shd.per_shard(fn, qh, kh, vh, positions, kv_pos, window,
+                                policy, q=q)
+        out = shd.constrain(out, ("batch", "seq", "heads", "head_dim"))
         y = self._dense("o", self.d_model,
                         self.n_heads * self.head_dim).apply(
             params["o"], out.reshape(B, S, -1), policy,
             q=None if q is None else q.get("o"))
+        y = shd.constrain(y, ("batch", "seq_res", "embed"))
         if return_kv:
             return y, (kh.reshape(B, T, -1), vh.reshape(B, T, -1))
         return y
@@ -473,11 +505,11 @@ class Attention:
             cache.v[:, idx] = vc.reshape(B, S, F)[:, -take:]
             cache.k_scale[:, idx] = ks[:, -take:]
             cache.v_scale[:, idx] = vs[:, -take:]
-            return cache._replace(length=length)
+            return _constrain_kv(cache._replace(length=length))
         cache = self.init_cache(B, size, dtype=kh_flat.dtype, device=dev)
         cache.k[:, idx] = kh_flat[:, -take:]
         cache.v[:, idx] = vh_flat[:, -take:]
-        return cache._replace(length=length)
+        return _constrain_kv(cache._replace(length=length))
 
     # ------------------------------------------------------------ decoding
     def init_cache(self, batch: int, max_len: int, dtype=None,
@@ -549,7 +581,7 @@ class Attention:
             cache.k[rows, slot] = kh.reshape(B, -1).to(cache.k.dtype)
             cache.v[rows, slot] = vh.reshape(B, -1).to(cache.v.dtype)
         # length stays a scalar high-water mark even for vector positions
-        cache = cache._replace(length=position.max() + 1)
+        cache = _constrain_kv(cache._replace(length=position.max() + 1))
 
         # absolute position stored in each slot of the ring buffer
         idx = torch.arange(size, dtype=torch.int32, device=dev)[None]
@@ -593,7 +625,7 @@ class Attention:
                         self.n_heads * self.head_dim).apply(
             params["o"], out.reshape(B, 1, -1), policy,
             q=None if q is None else q.get("o"))
-        return y, cache
+        return shd.constrain(y, ("batch", "seq_res", "embed")), cache
 
     def chunk_step(
         self,
@@ -662,7 +694,7 @@ class Attention:
             write(cache.k, kh.reshape(B, S, -1))
             write(cache.v, vh.reshape(B, S, -1))
         last = pos_vec + torch.clamp_min(n_valid, 1) - 1  # last written
-        cache = cache._replace(length=last.max() + 1)
+        cache = _constrain_kv(cache._replace(length=last.max() + 1))
 
         # absolute position per ring slot (decode_step's formula at the
         # chunk's high-water mark)
@@ -705,7 +737,7 @@ class Attention:
                         self.n_heads * self.head_dim).apply(
             params["o"], out.reshape(B, S, -1), policy,
             q=None if q is None else q.get("o"))
-        return y, cache
+        return shd.constrain(y, ("batch", "seq_res", "embed")), cache
 
     # ------------------------------------------------------- paged decoding
     def init_paged_cache(self, n_pages: int, page_size: int, dtype=None,
@@ -925,4 +957,4 @@ class Attention:
                         self.n_heads * self.head_dim).apply(
             params["o"], out.reshape(B, S, -1), policy,
             q=None if q is None else q.get("o"))
-        return y, cache
+        return shd.constrain(y, ("batch", "seq_res", "embed")), cache

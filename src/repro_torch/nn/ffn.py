@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.policy import Policy
+from repro_torch.dist import sharding as shd
 from repro_torch.nn.linear import Dense
 
 _ACTS = {
@@ -36,18 +37,24 @@ class MLP:
     def _wi(self):
         return Dense(self.d_model, self.d_ff, use_bias=self.use_bias,
                      param_dtype=self.param_dtype, dtype=self.dtype,
-                     name=f"{self.name}/wi")
+                     name=f"{self.name}/wi", in_axis="embed", out_axis="mlp")
 
     def _wo(self):
         return Dense(self.d_ff, self.d_model, use_bias=self.use_bias,
                      param_dtype=self.param_dtype, dtype=self.dtype,
-                     name=f"{self.name}/wo")
+                     name=f"{self.name}/wo", in_axis="mlp", out_axis="embed")
 
     def init(self, gen: torch.Generator, device="cuda") -> dict:
         p = {"wi": self._wi().init(gen, device),
              "wo": self._wo().init(gen, device)}
         if self.gated:
             p["wg"] = self._wi().init(gen, device)
+        return p
+
+    def axes(self) -> dict:
+        p = {"wi": self._wi().axes(), "wo": self._wo().axes()}
+        if self.gated:
+            p["wg"] = self._wi().axes()
         return p
 
     def apply(self, params: dict, x: torch.Tensor, policy: Policy,
@@ -59,4 +66,6 @@ class MLP:
             h = _ACTS[GATED[self.act]](g) * h
         else:
             h = _ACTS[self.act](h)
-        return self._wo().apply(params["wo"], h, policy, q=getq("wo"))
+        h = shd.constrain(h, ("batch", "seq", "mlp"))
+        y = self._wo().apply(params["wo"], h, policy, q=getq("wo"))
+        return shd.constrain(y, ("batch", "seq_res", "embed"))

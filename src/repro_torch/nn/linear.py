@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.policy import Policy
 from repro_torch.core.simulate import qmatmul
+from repro_torch.dist import sharding as shd
 from repro_torch.nn.module import truncated_normal
 
 
@@ -29,6 +30,8 @@ class Dense:
     dtype: str = "float32"
     name: str = "dense"
     init_std: float | None = None  # default: 1/sqrt(in_dim) scaled normal
+    in_axis: str = "embed"  # logical axes of the kernel's (K, N) dims
+    out_axis: str = "mlp"
 
     def init(self, gen: torch.Generator, device="cuda") -> dict:
         std = self.init_std
@@ -39,6 +42,13 @@ class Dense:
                                         pdt, std, device)}
         if self.use_bias:
             p["bias"] = torch.zeros((self.out_dim,), dtype=pdt, device=device)
+        return p
+
+    def axes(self) -> dict:
+        """The logical axes of ``init``'s tree, leaf for leaf."""
+        p = {"kernel": (self.in_axis, self.out_axis)}
+        if self.use_bias:
+            p["bias"] = (self.out_axis,)
         return p
 
     def apply(self, params: dict, x: torch.Tensor, policy: Policy, *,
@@ -82,8 +92,12 @@ class Embed:
             gen, (self.vocab, self.dim), getattr(torch, self.param_dtype),
             0.02, device)}
 
+    def axes(self) -> dict:
+        return {"table": ("vocab", "embed")}
+
     def apply(self, params: dict, ids: torch.Tensor) -> torch.Tensor:
-        return params["table"][ids.long()].to(getattr(torch, self.dtype))
+        y = shd.take_rows(params["table"], ids).to(getattr(torch, self.dtype))
+        return shd.constrain(y, ("batch", "seq_res", "embed"))
 
     def attend(self, params: dict, x: torch.Tensor,
                policy: Policy) -> torch.Tensor:
@@ -91,4 +105,4 @@ class Embed:
         dt = getattr(torch, self.dtype)
         y = qmatmul(x, params["table"].t(), policy,
                     site=self.name + "/attend", compute_dtype=dt)
-        return y.to(dt)
+        return shd.constrain(y.to(dt), ("batch", "seq", "vocab"))

@@ -1,7 +1,9 @@
 """What parameter initialisation needs.
 
-Parameters are plain nested dicts of tensors (no logical-axes boxes: the
-port has no sharding layer yet).  Randomness is an explicit
+Parameters are plain nested dicts of tensors; their logical axes are a
+separate tree of the same structure (each layer's ``axes()``,
+``Model.param_axes()``), which ``repro_torch.dist.sharding`` maps onto a
+mesh.  Randomness is an explicit
 ``torch.Generator``; ``device`` is explicit and defaults to ``"cuda"`` at
 every entry point — ``require_device`` raises when the requested device is
 not there instead of carrying on elsewhere.

@@ -3,7 +3,7 @@
 Tokens are bucketed into groups (static shapes), routed top-k with a
 capacity factor, dispatched to experts via one-hot einsums, processed by
 per-expert gated FFNs, and combined with router weights — op for op as the
-reference's ``nn/moe.py`` (which has no sharding counterpart here).
+reference's ``nn/moe.py``, with its sharding hints (``dist.sharding``).
 
 The expert matmuls go through the same INT-FP-QSim QDQ hooks as Dense: ABFP
 groups run along each expert's contraction dim (batched over the expert
@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core.policy import Policy, has_expert_rules, resolve_policy
 from repro_torch.core.simulate import qdq_activation, qdq_weight
+from repro_torch.dist import sharding as shd
 from repro_torch.nn.ffn import _ACTS, GATED
 from repro_torch.nn.module import truncated_normal
 
@@ -59,6 +60,15 @@ class MoE:
         }
         if self.gated:
             p["wg"] = truncated_normal(gen, (E, D, F), pdt, D**-0.5, device)
+        return p
+
+    def axes(self) -> dict:
+        """The logical axes of ``init``'s tree, leaf for leaf."""
+        p = {"router": ("embed", "experts"),
+             "wi": ("experts", "embed", "moe_mlp"),
+             "wo": ("experts", "moe_mlp", "embed")}
+        if self.gated:
+            p["wg"] = ("experts", "embed", "moe_mlp")
         return p
 
     def capacity(self, tokens_per_group: int) -> int:
@@ -132,6 +142,7 @@ class MoE:
         assert (B * S) % T == 0, (B, S, T)
         G = B * S // T
         xg = x.reshape(G, T, D)
+        xg = shd.constrain(xg, ("batch", None, "embed"))
 
         # --- routing, then the aux load-balancing loss (Switch) ----------
         probs, dispatch, combine, fill = self.route(params["router"], xg)
@@ -142,6 +153,7 @@ class MoE:
         # --- dispatch -> expert FFN -> combine ---------------------------
         xin = torch.einsum("gtec,gtd->gecd", dispatch.to(torch.float32),
                            xg.to(torch.float32)).to(x.dtype)
+        xin = shd.constrain(xin, (None, "experts", None, "embed"))
         xin_q = qdq_activation(xin, policy.input if policy.enabled else None,
                                axis=-1, site=self.name + "/in")
 
@@ -178,13 +190,16 @@ class MoE:
             h = _ACTS[GATED[self.act]](hg) * hi
         else:
             h = _ACTS[self.act](hi)
+        h = shd.constrain(h, (None, "experts", None, "moe_mlp"))
         h = h.to(x.dtype)
         h_q = qdq_activation(h, policy.input if policy.enabled else None,
                              axis=-1, site=self.name + "/mid")
         eout = expert_mm(h_q, params["wo"], "gecf,efd->gecd")
+        eout = shd.constrain(eout, (None, "experts", None, "embed"))
 
         y = torch.einsum("gtec,gecd->gtd", combine, eout)
         y = y.reshape(B, S, D).to(getattr(torch, self.dtype))
+        y = shd.constrain(y, ("batch", "seq_res", "embed"))
         metrics = {"moe_aux_loss": aux_loss,
                    "expert_load": fill.sum(dim=0).to(torch.float32)}
         return y, metrics

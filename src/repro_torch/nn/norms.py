@@ -22,6 +22,9 @@ class RMSNorm:
                               dtype=getattr(torch, self.param_dtype),
                               device=device)}
 
+    def axes(self) -> dict:
+        return {"scale": ("embed",)}
+
     def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
         var = (xf * xf).mean(dim=-1, keepdim=True)
@@ -46,6 +49,9 @@ class LayerNorm:
             "bias": torch.zeros((self.dim,), dtype=pdt, device=device),
         }
 
+    def axes(self) -> dict:
+        return {"scale": ("embed",), "bias": ("embed",)}
+
     def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
         mean = xf.mean(dim=-1, keepdim=True)
@@ -69,6 +75,9 @@ class RMSNormGated:
         return {"scale": torch.ones((self.dim,),
                                     dtype=getattr(torch, self.param_dtype),
                                     device=device)}
+
+    def axes(self) -> dict:
+        return {"scale": ("ssm_inner",)}
 
     def apply(self, params: dict, x: torch.Tensor,
               z: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.policy import Policy
+from repro_torch.dist import sharding as shd
 from repro_torch.nn.linear import Dense
 
 
@@ -56,10 +57,13 @@ class PatchEmbed:
         # ViT's conv projection carries a bias
         return Dense(self.patch_dim, self.d_model, use_bias=True,
                      param_dtype=self.param_dtype, dtype=self.dtype,
-                     name=self.name)
+                     name=self.name, in_axis="patch", out_axis="embed")
 
     def init(self, gen: torch.Generator, device="cuda") -> dict:
         return self._proj().init(gen, device)
+
+    def axes(self) -> dict:
+        return self._proj().axes()
 
     def apply(self, params: dict, images: torch.Tensor, policy: Policy, *,
               q: dict | None = None) -> torch.Tensor:
@@ -69,4 +73,5 @@ class PatchEmbed:
             tuple(images.shape), self.image_size, self.n_channels)
         patches = extract_patches(images.to(getattr(torch, self.dtype)),
                                   self.patch_size)
-        return self._proj().apply(params, patches, policy, q=q)
+        y = self._proj().apply(params, patches, policy, q=q)
+        return shd.constrain(y, ("batch", "seq_res", "embed"))

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.policy import Policy
+from repro_torch.dist import sharding as shd
 from repro_torch.nn.linear import Dense
 from repro_torch.nn.norms import RMSNormGated
 
@@ -85,12 +86,14 @@ class Mamba2:
     def _in_proj(self):
         return Dense(self.d_model, self.proj_out,
                      param_dtype=self.param_dtype, dtype=self.dtype,
-                     name=f"{self.name}/in_proj")
+                     name=f"{self.name}/in_proj", in_axis="embed",
+                     out_axis="ssm_inner")
 
     def _out_proj(self):
         return Dense(self.d_inner, self.d_model,
                      param_dtype=self.param_dtype, dtype=self.dtype,
-                     name=f"{self.name}/out_proj")
+                     name=f"{self.name}/out_proj", in_axis="ssm_inner",
+                     out_axis="embed")
 
     def _norm(self):
         return RMSNormGated(self.d_inner, param_dtype=self.param_dtype,
@@ -114,6 +117,19 @@ class Mamba2:
             "dt_bias": torch.log(torch.expm1(torch.full(
                 (H,), 0.01, dtype=torch.float32, device=device))).to(pdt),
             "norm": self._norm().init(gen, device),
+        }
+
+    def axes(self) -> dict:
+        """The logical axes of ``init``'s tree, leaf for leaf."""
+        return {
+            "in_proj": self._in_proj().axes(),
+            "out_proj": self._out_proj().axes(),
+            "conv_w": ("conv_dim", "ssm_inner"),
+            "conv_b": ("ssm_inner",),
+            "A_log": ("ssm_heads",),
+            "D": ("ssm_heads",),
+            "dt_bias": ("ssm_heads",),
+            "norm": self._norm().axes(),
         }
 
     # ------------------------------------------------------------ internals
@@ -211,11 +227,13 @@ class Mamba2:
         dt = softplus(dt.to(torch.float32)
                       + params["dt_bias"].to(torch.float32))
         A = -torch.exp(params["A_log"].to(torch.float32))
+        xs = shd.constrain(xs, ("batch", "seq", "ssm_heads", None))
         y, final_state = self._ssd(xs, dt, B_, C_, A)
         y = y + params["D"].to(torch.float32)[None, None, :, None] * xs
         y = self._norm().apply(params["norm"], y.reshape(B, S, di), z)
         out = self._out_proj().apply(params["out_proj"], y, policy,
                                      q=getq("out_proj"))
+        out = shd.constrain(out, ("batch", "seq_res", "embed"))
         if not return_cache:
             return out
         kc = self.d_conv - 1
@@ -279,6 +297,7 @@ class Mamba2:
         y = self._norm().apply(params["norm"], y.reshape(B, 1, di), z)
         out = self._out_proj().apply(params["out_proj"], y, policy,
                                      q=getq("out_proj"))
+        out = shd.constrain(out, ("batch", "seq_res", "embed"))
         return out, SSMCache(conv=new_conv, state=state)
 
 def mamba_from_config(cfg, name: str = "mamba") -> Mamba2:

@@ -34,8 +34,10 @@ class AdamW:
     weight_decay: float = 0.0
 
     def init(self, params) -> AdamWState:
-        zeros32 = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                        device=p.device)
+        # zeros_like: a DTensor parameter's moments are DTensors of its
+        # layout
+        zeros32 = lambda p: torch.zeros_like(
+            p, dtype=torch.float32, memory_format=torch.contiguous_format)
         first = leaves(params)
         dev = first[0].device if first else "cpu"
         return AdamWState(mu=tree_map(zeros32, params),

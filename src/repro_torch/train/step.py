@@ -69,7 +69,8 @@ def make_loss_and_grads(model, policy: Policy = QuantPolicy(),
         if n <= 1:
             return grad_fn(params, batch)
         loss_acc = 0.0
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc = [torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
                for p in leaves(params)]
         for i in range(n):
             mb = {k: _split(v, n, i) for k, v in batch.items()}
