@@ -246,6 +246,25 @@ Phases (each fatal on failure):
             raises TypeError with 0 launches; (e) qwen2-7b's full-width
             restore plans on the (16, 16) and (2, 16, 16) mesh shapes
             (host only, dense and compressed), printed
+  dryrun    (a) python -m repro_torch.launch.dryrun in subprocesses (all
+            started together right after the build at nice 19, each
+            reporting whether it initialised CUDA: none may), full-size
+            cells on meta DTensors over fake
+            256 / 512-rank meshes: qwen2-7b train_4k, qwen2-7b decode_32k
+            --compress --kv-int8, zamba2-7b long_500k --multi-pod,
+            whisper-large-v3 train_4k, phi3.5-moe train_4k --strategy
+            fsdp, vit-b16 prefill_32k (status ok) and qwen2-7b train_4k
+            --compress (lint_error QL204, exit 1); (b) two cells traced
+            on meta over a fake world of one ((1, 1) mesh), then run on
+            the card through the same counters: opt-125m's w4a8_abfp QAT
+            step at 8 x 512 and qwen2-7b's bf16 decode step (batch 4, a
+            4,096-token int8 ring): FLOPs, bytes and argument / output /
+            alias bytes equal, the predicted peak within 10 % of the
+            allocator's, the step timed (CUDA events) beside its roofline
+            bound; (c) one QAT loss-and-gradients step of whisper-large-v3
+            (8 + 8 layers) and zamba2-7b (two groups) under remat "none"
+            and the config's remat: gradients bit-equal, peak lower with
+            remat; no kernel launch in the phase
 
 The last lines of standard output are: one JSON object {"kernels": [...]},
 the card's name and power limit, and {"ok": true, "device": {...}}.
@@ -271,7 +290,8 @@ from repro_torch.launch.mesh import (PEAK_BF16_FLOPS, PEAK_F32_FLOPS,
                                      PEAK_INT8_OPS, PEAK_TF32_FLOPS)
 
 PHASES = ("kernels", "lint", "serve", "long", "fixed", "reduced", "identity", "spec",
-          "ptq", "vit", "ssm", "encdec", "dense_archs", "moe", "train", "dist")
+          "ptq", "vit", "ssm", "encdec", "dense_archs", "moe", "train", "dist",
+          "dryrun")
 
 # every kernel: (wrapper module, TPU kernel it replaces)
 KERNELS = {
@@ -7878,6 +7898,282 @@ def phase_dist(torch, seed: int, smi: str) -> dict:
     return report
 
 
+# --------------------------------------------------------------------------
+# phase: dryrun
+# --------------------------------------------------------------------------
+# (a): (arguments of launch.dryrun, expected status)
+DRYRUN_CELLS = (
+    (("--arch", "qwen2-7b", "--shape", "train_4k"), "ok"),
+    (("--arch", "qwen2-7b", "--shape", "decode_32k", "--compress",
+      "--kv-int8"), "ok"),
+    (("--arch", "zamba2-7b", "--shape", "long_500k", "--multi-pod"), "ok"),
+    (("--arch", "whisper-large-v3", "--shape", "train_4k"), "ok"),
+    (("--arch", "phi3.5-moe-42b-a6.6b", "--shape", "train_4k", "--strategy",
+      "fsdp"), "ok"),
+    (("--arch", "vit-b16", "--shape", "prefill_32k"), "ok"),
+    (("--arch", "qwen2-7b", "--shape", "train_4k", "--compress", "--tag",
+      "gate"), "lint_error"),
+)
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun")
+# runs the CLI as __main__, then says whether the process touched CUDA
+DRYRUN_MAIN = (
+    "import runpy, sys, torch\n"
+    "sys.argv = ['dryrun'] + sys.argv[1:]\n"
+    "try:\n"
+    "    runpy.run_module('repro_torch.launch.dryrun', run_name='__main__')\n"
+    "    rc = 0\n"
+    "except SystemExit as e:\n"
+    "    rc = e.code\n"
+    "print('cuda_initialized', torch.cuda.is_initialized())\n"
+    "sys.exit(rc)\n")
+
+
+def dryrun_cli_start() -> tuple:
+    """(a) The cells of ``DRYRUN_CELLS`` through the CLI, one subprocess
+    each, all started together right after the build at the lowest CPU
+    priority (``nice -n 19``): host work only, on the cores the earlier
+    phases leave idle (they drive the card from one or two).  Returns
+    (the processes, their start time)."""
+    import shutil
+
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    os.makedirs(os.path.join(DRYRUN_DIR, "logs"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs, t0 = [], time.perf_counter()
+    for k, (cell, _) in enumerate(DRYRUN_CELLS):
+        # output to files: a pipe read only at the end could fill and stall
+        with open(os.path.join(DRYRUN_DIR, "logs", f"{k}.out"), "w") as o, \
+                open(os.path.join(DRYRUN_DIR, "logs", f"{k}.err"), "w") as e:
+            procs.append(subprocess.Popen(
+                ["nice", "-n", "19", sys.executable, "-c", DRYRUN_MAIN, *cell,
+                 "--out-dir", DRYRUN_DIR], stdout=o, stderr=e, env=env))
+    return procs, t0
+
+
+def stop(procs) -> None:
+    """Kill the processes of ``procs`` still running."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def dryrun_cli(procs: list, t0: float) -> dict:
+    """(a) Each cell's status, seconds, HBM per device, dominant term,
+    FLOPs and collective bytes per device, as its subprocess wrote them;
+    fatal where a status is not the expected one or a process touched
+    CUDA."""
+    out = {}
+    for k, ((cell, want), p) in enumerate(zip(DRYRUN_CELLS, procs)):
+        p.wait(timeout=900)
+        with open(os.path.join(DRYRUN_DIR, "logs", f"{k}.out")) as f:
+            stdout = f.read()
+        with open(os.path.join(DRYRUN_DIR, "logs", f"{k}.err")) as f:
+            stderr = f.read()
+        arch, shape = cell[1], cell[3]
+        mp = "--multi-pod" in cell
+        tag = cell[cell.index("--tag") + 1] if "--tag" in cell else ""
+        label = " ".join(cell)
+        cuda = "cuda_initialized True" in stdout
+        rec = {}
+        path = os.path.join(DRYRUN_DIR, f"{arch}__{shape}__"
+                            f"{'mp' if mp else 'sp'}"
+                            + (f"-{tag}" if tag else "") + ".json")
+        if os.path.exists(path):
+            with open(path) as f:
+                rec = json.load(f)
+        status = rec.get("status") or (
+            "lint_error" if "qlint: QL204" in stdout else "error")
+        row = {"status": status, "rc": p.returncode, "cuda": cuda}
+        if status == "ok":
+            row.update(
+                seconds=rec["lower_s"] + rec["compile_s"]
+                + rec["cost_extraction_s"],
+                hbm_gb_per_device=rec["hbm_gb_per_device"],
+                dominant=rec["terms"]["dominant"],
+                flops_per_device=rec["flops_per_device"],
+                collective_bytes_per_device=rec[
+                    "collective_bytes_per_device"],
+                chips=rec["chips"])
+        out[label] = row
+        log(f"  (a) {label}: {json.dumps(row)}")
+        if (status != want or cuda or (p.returncode == 0) != (want == "ok")
+                or (want == "lint_error" and "QL204" not in stdout)):
+            raise SystemExit(f"dryrun: (a) {label}: expected {want}, got "
+                             f"{row}\n{stdout[-2000:]}\n{stderr[-3000:]}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def dryrun_ground(torch, seed: int, smi: str) -> dict:
+    """(b) Two cells traced on ``meta`` over a fake world of one, then run
+    on the card through the same counters."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.policy import preset, with_kv_cache
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.launch.traced import trace_step
+
+    cells = {
+        "opt-125m QAT step 8x512": (
+            "opt-125m", ShapeSpec("train_4k", 512, 8, "train"),
+            preset("w4a8_abfp").with_ste(True)),
+        "qwen2-7b decode B=4 T=4096 int8 ring": (
+            "qwen2-7b", ShapeSpec("decode_32k", 4096, 4, "decode"),
+            with_kv_cache(preset("w4a8_abfp"), "int8")),
+    }
+    meshes = {dev: init_device_mesh(dev, (1, 1),
+                                    mesh_dim_names=("data", "model"))
+              for dev in ("cpu", "cuda")}
+    out = {}
+    for label, (arch, shape, policy) in cells.items():
+        cfg = get_config(arch).replace(dtype="bfloat16",
+                                       param_dtype="bfloat16")
+        rules = sp.fit_batch_rule(sp.rules_for(cfg, shape),
+                                  shape.global_batch, meshes["cpu"])
+        fn, args, donate, _ = build_cell(cfg, shape, policy, meshes["cpu"],
+                                         rules, device="meta")
+        with shd.use_rules(meshes["cpu"], rules):
+            meta = trace_step(fn, args, donate)
+        del fn, args
+        free_card(torch)
+        base = torch.cuda.memory_allocated()
+        fn, args, donate, _ = build_cell(cfg, shape, policy, meshes["cuda"],
+                                         rules, device="cuda", seed=seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with shd.use_rules(meshes["cuda"], rules):
+            card = trace_step(fn, args, donate)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            step_ms = events_ms(torch, lambda: fn(*args), 3)
+        m = rf.memory_dict(meta)
+        predicted = (m["argument_size_in_bytes"] + m["output_size_in_bytes"]
+                     + m["temp_size_in_bytes"] - m["alias_size_in_bytes"])
+        costs = rf.extract_costs(meta)
+        terms = rf.roofline_terms(costs["flops"], costs["bytes"],
+                                  costs["collective_bytes"])
+        same = {k: (getattr(meta, k), getattr(card, k)) for k in (
+            "flops", "bytes_accessed")}
+        same.update({k: (m[k], rf.memory_dict(card)[k]) for k in (
+            "argument_size_in_bytes", "output_size_in_bytes",
+            "alias_size_in_bytes")})
+        row = {"flops": meta.flops, "bytes_accessed": meta.bytes_accessed,
+               "memory": m, "predicted_peak_bytes": predicted,
+               "allocator_peak_bytes": peak,
+               "peak_ratio": predicted / peak,
+               "roofline_bound_s": terms["roofline_bound_s"],
+               "dominant": terms["dominant"], "step_ms": step_ms,
+               "mismatch": {k: v for k, v in same.items() if v[0] != v[1]}}
+        out[label] = row
+        log(f"  (b) {label}: {json.dumps(row)} [{smi}]")
+        log(f"  (b) {label}: roofline_bound_s {terms['roofline_bound_s']:.6f}"
+            f" beside the measured step {step_ms / 1e3:.6f} s [{smi}]")
+        del fn, args, card, meta
+        free_card(torch)
+        if row["mismatch"] or abs(predicted - peak) > 0.1 * peak:
+            raise SystemExit(f"dryrun: (b) {label}: the meta trace is not "
+                             f"the card run: {row}")
+    return out
+
+
+def dryrun_remat(torch, seed: int, smi: str) -> dict:
+    """(c) A QAT loss-and-gradients step under remat "none" and under the
+    config's remat: gradients bit-equal, the peak lower with remat."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import preset
+    from repro_torch.models import build_model
+    from repro_torch.nn.module import make_generator
+    from repro_torch.train.step import make_loss_and_grads
+
+    policy = preset("w4a8_abfp").with_ste(True)
+    out = {}
+    for arch in ("whisper-large-v3", "zamba2-7b"):
+        full = get_config(arch)
+        if arch == "whisper-large-v3":
+            cfg = full.replace(n_layers=8, encoder_layers=8)
+            cut = (f"{arch}: 8 of {full.encoder_layers} encoder and 8 of "
+                   f"{full.n_layers} decoder layers")
+        else:
+            cfg = full.replace(n_layers=2 * full.shared_attn_every)
+            cut = (f"{arch}: 2 of {full.n_layers // full.shared_attn_every}"
+                   f" groups ({cfg.n_layers} of {full.n_layers} layers)")
+        log(f"  cut: {cut}")
+        rng = np.random.RandomState(seed + 5)
+        toks = rng.randint(0, cfg.vocab, (2, 448)).astype(np.int32)
+        labels = np.roll(toks, -1, axis=1)
+        labels[:, -1] = -1
+        batch = {"tokens": torch.from_numpy(toks).cuda(),
+                 "labels": torch.from_numpy(labels).cuda()}
+        if arch == "whisper-large-v3":
+            batch["frames"] = torch.from_numpy(rng.randn(
+                2, 1500, cfg.d_model).astype(np.float32)).cuda()
+        runs = {}
+        params = build_model(cfg, device="cuda").init(
+            make_generator(seed, "cuda"))
+        for remat in ("none", full.remat):
+            model = build_model(cfg.replace(remat=remat), device="cuda")
+            free_card(torch)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss, _, grads = make_loss_and_grads(model, policy)(params, batch)
+            torch.cuda.synchronize()
+            runs[remat] = (loss, grads,
+                           torch.cuda.max_memory_allocated() - base)
+        (l0, g0, p0), (l1, g1, p1) = runs["none"], runs[full.remat]
+        row = {"remat": full.remat, "loss": float(l0),
+               "bit_equal": bool(torch.equal(l0, l1) and all(
+                   torch.equal(a, b) for a, b in zip(g0, g1))),
+               "peak_bytes_none": p0, "peak_bytes_remat": p1}
+        out[arch] = row
+        log(f"  (c) {arch}: {json.dumps(row)} [{smi}]")
+        del params, runs, g0, g1, batch
+        free_card(torch)
+        if not (row["bit_equal"] and p1 < p0):
+            raise SystemExit(f"dryrun: (c) {arch}: remat {full.remat!r} "
+                             f"moved the gradients or not the peak: {row}")
+    return out
+
+
+def phase_dryrun(torch, seed: int, smi: str, cli: tuple) -> dict:
+    """``cli``: ``dryrun_cli_start``'s (processes, start time)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import fake_world
+
+    log("== dryrun: launch/dryrun's full-size cells (subprocesses since the "
+        "build, no card), meta traces grounded on the card, remat in the "
+        "hybrid and encdec families")
+    t_phase = time.perf_counter()
+    reset_counts()
+    report = {}
+    try:
+        fake_world(1)
+        try:
+            report["b"] = dryrun_ground(torch, seed, smi)
+        finally:
+            dist.destroy_process_group()
+            free_card(torch)
+        report["c"] = dryrun_remat(torch, seed, smi)
+        report["a"] = dryrun_cli(*cli)
+    finally:
+        stop(cli[0])
+    report["launches"] = {k: v for k, v in read_counts().items() if v}
+    if report["launches"]:
+        raise SystemExit(f"dryrun: kernels launched: {report['launches']}")
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"  dryrun phase {report['phase_s']:.1f} s [{smi}]")
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7933,15 +8229,22 @@ def main() -> int:
             "dense_archs": lambda: phase_dense_archs(torch, args.seed, smi),
             "moe": lambda: phase_moe(torch, args.seed, smi),
             "train": lambda: phase_train(torch, args.seed, smi),
-            "dist": lambda: phase_dist(torch, args.seed, smi)}
+            "dist": lambda: phase_dist(torch, args.seed, smi),
+            "dryrun": lambda: phase_dryrun(torch, args.seed, smi, cli)}
     done = {}
     phase_s = {"build": round(time.perf_counter() - t_start, 1)}
-    for name in PHASES:
-        if name in phases:
-            PHASE["name"] = name
-            t0 = time.perf_counter()
-            done[name] = runs[name]()
-            phase_s[name] = round(time.perf_counter() - t0, 1)
+    # the dry run's CLI cells are host work alone: started now, they run
+    # beside the phases before theirs
+    cli = dryrun_cli_start() if "dryrun" in phases else ([], 0.0)
+    try:
+        for name in PHASES:
+            if name in phases:
+                PHASE["name"] = name
+                t0 = time.perf_counter()
+                done[name] = runs[name]()
+                phase_s[name] = round(time.perf_counter() - t0, 1)
+    finally:
+        stop(cli[0])
     log("== seconds by phase: " + json.dumps(phase_s))
     (kernel_rows, lint, serve, long_ctx, fixed, spec, ptq, vit, ssm, encdec,
      dense, moe, train, dist) = (done.get(p) for p in (

@@ -40,7 +40,7 @@ def _to_groups(x: torch.Tensor, axis: int, n: int):
 
 def _from_groups(xg: torch.Tensor, axis: int, pad: int, k: int, ndim: int):
     axis = axis % ndim
-    xm = xg.reshape(*xg.shape[:-2], xg.shape[-2] * xg.shape[-1])
+    xm = shd.merge_last(xg)
     if pad:
         xm = xm[..., :k]
     return torch.movedim(xm, -1, axis)

@@ -338,10 +338,13 @@ def qmatmul(
             "route CompressedKernel weights to a compressed-consuming "
             "backend (decompress explicitly if densification is intended)"
         )
-    # the rows (every dim but the last) whole, as GSPMD gathers them
-    x = shd.whole_along(x, range(1, x.ndim - 1))
-    y = backend.fn(x, w, policy, site=site, in_alpha=in_alpha,
-                   compute_dtype=compute_dtype)
+    # the rows (every dim but the last) whole, as GSPMD gathers them, and
+    # the output's gradient whole along them too
+    rows = range(1, x.ndim - 1)
+    x = shd.whole_along(x, rows)
+    y = shd.whole_grad_along(backend.fn(x, w, policy, site=site,
+                                        in_alpha=in_alpha,
+                                        compute_dtype=compute_dtype), rows)
     if policy.output is not None:
         y = qdq_activation(
             y, policy.output, axis=-1, site=site + "/out", alpha=out_alpha

@@ -96,10 +96,20 @@ def active() -> tuple[Any, Mapping] | None:
 
 @contextlib.contextmanager
 def use_rules(mesh, rules: Mapping):
-    """Arm ``constrain`` with a mesh + rule table for the enclosed calls."""
+    """Arm ``constrain`` with a mesh + rule table for the enclosed calls.
+
+    Inside, an op that meets a DTensor and a plain tensor takes the plain
+    one as replicated (DTensor's ``implicit_replication``): a plain tensor
+    in the model is a value every rank formed whole and the same
+    (positions, masks, a decode step's position), which the reference's
+    GSPMD replicates."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    outer = not _CTX.stack
     _CTX.stack.append((mesh, dict(rules)))
     try:
-        yield
+        with implicit_replication() if outer else contextlib.nullcontext():
+            yield
     finally:
         _CTX.stack.pop()
 
@@ -313,7 +323,9 @@ class NamedSharding:
 def constrain(x, axes: Sequence[str | None]):
     """Lay ``x`` out as the logical ``axes`` say on the active mesh.
 
-    Outside a ``use_rules`` context this returns ``x`` itself.  Inside, a
+    Outside a ``use_rules`` context this returns ``x`` itself.  Inside, the
+    spec is fitted to ``x``'s shape (a mesh axis a dim cannot divide evenly
+    is skipped: two KV heads on a 4-way "model" axis stay whole), a
     DTensor is redistributed to the spec's placements (an all-gather where
     a sharded op cannot go on: the reference's GSPMD inserts the same), and
     a plain tensor — a value every rank formed whole — becomes a DTensor
@@ -328,7 +340,8 @@ def constrain(x, axes: Sequence[str | None]):
             f"constrain: rank mismatch — axes {axes} vs array rank {x.ndim} "
             f"(shape {tuple(x.shape)})"
         )
-    return _lay_out(x, mesh, spec_for(axes, rules=rules, mesh=mesh))
+    return _lay_out(x, mesh, spec_for(axes, rules=rules, mesh=mesh,
+                                      fit_shape=tuple(x.shape)))
 
 
 def whole_along(x, dims):
@@ -347,6 +360,148 @@ def whole_along(x, dims):
     if want == tuple(x.placements):
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def settled(x):
+    """``x`` with its pending reductions carried out: a DTensor's
+    ``Partial`` placements (a mean or sum over a sharded dim) all-reduced
+    to ``Replicate``, as GSPMD's psum; anything else as it is (DTensor
+    cannot turn a pending mean into a pending sum where the two meet)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    want = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def unflatten(x, dim: int, sizes):
+    """``x.unflatten(dim, sizes)``.  A DTensor sharded along ``dim`` into
+    more chunks than ``sizes[0]`` splits into evenly (two KV heads over a
+    4-way "model" axis; the heads of a 16-way one) is all-gathered along
+    ``dim`` first, as GSPMD reshards such a reshape; DTensor refuses it."""
+    if is_dtensor(x):
+        x = _splittable(x, dim, sizes)
+    return x.unflatten(dim, sizes)
+
+
+def whole_grad_along(y, dims):
+    """``y`` itself; under a mesh its gradient is made whole along each of
+    ``dims`` before it flows back (``whole_along``'s gather, for the
+    backward of a projection whose rows were gathered going forward: a
+    gradient sharded along the sequence would meet the unflatten of those
+    rows, which DTensor refuses)."""
+    if is_dtensor(y) and y.requires_grad:
+        y.register_hook(lambda g: whole_along(g, dims))
+    return y
+
+
+def merge_last(x):
+    """``x.flatten(-2)``: the last two dims into one ((heads, head_dim);
+    a QDQ's (groups, n)).  A gradient that comes back sharded along the
+    merged dim into more chunks than the leading size splits into evenly
+    (an FSDP weight sharded 256 ways) is made whole along it before the
+    unflatten DTensor refuses, as GSPMD reshards it."""
+    y = x.flatten(-2)
+    if is_dtensor(y) and y.requires_grad:
+        sizes = tuple(x.shape[-2:])
+        y.register_hook(lambda g: _splittable(g, -1, sizes))
+    return y
+
+
+def _splittable(x, dim: int, sizes):
+    """``x``, gathered along ``dim`` where its shards there do not split
+    ``sizes[0]`` evenly."""
+    from torch.distributed.tensor import Shard
+
+    d = dim % x.ndim
+    ways = 1
+    for p, n in zip(x.placements, x.device_mesh.shape):
+        if isinstance(p, Shard) and p.dim == d:
+            ways *= n
+    return whole_along(x, (d,)) if sizes[0] % ways else x
+
+
+def _chunk_like(t, dest, dims):
+    """``t``'s own chunk on this rank, laid out as ``dest`` where ``t``'s
+    dim ``i`` is ``dest``'s dim ``dims[i]`` at the same size (``None``, or
+    another size: whole there)."""
+    if not hasattr(t, "ndim"):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = dest.device_mesh
+    place = []
+    for p in dest.placements:
+        i = dims.index(p.dim) if isinstance(p, Shard) and p.dim in dims \
+            else None
+        ok = i is not None and i < t.ndim and t.shape[i] == dest.shape[p.dim]
+        place.append(Shard(i) if ok else Replicate())
+    if is_dtensor(t):
+        if tuple(t.placements) != tuple(place):
+            t = t.redistribute(mesh, place)
+        return t.to_local()
+    if all(isinstance(p, Replicate) for p in place):
+        return t
+    return _lay_out(t, mesh, _spec_of(place, t.ndim, mesh)).to_local()
+
+
+def _seq_chunk(dest) -> tuple[int, int]:
+    """(first position, number of positions) of this rank's chunk of a
+    ring ``dest`` along its position dim 1."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(
+        dest.shape, dest.device_mesh, dest.placements)
+    return offset[1], shape[1]
+
+
+def put_rows(dest, slot, value):
+    """``dest[b, slot[b]] = value[b]`` for every row ``b``, in place: a
+    ring write of one position a row (``slot``: (B,) or one position for
+    every row; ``value``: ``dest`` without its position dim 1).  Where
+    ``dest`` is a DTensor, each rank writes its own rows into its own
+    chunk, and a ring split along its positions (``long_500k``'s
+    ``kv_seq``) is written only by the rank that holds the position."""
+    import torch
+
+    slot = slot.long().reshape(-1)  # a tensor index, never one .item()
+    if not is_dtensor(dest):
+        dest[torch.arange(dest.shape[0], device=dest.device), slot] = value
+        return
+    local = dest.to_local()
+    value = _chunk_like(value, dest, (0,) + tuple(range(2, dest.ndim)))
+    s = _chunk_like(slot, dest, (0,))
+    first, n = _seq_chunk(dest)
+    rows = torch.arange(local.shape[0], device=local.device)
+    s = s - first
+    if n != dest.shape[1]:
+        held = (s >= 0) & (s < n)
+        s = s.clamp(0, n - 1)
+        value = torch.where(held.reshape(-1, *[1] * (value.ndim - 1)),
+                            value, local[rows, s])
+    local[rows, s] = value
+
+
+def put_seq(dest, idx, value):
+    """``dest[:, idx] = value``, in place: the same positions ``idx`` of
+    every row (a prefill's entries into a ring; ``value``: (B, len(idx),
+    ...)).  Where ``dest`` is a DTensor each rank writes its own chunk; a
+    ring split along its positions is not written so (no step does)."""
+    if not is_dtensor(dest):
+        dest[:, idx] = value
+        return
+    first, n = _seq_chunk(dest)
+    if n != dest.shape[1]:
+        raise NotImplementedError(
+            "put_seq: a ring split along its positions takes one position "
+            "a row (put_rows)")
+    local = dest.to_local()
+    local[:, idx] = _chunk_like(value, dest, (0, None)
+                                + tuple(range(2, dest.ndim)))
 
 
 def take_rows(table, ids):
@@ -374,18 +529,59 @@ def take_rows(table, ids):
 
 def per_shard(fn, *args, **kw):
     """``fn(*args, **kw)`` on each rank's own chunks when an argument is a
-    DTensor, its output a DTensor of the first such argument's layout (the
+    DTensor, its output (or each of a tuple's) a DTensor laid out as the
+    first such argument, its leading dims being the first's (the
     reference's GSPMD partitions attention so: every sharded dim is one
     whose entries do not meet — batch rows, heads); ``fn(*args, **kw)``
-    itself otherwise.  The chunks carry gradients both ways."""
+    itself otherwise.  A dim of the first DTensor stays sharded where every
+    tensor argument that has it has it at the same size (or at size 1, a
+    broadcast): the others are chunked alike, a plain tensor (positions, a
+    mask) by each rank from its whole copy.  A dim on which the arguments
+    differ (eight query heads beside two KV heads) is gathered whole in
+    all of them.  The chunks carry gradients both ways."""
     first = next((a for a in args if is_dtensor(a)), None)
     if first is None:
         return fn(*args, **kw)
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    out = fn(*(a.to_local() if is_dtensor(a) else a for a in args), **kw)
-    return DTensor.from_local(out, first.device_mesh, first.placements,
-                              run_check=False)
+    mesh = first.device_mesh
+    tensors = [a for a in args if hasattr(a, "ndim")]
+
+    def agree(d):
+        return all(a.ndim <= d or a.shape[d] in (first.shape[d], 1)
+                   for a in tensors)
+
+    want = tuple(p if isinstance(p, Shard) and agree(p.dim) else Replicate()
+                 for p in first.placements)
+
+    def chunk(a):
+        if not hasattr(a, "ndim"):
+            return a
+        mine = tuple(p if isinstance(p, Shard) and p.dim < a.ndim
+                     and a.shape[p.dim] == first.shape[p.dim] > 1
+                     else Replicate() for p in want)
+        if is_dtensor(a):
+            if tuple(a.placements) != mine:
+                a = a.redistribute(mesh, mine)
+            return a.to_local()
+        if all(isinstance(p, Replicate) for p in mine):
+            return a
+        return _lay_out(a, mesh, _spec_of(mine, a.ndim, mesh)).to_local()
+
+    out = fn(*map(chunk, args), **kw)
+    wrap = lambda o: DTensor.from_local(o, mesh, want, run_check=False)
+    return type(out)(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def _spec_of(place, ndim: int, mesh) -> PartitionSpec:
+    """The ``PartitionSpec`` of DTensor placements ``place`` on ``mesh``
+    for a tensor of ``ndim`` dims (mesh axes in mesh order)."""
+    entries: list = [[] for _ in range(ndim)]
+    for name, p in zip(mesh_axis_names(mesh), place):
+        if p.is_shard():
+            entries[p.dim].append(name)
+    return PartitionSpec(*(None if not e else e[0] if len(e) == 1
+                           else tuple(e) for e in entries))
 
 
 def is_dtensor(x) -> bool:

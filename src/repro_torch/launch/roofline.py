@@ -5,12 +5,19 @@ Terms (per card, seconds) — constants from ``launch.mesh`` (one H100 SXM):
     memory     = bytes_accessed / HBM_BW
     collective = collective_link_bytes / NVLINK_BW
 
+The dry run (``launch.dryrun``) reads its numbers off a traced step
+(``launch.traced.TracedStep``, the port's counterpart of a compiled
+executable): ``cost_dict`` and ``memory_dict`` read its cost and memory
+analyses, ``collective_bytes`` prices the collectives DTensor issued
+(records of kind, local result bytes and group size) with ring factors
+(all-reduce 2·P, all-gather P, reduce-scatter (N-1)·R ≈ P, all-to-all R,
+collective-permute R), and ``extrapolate`` carries the small unrolled
+cells' costs to the whole depth (affine in the layer count).
+
 ``enumerate_matmul_sites`` is the site-address contract the layers thread
 to ``qmatmul`` (the static analyzer's site universe); ``policy_bits_report``
 integrates a policy's bit-widths over it and ``model_flops`` is the
-analytic 6·N·D / 2·N·D count.  The reference's parsers of compiled XLA
-artifacts (collective bytes, cost and memory analyses, the layer-count
-extrapolation) come with the port's dry run.
+analytic 6·N·D / 2·N·D count.
 """
 
 from __future__ import annotations
@@ -18,6 +25,85 @@ from __future__ import annotations
 from repro_torch.configs.base import pad_to
 from repro_torch.core.policy import resolve_policy
 from repro_torch.launch import mesh as hw
+
+_DTYPE_BYTES = {
+    "pred": 1, "s4": 1, "u4": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2,
+    "s32": 4, "u32": 4, "s64": 8, "u64": 8,
+    "f8e4m3fn": 1, "f8e5m2": 1, "bf16": 2, "f16": 2, "f32": 4, "f64": 8,
+    "c64": 8, "c128": 16,
+}
+
+
+def _link_bytes(kind: str, result_bytes: int, n: int) -> float:
+    """Ring-traffic bytes per card for one collective."""
+    if kind == "all-reduce":
+        return 2.0 * result_bytes * (n - 1) / max(n, 1)
+    if kind == "all-gather":
+        return result_bytes * (n - 1) / max(n, 1)
+    if kind == "reduce-scatter":
+        return result_bytes * (n - 1)  # result is the scattered shard
+    if kind == "all-to-all":
+        return result_bytes * (n - 1) / max(n, 1)
+    return float(result_bytes)  # collective-permute
+
+
+def collective_bytes(records) -> dict:
+    """Per-kind link-byte totals of collective records ``(kind, local
+    result bytes, group size)``, kinds named as the reference's HLO names
+    them (``traced.COLLECTIVE_KINDS`` maps the ``c10d_functional`` ops)."""
+    bytes_by_kind: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    for kind, result_bytes, n in records:
+        b = _link_bytes(kind, result_bytes, n)
+        bytes_by_kind[kind] = bytes_by_kind.get(kind, 0.0) + b
+        counts[kind] = counts.get(kind, 0) + 1
+    return {
+        "bytes_by_kind": bytes_by_kind,
+        "counts": counts,
+        "total_bytes": sum(bytes_by_kind.values()),
+    }
+
+
+def cost_dict(compiled) -> dict:
+    ca = compiled.cost_analysis()
+    if isinstance(ca, (list, tuple)):
+        ca = ca[0]
+    return dict(ca)
+
+
+def memory_dict(compiled) -> dict:
+    ma = compiled.memory_analysis()
+    keys = (
+        "argument_size_in_bytes", "output_size_in_bytes",
+        "temp_size_in_bytes", "alias_size_in_bytes",
+        "generated_code_size_in_bytes",
+    )
+    return {k: int(getattr(ma, k, 0)) for k in keys}
+
+
+def extract_costs(traced) -> dict:
+    cost = cost_dict(traced)
+    colls = collective_bytes(traced.collectives)
+    return {
+        "flops": float(cost.get("flops", 0.0)),
+        "bytes": float(cost.get("bytes accessed", 0.0)),
+        "collective_bytes": float(colls["total_bytes"]),
+        "collectives": colls,
+    }
+
+
+def extrapolate(cost_k: dict, cost_2k: dict, periods: int) -> dict:
+    """Affine layer-count extrapolation: total = f(k) + (P-1)·(f(2k)-f(k)).
+
+    ``periods`` = n_layers / k where k is the layer-pattern period.
+    """
+    out = {}
+    for key in ("flops", "bytes", "collective_bytes"):
+        per = cost_2k[key] - cost_k[key]
+        out[key] = cost_k[key] + max(periods - 1, 0) * per
+        out[key + "_fixed"] = cost_k[key] - per  # embed/head/optimizer part
+        out[key + "_per_period"] = per
+    return out
 
 
 def roofline_terms(flops: float, bytes_accessed: float,

@@ -169,8 +169,8 @@ def decode_state_axes(cfg: ArchConfig, state) -> Any:
 
 
 def eval_decode_state(model, cfg: ArchConfig, shape: ShapeSpec,
-                      kv_quant: bool = False):
-    """The decode state as tensors on the ``meta`` device (no
+                      kv_quant: bool = False, device="meta"):
+    """The decode state, as tensors on the ``meta`` device by default (no
     allocation)."""
     B, S = shape.global_batch, shape.seq_len
     kw = {}
@@ -178,7 +178,7 @@ def eval_decode_state(model, cfg: ArchConfig, shape: ShapeSpec,
         kw["enc_len"] = S
     if kv_quant:
         kw["kv_quant"] = True
-    return model.inner.init_decode_state(B, S, device="meta", **kw)
+    return model.inner.init_decode_state(B, S, device=device, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +210,19 @@ def shardings_from_axes(axes_tree, mesh, rules, sds_tree=None):
 def distribute(tree, shardings):
     """Each tensor of ``tree`` (the whole value, the same on every rank)
     as a DTensor laid out by the matching ``NamedSharding``: each rank keeps
-    its own chunk, with no communication."""
-    from repro_torch.tree import tree_map
-
-    return tree_map(lambda t, sh: sh.distribute(t), tree, shardings)
+    its own chunk, with no communication.  Nodes with ``tree_children`` /
+    ``tree_rebuild`` (a compressed kernel) are walked into."""
+    if hasattr(tree, "tree_children"):
+        return tree.tree_rebuild([
+            distribute(t, s) for t, s in zip(tree.tree_children(),
+                                             shardings.tree_children())])
+    if isinstance(tree, dict):
+        return {k: distribute(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(distribute(t, s)
+                            for t, s in zip(tree, shardings)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(distribute(t, s) for t, s in zip(tree, shardings))
+    if tree is None:
+        return None
+    return shardings.distribute(tree)

@@ -38,7 +38,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import QuantPolicy, reject_layer_rules
 from repro_torch.dist import sharding as shd
-from repro_torch.models.lm import GLOBAL_WINDOW, _sinusoid, mask_padding
+from repro_torch.models.lm import (GLOBAL_WINDOW, _sinusoid, mask_padding,
+                                   remat_body)
 from repro_torch.nn.attention import Attention
 from repro_torch.nn.ffn import MLP
 from repro_torch.nn.linear import Dense, Embed
@@ -153,8 +154,11 @@ class EncDecLM:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None].expand(B, S)
         positions = shd.constrain(positions, ("batch", None))
+        # under grad mode each block is recomputed in the backward unless
+        # cfg.remat is "none" (the reference checkpoints its block body)
+        block = remat_body(c.remat, self._enc_block)
         for bp in params["encoder"]:
-            x = self._enc_block(bp, x, positions, policy)
+            x = block(bp, x, positions, policy)
         return self._ln().apply(params["enc_norm"], x), positions
 
     # -------------------------------------------------------------- decoder
@@ -214,8 +218,9 @@ class EncDecLM:
             raise ValueError("encdec requires 'frames' input")
         enc, enc_pos = self.encode(params, frames, policy)
         x, positions = self._dec_in(params, tokens, 0)
+        block = remat_body(self.cfg.remat, self._dec_block)
         for bp in params["decoder"]:
-            x, _ = self._dec_block(bp, x, positions, enc, enc_pos, policy)
+            x, _ = block(bp, x, positions, enc, enc_pos, policy)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_hidden:
             return self._ln().apply(params["final_norm"], x), aux
@@ -238,8 +243,10 @@ class EncDecLM:
         x, positions = self._dec_in(params, tokens, 0)
         self_attn, cross = self._attn(True), self._attn(False)
         flat = c.n_kv * c.head_dim_
-        cross_k = torch.empty((c.n_layers, B, T, flat), dtype=enc.dtype,
-                              device=enc.device)
+        cross_k = shd.constrain(
+            torch.empty((c.n_layers, B, T, flat), dtype=enc.dtype,
+                        device=enc.device),
+            ("layers", "batch", "kv_seq", "qkv"))
         cross_v = torch.empty_like(cross_k)
         kv = []
         for i, bp in enumerate(params["decoder"]):
@@ -266,11 +273,10 @@ class EncDecLM:
         reject_layer_rules(policy, "EncDecLM")
         pos = state.position
         x, positions = self._dec_in(params, token, pos)
-        B, T = token.shape[0], state.cross_k.shape[2]
         kv = []
         for i, bp in enumerate(params["decoder"]):
-            kh = state.cross_k[i].reshape(B, T, c.n_kv, c.head_dim_)
-            vh = state.cross_v[i].reshape(B, T, c.n_kv, c.head_dim_)
+            kh = shd.unflatten(state.cross_k[i], -1, (c.n_kv, c.head_dim_))
+            vh = shd.unflatten(state.cross_v[i], -1, (c.n_kv, c.head_dim_))
             x, cache = self._dec_block(
                 bp, x, positions, None, state.enc_pos, policy,
                 self_cache=state.kv[i], position=pos, cross_kv=(kh, vh))
@@ -306,13 +312,12 @@ class EncDecLM:
 def _project_kv(attn: Attention, params, enc, policy):
     """Cross-attention K/V projections of the encoder states (no rope),
     through the ``cross/k`` and ``cross/v`` sites -> (B, T, KV, D) each."""
-    B, T, _ = enc.shape
     out = []
     for which in ("k", "v"):
         dense = Dense(attn.d_model, attn.n_kv * attn.head_dim,
                       use_bias=attn.qkv_bias, param_dtype=attn.param_dtype,
                       dtype=attn.dtype, name=f"cross/{which}",
                       in_axis="embed", out_axis="qkv")
-        out.append(dense.apply(params[which], enc, policy).reshape(
-            B, T, attn.n_kv, attn.head_dim))
+        out.append(shd.unflatten(dense.apply(params[which], enc, policy),
+                                 -1, (attn.n_kv, attn.head_dim)))
     return tuple(out)

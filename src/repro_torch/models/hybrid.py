@@ -33,7 +33,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import QuantPolicy, reject_layer_rules
 from repro_torch.core.simulate import qmatmul
 from repro_torch.dist import sharding as shd
-from repro_torch.models.lm import GLOBAL_WINDOW, _norm, mask_padding
+from repro_torch.models.lm import (GLOBAL_WINDOW, _norm, mask_padding,
+                                   remat_body)
 from repro_torch.nn.attention import Attention, KVCache
 from repro_torch.nn.ffn import MLP
 from repro_torch.nn.linear import Embed
@@ -159,6 +160,13 @@ class HybridLM:
         h = _norm(self.cfg).apply(bp["ln"], x)
         return x + self._mamba().apply(bp["mamba"], h, policy)
 
+    def _group(self, group, x, lora, shared, x0, positions, policy):
+        """One group of the full sequence: its Mamba2 blocks, then the
+        shared block with the group's LoRA."""
+        for bp in group:
+            x = self._mamba_block(bp, x, policy)
+        return self._shared_block(shared, lora, x, x0, positions, policy)[0]
+
     def _shared_qkv(self, sparams, lora, h2, policy):
         """QKV with the invocation's LoRA folded into the effective
         weights."""
@@ -191,9 +199,9 @@ class HybridLM:
                      dtype=c.dtype).apply(sparams["ln1"],
                                           torch.cat([x, x0], dim=-1))
         proj = self._shared_qkv(sparams, lora, h2, policy)
-        qh = proj["q"].reshape(B, S, c.n_heads, c.head_dim_)
-        kh = proj["k"].reshape(B, S, c.n_kv, c.head_dim_)
-        vh = proj["v"].reshape(B, S, c.n_kv, c.head_dim_)
+        qh = shd.unflatten(proj["q"], -1, (c.n_heads, c.head_dim_))
+        kh = shd.unflatten(proj["k"], -1, (c.n_kv, c.head_dim_))
+        vh = shd.unflatten(proj["v"], -1, (c.n_kv, c.head_dim_))
         qh = shd.per_shard(apply_rope, qh, positions, c.rope_theta)
         kh = shd.per_shard(apply_rope, kh, positions, c.rope_theta)
         qh = shd.constrain(qh, ("batch", "seq", "heads", "head_dim"))
@@ -201,13 +209,14 @@ class HybridLM:
             use_block = (S >= att.blockwise_min_seq
                          and S % att.q_block == 0)
             fn = att._blockwise if use_block else att._reference
-            out = fn(qh, kh, vh, positions, positions, GLOBAL_WINDOW, policy)
+            out = shd.per_shard(fn, qh, kh, vh, positions, positions,
+                                GLOBAL_WINDOW, policy)
             new_cache = (kh.reshape(B, S, -1), vh.reshape(B, S, -1))
         else:  # decode: this token's K/V into the ring, at one position
             size = cache.k.shape[1]
             slot = position % size
-            cache.k[:, slot.long()] = kh.reshape(B, -1).to(cache.k.dtype)
-            cache.v[:, slot.long()] = vh.reshape(B, -1).to(cache.v.dtype)
+            shd.put_rows(cache.k, slot, kh.reshape(B, -1).to(cache.k.dtype))
+            shd.put_rows(cache.v, slot, vh.reshape(B, -1).to(cache.v.dtype))
             new_cache = KVCache(
                 shd.constrain(cache.k, ("batch", "kv_seq", "qkv")),
                 shd.constrain(cache.v, ("batch", "kv_seq", "qkv")),
@@ -217,12 +226,13 @@ class HybridLM:
             spos = idx + torch.where(idx <= slot, rounds, rounds - size)
             spos = torch.where((spos > position) | (spos < 0),
                                torch.full_like(spos, -1), spos)
-            kv = cache.k.reshape(B, size, c.n_kv, c.head_dim_)
-            vv = cache.v.reshape(B, size, c.n_kv, c.head_dim_)
+            kv = shd.unflatten(cache.k, -1, (c.n_kv, c.head_dim_))
+            vv = shd.unflatten(cache.v, -1, (c.n_kv, c.head_dim_))
             qp = position.reshape(1, 1).expand(B, 1)
             kp = spos[None].expand(B, size)
-            out = att._reference(qh, kv, vv, qp, kp, GLOBAL_WINDOW, policy)
-        y = qmatmul(out.reshape(B, S, -1), sparams["attn"]["o"]["kernel"],
+            out = shd.per_shard(att._reference, qh, kv, vv, qp, kp,
+                                GLOBAL_WINDOW, policy)
+        y = qmatmul(shd.merge_last(out), sparams["attn"]["o"]["kernel"],
                     policy, site="shared/o",
                     compute_dtype=getattr(torch, c.dtype))
         x = x + y.to(x.dtype)
@@ -255,11 +265,11 @@ class HybridLM:
         reject_layer_rules(policy, "HybridLM")
         x, positions = self._front(params, tokens)
         x0 = x  # the initial embedding, seen by every shared invocation
-        for group, lora in zip(params["mamba_groups"], params["lora"]):
-            for bp in group:
-                x = self._mamba_block(bp, x, policy)
-            x, _ = self._shared_block(params["shared"], lora, x, x0,
-                                      positions, policy)
+        # under grad mode each group is recomputed in the backward unless
+        # cfg.remat is "none" (the reference checkpoints its group body)
+        group = remat_body(self.cfg.remat, self._group)
+        for gp, lora in zip(params["mamba_groups"], params["lora"]):
+            x = group(gp, x, lora, params["shared"], x0, positions, policy)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_hidden:
             return _norm(self.cfg).apply(params["final_norm"], x), aux

@@ -615,6 +615,14 @@ def _save_matmuls(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def remat_body(remat: str, fn):
+    """``fn`` (a loop body: a hybrid group, an encoder or decoder block)
+    recomputed whole in the backward whenever ``remat`` is not "none", as
+    the reference wraps those bodies in plain ``jax.checkpoint`` (no
+    "dots" policy) — ``remat_block``'s "full"."""
+    return remat_block("none" if remat == "none" else "full", fn)
+
+
 def remat_block(remat: str, fn):
     """``fn`` (a block) under the config's rematerialization: "none" keeps
     every activation, "full" recomputes the whole block in the backward,

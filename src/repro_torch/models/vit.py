@@ -226,7 +226,8 @@ class VitModel:
         at ``NEG_INF`` and add nothing to either)."""
         logits, aux = self.apply(params, batch, policy, q)
         labels = self._field(batch, "labels").long()
-        lf = logits.to(torch.float32)
+        # whole along the classes on every rank: each takes its rows' gold
+        lf = shd.whole_along(logits.to(torch.float32), (-1,))
         logz = torch.logsumexp(lf, dim=-1)
         gold = torch.gather(lf, -1, labels[:, None])[:, 0]
         ce = (logz - gold).mean()

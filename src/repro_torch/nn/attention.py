@@ -125,8 +125,13 @@ def _constrain_kv(cache):
     if shd.active() is None:
         return cache
     axes = ("batch", "kv_seq", "qkv")
-    return cache._replace(k=shd.constrain(cache.k, axes),
-                          v=shd.constrain(cache.v, axes))
+    cache = cache._replace(k=shd.constrain(cache.k, axes),
+                           v=shd.constrain(cache.v, axes))
+    if cache.k_scale is None:
+        return cache
+    axes = ("batch", "kv_seq", None)
+    return cache._replace(k_scale=shd.constrain(cache.k_scale, axes),
+                          v_scale=shd.constrain(cache.v_scale, axes))
 
 
 def _static_alpha(q: dict | None, key: str):
@@ -136,7 +141,7 @@ def _static_alpha(q: dict | None, key: str):
 
 def _kv_dequantize(codes_flat, scale, n_kv: int, head_dim: int, dtype):
     """int8 flat codes + (…, n_kv) scales -> (…, n_kv, D) values."""
-    c4 = codes_flat.reshape(*codes_flat.shape[:-1], n_kv, head_dim)
+    c4 = shd.unflatten(codes_flat, -1, (n_kv, head_dim))
     return (c4.to(torch.float32) * scale[..., None]).to(dtype)
 
 
@@ -202,9 +207,9 @@ class Attention:
             params["k"], x, policy, q=None if q is None else q.get("k"))
         vh = self._dense("v", self.n_kv * self.head_dim).apply(
             params["v"], x, policy, q=None if q is None else q.get("v"))
-        qh = qh.reshape(B, S, self.n_heads, self.head_dim)
-        kh = kh.reshape(B, S, self.n_kv, self.head_dim)
-        vh = vh.reshape(B, S, self.n_kv, self.head_dim)
+        qh = shd.unflatten(qh, -1, (self.n_heads, self.head_dim))
+        kh = shd.unflatten(kh, -1, (self.n_kv, self.head_dim))
+        vh = shd.unflatten(vh, -1, (self.n_kv, self.head_dim))
         if self.use_rope:
             qh = shd.per_shard(apply_rope, qh, positions, self.rope_theta)
             kh = shd.per_shard(apply_rope, kh, positions, self.rope_theta)
@@ -298,7 +303,8 @@ class Attention:
                                            skip_kv=kv_prequant)
         qg = qh.reshape(B, S, KV, G, D)
         torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
-        scores = torch.einsum("bskgd,btkd->bkgst", qg, kh).to(
+        ct = torch.promote_types(qg.dtype, kh.dtype)  # as jnp.einsum does
+        scores = torch.einsum("bskgd,btkd->bkgst", qg.to(ct), kh.to(ct)).to(
             torch.float32) * self._scale()
         if self.softcap is not None and self.softcap > 0:
             scores = self.softcap * torch.tanh(scores / self.softcap)
@@ -462,7 +468,7 @@ class Attention:
         out = shd.constrain(out, ("batch", "seq", "heads", "head_dim"))
         y = self._dense("o", self.d_model,
                         self.n_heads * self.head_dim).apply(
-            params["o"], out.reshape(B, S, -1), policy,
+            params["o"], shd.merge_last(out), policy,
             q=None if q is None else q.get("o"))
         y = shd.constrain(y, ("batch", "seq_res", "embed"))
         if return_kv:
@@ -500,15 +506,17 @@ class Attention:
                 kh_flat.reshape(B, S, self.n_kv, self.head_dim))
             vc, vs = _kv_quantize(
                 vh_flat.reshape(B, S, self.n_kv, self.head_dim))
-            cache = self.init_cache(B, size, quantized=True, device=dev)
-            cache.k[:, idx] = kc.reshape(B, S, F)[:, -take:]
-            cache.v[:, idx] = vc.reshape(B, S, F)[:, -take:]
-            cache.k_scale[:, idx] = ks[:, -take:]
-            cache.v_scale[:, idx] = vs[:, -take:]
+            cache = _constrain_kv(self.init_cache(B, size, quantized=True,
+                                                  device=dev))
+            shd.put_seq(cache.k, idx, kc.reshape(B, S, F)[:, -take:])
+            shd.put_seq(cache.v, idx, vc.reshape(B, S, F)[:, -take:])
+            shd.put_seq(cache.k_scale, idx, ks[:, -take:])
+            shd.put_seq(cache.v_scale, idx, vs[:, -take:])
             return _constrain_kv(cache._replace(length=length))
-        cache = self.init_cache(B, size, dtype=kh_flat.dtype, device=dev)
-        cache.k[:, idx] = kh_flat[:, -take:]
-        cache.v[:, idx] = vh_flat[:, -take:]
+        cache = _constrain_kv(self.init_cache(B, size, dtype=kh_flat.dtype,
+                                              device=dev))
+        shd.put_seq(cache.k, idx, kh_flat[:, -take:])
+        shd.put_seq(cache.v, idx, vh_flat[:, -take:])
         return _constrain_kv(cache._replace(length=length))
 
     # ------------------------------------------------------------ decoding
@@ -568,18 +576,17 @@ class Attention:
                                 site=self.name + "/bmm_v")
         size = cache.k.shape[1]
         slot = (pos_vec % size).long()
-        rows = torch.arange(B, device=dev)
         if int8_cache:
             # int8 storage: the quantization IS the write (per token, head)
             kc, ks = _kv_quantize(kh)  # kh: (B, 1, n_kv, D)
             vc, vs = _kv_quantize(vh)
-            cache.k[rows, slot] = kc.reshape(B, -1)
-            cache.v[rows, slot] = vc.reshape(B, -1)
-            cache.k_scale[rows, slot] = ks[:, 0]
-            cache.v_scale[rows, slot] = vs[:, 0]
+            shd.put_rows(cache.k, slot, kc.reshape(B, -1))
+            shd.put_rows(cache.v, slot, vc.reshape(B, -1))
+            shd.put_rows(cache.k_scale, slot, ks[:, 0])
+            shd.put_rows(cache.v_scale, slot, vs[:, 0])
         else:
-            cache.k[rows, slot] = kh.reshape(B, -1).to(cache.k.dtype)
-            cache.v[rows, slot] = vh.reshape(B, -1).to(cache.v.dtype)
+            shd.put_rows(cache.k, slot, kh.reshape(B, -1).to(cache.k.dtype))
+            shd.put_rows(cache.v, slot, vh.reshape(B, -1).to(cache.v.dtype))
         # length stays a scalar high-water mark even for vector positions
         cache = _constrain_kv(cache._replace(length=position.max() + 1))
 
@@ -617,10 +624,12 @@ class Attention:
                 vv = _kv_dequantize(cache.v, cache.v_scale, self.n_kv,
                                     self.head_dim, dt)
             else:
-                kv = cache.k.reshape(B, size, self.n_kv, self.head_dim)
-                vv = cache.v.reshape(B, size, self.n_kv, self.head_dim)
-            out = self._reference(qh, kv, vv, qp, kp, window, policy, q=q,
-                                  kv_prequant=kv_on_write or int8_cache)
+                kv = shd.unflatten(cache.k, -1, (self.n_kv, self.head_dim))
+                vv = shd.unflatten(cache.v, -1, (self.n_kv, self.head_dim))
+            # under a mesh each rank attends its own batch rows and heads
+            out = shd.per_shard(self._reference, qh, kv, vv, qp, kp, window,
+                                policy, q=q,
+                                kv_prequant=kv_on_write or int8_cache)
         y = self._dense("o", self.d_model,
                         self.n_heads * self.head_dim).apply(
             params["o"], out.reshape(B, 1, -1), policy,

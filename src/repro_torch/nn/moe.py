@@ -141,14 +141,16 @@ class MoE:
         T = min(self.group_tokens, B * S)
         assert (B * S) % T == 0, (B, S, T)
         G = B * S // T
-        xg = x.reshape(G, T, D)
+        # the (B, S) rows regrouped into routing groups: a sequence-
+        # sharded residual is gathered first, as GSPMD does
+        xg = shd.whole_along(x, (1,)).reshape(G, T, D)
         xg = shd.constrain(xg, ("batch", None, "embed"))
 
         # --- routing, then the aux load-balancing loss (Switch) ----------
         probs, dispatch, combine, fill = self.route(params["router"], xg)
         density = (dispatch.sum(-1) > 0).to(torch.float32).mean(dim=1)
         router_prob_per_e = probs.mean(dim=1)
-        aux_loss = (density * router_prob_per_e).mean() * E * E
+        aux_loss = shd.settled((density * router_prob_per_e).mean() * E * E)
 
         # --- dispatch -> expert FFN -> combine ---------------------------
         xin = torch.einsum("gtec,gtd->gecd", dispatch.to(torch.float32),
@@ -197,8 +199,13 @@ class MoE:
         eout = expert_mm(h_q, params["wo"], "gecf,efd->gecd")
         eout = shd.constrain(eout, (None, "experts", None, "embed"))
 
-        y = torch.einsum("gtec,gecd->gtd", combine, eout)
-        y = y.reshape(B, S, D).to(getattr(torch, self.dtype))
+        # the combine contracts over the experts: each rank takes them
+        # whole (DTensor will not flatten a sharded experts dim into the
+        # contraction; GSPMD sums partial products instead)
+        y = torch.einsum("gtec,gecd->gtd", shd.whole_along(combine, (2,)),
+                         shd.whole_along(eout, (1,)))
+        y = shd.whole_along(y, (1,)).reshape(B, S, D).to(
+            getattr(torch, self.dtype))
         y = shd.constrain(y, ("batch", "seq_res", "embed"))
         metrics = {"moe_aux_loss": aux_loss,
                    "expert_load": fill.sum(dim=0).to(torch.float32)}

@@ -143,14 +143,19 @@ class Mamba2:
 
     def _conv(self, xbc, params):
         """Causal depthwise conv of width d_conv over (B, S, C), the taps
-        added in the reference's order."""
-        w = params["conv_w"].to(torch.float32)  # (K, C)
+        added in the reference's order.  Under a mesh each rank convolves
+        its own rows and channels over the whole sequence."""
+        return shd.per_shard(self._conv_local, xbc, params["conv_w"][None],
+                             params["conv_b"][None, None])
+
+    def _conv_local(self, xbc, w, b):
+        w = w[0].to(torch.float32)  # (K, C)
         S = xbc.shape[1]
         xp = F.pad(xbc.to(torch.float32), (0, 0, self.d_conv - 1, 0))
         out = 0
         for i in range(self.d_conv):
             out = out + xp[:, i:i + S, :] * w[i][None, None, :]
-        return F.silu(out + params["conv_b"].to(torch.float32))
+        return F.silu(out + b.to(torch.float32))
 
     def _ssd(self, x, dt, B_, C_, A, state0=None):
         """Chunked SSD. x: (B, S, H, P), dt: (B, S, H), B_ / C_: (B, S, G,
@@ -206,6 +211,13 @@ class Mamba2:
             y = y[:, :S]
         return y, s
 
+    def _ssd_rows(self, x, dt, B_, C_, A):
+        """``_ssd`` with A as (1, 1, H) and the final state as (B, 1, H, P,
+        N): the heads at x's dim 2, so ``per_shard`` lays both outputs out
+        as x."""
+        y, s = self._ssd(x, dt, B_, C_, A.reshape(-1))
+        return y, s[:, None]
+
     # ------------------------------------------------------------- forward
     def apply(self, params: dict, x: torch.Tensor, policy: Policy,
               q: dict | None = None, return_cache: bool = False):
@@ -228,7 +240,10 @@ class Mamba2:
                       + params["dt_bias"].to(torch.float32))
         A = -torch.exp(params["A_log"].to(torch.float32))
         xs = shd.constrain(xs, ("batch", "seq", "ssm_heads", None))
-        y, final_state = self._ssd(xs, dt, B_, C_, A)
+        # under a mesh each rank scans its own rows and heads
+        y, final_state = shd.per_shard(self._ssd_rows, xs, dt, B_, C_,
+                                       A[None, None])
+        final_state = final_state[:, 0]
         y = y + params["D"].to(torch.float32)[None, None, :, None] * xs
         y = self._norm().apply(params["norm"], y.reshape(B, S, di), z)
         out = self._out_proj().apply(params["out_proj"], y, policy,
@@ -265,10 +280,10 @@ class Mamba2:
         """One step of the recurrence: xs (B, H, P), dtv (B, H), B_ / C_
         (B, G, N) -> (y (B, H, P), the next state (B, H, P, N))."""
         f32 = torch.float32
-        H, G = self.n_heads, self.n_groups
+        H, G = state.shape[1], B_.shape[1]  # this rank's, under a mesh
         Bh = torch.repeat_interleave(B_, H // G, dim=1)  # (B, H, N)
         Ch = torch.repeat_interleave(C_, H // G, dim=1)
-        decay = torch.exp(dtv * A[None, :])  # (B, H)
+        decay = torch.exp(dtv * A.reshape(1, -1))  # (B, H)
         torch.backends.cuda.matmul.allow_tf32 = False  # f32 means f32
         state = state.to(f32) * decay[:, :, None, None] + torch.einsum(
             "bh,bhp,bhn->bhpn", dtv, xs.to(f32), Bh)
@@ -292,7 +307,9 @@ class Mamba2:
         C_ = xbc_t[..., di + G * N:].reshape(B, G, N)
         dtv = softplus(dt[:, 0, :].to(f32) + params["dt_bias"].to(f32))
         A = -torch.exp(params["A_log"].to(f32))
-        y, state = self._state_step(cache.state, xs, dtv, B_, C_, A)
+        # under a mesh each rank steps its own rows and heads
+        y, state = shd.per_shard(self._state_step, cache.state, xs, dtv, B_,
+                                 C_, A[None])
         y = y + params["D"].to(f32)[None, :, None] * xs
         y = self._norm().apply(params["norm"], y.reshape(B, 1, di), z)
         out = self._out_proj().apply(params["out_proj"], y, policy,

@@ -1,6 +1,6 @@
 """The port's qlint against the reference's: every test of
-``tests/test_qlint.py`` (the dry-run gate aside: the port has no dry run
-yet) run on both stacks with the same fixtures, each holding the same
+``tests/test_qlint.py`` (the dry-run gate's twin is in
+``test_torch_dryrun.py``) run on both stacks with the same fixtures, each holding the same
 assertions, and the reports of both held equal ``to_dict()`` field for
 field (``torch_lint_helpers.same_reports``: QL602's platform reason and
 QL101's hint mapped)."""

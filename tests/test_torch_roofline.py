@@ -1,8 +1,14 @@
 """The port's ``launch.roofline`` against the reference's: the matmul site
 universe of every registered config, the per-site bit report of every
 shipped preset over every config, and ``model_flops`` of every config at
-every shape, all equal; and the reference's ``roofline_terms`` dominance
-test on the card's constants (``launch.mesh``: one H100 SXM)."""
+every shape, all equal; the reference's ``roofline_terms`` dominance
+test on the card's constants (``launch.mesh``: one H100 SXM); and the
+twins of its parser tests: the collectives of its ``HLO_SAMPLE``, given to
+the port as records (kind, local result bytes, group size), price as the
+reference parses them, no collective prices 0, and the affine layer-count
+extrapolation is the reference's."""
+
+import math
 
 import pytest
 
@@ -65,3 +71,43 @@ def test_the_cards_constants():
             t_mesh.PEAK_TF32_FLOPS, t_mesh.PEAK_F32_FLOPS) == (
         989e12, 1979e12, 495e12, 67e12)
     assert (t_mesh.HBM_BW, t_mesh.NVLINK_BW) == (3.35e12, 450e9)
+
+
+# the collectives of ``test_roofline_launch.HLO_SAMPLE``: (kind, dtype,
+# dims, group size as its replica_groups give it)
+HLO_SAMPLE_COLLECTIVES = (
+    ("all-gather", "bf16", (16, 1024), 16),
+    ("all-reduce", "f32", (256, 256), 4),
+    ("reduce-scatter", "bf16", (8, 128), 8),
+    ("collective-permute", "f32", (64,), 16),
+)
+
+
+def test_collective_records_price_as_the_reference_parses():
+    from test_roofline_launch import HLO_SAMPLE
+
+    records = [(kind, t_rf._DTYPE_BYTES[dt] * math.prod(dims), n)
+               for kind, dt, dims, n in HLO_SAMPLE_COLLECTIVES]
+    got = t_rf.collective_bytes(records)
+    want = j_rf.collective_bytes(HLO_SAMPLE)
+    assert got == want
+    assert got["counts"] == {"all-gather": 1, "all-reduce": 1,
+                             "reduce-scatter": 1, "collective-permute": 1}
+    assert t_rf._DTYPE_BYTES == j_rf._DTYPE_BYTES
+
+
+def test_no_collective_prices_nothing():
+    assert t_rf.collective_bytes([])["total_bytes"] == 0
+    assert t_rf.collective_bytes([]) == j_rf.collective_bytes(
+        "%d = f32[128,128]{1,0} dot(%a, %b)")
+
+
+def test_extrapolation_affine():
+    c1 = {"flops": 10.0, "bytes": 100.0, "collective_bytes": 5.0}
+    c2 = {"flops": 16.0, "bytes": 160.0, "collective_bytes": 7.0}
+    out = t_rf.extrapolate(c1, c2, periods=10)
+    # fixed + 10*per_period: fixed = 2*c1 - c2
+    assert out["flops"] == pytest.approx(10 + 9 * 6)
+    assert out["bytes_fixed"] == pytest.approx(40.0)
+    assert out["collective_bytes_per_period"] == pytest.approx(2.0)
+    assert out == j_rf.extrapolate(c1, c2, periods=10)
